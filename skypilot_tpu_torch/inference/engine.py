@@ -1,0 +1,1047 @@
+"""KV-cache inference engine in PyTorch: chunked paged prefill, fused decode.
+
+Ports the serving path of `skypilot_tpu/inference/engine.py`.
+
+Device math: `quantize_kv` (:92), `init_cache` (:344, unsharded only),
+`_paged_read`/`_paged_write` (:138, :168), `_flash_prefill_ok` (:471),
+`_cached_attention` (:488), `_attn_with_cache`, `_layer_with_cache`,
+`_hidden_with_cache`, `_project_logits` (:581-830), `prefill_chunked`
+(:852), `prefill_chunk_at` (:941), `_sample` (:997), `decode_step`
+(:1041) and `fused_decode_steps` (:1067).
+
+Host side: `SamplingParams`, `_Slot`, `DecodeState` and
+`InferenceEngine` (:1397) with its page allocator and FIFO admission
+(`_insert_from_queue`), interleaved prefill (`_advance_prefill`),
+eviction, abort and the `step()` loop.
+
+Differences by design, each stated where it happens:
+- The KV cache is updated IN PLACE (the reference returns a new,
+  donated cache); functions that take a cache also return it, mutated,
+  so call sites read like the reference's.
+- `fused_decode_steps` is a Python loop of up to `n_steps` decode
+  steps that stops once no slot is active (one `.any()` host sync per
+  step), where the reference runs a `lax.while_loop`.
+- Randomness comes from a `torch.Generator`; sampled tokens differ
+  from `jax.random`'s, greedy tokens and logprobs do not.
+- H100 policy: `use_flash` defaults on for CUDA (off on the CPU, where
+  True runs the kernels' plain versions); `kv_quant='auto'` resolves to
+  'none'; `_flash_prefill_ok` accepts what the CUDA kernel serves.
+
+Not ported yet (later slices): the prefix cache with copy-on-write,
+snapshot/handoff, speculative decode, MoE, sharded meshes and the
+observability instruments. Asking for a prefix cache, a draft model or
+a mesh raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from skypilot_tpu_torch import device as device_lib
+from skypilot_tpu_torch import envs
+from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import flash_attention as fa_lib
+
+Params = Dict[str, Any]
+Cache = Dict[str, Any]
+KV = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    temperature: float = 0.0     # 0 => greedy
+    top_k: int = 0               # 0 => no top-k filtering
+    top_p: float = 1.0           # 1 => no nucleus filtering
+    max_new_tokens: int = 128
+    eos_token_id: Optional[int] = None
+
+    def __post_init__(self):
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(
+                f'top_p must be in (0, 1], got {self.top_p}')
+
+
+def quantize_kv(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[.., D] -> {'q': int8 [.., D], 's': f32 [..]}: per-(position,
+    head) absmax scale over D. torch.round rounds half to even, like
+    jnp.round, so the codes are bit-identical to the reference's."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127,
+                    127).to(torch.int8)
+    return {'q': q, 's': scale}
+
+
+def _is_quant(kv) -> bool:
+    return isinstance(kv, dict)
+
+
+def _is_paged(cache: Cache) -> bool:
+    return 'table' in cache
+
+
+def _leaf(kv: KV) -> torch.Tensor:
+    return kv['q'] if _is_quant(kv) else kv
+
+
+def _map_kv(fn, kv: KV) -> KV:
+    if _is_quant(kv):
+        return {'q': fn(kv['q']), 's': fn(kv['s'])}
+    return fn(kv)
+
+
+def cache_capacity(cache: Cache) -> int:
+    """Logical KV positions addressable per slot."""
+    leaf = _leaf(cache['k'])
+    if _is_paged(cache):
+        return int(cache['table'].shape[1]) * int(leaf.shape[2])
+    return int(leaf.shape[2])
+
+
+def init_cache(config: llama.LlamaConfig, batch_size: int,
+               max_seq_len: Optional[int] = None, pad_to: int = 1,
+               kv_quant: str = 'none', page_size: int = 0,
+               num_pages: int = 0,
+               device: Optional[Union[str, torch.device]] = None) -> Cache:
+    """Zeroed KV cache + per-slot lengths (unsharded) on `device` (cuda
+    unless named). Dense leaves are [L,B,S,KV,D]; paged leaves are a
+    pool [L,P,page,KV,D] whose page 0 is the scratch page every empty
+    table entry points at, plus a [B,W] block table. int8 leaves are
+    {'q': int8, 's': f32 [..]}."""
+    c = config
+    device = device_lib.resolve_device(device)
+    s = max_seq_len or c.max_seq_len
+    multiple = max(1, pad_to)
+    s = -(-s // multiple) * multiple
+    if kv_quant not in ('none', 'int8'):
+        raise ValueError(f'kv_quant must be none|int8, got {kv_quant!r}')
+
+    def kv_zeros(shape):
+        if kv_quant == 'int8':
+            return {'q': torch.zeros(shape, dtype=torch.int8, device=device),
+                    's': torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=device)}
+        return torch.zeros(shape, dtype=c.dtype, device=device)
+
+    length = torch.zeros((batch_size,), dtype=torch.int32, device=device)
+    if page_size > 0:
+        step = math.lcm(multiple, page_size)
+        s = -(-s // step) * step
+        w = s // page_size
+        p = (num_pages + 1) if num_pages > 0 else (batch_size * w + 1)
+        shape = (c.num_layers, p, page_size, c.num_kv_heads, c.head_dim)
+        return {'k': kv_zeros(shape), 'v': kv_zeros(shape),
+                'length': length,
+                'table': torch.zeros((batch_size, w), dtype=torch.int32,
+                                     device=device)}
+    shape = (c.num_layers, batch_size, s, c.num_kv_heads, c.head_dim)
+    return {'k': kv_zeros(shape), 'v': kv_zeros(shape), 'length': length}
+
+
+def _paged_read(pages: KV, table: torch.Tensor) -> KV:
+    """Per-layer page pool [P,page,...] -> per-slot dense view
+    [B, W*page, ...] through the block table [B,W]. Like the
+    reference, this materializes one layer's view per call; unallocated
+    entries read the scratch page, beyond every slot's length."""
+    def read_leaf(leaf):
+        page = leaf.shape[1]
+        flat = leaf.reshape((-1,) + tuple(leaf.shape[2:]))
+        idx = (table[:, :, None].long() * page
+               + torch.arange(page, device=leaf.device)[None, None, :]
+               ).reshape(table.shape[0], -1)
+        return flat[idx]
+
+    return _map_kv(read_leaf, pages)
+
+
+def _paged_write(pages: KV, new: torch.Tensor, table: torch.Tensor,
+                 write_at: torch.Tensor) -> KV:
+    """Scatter T new rows per slot ([B,T,KV,D], landing at logical
+    positions write_at[b]..+T-1) into the page pool, in place.
+    Positions past the table clip to its last entry, as the reference
+    does. Writes that resolve to the scratch page may collide; that
+    page is never read inside any slot's length."""
+    def write_leaf(leaf, new_leaf):
+        page = leaf.shape[1]
+        flat = leaf.view((-1,) + tuple(leaf.shape[2:]))
+        t = new_leaf.shape[1]
+        pos = write_at[:, None].long() + torch.arange(
+            t, device=leaf.device)[None]
+        pos = torch.clamp(pos, 0, table.shape[1] * page - 1)
+        pidx = torch.gather(table.long(), 1, pos // page)
+        idx = pidx * page + pos % page
+        flat[idx] = new_leaf.to(flat.dtype)
+        return leaf
+
+    if _is_quant(pages):
+        newq = quantize_kv(new)
+        write_leaf(pages['q'], newq['q'])
+        write_leaf(pages['s'], newq['s'])
+        return pages
+    return write_leaf(pages, new)
+
+
+def _dense_write(cache_kv: KV, new: torch.Tensor,
+                 write_at: torch.Tensor) -> KV:
+    """Write [B,T,...] rows at write_at[b] of a dense [B,S,...] layer
+    cache, in place. The start clamps to S - T like the reference's
+    dynamic_update_slice."""
+    def write_leaf(leaf, new_leaf):
+        s, t = leaf.shape[1], new_leaf.shape[1]
+        start = torch.clamp(write_at.long(), 0, s - t)
+        idx = start[:, None] + torch.arange(t, device=leaf.device)[None]
+        rows = torch.arange(leaf.shape[0], device=leaf.device)[:, None]
+        leaf[rows, idx] = new_leaf.to(leaf.dtype)
+        return leaf
+
+    if _is_quant(cache_kv):
+        newq = quantize_kv(new)
+        write_leaf(cache_kv['q'], newq['q'])
+        write_leaf(cache_kv['s'], newq['s'])
+        return cache_kv
+    return write_leaf(cache_kv, new)
+
+
+def _flash_prefill_ok(t: int, s: int, d: int,
+                      device: torch.device) -> bool:
+    """Can the flash path serve a [T]-query chunk against an
+    [S]-position cache? On CUDA: what the kernel serves (t >= 2 and a
+    head dim it is built for; it masks ragged tiles itself). On the CPU
+    the plain version keeps the reference's block-divisibility rule,
+    so routing matches the reference there."""
+    if t < 2:
+        return False
+    if device.type == 'cuda':
+        return d in fa_lib.KERNEL_HEAD_DIMS
+    bq, bk = min(512, t), min(512, s)
+    return not (t % bq or s % bk)
+
+
+def _cached_attention(q: torch.Tensor, k_cache: KV, v_cache: KV,
+                      q_positions: torch.Tensor, lengths: torch.Tensor,
+                      window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      q_offset: Optional[int] = None) -> torch.Tensor:
+    """Attention of q [B,T,H,D] against the cache view [B,S,KV,D].
+
+    Keys visible to slot b: positions < lengths[b] and <= the query's
+    position (and within `window`). With `q_offset` (prefill chunks,
+    every slot's chunk starting at that cache position) the flash
+    kernels serve the chunk: they mask causally from q_offset only, so
+    rows past a prompt's end differ from the dense path's; prefill
+    never reads those rows. Otherwise the grouped-query dense path runs
+    (f32 scores, probabilities cast to the value dtype, as the
+    reference)."""
+    quant = _is_quant(k_cache)
+    k_arr = _leaf(k_cache)
+    if q_offset is not None and _flash_prefill_ok(
+            q.shape[1], k_arr.shape[1], q.shape[3], q.device):
+        if quant:
+            return fa_lib.flash_attention_quant(
+                q, k_cache['q'], k_cache['s'], v_cache['q'], v_cache['s'],
+                causal=True, block_q=min(512, q.shape[1]),
+                block_k=min(512, k_arr.shape[1]), window=window,
+                softcap=softcap, q_offset=q_offset)
+        return fa_lib.flash_attention(
+            q, k_cache, v_cache, causal=True,
+            block_q=min(512, q.shape[1]),
+            block_k=min(512, k_arr.shape[1]), window=window,
+            softcap=softcap, q_offset=q_offset)
+    num_heads = q.shape[2]
+    b, s, hkv, d = k_arr.shape
+    t = q.shape[1]
+    group = num_heads // hkv
+    qg = q.reshape(b, t, hkv, group, d)
+    scale = 1.0 / math.sqrt(d)
+    k_val = k_cache['q'].to(q.dtype) if quant else k_cache
+    scores = torch.einsum('btkgd,bskd->bkgts', qg.float(),
+                          k_val.float()) * scale
+    if quant:
+        scores = scores * k_cache['s'].permute(0, 2, 1)[:, :, None, None, :]
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    k_pos = torch.arange(s, device=q.device)
+    visible = ((k_pos[None, None, :] <= q_positions[:, :, None])
+               & (k_pos[None, None, :] < lengths[:, None, None]))
+    if window is not None:
+        visible = visible & (q_positions[:, :, None] - k_pos[None, None, :]
+                             < window)
+    scores = torch.where(visible[:, None, None], scores,
+                         torch.full_like(scores, _NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    if quant:
+        probs = probs.to(q.dtype) * v_cache['s'].permute(0, 2, 1)[
+            :, :, None, None, :].to(q.dtype)
+        out = torch.einsum('bkgts,bskd->btkgd', probs.float(),
+                           v_cache['q'].to(q.dtype).float())
+    else:
+        probs = probs.to(v_cache.dtype)
+        out = torch.einsum('bkgts,bskd->btkgd', probs.float(),
+                           v_cache.float()).to(v_cache.dtype)
+    return out.reshape(b, t, num_heads, d)
+
+
+def _attn_with_cache(x: torch.Tensor, layer_params: Params, k_cache: KV,
+                     v_cache: KV, positions: torch.Tensor,
+                     lengths: torch.Tensor, write_at: torch.Tensor,
+                     config: llama.LlamaConfig,
+                     window: Optional[int] = None,
+                     q_offset: Optional[int] = None,
+                     table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention block over T new tokens [B,T,E] at `positions` [B,T];
+    writes their K/V into the layer's cache in place at write_at[b]
+    (through `table` when the cache is paged) and returns x + attn."""
+    c = config
+    plus_one = c.norm_plus_one
+    h = llama._rms_norm(x, layer_params['attn_norm'], c.rms_norm_eps,
+                        plus_one)
+    q, k, v = llama._qkv(h, layer_params, c)
+    q = llama._rope(q, positions, c)
+    k = llama._rope(k, positions, c)
+    if c.query_pre_attn_scalar is not None:
+        q = q * math.sqrt(c.head_dim / c.query_pre_attn_scalar)
+    if table is not None:
+        _paged_write(k_cache, k, table, write_at)
+        _paged_write(v_cache, v, table, write_at)
+        k_read = _paged_read(k_cache, table)
+        v_read = _paged_read(v_cache, table)
+    else:
+        _dense_write(k_cache, k, write_at)
+        _dense_write(v_cache, v, write_at)
+        k_read, v_read = k_cache, v_cache
+    attn = _cached_attention(q, k_read, v_read, positions, lengths,
+                             window=window, softcap=c.attn_logit_softcap,
+                             q_offset=q_offset)
+    attn_out = torch.einsum('bshd,hde->bse', attn.to(c.dtype),
+                            layer_params['wo']).to(c.dtype)
+    if c.post_norms:
+        attn_out = llama._rms_norm(attn_out, layer_params['post_attn_norm'],
+                                   c.rms_norm_eps, plus_one)
+    return x + attn_out
+
+
+def _layer_with_cache(x: torch.Tensor, layer_params: Params, k_cache: KV,
+                      v_cache: KV, positions: torch.Tensor,
+                      lengths: torch.Tensor, write_at: torch.Tensor,
+                      config: llama.LlamaConfig,
+                      window: Optional[int] = None,
+                      q_offset: Optional[int] = None,
+                      table: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One llama-core layer (attention + GLU MLP) with cache."""
+    c = config
+    x = _attn_with_cache(x, layer_params, k_cache, v_cache, positions,
+                         lengths, write_at, c, window=window,
+                         q_offset=q_offset, table=table)
+    h = llama._rms_norm(x, layer_params['mlp_norm'], c.rms_norm_eps,
+                        c.norm_plus_one)
+    down = llama._mlp(h, layer_params, c)
+    if c.post_norms:
+        down = llama._rms_norm(down, layer_params['post_mlp_norm'],
+                               c.rms_norm_eps, c.norm_plus_one)
+    return x + down
+
+
+def _hidden_with_cache(params: Params, tokens: torch.Tensor, cache: Cache,
+                       positions: torch.Tensor, write_at: torch.Tensor,
+                       new_lengths: torch.Tensor,
+                       config: llama.LlamaConfig,
+                       q_offset: Optional[int] = None) -> torch.Tensor:
+    """tokens [B,T] at `positions` -> final-norm hidden states [B,T,E];
+    the cache's k/v leaves are updated in place (`new_lengths` masks
+    the attention; cache['length'] is left to the caller)."""
+    c = config
+    table = cache.get('table')
+    x = llama.embed(params, tokens, c)
+    for i, window in enumerate(llama.layer_windows(c)):
+        x = _layer_with_cache(
+            x, llama.layer_params_at(params, i),
+            _map_kv(lambda a: a[i], cache['k']),
+            _map_kv(lambda a: a[i], cache['v']), positions, new_lengths,
+            write_at, c, window=window, q_offset=q_offset, table=table)
+    return llama._rms_norm(x, params['final_norm'], c.rms_norm_eps,
+                           c.norm_plus_one)
+
+
+def _project_logits(x: torch.Tensor, params: Params,
+                    config: llama.LlamaConfig) -> torch.Tensor:
+    """Final-norm hidden states -> f32 logits."""
+    return llama.project_logits(x, params, config)
+
+
+def _slot_subset(cache: Cache, slot_ids: torch.Tensor) -> Cache:
+    """The cache as the prefill of `slot_ids` sees it: paged caches
+    share the pool (each slot owns its pages) with the sub-table; dense
+    caches gather copies of the slots' rows, scattered back after."""
+    if _is_paged(cache):
+        return {'k': cache['k'], 'v': cache['v'],
+                'table': cache['table'][slot_ids]}
+    return {'k': _map_kv(lambda a: a[:, slot_ids], cache['k']),
+            'v': _map_kv(lambda a: a[:, slot_ids], cache['v'])}
+
+
+def _scatter_slots(cache: Cache, sub: Cache, slot_ids: torch.Tensor
+                   ) -> None:
+    if _is_paged(cache):
+        return
+    for name in ('k', 'v'):
+        if _is_quant(cache[name]):
+            for part in ('q', 's'):
+                cache[name][part][:, slot_ids] = sub[name][part]
+        else:
+            cache[name][:, slot_ids] = sub[name]
+
+
+@torch.no_grad()
+def prefill_chunked(params: Params, tokens: torch.Tensor,
+                    prompt_lengths: torch.Tensor, cache: Cache,
+                    slot_ids: torch.Tensor, config: llama.LlamaConfig,
+                    chunk: int, use_flash: bool = False
+                    ) -> Tuple[torch.Tensor, Cache]:
+    """Prefill right-padded prompts [N, K*chunk] into slots `slot_ids`
+    as K chunk-wide passes (K=1 is one-shot prefill). Returns the
+    last-token logits [N,V] (each prompt's true last position) and the
+    cache, updated in place. `use_flash` sends each chunk's attention
+    through the flash kernels (q_offset = the chunk's start)."""
+    n, padded_len = tokens.shape
+    n_chunks = padded_len // chunk
+    sub = _slot_subset(cache, slot_ids)
+    dev = tokens.device
+    last_hidden = torch.zeros((n, params['embed'].shape[-1]),
+                              dtype=config.dtype, device=dev)
+    last_idx = prompt_lengths.long() - 1
+    rows = torch.arange(n, device=dev)
+    for ci in range(n_chunks):
+        start = ci * chunk
+        positions = start + torch.arange(chunk, device=dev)[None].expand(
+            n, chunk)
+        write_at = torch.full((n,), start, dtype=torch.int32, device=dev)
+        visible = torch.clamp(prompt_lengths, max=start + chunk)
+        x = _hidden_with_cache(
+            params, tokens[:, start:start + chunk], sub, positions,
+            write_at, visible, config,
+            q_offset=start if use_flash else None)
+        in_chunk = (last_idx >= start) & (last_idx < start + chunk)
+        gathered = x[rows, torch.clamp(last_idx - start, 0, chunk - 1)]
+        last_hidden = torch.where(in_chunk[:, None], gathered, last_hidden)
+    _scatter_slots(cache, sub, slot_ids)
+    cache['length'][slot_ids] = prompt_lengths.to(torch.int32)
+    return _project_logits(last_hidden, params, config), cache
+
+
+@torch.no_grad()
+def prefill_chunk_at(params: Params, chunk_tokens: torch.Tensor,
+                     start: int, visible: torch.Tensor, cache: Cache,
+                     slot_ids: torch.Tensor, config: llama.LlamaConfig,
+                     chunk: int, use_flash: bool = False
+                     ) -> Tuple[torch.Tensor, Cache]:
+    """ONE [N, chunk] slab of prompt written at cache position `start`
+    for `slot_ids` (interleaved prefill). Returns the chunk's hidden
+    states [N, chunk, E] and the cache, updated in place; `visible`
+    [N] becomes each slot's cache length."""
+    n = chunk_tokens.shape[0]
+    dev = chunk_tokens.device
+    positions = start + torch.arange(chunk, device=dev)[None].expand(
+        n, chunk)
+    write_at = torch.full((n,), start, dtype=torch.int32, device=dev)
+    sub = _slot_subset(cache, slot_ids)
+    x = _hidden_with_cache(params, chunk_tokens, sub, positions, write_at,
+                           visible, config,
+                           q_offset=start if use_flash else None)
+    _scatter_slots(cache, sub, slot_ids)
+    cache['length'][slot_ids] = visible.to(torch.int32)
+    return x, cache
+
+
+def _sample(logits: torch.Tensor, temperature: torch.Tensor,
+            top_k: torch.Tensor, top_p: torch.Tensor,
+            generator: Optional[torch.Generator]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot temperature/top-k/top-p sampling (temperature 0 =>
+    greedy); both filters reduce to a per-row logit threshold. Returns
+    (tokens [B] int32, logprobs [B] f32 of each token under the RAW
+    model distribution). Sampling is Gumbel-max over `generator`."""
+    vocab = logits.shape[-1]
+    greedy = torch.argmax(logits, dim=-1)
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    k_idx = torch.clamp(top_k.long() - 1, 0, vocab - 1)
+    kth = torch.where(
+        top_k > 0, torch.gather(sorted_logits, 1, k_idx[:, None])[:, 0],
+        torch.full_like(sorted_logits[:, 0], -math.inf))
+    temp = torch.clamp(temperature, min=1e-6)[:, None]
+    probs = torch.softmax(sorted_logits / temp, dim=-1)
+    in_nucleus = (torch.cumsum(probs, dim=-1) - probs) < top_p[:, None]
+    pth = torch.where(in_nucleus, sorted_logits,
+                      torch.full_like(sorted_logits, math.inf)).amin(dim=-1)
+    pth = torch.where(top_p >= 1.0, torch.full_like(pth, -math.inf), pth)
+    thresh = torch.maximum(kth, pth)
+    filtered = torch.where(logits >= thresh[:, None], logits,
+                           torch.full_like(logits, _NEG_INF))
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
+    sampled = torch.argmax(filtered / temp + gumbel, dim=-1)
+    tokens = torch.where(temperature <= 0.0, greedy,
+                         sampled).to(torch.int32)
+    raw_logprobs = torch.log_softmax(logits.float(), dim=-1)
+    chosen = torch.gather(raw_logprobs, 1, tokens.long()[:, None])[:, 0]
+    return tokens, chosen
+
+
+@torch.no_grad()
+def decode_step(params: Params, cache: Cache, last_tokens: torch.Tensor,
+                active: torch.Tensor, temperature: torch.Tensor,
+                top_k: torch.Tensor, top_p: torch.Tensor,
+                generator: Optional[torch.Generator],
+                config: llama.LlamaConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+    """One token for every slot [B]; inactive slots don't advance.
+    Returns (tokens, raw-model logprobs, cache updated in place)."""
+    lengths = cache['length']
+    new_lengths = torch.where(active, lengths + 1, lengths)
+    x = _hidden_with_cache(params, last_tokens[:, None], cache,
+                           lengths[:, None], lengths, new_lengths, config)
+    logits = _project_logits(x[:, 0], params, config)
+    nxt, logprobs = _sample(logits, temperature, top_k, top_p, generator)
+    nxt = torch.where(active, nxt, last_tokens)
+    cache['length'] = new_lengths
+    return nxt, logprobs, cache
+
+
+@torch.no_grad()
+def fused_decode_steps(params: Params, cache: Cache,
+                       last_tokens: torch.Tensor, active: torch.Tensor,
+                       temperature: torch.Tensor, top_k: torch.Tensor,
+                       top_p: torch.Tensor, eos_ids: torch.Tensor,
+                       budgets: torch.Tensor, max_len: int,
+                       generator: Optional[torch.Generator],
+                       config: llama.LlamaConfig, n_steps: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, Cache]:
+    """Up to `n_steps` decode steps per host round: the same per-token
+    math as `decode_step`, stopping early once every slot is done (one
+    `.any()` sync per step). A slot deactivates right after it emits
+    `eos_ids[b]`, exhausts `budgets[b]`, or reaches `max_len` cache
+    positions, and emits nothing further (`emitted` gates what the host
+    appends). Returns (tokens [B,n_steps], logprobs [B,n_steps],
+    emitted [B], new last tokens [B], cache updated in place)."""
+    b = last_tokens.shape[0]
+    dev = last_tokens.device
+    toks = torch.zeros((b, n_steps), dtype=torch.int32, device=dev)
+    lps = torch.zeros((b, n_steps), dtype=torch.float32, device=dev)
+    emitted = torch.zeros((b,), dtype=torch.int32, device=dev)
+    last = last_tokens.clone()
+    active = active.clone()
+    for i in range(n_steps):
+        if not bool(active.any()):
+            break
+        lengths = cache['length']
+        new_lengths = torch.where(active, lengths + 1, lengths)
+        x = _hidden_with_cache(params, last[:, None], cache,
+                               lengths[:, None], lengths, new_lengths,
+                               config)
+        logits = _project_logits(x[:, 0], params, config)
+        nxt, lp = _sample(logits, temperature, top_k, top_p, generator)
+        nxt = torch.where(active, nxt, last)
+        cache['length'] = new_lengths
+        toks[:, i] = nxt
+        lps[:, i] = lp
+        emitted = emitted + active.to(torch.int32)
+        done = ((nxt == eos_ids) | (emitted >= budgets)
+                | (new_lengths >= max_len))
+        active = active & ~done
+        last = nxt
+    return toks, lps, emitted, last, cache
+
+
+# -- host side ---------------------------------------------------------------
+
+
+def default_use_flash(device: torch.device) -> bool:
+    """H100 policy for `use_flash=None`: the flash kernels serve every
+    prefill chunk on CUDA (the reference enables its Pallas kernel only
+    on unsharded TPU engines). On the CPU the default stays dense;
+    use_flash=True there runs the kernels' plain versions."""
+    return device.type == 'cuda'
+
+
+def resolve_kv_quant(kv_quant: Optional[str]) -> str:
+    """H100 policy for kv_quant 'auto' (the reference resolves it to
+    int8 on TPU): 'none' (bf16 KV) in this slice, because decode
+    attention over an int8 cache is plain torch here. 'int8' stays
+    fully supported; its prefill runs K2."""
+    if kv_quant in (None, 'auto'):
+        kv_quant = envs.SKYTPU_KV_QUANT.get()
+    return 'none' if kv_quant == 'auto' else kv_quant
+
+
+@dataclasses.dataclass
+class _Slot:
+    request_id: int
+    params: SamplingParams
+    generated: List[int]
+    logprobs: List[float]
+    prompt_len: int
+    # Interleaved prefill: the full prompt while chunks are still being
+    # written (None once decoding), and the next write position.
+    pending: Optional[List[int]] = None
+    pos: int = 0
+
+
+class DecodeState:
+    """Host-side view of the device cache + slots."""
+
+    def __init__(self, config: llama.LlamaConfig, batch_size: int,
+                 max_seq_len: Optional[int] = None,
+                 prefill_chunk: int = 0, kv_quant: str = 'none',
+                 page_size: int = 0, num_pages: int = 0,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.max_seq_len = max_seq_len or config.max_seq_len
+        pad_to = (prefill_chunk
+                  if 0 < prefill_chunk < self.max_seq_len else 1)
+        self.cache = init_cache(config, batch_size, self.max_seq_len,
+                                pad_to=pad_to, kv_quant=kv_quant,
+                                page_size=page_size, num_pages=num_pages,
+                                device=device)
+        self.last_tokens = torch.zeros((batch_size,), dtype=torch.int32,
+                                       device=device)
+        self.slots: List[Optional[_Slot]] = [None] * batch_size
+
+
+class InferenceEngine:
+    """Continuous batching over a fixed slot count.
+
+    submit() enqueues prompts; step() admits queued requests into free
+    slots (batched chunked prefill, or one chunk per step for long
+    prompts) and runs one decode round of up to `decode_fuse_steps`
+    tokens for every decoding slot; results come out of finished().
+    Defaults come from the port's env registry (envs.py); explicit
+    arguments win. Runs on CUDA unless `device` says otherwise.
+    """
+
+    def __init__(self, params: Params, config: llama.LlamaConfig,
+                 batch_size: int = 8,
+                 max_seq_len: Optional[int] = None,
+                 seed: int = 0,
+                 mesh: Optional[Any] = None,
+                 prefill_chunk: int = 1024,
+                 use_flash: Optional[bool] = None,
+                 kv_quant: str = 'auto',
+                 prefill_interleave: Optional[int] = None,
+                 draft: Optional[Tuple[Params, Any]] = None,
+                 decode_fuse_steps: Optional[int] = None,
+                 kv_page_size: Optional[int] = None,
+                 kv_pages: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        if not isinstance(config, llama.LlamaConfig):
+            raise NotImplementedError(
+                'the PyTorch engine serves the llama family only so far; '
+                f'got {type(config).__name__}')
+        if mesh is not None:
+            raise NotImplementedError(
+                'sharded serving (mesh) is not ported yet; serve on one '
+                'device')
+        if draft is not None:
+            raise NotImplementedError(
+                'speculative decode (draft model) is not ported yet')
+        if prefix_cache:
+            raise NotImplementedError(
+                'the prefix cache is not ported yet; pass '
+                'prefix_cache=None or False')
+        self.device = device_lib.resolve_device(device)
+        if use_flash is None:
+            use_flash = default_use_flash(self.device)
+        self._use_flash = bool(use_flash)
+        kv_quant = resolve_kv_quant(kv_quant)
+        if decode_fuse_steps is None:
+            decode_fuse_steps = envs.SKYTPU_DECODE_FUSE_STEPS.get()
+        self.decode_fuse_steps = max(1, int(decode_fuse_steps))
+        if kv_page_size is None:
+            kv_page_size = envs.SKYTPU_KV_PAGE_SIZE.get()
+        self.kv_page_size = max(0, int(kv_page_size))
+        if kv_pages is None:
+            kv_pages = envs.SKYTPU_KV_PAGES.get()
+        self.params = _to_device(params, self.device)
+        self.config = config
+        self.prefill_chunk = prefill_chunk
+        explicit_interleave = prefill_interleave is not None
+        if prefill_interleave is None:
+            env_interleave = envs.SKYTPU_PREFILL_INTERLEAVE.get()
+            if env_interleave is not None and env_interleave >= 0:
+                prefill_interleave = env_interleave
+        if prefill_interleave is None:
+            prefill_interleave = 4 * prefill_chunk if prefill_chunk else 0
+        if prefill_chunk <= 0:
+            prefill_interleave = 0
+        eff_max_seq_len = max_seq_len or config.max_seq_len
+        if prefill_interleave > 0 and prefill_chunk >= eff_max_seq_len:
+            if explicit_interleave:
+                raise ValueError(
+                    f'prefill_interleave={prefill_interleave} needs '
+                    f'prefill_chunk ({prefill_chunk}) < max_seq_len '
+                    f'({eff_max_seq_len}): interleaved prefill writes '
+                    'chunk-wide slices into a cache padded to the chunk.')
+            prefill_interleave = 0
+        self.prefill_interleave = prefill_interleave
+        self.kv_quant = kv_quant
+        self.state = DecodeState(config, batch_size, max_seq_len,
+                                 prefill_chunk=prefill_chunk,
+                                 kv_quant=kv_quant,
+                                 page_size=self.kv_page_size,
+                                 num_pages=max(0, int(kv_pages)),
+                                 device=self.device)
+        self._capacity = cache_capacity(self.state.cache)
+        # Host-side page allocator: pages 1..P-1 are allocatable; page 0
+        # is the scratch page every empty table entry points at.
+        self._page_alloc: List[int] = []
+        self._slot_pages: List[List[int]] = [[] for _ in range(batch_size)]
+        self._pages_total = 0
+        if _is_paged(self.state.cache):
+            self._pages_total = int(_leaf(self.state.cache['k']).shape[1]) - 1
+            self._page_alloc = list(range(1, self._pages_total + 1))
+        self._queue: List[Tuple[int, List[int], SamplingParams]] = []
+        self._finished: Dict[int, List[int]] = {}
+        self._finished_logprobs: Dict[int, List[float]] = {}
+        self._last_logprobs: Dict[int, List[float]] = {}
+        self._next_id = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # Host-side counters (the reference's prompt/generated token
+        # counters and prefill/decode latency sums). Times cover work
+        # that ends in a host sync.
+        self.stats = {'prompt_tokens': 0, 'generated_tokens': 0,
+                      'prefill_seconds': 0.0, 'decode_seconds': 0.0,
+                      'decode_dispatches': 0}
+
+    # -- public --------------------------------------------------------------
+
+    def submit(self, prompt_tokens: List[int],
+               sampling: Optional[SamplingParams] = None) -> int:
+        if not prompt_tokens:
+            raise ValueError('prompt_tokens must be non-empty')
+        if self.kv_page_size:
+            need = self._pages_needed(
+                len(prompt_tokens[:self.state.max_seq_len - 1]),
+                (sampling or SamplingParams()).max_new_tokens)
+            if need > self._pages_total:
+                raise ValueError(
+                    f'request needs {need} KV pages (prompt + '
+                    f'max_new_tokens) but the pool holds only '
+                    f'{self._pages_total}; shorten the request or '
+                    'raise kv_pages.')
+        request_id = self._next_id
+        self._next_id += 1
+        self._queue.append((request_id, list(prompt_tokens),
+                            sampling or SamplingParams()))
+        return request_id
+
+    def finished(self) -> Dict[int, List[int]]:
+        out, self._finished = self._finished, {}
+        if out:
+            self._last_logprobs = self._finished_logprobs
+            self._finished_logprobs = {}
+        return out
+
+    def finished_logprobs(self) -> Dict[int, List[float]]:
+        """Raw-model logprobs of each generated token, for the requests
+        reported by the most recent finished() call."""
+        out, self._last_logprobs = self._last_logprobs, {}
+        return out
+
+    def active_progress(self) -> Dict[int, List[int]]:
+        """request_id -> tokens generated so far for in-flight slots."""
+        return {s.request_id: list(s.generated)
+                for s in self.state.slots if s is not None}
+
+    def abort(self, request_id: int) -> None:
+        """Drop one queued or in-flight request; unknown ids are a
+        no-op."""
+        self._queue = [(rid, t, s) for rid, t, s in self._queue
+                       if rid != request_id]
+        self._finished.pop(request_id, None)
+        self._finished_logprobs.pop(request_id, None)
+        self._last_logprobs.pop(request_id, None)
+        for i, slot in enumerate(self.state.slots):
+            if slot is not None and slot.request_id == request_id:
+                self._free_slot(i)
+
+    def abort_all(self) -> None:
+        """Drop every queued and in-flight request."""
+        self._queue.clear()
+        self._finished.clear()
+        self._finished_logprobs.clear()
+        self._last_logprobs.clear()
+        for i, slot in enumerate(self.state.slots):
+            if slot is not None:
+                self._free_slot(i)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self._queue) or any(
+            s is not None for s in self.state.slots)
+
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    def pages_free(self) -> int:
+        return len(self._page_alloc)
+
+    def pages_total(self) -> int:
+        return self._pages_total
+
+    def run_to_completion(self, max_steps: int = 100000
+                          ) -> Dict[int, List[int]]:
+        results: Dict[int, List[int]] = {}
+        steps = 0
+        while self.has_work and steps < max_steps:
+            self.step()
+            results.update(self.finished())
+            steps += 1
+        results.update(self.finished())
+        return results
+
+    # -- admission and pages -------------------------------------------------
+
+    def _pages_needed(self, prompt_len: int, max_new: int) -> int:
+        """Worst-case pages a request can touch (prompt + budget),
+        capped at capacity."""
+        reserve = min(prompt_len + max_new, self._capacity)
+        return -(-reserve // self.kv_page_size)
+
+    def _set_table_rows(self, slot: int, pages: List[int]) -> None:
+        """Point slot `slot`'s block-table row at `pages`; the tail
+        targets scratch page 0."""
+        w = self.state.cache['table'].shape[1]
+        row = torch.tensor(pages + [0] * (w - len(pages)),
+                           dtype=torch.int32)
+        self.state.cache['table'][slot] = row.to(self.device)
+
+    def _insert_from_queue(self) -> None:
+        free = [i for i, s in enumerate(self.state.slots) if s is None]
+        if not free or not self._queue:
+            return
+        inserts: List[Tuple[int, List[int], SamplingParams]] = []
+        slot_ids: List[int] = []
+        while free and self._queue:
+            if self.kv_page_size:
+                # FIFO page admission: an oversubscribed pool holds the
+                # head request until evictions free pages.
+                _rid, peek_tokens, peek_sampling = self._queue[0]
+                need = self._pages_needed(
+                    len(peek_tokens[:self.state.max_seq_len - 1]),
+                    peek_sampling.max_new_tokens)
+                if need > len(self._page_alloc):
+                    break
+            slot = free.pop(0)
+            request_id, tokens, sampling = self._queue.pop(0)
+            tokens = tokens[:self.state.max_seq_len - 1]
+            if self.kv_page_size:
+                self._slot_pages[slot] = self._page_alloc[:need]
+                del self._page_alloc[:need]
+                self._set_table_rows(slot, self._slot_pages[slot])
+            self.stats['prompt_tokens'] += len(tokens)
+            if (self.prefill_interleave
+                    and len(tokens) > self.prefill_interleave):
+                # Long prompt: one chunk per step().
+                self.state.slots[slot] = _Slot(
+                    request_id, sampling, [], [], len(tokens),
+                    pending=tokens, pos=0)
+                continue
+            self.state.slots[slot] = _Slot(request_id, sampling, [], [],
+                                           len(tokens))
+            inserts.append((request_id, tokens, sampling))
+            slot_ids.append(slot)
+        if not inserts:
+            return
+        # Power-of-two pad buckets, then whole chunks.
+        max_len = max(len(t) for _, t, _ in inserts)
+        bucket = 16
+        while bucket < max_len:
+            bucket *= 2
+        bucket = min(bucket, self.state.max_seq_len - 1)
+        chunk = (self.prefill_chunk
+                 if 0 < self.prefill_chunk < bucket else bucket)
+        bucket = -(-bucket // chunk) * chunk
+        dev = self.device
+        padded = torch.tensor(
+            [t + [0] * (bucket - len(t)) for _, t, _ in inserts],
+            dtype=torch.int64, device=dev)
+        lengths = torch.tensor([len(t) for _, t, _ in inserts],
+                               dtype=torch.int32, device=dev)
+        slot_arr = torch.tensor(slot_ids, dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        logits, _ = prefill_chunked(
+            self.params, padded, lengths, self.state.cache, slot_arr,
+            self.config, chunk, use_flash=self._use_flash)
+        first, first_lp = self._sample_host_params(
+            logits, [s for _, _, s in inserts])
+        self.state.last_tokens[slot_arr] = first
+        # One host sync for the whole insert.
+        first_host, lp_host = first.tolist(), first_lp.tolist()
+        self.stats['prefill_seconds'] += time.perf_counter() - t0
+        for i, slot in enumerate(slot_ids):
+            self.state.slots[slot].generated.append(int(first_host[i]))
+            self.state.slots[slot].logprobs.append(float(lp_host[i]))
+        self.stats['generated_tokens'] += len(slot_ids)
+
+    def _sample_host_params(self, logits: torch.Tensor,
+                            params: List[Optional[SamplingParams]]
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """_sample with per-row sampling params built host-side (None
+        rows sample greedily)."""
+        dev = self.device
+        temps = torch.tensor([p.temperature if p else 0.0 for p in params],
+                             dtype=torch.float32, device=dev)
+        topks = torch.tensor([p.top_k if p else 0 for p in params],
+                             dtype=torch.int32, device=dev)
+        topps = torch.tensor([p.top_p if p else 1.0 for p in params],
+                             dtype=torch.float32, device=dev)
+        return _sample(logits, temps, topks, topps, self._gen)
+
+    # -- interleaved prefill -------------------------------------------------
+
+    def _advance_prefill(self) -> None:
+        """ONE long-prompt chunk per step, plus every slot whose
+        remainder fits one chunk."""
+        long_done = False
+        for i, slot in enumerate(self.state.slots):
+            if slot is None or slot.pending is None:
+                continue
+            remaining = len(slot.pending) - slot.pos
+            if remaining > self.prefill_chunk:
+                if long_done:
+                    continue
+                long_done = True
+            self._advance_prefill_slot(i, slot)
+
+    def _advance_prefill_slot(self, i: int, slot: _Slot) -> None:
+        """One chunk of prefill for slot i, at the narrowest
+        power-of-two bucket that covers the remainder."""
+        chunk = self.prefill_chunk
+        start = slot.pos
+        remaining = len(slot.pending) - start
+        if remaining < chunk:
+            bucket = 16
+            while bucket < remaining:
+                bucket *= 2
+            chunk = min(chunk, bucket)
+        toks = slot.pending[start:start + chunk]
+        dev = self.device
+        arr = torch.tensor([toks + [0] * (chunk - len(toks))],
+                           dtype=torch.int64, device=dev)
+        visible = torch.tensor([min(len(slot.pending), start + len(toks))],
+                               dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        hidden, _ = prefill_chunk_at(
+            self.params, arr, start, visible, self.state.cache,
+            torch.tensor([i], dtype=torch.int64, device=dev), self.config,
+            chunk, use_flash=self._use_flash)
+        slot.pos = start + len(toks)
+        if slot.pos < len(slot.pending):
+            return  # non-final chunks don't sync
+        last_idx = len(slot.pending) - 1 - start
+        logits = _project_logits(hidden[:, last_idx], self.params,
+                                 self.config)
+        first, first_lp = self._sample_host_params(logits, [slot.params])
+        self.state.last_tokens[i] = first[0]
+        token, lp = int(first[0]), float(first_lp[0])
+        self.stats['prefill_seconds'] += time.perf_counter() - t0
+        slot.generated.append(token)
+        slot.logprobs.append(lp)
+        slot.pending = None
+        self.stats['generated_tokens'] += 1
+
+    # -- slots and decode ----------------------------------------------------
+
+    def _free_slot(self, i: int) -> None:
+        """Release slot i: its length zeroes (stale keys invisible), its
+        pages return to the pool and its table row resets to the scratch
+        page, so its masked decode writes never land in a page that was
+        re-issued."""
+        self.state.slots[i] = None
+        self.state.cache['length'][i] = 0
+        if self.kv_page_size and self._slot_pages[i]:
+            self._page_alloc.extend(self._slot_pages[i])
+            self._slot_pages[i] = []
+            self._set_table_rows(i, [])
+
+    def _slot_bounds(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Per-slot device bounds of a decode round: remaining budgets,
+        eos ids (-1 = none) and the cache-full length (max_seq_len - 2,
+        exactly the host's eviction bound: see the reference)."""
+        slots = self.state.slots
+        dev = self.device
+        budgets = torch.tensor(
+            [max(0, s.params.max_new_tokens - len(s.generated))
+             if (s is not None and s.pending is None) else 0
+             for s in slots], dtype=torch.int32, device=dev)
+        eos_arr = torch.tensor(
+            [s.params.eos_token_id
+             if (s is not None and s.pending is None
+                 and s.params.eos_token_id is not None) else -1
+             for s in slots], dtype=torch.int32, device=dev)
+        return budgets, eos_arr, self.state.max_seq_len - 2
+
+    def _evict_finished(self) -> None:
+        for i, slot in enumerate(self.state.slots):
+            if slot is None or slot.pending is not None:
+                continue
+            s = slot.params
+            hit_eos = (s.eos_token_id is not None and slot.generated and
+                       slot.generated[-1] == s.eos_token_id)
+            full = (slot.prompt_len + len(slot.generated) >=
+                    self.state.max_seq_len - 1)
+            if hit_eos or full or len(slot.generated) >= s.max_new_tokens:
+                self._finished[slot.request_id] = slot.generated
+                self._finished_logprobs[slot.request_id] = slot.logprobs
+                self._free_slot(i)
+
+    def step(self) -> None:
+        self._evict_finished()
+        self._insert_from_queue()
+        self._advance_prefill()
+        active_mask = [s is not None and s.pending is None
+                       for s in self.state.slots]
+        if not any(active_mask):
+            return
+        slots = self.state.slots
+        dev = self.device
+        temps = torch.tensor([s.params.temperature if s else 0.0
+                              for s in slots], dtype=torch.float32,
+                             device=dev)
+        topks = torch.tensor([s.params.top_k if s else 0 for s in slots],
+                             dtype=torch.int32, device=dev)
+        topps = torch.tensor([s.params.top_p if s else 1.0 for s in slots],
+                             dtype=torch.float32, device=dev)
+        active = torch.tensor(active_mask, dtype=torch.bool, device=dev)
+        budgets, eos_arr, max_len = self._slot_bounds()
+        t0 = time.perf_counter()
+        toks, lps, emitted_dev, new_last, _ = fused_decode_steps(
+            self.params, self.state.cache, self.state.last_tokens, active,
+            temps, topks, topps, eos_arr, budgets, max_len, self._gen,
+            self.config, self.decode_fuse_steps)
+        self.state.last_tokens = new_last
+        # One host sync for every output of the round.
+        toks_host, lps_host, emit_host = (toks.tolist(), lps.tolist(),
+                                          emitted_dev.tolist())
+        self.stats['decode_seconds'] += time.perf_counter() - t0
+        self.stats['decode_dispatches'] += 1
+        for i, slot in enumerate(slots):
+            if slot is None or slot.pending is not None:
+                continue
+            n = int(emit_host[i])
+            slot.generated.extend(int(t) for t in toks_host[i][:n])
+            slot.logprobs.extend(float(x) for x in lps_host[i][:n])
+            self.stats['generated_tokens'] += n
+        self._evict_finished()
+
+
+def _to_device(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

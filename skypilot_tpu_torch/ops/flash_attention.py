@@ -1,0 +1,275 @@
+"""Flash-attention forward: hand-written CUDA kernels and their plain versions.
+
+Ports the forward of `skypilot_tpu/ops/flash_attention.py`:
+`flash_attention` (:672) and `flash_attention_quant` (:632), i.e. the
+Pallas `_fwd_kernel` (:96) reached through `_flash_fwd_impl` (:340) with
+`quant=False` (K1) and `quant=True` (K2). The kernels live in
+`csrc/flash_fwd.cu`; `_build.py` compiles them for sm_90a at first use.
+
+Each public entry point dispatches on where its tensors lie:
+- CPU tensors run the plain PyTorch version in this module
+  (`flash_attention_plain`, `flash_attention_quant_plain`): the same
+  online-softmax recurrence over kv blocks, with the same masking order,
+  `safe_m` rule, O = 0 and lse = +inf on fully-masked rows.
+- CUDA tensors are checked (dtype, shape, last-dim contiguity, 16-byte
+  aligned strides) and handed to the kernel, or the call raises. There
+  is no fallback from the kernel to the plain version.
+
+`flash_attention.launches` and `flash_attention_quant.launches` count
+kernel launches (plain integers, never the plain version's calls).
+
+The backward kernels (`_dq_kernel`, `_dkv_kernel`) are not ported yet:
+this module is forward-only, like the serving path that uses it.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+_NEG_INF = -1e30
+# Head dims the CUDA kernel is instantiated for (csrc/flash_fwd.cu).
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def _check_args(causal: bool, window, q_offset) -> None:
+    if window is not None and not causal:
+        raise ValueError('flash window support is causal-only')
+    if q_offset is not None and not causal:
+        raise ValueError('q_offset (cached-prefill attention) requires '
+                         'causal masking')
+
+
+def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, block_k: int, window, softcap: Optional[float],
+           q_offset, k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' function in ordinary tensor ops: an online softmax
+    over kv blocks of `block_k` positions (reference `_fwd_kernel`).
+    Products run in f32 on operands in the input dtype, as the kernel's
+    bf16-in / f32-accumulate products do. Returns (O [B,Sq,H,D] in q's
+    dtype, lse [B,H,Sq,1] f32)."""
+    b, s_q, h, d = q.shape
+    s_kv, h_kv = k.shape[1], k.shape[2]
+    group = h // h_kv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    off = int(q_offset) if q_offset is not None else 0
+    # [B,KV,G,Sq,D] query groups against [B,KV,S,D] kv heads (no repeat).
+    qg = q.reshape(b, s_q, h_kv, group, d).permute(0, 2, 3, 1, 4).float()
+    q_pos = off + torch.arange(s_q, device=dev)
+    acc = torch.zeros(b, h_kv, group, s_q, d, dtype=torch.float32,
+                      device=dev)
+    m = torch.full((b, h_kv, group, s_q, 1), _NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros_like(m)
+    bk = max(1, min(block_k, s_kv))
+    for k0 in range(0, s_kv, bk):
+        kb = k[:, k0:k0 + bk].to(q.dtype).permute(0, 2, 1, 3)  # [B,KV,bk,D]
+        vb = v[:, k0:k0 + bk].to(q.dtype).permute(0, 2, 1, 3)
+        s = torch.matmul(qg, kb.float()[:, :, None].transpose(-1, -2))
+        s = s * scale                                      # [B,KV,G,Sq,bk]
+        if k_scale is not None:
+            s = s * k_scale[:, k0:k0 + bk].permute(0, 2, 1)[:, :, None,
+                                                             None, :]
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        if causal:
+            k_pos = k0 + torch.arange(kb.shape[2], device=dev)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask = mask & (q_pos[:, None] - k_pos[None, :]
+                               < int(window))
+            s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        safe_m = torch.where(m_new <= _NEG_INF * 0.5,
+                             torch.zeros_like(m_new), m_new)
+        p = torch.exp(s - safe_m)
+        corr = torch.exp(m - safe_m)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if v_scale is not None:
+            p = p * v_scale[:, k0:k0 + bk].permute(0, 2, 1)[:, :, None,
+                                                             None, :]
+        pv = torch.matmul(p.to(vb.dtype).float(), vb.float()[:, :, None])
+        acc = acc * corr + pv
+        m = m_new
+    norm = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = (acc / norm).to(q.dtype)                         # [B,KV,G,Sq,D]
+    safe_m = torch.where(m <= _NEG_INF * 0.5, torch.zeros_like(m), m)
+    lse = torch.where(l > 0.0,
+                      safe_m + torch.log(torch.clamp(l, min=1e-37)),
+                      torch.full_like(l, math.inf))
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s_q, h, d)
+    return out, lse.reshape(b, h, s_q, 1)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = True,
+                          block_q: int = 512, block_k: int = 512,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          q_offset: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1. Returns (O, lse)."""
+    del block_q  # the recurrence is row-independent
+    _check_args(causal, window, q_offset)
+    return _plain(q, k, v, causal, block_k, window, softcap, q_offset)
+
+
+def flash_attention_quant_plain(q: torch.Tensor, k_q: torch.Tensor,
+                                k_scale: torch.Tensor, v_q: torch.Tensor,
+                                v_scale: torch.Tensor, causal: bool = True,
+                                block_q: int = 512, block_k: int = 512,
+                                window: Optional[int] = None,
+                                softcap: Optional[float] = None,
+                                q_offset: Optional[int] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2 (int8 K/V, f32 per-position scales
+    [B,Skv,KV]). Returns (O, lse)."""
+    del block_q
+    _check_args(causal, window, q_offset)
+    return _plain(q, k_q, v_q, causal, block_k, window, softcap, q_offset,
+                  k_scale=k_scale, v_scale=v_scale)
+
+
+def _strides3(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
+    """(batch, seq, head) strides in elements; the last dim must be
+    contiguous and every stride a multiple of 16 bytes (vector loads)."""
+    if t.stride(-1) != 1:
+        raise ValueError(f'{name}: last dim must be contiguous, strides '
+                         f'{tuple(t.stride())}')
+    per16 = 16 // t.element_size()
+    st = t.stride()[:3]
+    if any(s % per16 for s in st) or t.data_ptr() % 16:
+        raise ValueError(f'{name}: strides {tuple(t.stride())} and the '
+                         'base pointer must be 16-byte aligned')
+    return st
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window, softcap: Optional[float], q_offset,
+            k_scale: Optional[torch.Tensor] = None,
+            v_scale: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the CUDA tensors and launch K1 (bf16) or K2 (int8)."""
+    from skypilot_tpu_torch.ops import _build
+
+    quant = k_scale is not None
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f'want q [B,Sq,H,D], k/v [B,Skv,KV,D]; got '
+                         f'{tuple(q.shape)} {tuple(k.shape)} '
+                         f'{tuple(v.shape)}')
+    b, s_q, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f'incompatible q {tuple(q.shape)} and kv '
+                         f'{tuple(k.shape)}')
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f'head_dim {d} not in the kernel\'s '
+                         f'{KERNEL_HEAD_DIMS}')
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f'q must be bfloat16, got {q.dtype}')
+    kv_dtype = torch.int8 if quant else torch.bfloat16
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f'k/v must be {kv_dtype}, got {k.dtype}/{v.dtype}')
+    tensors = [q, k, v] + ([k_scale, v_scale] if quant else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError('all inputs must be on one CUDA device')
+    if quant:
+        for name, sc in (('k_scale', k_scale), ('v_scale', v_scale)):
+            if sc.shape != k.shape[:3] or sc.dtype != torch.float32:
+                raise ValueError(f'{name} must be f32 {tuple(k.shape[:3])}, '
+                                 f'got {sc.dtype} {tuple(sc.shape)}')
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f'softcap must be positive, got {softcap}')
+    out = torch.empty(b, s_q, h, d, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, h, s_q, 1, dtype=torch.float32, device=q.device)
+    if s_q == 0 or b == 0:
+        return out, lse
+    lib = _build.library()
+    prm = _build.FlashParams()
+    prm.q, prm.k, prm.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    prm.o, prm.lse = out.data_ptr(), lse.data_ptr()
+    (prm.q_sb, prm.q_ss, prm.q_sh) = _strides3(q, 'q')
+    (prm.k_sb, prm.k_ss, prm.k_sh) = _strides3(k, 'k')
+    (prm.v_sb, prm.v_ss, prm.v_sh) = _strides3(v, 'v')
+    (prm.o_sb, prm.o_ss, prm.o_sh) = out.stride()[:3]
+    if quant:
+        prm.ks, prm.vs = k_scale.data_ptr(), v_scale.data_ptr()
+        (prm.ks_sb, prm.ks_ss, prm.ks_sh) = k_scale.stride()
+        (prm.vs_sb, prm.vs_ss, prm.vs_sh) = v_scale.stride()
+    prm.B, prm.Sq, prm.Skv, prm.H, prm.KV, prm.D = (b, s_q, k.shape[1], h,
+                                                    k.shape[2], d)
+    prm.causal = int(causal)
+    prm.windowed = int(window is not None)
+    prm.window = int(window) if window is not None else 0
+    prm.q_offset = int(q_offset) if q_offset is not None else 0
+    prm.scale = 1.0 / math.sqrt(d)
+    prm.softcap = float(softcap) if softcap is not None else 0.0
+    fn = lib.skytpu_flash_fwd_int8 if quant else lib.skytpu_flash_fwd_bf16
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(ctypes.byref(prm), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f'flash forward kernel launch failed: CUDA '
+                           f'error {err}')
+    if quant:
+        flash_attention_quant.launches += 1
+    else:
+        flash_attention.launches += 1
+    return out, lse
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, block_q: int = 512, block_k: int = 512,
+              window: Optional[int] = None,
+              softcap: Optional[float] = None,
+              q_offset: Optional[int] = None,
+              k_scale: Optional[torch.Tensor] = None,
+              v_scale: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, lse) of K1, or of K2 when scales are given: the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    _check_args(causal, window, q_offset)
+    if q.device.type == 'cpu':
+        return _plain(q, k, v, causal, block_k, window, softcap, q_offset,
+                      k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != 'cuda':
+        raise ValueError(f'unsupported device {q.device}')
+    return _launch(q, k, v, causal, window, softcap, q_offset,
+                   k_scale=k_scale, v_scale=v_scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 512,
+                    block_k: int = 512, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    q_offset: Optional[int] = None) -> torch.Tensor:
+    """Flash attention (K1). q [B,Sq,H,D], k/v [B,Skv,KV,D] -> [B,Sq,H,D].
+
+    window: position q attends k iff q_pos - k_pos < window (causal
+    only). softcap: cap * tanh(s / cap). q_offset: global position of q
+    row 0 (cached-prefill chunk against a longer cache; causal only).
+    block_q/block_k shape only the plain version's blocking."""
+    return flash_fwd(q, k, v, causal, block_q, block_k, window, softcap,
+                     q_offset)[0]
+
+
+def flash_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
+                          k_scale: torch.Tensor, v_q: torch.Tensor,
+                          v_scale: torch.Tensor, causal: bool = True,
+                          block_q: int = 512, block_k: int = 512,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          q_offset: Optional[int] = None) -> torch.Tensor:
+    """Flash attention over an int8 KV cache (K2): k_q/v_q
+    [B,Skv,KV,D] int8, scales [B,Skv,KV] f32 (the `quantize_kv`
+    layout). Forward only."""
+    return flash_fwd(q, k_q, v_q, causal, block_q, block_k, window,
+                     softcap, q_offset, k_scale=k_scale,
+                     v_scale=v_scale)[0]
+
+
+flash_attention.launches = 0
+flash_attention_quant.launches = 0
