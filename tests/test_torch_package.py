@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ml_dtypes, no aiohttp, no skypilot_tpu.
 
 A subprocess blocks those packages in `sys.modules`, then imports every
-module of `skypilot_tpu_torch` and the root `chip_smoke.py`; any
+module of `skypilot_tpu_torch` and the root `chip_smoke.py` and
+`kernel_fault_check.py`; any
 forbidden import fails it. Entry points raise without CUDA unless the
 caller names a device.
 """
@@ -29,6 +30,7 @@ for info in pkgutil.walk_packages(skypilot_tpu_torch.__path__,
     __import__(info.name)
     names.append(info.name)
 import chip_smoke
+import kernel_fault_check
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in BLOCKED and sys.modules[m] is not None)
 assert not leaked, leaked
