@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
   1. toolchain  - torch/CUDA/nvcc versions, the card's name and power
                   limit, and the build of the hand-written kernels
-                  (ops/csrc/flash_fwd.cu, nvcc for sm_90a) with its time.
+                  (ops/csrc/flash_fwd.cu and flash_bwd.cu, one nvcc for
+                  sm_90a per source, started together) with its time.
   2. check_bf16 - K1 (flash_attention) against its plain PyTorch version
                   on the card: cached-prefill offset, window + softcap,
                   fully-masked rows, and the engine's prefill shape,
@@ -24,11 +25,36 @@ Phases, each printing one JSON line:
   6. engine_int8 - the same engine over an int8 KV cache (K2).
   7. server     - the port's HTTP server in-process: /health and three
                   /generate requests, one streaming.
+  8. check_bwd  - K3 (flash_attention_dq) and K4 (flash_attention_dkv,
+                  ops/csrc/flash_bwd.cu) against flash_attention_bwd_plain
+                  on the same bf16 inputs: the training shape, window +
+                  softcap, non-causal ragged, q_offset and head_dim 64 MHA,
+                  max|a-b| / max|b| of dQ, dK and dV within TOL_BWD_REL;
+                  and K1's O and lse, which both take, against
+                  flash_attention_plain at each of these cases within
+                  TOL_O and TOL_LSE.
+  9. timing_bwd - K3 and K4 at the training shape: kernel, plain version,
+                  the backward of scaled_dot_product_attention as a
+                  yardstick for both together (never used by the port),
+                  and each kernel's bound.
+ 10. train_parity - one loss_fn + backward at bench-8b widths (2 layers,
+                  S2048) through attention_impl 'flash' and 'dense': loss
+                  and grad norm within TOL_TRAIN_LOSS / TOL_TRAIN_GRAD_REL,
+                  the wq (K3), wk and wv (K4) grads within
+                  TOL_TRAIN_PROJ_REL.
+ 11. train      - the training main path: skypilot_tpu_torch.train.loop.fit
+                  on bench-8b (5 layers at llama3-8b width, vocab 32768),
+                  batch 1 x 4096, random weights and a fixed synthetic
+                  batch, with the K1/K3/K4 launch counts read around it;
+                  the loss must be finite and fall; step time, tok/s, MFU,
+                  peak memory, and one step under the profiler.
 Then a `kernels` line and, last, {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
 """
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,7 +72,26 @@ H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s, H100 SXM
 TOL_O = 0.01               # max |O_kernel - O_plain|, bf16 output
 TOL_LSE = 1e-3             # max |lse_kernel - lse_plain| on finite rows
 TOL_LOGITS_REL = 0.05      # prefill logits, max|a-b| / max|b|
+# Limits of the backward checks, kernel against plain version on the same
+# inputs, max|a-b| / max|b| of each of dQ, dK, dV.
+TOL_BWD_REL = 0.02
+# flash against dense training at bench-8b widths (bf16 through 2
+# layers): |loss_f - loss_d|, |gnorm_f - gnorm_d| / gnorm_d, and
+# max|a-b| / max|b| of the stacked wq, wk and wv grads. Sound readings
+# on the H100: 3.1e-4, 2.8e-5 and at most 0.0136; kernel_fault_check.py's
+# K3/K4 faults read a grad-norm difference of 0.0050-0.059 and 0.20-0.67
+# on the grads of the projection each breaks. The loss limit holds only
+# the forward (K1), which check_bwd also holds at the training shape.
+TOL_TRAIN_LOSS = 0.005
+TOL_TRAIN_GRAD_REL = 1e-3
+TOL_TRAIN_PROJ_REL = 0.05
+PARITY_PROJ = ('wq', 'wk', 'wv')
 KERNEL_SOURCE = 'skypilot_tpu_torch/ops/csrc/flash_fwd.cu'
+BWD_SOURCE = 'skypilot_tpu_torch/ops/csrc/flash_bwd.cu'
+# The train phase: steps, peak learning rate and warmup on the fixed batch.
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 3
 DEV = 'cuda'
 # The main path's engine: llama3-8b slots, cache and chunking.
 ENGINE_KW = dict(batch_size=8, max_seq_len=2048, prefill_chunk=512,
@@ -119,9 +164,8 @@ def bound_ms(b, t, s, h, kv, d, off, window, quant):
 
 def kernel_reading(torch, fa, gen, quant, b, t, s, h, kv, d, off, window,
                    softcap):
-    """Kernel vs plain version on the same inputs: max |dO|, max |dlse|
-    over rows finite on both, whether the lse = +inf rows agree, and the
-    largest |O| the kernel gives on the plain version's masked rows."""
+    """K1 (K2 with `quant`) vs plain version on the same inputs, as
+    `fwd_compare` reads them."""
     q, k, v, ks, vs = attn_inputs(torch, gen, b, t, s, h, kv, d, quant)
     kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
     o_k, lse_k = fa.flash_fwd(q, k, v, k_scale=ks, v_scale=vs, **kw)
@@ -129,14 +173,21 @@ def kernel_reading(torch, fa, gen, quant, b, t, s, h, kv, d, off, window,
         o_p, lse_p = fa.flash_attention_quant_plain(q, k, ks, v, vs, **kw)
     else:
         o_p, lse_p = fa.flash_attention_plain(q, k, v, **kw)
+    return {'shape': [b, t, s, h, kv, d], 'q_offset': off,
+            'window': window, 'softcap': softcap,
+            **fwd_compare(torch, o_k, lse_k, o_p, lse_p)}
+
+
+def fwd_compare(torch, o_k, lse_k, o_p, lse_p):
+    """Kernel (O, lse) vs plain (O, lse): max |dO|, max |dlse| over rows
+    finite on both, whether the lse = +inf rows agree, and the largest
+    |O| the kernel gives on the plain version's masked rows."""
     torch.cuda.synchronize()
     finite = torch.isfinite(lse_p)
     both = finite & torch.isfinite(lse_k)
     masked = ~finite[..., 0]                          # [B,H,T]
     n_masked = int(masked.sum())
-    return {'shape': [b, t, s, h, kv, d], 'q_offset': off,
-            'window': window, 'softcap': softcap,
-            'max_abs_err': float((o_k.float() - o_p.float()).abs().max()),
+    return {'max_abs_err': float((o_k.float() - o_p.float()).abs().max()),
             'lse_max_abs_err': (float((lse_k - lse_p)[both].abs().max())
                                 if bool(both.any()) else 0.0),
             'inf_rows_agree': bool(torch.equal(torch.isfinite(lse_k),
@@ -213,10 +264,12 @@ def kernel_timing(torch, fa, quant):
             'tflops': flops / (ms * 1e-3) / 1e12}
 
 
-def profile_breakdown(torch, fn, top=8):
+def profile_breakdown(torch, fn, top=8, shares=None):
     """Run fn() once under torch.profiler: wall time, the device's busy
     time (sum of kernel self times on the one stream), its idle share,
-    and the kernels that take the most device time."""
+    the kernels that take the most device time and, for each label of
+    `shares` (label -> substrings of kernel names), its ms and share of
+    the busy time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -230,7 +283,14 @@ def profile_breakdown(torch, fn, top=8):
                and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: -e.self_device_time_total)
+    named = {}
+    for label, needles in (shares or {}).items():
+        hits = [e for e in kernels if any(n in e.key for n in needles)]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        named[label] = {'ms': ms, 'calls': sum(e.count for e in hits),
+                        'share_of_busy': ms / busy_ms if busy_ms else None}
     return {'wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+            'named': named,
             'device_idle_share': 1.0 - busy_ms / wall_ms if busy_ms else None,
             'top_kernels': [
                 {'name': e.key[:80], 'calls': e.count,
@@ -398,8 +458,9 @@ def logits_readings(torch, eng, fa, llama, engine, rng):
            'argmax_agree_vs_plain': int((k_logits.argmax(-1)
                                          == p_logits.argmax(-1)).sum())}
     if engine.kv_quant == 'none':
-        ref = llama.forward(engine.params, torch.tensor(
-            [check_prompts[0]], device=DEV), engine.config)[0, -1]
+        with torch.inference_mode():
+            ref = llama.forward(engine.params, torch.tensor(
+                [check_prompts[0]], device=DEV), engine.config)[0, -1]
         out['prefill_logits_rel_err_vs_dense_forward'] = rel_err(
             torch, k_logits[0], ref)
     return out
@@ -526,6 +587,284 @@ def server_phase(torch, inference, fa, params, config):
             loop.stop()
 
 
+BWD_CASES = (
+    # (name, B, Sq, Skv, H, KV, D, causal, q_offset, window, softcap)
+    ('training', 1, 4096, 4096, 32, 8, 128, True, None, None, None),
+    ('window_softcap', 1, 2048, 2048, 32, 8, 128, True, None, 600, 50.0),
+    ('non_causal_ragged', 1, 1000, 1000, 32, 8, 128, False, None, None,
+     None),
+    ('q_offset', 1, 1024, 2048, 32, 8, 128, True, 1024, None, None),
+    ('head_dim_64_mha', 2, 1024, 1024, 16, 16, 64, True, None, None, None),
+)
+# The train phase's attention: bench-8b heads at batch 1, seq 4096.
+BWD_TIMING_CASE = BWD_CASES[0]
+
+
+def bwd_inputs(torch, fa, gen, b, sq, skv, h, kv, d, causal, off, window,
+               softcap):
+    """Random bf16 q, k, v, dO; O and lse from K1; delta from them."""
+    q, k, v, _, _ = attn_inputs(torch, gen, b, sq, skv, h, kv, d, False)
+    do = torch.randn(b, sq, h, d, generator=gen, device=DEV).bfloat16()
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window,
+                          softcap=softcap, q_offset=off)
+    return q, k, v, do, o, lse, fa.bwd_delta(o, do)
+
+
+def bwd_reading(torch, fa, gen, case):
+    """K3 and K4 against flash_attention_bwd_plain on the same inputs:
+    max|a-b| and max|a-b| / max|b| of dQ, dK, dV, and whether the
+    kernels' outputs are finite; and under 'fwd' K1's (O, lse), which
+    both backwards take, against flash_attention_plain at this case's
+    shape and mask, as `fwd_compare` reads them."""
+    _, b, sq, skv, h, kv, d, causal, off, window, softcap = case
+    q, k, v, do, o, lse, delta = bwd_inputs(torch, fa, gen, b, sq, skv, h,
+                                            kv, d, causal, off, window,
+                                            softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    o_p, lse_p = fa.flash_attention_plain(q, k, v, **kw)
+    fwd = fwd_compare(torch, o, lse, o_p, lse_p)
+    del o_p, lse_p
+    got = (fa.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+           *fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw))
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    out = {'shape': [b, sq, skv, h, kv, d], 'causal': causal,
+           'q_offset': off, 'window': window, 'softcap': softcap,
+           'finite': all(bool(torch.isfinite(t).all()) for t in got),
+           'fwd': fwd}
+    for name, a, ref in zip(('dq', 'dk', 'dv'), got, want):
+        err = float((a.float() - ref.float()).abs().max())
+        out[f'{name}_max_abs_err'] = err
+        out[f'{name}_rel_err'] = err / max(float(ref.float().abs().max()),
+                                           1e-30)
+    return out
+
+
+def bwd_faults(r):
+    """The limits a backward reading breaks, K1's at the same case
+    first; empty when it passes."""
+    faults = [f'K1 {f}' for f in kernel_faults(r['fwd'])]
+    if not r['finite']:
+        faults.append('non-finite gradients')
+    for name in ('dq', 'dk', 'dv'):
+        if not r[f'{name}_rel_err'] < TOL_BWD_REL:
+            faults.append(f"{name} max|a-b|/max|b| {r[f'{name}_rel_err']} "
+                          f'>= {TOL_BWD_REL}')
+    return faults
+
+
+def bwd_readings(torch, fa):
+    """A reading of every BWD_CASES case, by case name."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    return {case[0]: bwd_reading(torch, fa, gen, case) for case in BWD_CASES}
+
+
+def bwd_bounds(b, sq, skv, h, kv, d, off, window):
+    """(bound_ms, bound_by, flops) of K3 and K4: 6*d (K3) and 8*d (K4)
+    FLOP a visible pair; each input read once, each output written once
+    (q, dO, dQ [B,Sq,H,D], the kv rows any query needs, lse and delta)."""
+    pairs, kv_rows = visible_span(sq, skv, off if off else 0, window)
+    q_bytes = b * sq * h * d * 2
+    kv_bytes = b * kv_rows * kv * d * 2
+    row_bytes = 2 * b * h * sq * 4
+    out = {}
+    for name, per_pair, nbytes in (
+            ('dq', 6, 3 * q_bytes + 2 * kv_bytes + row_bytes),
+            ('dkv', 8, 2 * q_bytes + 2 * kv_bytes + row_bytes
+             + 2 * b * skv * kv * d * 2)):
+        flops = float(per_pair) * d * pairs * b * h
+        t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     'operations' if t_ops >= t_bytes else 'bytes', flops)
+    return out
+
+
+def bwd_timing(torch, fa):
+    """K3 and K4 at the training shape: kernel ms, plain ms, the bound,
+    and the backward of scaled_dot_product_attention (K3 + K4's work in
+    one call, timed only)."""
+    import torch.nn.functional as F
+    case = BWD_TIMING_CASE
+    _, b, sq, skv, h, kv, d, causal, off, window, softcap = case
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    q, k, v, do, _, lse, delta = bwd_inputs(torch, fa, gen, b, sq, skv, h,
+                                            kv, d, causal, off, window,
+                                            softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    plain_kw = dict(causal=causal, block_k=512, window=window,
+                    softcap=softcap, q_offset=off)
+    ms = {'dq': time_ms(torch, lambda: fa.flash_attention_dq(
+              q, k, v, do, lse, delta, **kw)),
+          'dkv': time_ms(torch, lambda: fa.flash_attention_dkv(
+              q, k, v, do, lse, delta, **kw))}
+    plain_ms = {'dq': time_ms(torch, lambda: fa._plain_bwd(
+                    q, k, v, do, lse, delta, want_dkv=False, **plain_kw),
+                    iters=3, warmup=1),
+                'dkv': time_ms(torch, lambda: fa._plain_bwd(
+                    q, k, v, do, lse, delta, want_dq=False, **plain_kw),
+                    iters=3, warmup=1)}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+        go = do.transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), go, retain_graph=True))
+    except TypeError:  # a torch without enable_gqa: no one-call yardstick
+        library_ms = None
+    bounds = bwd_bounds(b, sq, skv, h, kv, d, off, window)
+    return {name: {'shape': [b, sq, skv, h, kv, d], 'causal': causal,
+                   'ms': ms[name], 'plain_ms': plain_ms[name],
+                   'library_ms': library_ms, 'bound_ms': bounds[name][0],
+                   'bound_by': bounds[name][1],
+                   'tflops': bounds[name][2] / (ms[name] * 1e-3) / 1e12}
+            for name in ('dq', 'dkv')}
+
+
+def _global_norm(torch, tensors):
+    return float(torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors])))
+
+
+def train_parity(torch):
+    """One loss_fn + backward at bench-8b widths (2 layers, S2048) through
+    flash and dense attention on the same params and tokens."""
+    import dataclasses
+
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.train import trainer
+    base = dataclasses.replace(llama.CONFIGS['bench-8b'], num_layers=2)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    params = llama.init_params(base, gen, DEV)
+    params = trainer.tree_map(lambda p: p.requires_grad_(True), params)
+    leaves = trainer.tree_leaves(params)
+    batch = {'tokens': torch.randint(0, base.vocab_size, (1, 2048),
+                                     generator=gen, device=DEV)}
+    out = {}
+    grads = {}
+    for impl in ('flash', 'dense'):
+        config = dataclasses.replace(base, attention_impl=impl)
+        loss = llama.loss_fn(params, batch, config)
+        grads[impl] = torch.autograd.grad(loss, leaves)
+        out[f'{impl}_loss'] = float(loss.detach())
+        out[f'{impl}_grad_norm'] = _global_norm(torch, grads[impl])
+    out['loss_abs_diff'] = abs(out['flash_loss'] - out['dense_loss'])
+    out['grad_norm_rel_diff'] = (abs(out['flash_grad_norm']
+                                     - out['dense_grad_norm'])
+                                 / out['dense_grad_norm'])
+    # wq's grads come from K3's dQ, wk's and wv's from K4's dK and dV.
+    for name in PARITY_PROJ:
+        i = [j for j, t in enumerate(leaves)
+             if t is params['layers'][name]][0]
+        a, ref = grads['flash'][i].float(), grads['dense'][i].float()
+        out[f'{name}_grad_rel_err'] = float((a - ref).abs().max()
+                                            / ref.abs().max())
+    return out
+
+
+def train_faults(r):
+    faults = []
+    if not all(math.isfinite(r[k]) for k in ('flash_loss', 'dense_loss',
+                                              'flash_grad_norm',
+                                              'dense_grad_norm')):
+        faults.append('non-finite loss or grad norm')
+    if not r['loss_abs_diff'] < TOL_TRAIN_LOSS:
+        faults.append(f"|loss_f - loss_d| {r['loss_abs_diff']} >= "
+                      f'{TOL_TRAIN_LOSS}')
+    if not r['grad_norm_rel_diff'] < TOL_TRAIN_GRAD_REL:
+        faults.append(f"grad norm rel diff {r['grad_norm_rel_diff']} >= "
+                      f'{TOL_TRAIN_GRAD_REL}')
+    for name in PARITY_PROJ:
+        err = r[f'{name}_grad_rel_err']
+        if not err < TOL_TRAIN_PROJ_REL:
+            faults.append(f'{name} grad max|a-b|/max|b| {err} >= '
+                          f'{TOL_TRAIN_PROJ_REL}')
+    return faults
+
+
+# Kernel-name substrings of the train step's profile categories.
+TRAIN_SHARES = {
+    'K1 flash_fwd': ('flash_fwd_kernel',),
+    'K3 flash_bwd_dq': ('flash_bwd_dq_kernel',),
+    'K4 flash_bwd_dkv': ('flash_bwd_dkv_kernel',),
+    'GEMMs': ('nvjet', 'gemm', 'cutlass', 'xmma'),
+    'elementwise and copies': ('elementwise_kernel', 'copy'),
+    'reductions': ('reduce_kernel',),
+}
+
+
+def train_phase(torch, fa):
+    """The training main path: fit() on bench-8b with the launch counts
+    of K1, K2, K3 and K4 set to 0 just before and read just after."""
+    from skypilot_tpu_torch.train import loop, trainer
+    cfg = trainer.TrainerConfig(model='bench-8b', batch_size=1,
+                                seq_len=4096, max_steps=TRAIN_STEPS,
+                                learning_rate=TRAIN_LR,
+                                warmup_steps=TRAIN_WARMUP)
+    mcfg = cfg.model_config()
+    counters = (fa.flash_attention, fa.flash_attention_quant,
+                fa.flash_attention_dq, fa.flash_attention_dkv)
+    # What earlier phases left in reference cycles (the serving engines
+    # and their llama3-8b weights) goes before the peak is reset, so the
+    # peak is the trainer's own.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = loop.fit(cfg, DEV, log_every=1, log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, quant, dq, dkv = (c.launches for c in counters)
+    layers = mcfg.num_layers
+    if min(fwd, dq, dkv) <= 0:
+        raise AssertionError(f'train path launches: K1 {fwd}, K3 {dq}, '
+                             f'K4 {dkv}')
+    if dq != layers * TRAIN_STEPS or dkv != layers * TRAIN_STEPS:
+        raise AssertionError(f'K3 {dq} / K4 {dkv} launches, want '
+                             f'{layers} x {TRAIN_STEPS}')
+    losses = [h['loss'] for h in res['history']]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f'train losses {losses}')
+    step_s = sorted(h['step_s'] for h in res['history'][2:])
+    median = step_s[len(step_s) // 2]
+    tok_s = cfg.batch_size * cfg.seq_len / median
+    peak_mem = torch.cuda.max_memory_allocated() / 1e9
+    # One more step under the profiler, on the trained state.
+    step_fn = trainer.make_train_step(cfg, DEV)
+    batch = trainer.synthetic_batch(cfg, DEV)
+    state = res['state']
+    profile = profile_breakdown(torch, lambda: step_fn(state, batch),
+                                top=10, shares=TRAIN_SHARES)
+    # The optimizer alone (zero grads: weight decay only; the state is
+    # not used after this).
+    opt = trainer.make_optimizer(cfg)
+    zeros = [torch.zeros_like(p) for p in trainer.tree_leaves(
+        state['params'])]
+    optimizer_ms = time_ms(torch, lambda: opt.update_(
+        zeros, state['opt_state'], state['params']), iters=3, warmup=1)
+    return {'model': 'bench-8b', 'layers': layers,
+            'hidden': mcfg.hidden_size,
+            'intermediate': mcfg.intermediate_size,
+            'heads': [mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim],
+            'vocab': mcfg.vocab_size, 'params': mcfg.num_params(),
+            'batch': cfg.batch_size, 'seq_len': cfg.seq_len,
+            'steps': TRAIN_STEPS, 'learning_rate': TRAIN_LR,
+            'warmup_steps': TRAIN_WARMUP, 'remat': mcfg.remat,
+            'losses': losses, 'wall_s': wall,
+            'step_s': [h['step_s'] for h in res['history']],
+            'median_step_s': median, 'tokens_per_s': tok_s,
+            'mfu': trainer.mfu(tok_s, mcfg, cfg.seq_len,
+                               trainer.PEAK_FLOPS['h100']),
+            'peak_mem_gb': peak_mem, 'optimizer_ms': optimizer_ms,
+            'launches': {'K1': fwd, 'K2': quant, 'K3': dq, 'K4': dkv},
+            'step_profile': profile}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -549,7 +888,8 @@ def main():
     build_s = time.perf_counter() - t0
     info = _build.build_info()
     ptxas = [line.strip() for line in info.log.splitlines()
-             if 'registers' in line or 'spill' in line]
+             if any(w in line for w in ('entry function', 'registers',
+                                        'spill'))]
     emit('toolchain', python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
          gpu=smi, device=torch.cuda.get_device_name(0),
@@ -580,6 +920,34 @@ def main():
             'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
             'bound_by': timing['bound_by'],
             'library_ms': timing['library_ms']}
+
+    # 8-9. backward kernels against their plain version, then timing
+    cases = bwd_readings(torch, fa)
+    emit('check_bwd', kernels=['flash_attention_dq', 'flash_attention_dkv'],
+         cases=cases, tol_rel=TOL_BWD_REL, tol_o=TOL_O, tol_lse=TOL_LSE)
+    bad = {case: bwd_faults(c) for case, c in cases.items() if bwd_faults(c)}
+    if bad:
+        raise AssertionError(f'flash forward or backward disagrees with its '
+                             f'plain version: {bad}')
+    kernels['flash_attention']['max_abs_err'] = max(
+        kernels['flash_attention']['max_abs_err'],
+        *(c['fwd']['max_abs_err'] for c in cases.values()))
+    timing = bwd_timing(torch, fa)
+    emit('timing_bwd', **timing)
+    for name, key, parts, line in (
+            ('flash_attention_dq', 'dq', ('dq',), 178),
+            ('flash_attention_dkv', 'dkv', ('dk', 'dv'), 229)):
+        kernels[name] = {
+            'name': name, 'route': 'cuda', 'source': BWD_SOURCE,
+            'replaces': f'skypilot_tpu/ops/flash_attention.py:{line}',
+            'launches': 0,
+            'max_abs_err': max(c[f'{part}_max_abs_err']
+                               for c in cases.values() for part in parts),
+            'ms': timing[key]['ms'], 'plain_ms': timing[key]['plain_ms'],
+            'bound_ms': timing[key]['bound_ms'],
+            'bound_by': timing[key]['bound_by'],
+            'library_ms': timing[key]['library_ms']}
+    torch.cuda.empty_cache()
 
     import numpy as np
 
@@ -618,6 +986,23 @@ def main():
     # 7. server
     emit('server', **server_phase(torch, inference, fa, params,
                                   config))
+    del params, config
+    torch.cuda.empty_cache()
+
+    # 10. flash against dense training at bench-8b widths
+    parity = train_parity(torch)
+    emit('train_parity', model='bench-8b', layers=2, seq_len=2048,
+         tol_loss=TOL_TRAIN_LOSS, tol_grad_rel=TOL_TRAIN_GRAD_REL,
+         tol_proj_rel=TOL_TRAIN_PROJ_REL, **parity)
+    if train_faults(parity):
+        raise AssertionError(f'train parity: {train_faults(parity)}')
+    torch.cuda.empty_cache()
+
+    # 11. the training main path
+    train = train_phase(torch, fa)
+    kernels['flash_attention_dq']['launches'] = train['launches']['K3']
+    kernels['flash_attention_dkv']['launches'] = train['launches']['K4']
+    emit('train', **train)
 
     emit('done', seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

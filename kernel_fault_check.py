@@ -5,20 +5,29 @@
 
 For each planted fault it copies `skypilot_tpu_torch/`, `chip_smoke.py`
 and this script into a temporary directory, plants the fault in the
-copy's `ops/csrc/flash_fwd.cu`, and runs this script again inside the
-copy (so the copy's kernel is built and loaded). There it takes the
-readings chip_smoke.py holds to its limits:
+copy's kernel source (`ops/csrc/flash_fwd.cu` for K1/K2, `flash_bwd.cu`
+for K3/K4), and runs this script again inside the copy (so the copy's
+kernels are built and loaded). There it takes the readings chip_smoke.py
+holds to its limits:
 
-  - K1 and K2 against their plain versions on every CHECK_CASES case
-    (max |dO| < TOL_O, max |dlse| < TOL_LSE, the lse = +inf rows);
-  - the llama3-8b prefill logits through the kernel against the plain
-    version and the dense forward (max|a-b| / max|b| < TOL_LOGITS_REL),
-    bf16 and int8 KV caches, full width and depth, random weights.
+  - forward faults: K1 and K2 against their plain versions on every
+    CHECK_CASES case (max |dO| < TOL_O, max |dlse| < TOL_LSE, the
+    lse = +inf rows), and the llama3-8b prefill logits through the
+    kernel against the plain version and the dense forward
+    (max|a-b| / max|b| < TOL_LOGITS_REL), bf16 and int8 KV caches, full
+    width and depth, random weights; and K1 against its plain version
+    at every BWD_CASES case (the training shape among them), as
+    check_bwd holds it;
+  - backward faults: K3 and K4 against flash_attention_bwd_plain on
+    every BWD_CASES case (max|a-b| / max|b| < TOL_BWD_REL for dQ, dK,
+    dV), and train_parity (flash against dense loss_fn + backward at
+    bench-8b widths: loss, grad norm, wq/wk/wv grads).
 
 Each fault prints one JSON line with every reading beside its limit and
 the limits it breaks. The script exits non-zero if any fault passes
 the kernel checks, since a wrong kernel must not get past chip_smoke's
-first gate. Whether the logits limit alone would catch it is reported.
+first gate. Whether the logits limit, the training-shape K1 check or
+train_parity alone would catch it is reported.
 """
 import json
 import os
@@ -29,8 +38,11 @@ import tempfile
 
 KERNEL_SOURCE = os.path.join('skypilot_tpu_torch', 'ops', 'csrc',
                              'flash_fwd.cu')
+BWD_SOURCE = os.path.join('skypilot_tpu_torch', 'ops', 'csrc',
+                          'flash_bwd.cu')
 _LOOP_TOP = '    __syncthreads();  // the previous tile is consumed\n'
-# name -> (what it breaks, text in flash_fwd.cu, its replacement)
+# name -> (what it breaks, text in its kernel source, its replacement);
+# the source is KERNEL_SOURCE unless BWD_FAULTS names the fault.
 FAULTS = {
     'drop_kv_tile': (
         'the kv loop skips the second tile it would visit',
@@ -40,7 +52,25 @@ FAULTS = {
         'the causal mask hides each query\'s own position',
         'ok = ok && qpos[half] >= kpos;',
         'ok = ok && qpos[half] > kpos;'),
+    'dq_drop_kv_tile': (
+        'K3 skips the second kv tile it would visit',
+        _LOOP_TOP,
+        '    if (k0 == (kv_lo / kBK3) * kBK3 + kBK3) continue;\n' + _LOOP_TOP),
+    'dkv_drop_q_head': (
+        'K4 drops the last q head of each GQA group',
+        'for (int hh = 0; hh < group; ++hh) {',
+        'for (int hh = 0; hh + 1 < group; ++hh) {'),
+    'dkv_drop_delta': (
+        'K4 computes dS = P dP, without - delta',
+        'float ds = pe * (dpt[j][e] - dlt_t[col]);',
+        'float ds = pe * dpt[j][e];'),
 }
+BWD_FAULTS = ('dq_drop_kv_tile', 'dkv_drop_q_head', 'dkv_drop_delta')
+
+
+def source_of(fault):
+    """The kernel source (repo-relative path) a fault is planted in."""
+    return BWD_SOURCE if fault in BWD_FAULTS else KERNEL_SOURCE
 
 
 def plant(source, fault):
@@ -64,7 +94,29 @@ def readings(fault):
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.ops import flash_attention as fa
 
+    if fault in BWD_FAULTS:
+        cases = cs.bwd_readings(torch, fa)
+        out = {'fault': fault, 'planted': FAULTS[fault][0],
+               'source': source_of(fault),
+               'limits': {'tol_bwd_rel': cs.TOL_BWD_REL},
+               'kernel': {'flash_attention_bwd': {
+                   case: {**{k: c[k] for k in ('dq_rel_err', 'dk_rel_err',
+                                               'dv_rel_err', 'finite')},
+                          'breaks': cs.bwd_faults(c)}
+                   for case, c in cases.items()}}}
+        out['caught_by_kernel_checks'] = any(
+            c['breaks'] for c in out['kernel']['flash_attention_bwd']
+            .values())
+        torch.cuda.empty_cache()
+        parity = cs.train_parity(torch)
+        out['limits'].update(tol_train_loss=cs.TOL_TRAIN_LOSS,
+                             tol_train_grad_rel=cs.TOL_TRAIN_GRAD_REL,
+                             tol_train_proj_rel=cs.TOL_TRAIN_PROJ_REL)
+        out['train_parity'] = {**parity, 'breaks': cs.train_faults(parity)}
+        out['caught_by_train_parity'] = bool(out['train_parity']['breaks'])
+        return out
     out = {'fault': fault, 'planted': FAULTS[fault][0],
+           'source': source_of(fault),
            'limits': {'tol_o': cs.TOL_O, 'tol_lse': cs.TOL_LSE,
                       'tol_logits_rel': cs.TOL_LOGITS_REL},
            'kernel': {}, 'logits': {}}
@@ -77,6 +129,13 @@ def readings(fault):
                    'inf_rows_agree': c['inf_rows_agree'],
                    'breaks': cs.kernel_faults(c)}
             for case, c in cases.items()}
+    out['kernel']['flash_attention_at_bwd_cases'] = {
+        case: {'max_abs_err': c['fwd']['max_abs_err'],
+               'lse_max_abs_err': c['fwd']['lse_max_abs_err'],
+               'inf_rows_agree': c['fwd']['inf_rows_agree'],
+               'breaks': cs.kernel_faults(c['fwd'])}
+        for case, c in cs.bwd_readings(torch, fa).items()}
+    torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     engine = inference.build_engine('llama3-8b', device=cs.DEV, seed=0,
                                     kv_quant='none', **cs.ENGINE_KW)
@@ -91,8 +150,10 @@ def readings(fault):
         r = cs.logits_readings(torch, eng, fa, llama, engine, rng)
         out['logits'][quant] = {**r, 'breaks': cs.logits_faults(r)}
     out['caught_by_kernel_checks'] = all(
-        any(c['breaks'] for c in cases.values())
-        for cases in out['kernel'].values())
+        any(c['breaks'] for c in out['kernel'][name].values())
+        for name in ('flash_attention', 'flash_attention_quant'))
+    out['caught_by_training_shape_check'] = bool(
+        out['kernel']['flash_attention_at_bwd_cases']['training']['breaks'])
     out['caught_by_logits_check'] = {
         quant: bool(r['breaks']) for quant, r in out['logits'].items()}
     return out
@@ -107,7 +168,7 @@ def run_planted(here, fault, workdir):
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
     for name in ('chip_smoke.py', os.path.basename(__file__)):
         shutil.copy(os.path.join(here, name), copy)
-    path = os.path.join(copy, KERNEL_SOURCE)
+    path = os.path.join(copy, source_of(fault))
     with open(path) as f:
         planted = plant(f.read(), fault)
     with open(path, 'w') as f:

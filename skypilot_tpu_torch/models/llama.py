@@ -3,11 +3,26 @@
 Ports `skypilot_tpu/models/llama.py`: `LlamaConfig` (:38), the llama
 `CONFIGS` (:96), `init_params` (:219), `layer_windows` (:294),
 `_rms_norm` (:309), `_rope_freqs` (:317), `_rope` (:339), `_layer`
-(:354) and `forward` (:415). The parameter layout is the reference's at
+(:354), `forward` (:415), `loss_fn` (:467) and `LlamaConfig.num_params` /
+`flops_per_token` (:80-92). The parameter layout is the reference's at
 the public boundary: `[L, ...]` leaves, `wq` [E,H,D], `wk`/`wv`
 [E,KV,D], `wo` [H,D,E], `w_gate`/`w_up` [E,M], `w_down` [M,E], so
-weights map one to one. `forward` runs dense attention; training
-(`loss_fn`, remat, the flash backward) waits for a later slice.
+weights map one to one. Attention dispatches through
+`ops.attention.attention` on `config.attention_impl` ('dense' |
+'blockwise' | 'flash'; 'flash' runs K1 forward and K3/K4 backward on the
+card). `forward` is differentiable; serving callers run it under
+`torch.inference_mode()`.
+
+Remat differs from the reference. With `remat=True` and autograd on,
+each layer runs under `torch.utils.checkpoint.checkpoint(
+use_reentrant=False)`: the backward recomputes the WHOLE layer, the
+flash forward (K1) included, and keeps only the layer's input. The
+reference's default policy ('dots' = `dots_with_no_batch_dims_saveable`)
+keeps the matmul outputs and recomputes only the elementwise work; its
+'save_attn' policy also keeps the attention output. PyTorch has no
+policy-driven checkpoint in eager mode, so both policies map to the
+whole-layer recompute here: more FLOPs (one more forward per layer),
+less memory.
 
 Products follow the reference's casts: q/k/v/o and the MLP output are
 cast to the config dtype, the MLP gate/up and the logits are f32. In f32
@@ -24,6 +39,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from skypilot_tpu_torch.ops import attention as attention_ops
 
@@ -63,6 +79,20 @@ class LlamaConfig:
     rope_scaling_low_freq_factor: float = 1.0
     rope_scaling_high_freq_factor: float = 4.0
     rope_scaling_original_max: int = 8192
+
+    def num_params(self) -> int:
+        e, m, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        h, kv, d = self.num_heads, self.num_kv_heads, self.head_dim
+        per_layer = (e * h * d + 2 * e * kv * d + h * d * e  # attn
+                     + 3 * e * m                              # mlp
+                     + (4 if self.post_norms else 2) * e)     # norms
+        head = v * e if not self.tied_embeddings else 0
+        return self.num_layers * per_layer + v * e + head + e
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approx train-step FLOPs/token (fwd+bwd ~ 6 x params + attn)."""
+        attn = 12 * self.num_layers * self.num_heads * self.head_dim * seq_len
+        return 6.0 * self.num_params() + attn
 
 
 # The reference's llama presets (published architecture tables).
@@ -289,9 +319,11 @@ def _layer(x: torch.Tensor, layer_params: Params, config: LlamaConfig,
     k = _rope(k, positions, c)
     if c.query_pre_attn_scalar is not None:
         q = q * math.sqrt(c.head_dim / c.query_pre_attn_scalar)
-    attn = attention_ops.dense_attention(q, k, v, causal=True,
-                                         window=window,
-                                         softcap=c.attn_logit_softcap)
+    attn = attention_ops.attention(q, k, v, causal=True,
+                                   impl=c.attention_impl,
+                                   block_size=c.attention_block_size,
+                                   window=window,
+                                   softcap=c.attn_logit_softcap)
     attn_out = torch.einsum('bshd,hde->bse', attn,
                             layer_params['wo']).to(c.dtype)
     if c.post_norms:
@@ -333,16 +365,44 @@ def project_logits(x: torch.Tensor, params: Params, config) -> torch.Tensor:
     return logits
 
 
-@torch.no_grad()
 def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B,S] int -> logits [B,S,vocab] f32 (dense attention)."""
+    """tokens [B,S] int -> logits [B,S,vocab] f32. Differentiable; with
+    `config.remat` and autograd on, each layer is checkpointed (see the
+    module docstring)."""
     c = config
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = embed(params, tokens, c)
+    remat = c.remat and torch.is_grad_enabled()
     for i, window in enumerate(layer_windows(c)):
-        x = _layer(x, layer_params_at(params, i), c, positions,
-                   window=window)
+        lp = layer_params_at(params, i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, x, lp, c, positions, window, use_reentrant=False)
+        else:
+            x = _layer(x, lp, c, positions, window=window)
     x = _rms_norm(x, params['final_norm'], c.rms_norm_eps, c.norm_plus_one)
     return project_logits(x, params, c)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            config: LlamaConfig) -> torch.Tensor:
+    """Next-token cross-entropy; batch: {'tokens': [B,S], 'mask': [B,S]}.
+
+    Targets are the tokens shifted left; the last position is masked, so
+    no host-side shifting is needed. The fused form (target logit minus
+    logsumexp) never builds the [B,S,V] log-probabilities."""
+    tokens = batch['tokens']
+    logits = forward(params, tokens, config)
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    mask = batch.get('mask')
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+    mask = mask.float().clone()
+    mask[:, -1] = 0.0
+    target_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    token_ll = target_logit - torch.logsumexp(logits, dim=-1)
+    return -(token_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,8 +1,10 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources under `csrc/` are compiled at first use on the machine with
-the card, for `sm_90a`, into a plain-C shared library, and loaded with
-`ctypes` (no PyTorch headers: the build takes seconds, not minutes).
+The sources under `csrc/` (`SOURCES`: the flash forward K1/K2 and the
+flash backward K3/K4) are compiled at first use on the machine with the
+card, for `sm_90a`, one nvcc process per source started together, then
+linked into one plain-C shared library loaded with `ctypes` (no PyTorch
+headers: the build takes seconds, not minutes).
 The library lands in `ops/_build/` (git-ignored) under a name keyed by
 the hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. There is no fallback: without `nvcc`, or when
@@ -23,9 +25,9 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
-SOURCES = ('flash_fwd.cu',)
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-lineinfo', '-Xptxas=-v', '-shared',
+SOURCES = ('flash_fwd.cu', 'flash_bwd.cu')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = (*ARCH_FLAGS, '-std=c++17', '-O3', '-lineinfo', '-Xptxas=-v',
               '-Xcompiler', '-fPIC')
 
 
@@ -40,6 +42,32 @@ class FlashParams(ctypes.Structure):
                                          'causal', 'windowed', 'window',
                                          'q_offset')]
         + [('scale', ctypes.c_float), ('softcap', ctypes.c_float)])
+
+
+class FlashBwdParams(ctypes.Structure):
+    """ctypes mirror of `struct FlashBwdParams` in csrc/flash_bwd.cu."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in ('q', 'k', 'v', 'dout', 'lse',
+                                        'delta', 'dq', 'dk', 'dv')]
+        + [(f'{t}_s{a}', ctypes.c_int64)
+           for t in ('q', 'k', 'v', 'do', 'dq', 'dk', 'dv') for a in 'bsh']
+        + [(n, ctypes.c_int32) for n in ('B', 'Sq', 'Skv', 'H', 'KV', 'D',
+                                         'causal', 'windowed', 'window',
+                                         'q_offset')]
+        + [('scale', ctypes.c_float), ('softcap', ctypes.c_float)])
+
+
+# Entry points of the library: name -> its params struct.
+_ENTRY_POINTS = {
+    'skytpu_flash_fwd_bf16': FlashParams,
+    'skytpu_flash_fwd_int8': FlashParams,
+    'skytpu_flash_bwd_dq': FlashBwdParams,
+    'skytpu_flash_bwd_dkv': FlashBwdParams,
+}
+_SIZE_CHECKS = {
+    'skytpu_flash_params_size': FlashParams,
+    'skytpu_flash_bwd_params_size': FlashBwdParams,
+}
 
 
 class BuildInfo:
@@ -81,21 +109,37 @@ def _digest() -> str:
 
 
 def _compile(out_path: str) -> str:
+    """One nvcc per source, all started together, into objects in a
+    temporary directory; then one link into `out_path`. Returns the
+    compilers' log (ptxas register and spill report included)."""
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, '-o', tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          check=False)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
-    with open(out_path + '.log', 'w') as f:
-        f.write(log)
-    os.replace(tmp, out_path)  # atomic: a concurrent load never sees half
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, name + '.o') for name in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, '-c', '-o', obj, os.path.join(CSRC, name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objs)]
+        log = ''
+        failed = []
+        for name, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            log += f'== {name}\n{out}'
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f'nvcc failed on {failed}:\n{log}')
+        tmp = os.path.join(tmpdir, 'lib.so')
+        proc = subprocess.run(
+            [nvcc, *ARCH_FLAGS, '-shared', '-o', tmp, *objs],
+            capture_output=True, text=True, check=False)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n'
+                               f'{log}')
+        with open(out_path + '.log', 'w') as f:
+            f.write(log)
+        os.replace(tmp, out_path)  # atomic: a concurrent load never sees half
     return log
 
 
@@ -115,17 +159,18 @@ def library() -> ctypes.CDLL:
             with open(path + '.log') as f:
                 log = f.read()
         lib = ctypes.CDLL(path)
-        lib.skytpu_flash_params_size.argtypes = []
-        lib.skytpu_flash_params_size.restype = ctypes.c_int
-        for name in ('skytpu_flash_fwd_bf16', 'skytpu_flash_fwd_int8'):
+        for name, struct in _ENTRY_POINTS.items():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(FlashParams), ctypes.c_void_p]
+            fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        size = lib.skytpu_flash_params_size()
-        if size != ctypes.sizeof(FlashParams):
-            raise RuntimeError(
-                f'FlashParams layout mismatch: C {size} bytes, ctypes '
-                f'{ctypes.sizeof(FlashParams)} bytes')
+        for name, struct in _SIZE_CHECKS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+            if fn() != ctypes.sizeof(struct):
+                raise RuntimeError(
+                    f'{struct.__name__} layout mismatch: C {fn()} bytes, '
+                    f'ctypes {ctypes.sizeof(struct)} bytes')
         _info = BuildInfo(path, compiled, time.perf_counter() - t0, log)
         _lib = lib
         return lib

@@ -1,5 +1,6 @@
-"""The limits chip_smoke.py holds the kernels to, and the planted faults of
-kernel_fault_check.py that show those limits catch a wrong kernel.
+"""The limits chip_smoke.py holds the kernels (K1-K4) and the training
+parity to, and the planted faults of kernel_fault_check.py that show
+those limits catch a wrong kernel.
 
 The readings themselves come from the card; here the verdict functions
 are held to their limits and every planted fault is held to apply
@@ -62,15 +63,108 @@ def test_logits_limits():
         {**sound, 'prefill_logits_finite': False}) == ['non-finite logits']
 
 
+# A sound K3/K4 reading at the training shape on the H100 (chip_smoke's
+# check_bwd): max|a-b| / max|b| of dQ, dK, dV against the plain version,
+# and K1's (O, lse) at the same shape against its plain version.
+SOUND_BWD = {'finite': True, 'dq_rel_err': 0.00084, 'dk_rel_err': 0.0029,
+             'dv_rel_err': 0.0030, 'dq_max_abs_err': 0.0039,
+             'dk_max_abs_err': 0.0156, 'dv_max_abs_err': 0.0313,
+             'fwd': {**SOUND, 'masked_rows': 0}}
+
+
+def test_sound_backward_reading_passes():
+    assert chip_smoke.bwd_faults(SOUND_BWD) == []
+
+
+@pytest.mark.parametrize('key,value,needle', [
+    ('dq_rel_err', chip_smoke.TOL_BWD_REL, 'dq'),
+    ('dk_rel_err', float('nan'), 'dk'),
+    ('dv_rel_err', 0.3, 'dv'),
+    ('finite', False, 'non-finite'),
+])
+def test_backward_reading_over_a_limit_fails(key, value, needle):
+    faults = chip_smoke.bwd_faults({**SOUND_BWD, key: value})
+    assert len(faults) == 1 and needle in faults[0]
+
+
+@pytest.mark.parametrize('key,value,needle', [
+    ('max_abs_err', chip_smoke.TOL_O, 'max|dO|'),
+    ('lse_max_abs_err', chip_smoke.TOL_LSE, 'max|dlse|'),
+])
+def test_backward_reading_holds_k1_at_the_training_shape(key, value, needle):
+    """check_bwd also holds K1's (O, lse), which both backwards take,
+    to TOL_O / TOL_LSE at every backward case."""
+    faults = chip_smoke.bwd_faults(
+        {**SOUND_BWD, 'fwd': {**SOUND_BWD['fwd'], key: value}})
+    assert len(faults) == 1 and faults[0].startswith('K1 ')
+    assert needle in faults[0]
+
+
+def test_train_parity_limits():
+    """The sound readings at bench-8b widths on the H100 (2 layers,
+    S2048): loss 10.8878 vs 10.8875, grad norm 7.44114 vs 7.44135, wq /
+    wk / wv grads 0.0136 / 0.0136 / 0.0131 apart relative to their
+    largest. The planted K3/K4 faults read grad-norm differences of
+    0.0050 (dq_drop_kv_tile), 0.0081 (dkv_drop_delta) and 0.059
+    (dkv_drop_q_head), and 0.31 (wq; K3 fault) and 0.20-0.67 (wk, wv;
+    K4 faults) on the grads of the projection each breaks."""
+    sound = {'flash_loss': 10.88781, 'dense_loss': 10.88749,
+             'flash_grad_norm': 7.44114, 'dense_grad_norm': 7.44135,
+             'loss_abs_diff': 3.1e-4, 'grad_norm_rel_diff': 2.8e-5,
+             'wq_grad_rel_err': 0.0136, 'wk_grad_rel_err': 0.0136,
+             'wv_grad_rel_err': 0.0131}
+    assert chip_smoke.train_faults(sound) == []
+    assert sound['loss_abs_diff'] * 10 < chip_smoke.TOL_TRAIN_LOSS
+    assert (sound['grad_norm_rel_diff'] * 10 < chip_smoke.TOL_TRAIN_GRAD_REL
+            < 0.0050 / 3)
+    for name in chip_smoke.PARITY_PROJ:
+        assert (sound[f'{name}_grad_rel_err'] * 3
+                < chip_smoke.TOL_TRAIN_PROJ_REL < 0.20 / 3)
+    for key, value in (('loss_abs_diff', chip_smoke.TOL_TRAIN_LOSS),
+                       ('grad_norm_rel_diff', chip_smoke.TOL_TRAIN_GRAD_REL),
+                       ('wq_grad_rel_err', chip_smoke.TOL_TRAIN_PROJ_REL),
+                       ('wk_grad_rel_err', 0.51),
+                       ('wv_grad_rel_err', 0.20),
+                       ('flash_loss', float('nan'))):
+        assert len(chip_smoke.train_faults({**sound, key: value})) == 1
+
+
+def test_backward_limit_sits_between_sound_and_faulty_readings():
+    """On the H100 the sound K3/K4 readings peak at 0.0042 (max|a-b| /
+    max|b|, the q_offset case's dV); the mildest planted fault
+    (dkv_drop_delta, q_offset case) reads 0.073."""
+    assert 0.0042 * 4 < chip_smoke.TOL_BWD_REL < 0.073 / 3
+
+
+def test_bwd_bounds_count_the_training_shape():
+    """bench-8b attention at S4096: 6*d and 8*d FLOP a visible pair over
+    S(S+1)/2 pairs a head; both bound by the tensor cores."""
+    bounds = chip_smoke.bwd_bounds(1, 4096, 4096, 32, 8, 128, None, None)
+    pairs = 4096 * 4097 // 2
+    assert bounds['dq'][2] == 6 * 128 * pairs * 32
+    assert bounds['dkv'][2] == 8 * 128 * pairs * 32
+    assert bounds['dq'][1] == bounds['dkv'][1] == 'operations'
+    assert bounds['dq'][0] == pytest.approx(
+        bounds['dq'][2] / chip_smoke.H100_BF16_FLOPS * 1e3)
+
+
 @pytest.mark.parametrize('fault', sorted(kernel_fault_check.FAULTS))
 def test_planted_fault_applies_once(fault):
-    with open(os.path.join(REPO, kernel_fault_check.KERNEL_SOURCE)) as f:
+    with open(os.path.join(REPO, kernel_fault_check.source_of(fault))) as f:
         source = f.read()
     planted = kernel_fault_check.plant(source, fault)
     assert planted != source
     with pytest.raises(ValueError, match='anchor occurs 0 times'):
         kernel_fault_check.plant(planted.replace(
             kernel_fault_check.FAULTS[fault][2], ''), fault)
+
+
+def test_backward_faults_target_the_backward_source():
+    assert set(kernel_fault_check.BWD_FAULTS) <= set(kernel_fault_check.FAULTS)
+    for fault in kernel_fault_check.FAULTS:
+        want = ('flash_bwd.cu' if fault in kernel_fault_check.BWD_FAULTS
+                else 'flash_fwd.cu')
+        assert kernel_fault_check.source_of(fault).endswith(want)
 
 
 def test_fault_check_refuses_to_run_without_cuda():

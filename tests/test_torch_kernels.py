@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card: K1/K2 against their plain versions.
+"""The port's CUDA kernels on the card: K1/K2 (flash forward) and K3/K4
+(flash backward) against their plain versions.
 
 Every test here is marked `gpu` and skips without CUDA. The file imports
 no JAX, so it runs on a machine with the card and without jax:
@@ -7,7 +8,9 @@ no JAX, so it runs on a machine with the card and without jax:
 
 (`--noconftest`: the suite's conftest.py sets up JAX.) Tolerance: bf16
 outputs within 0.05 of the plain version (the bound chip_smoke.py and
-the reference's `_tpu_flash_check.py` use); lse within 1e-3.
+the reference's `_tpu_flash_check.py` use); lse within 1e-3. Backward:
+dQ, dK and dV within 0.02 of the plain version relative to its largest
+magnitude (max|a-b| / max|b|, the limit chip_smoke.py holds K3/K4 to).
 """
 import pytest
 import torch
@@ -121,3 +124,98 @@ def test_engine_prefill_through_kernel_matches_dense_path(cuda):
     assert launched == 3 * config.num_layers and none == 0
     rel = float((flash - dense).abs().max() / dense.abs().max())
     assert rel < 0.05
+
+
+# (B, Sq, Skv, H, KV, D, causal, q_offset, window, softcap)
+BWD_CASES = {
+    'ragged_gqa': (2, 200, 200, 8, 2, 128, True, None, None, None),
+    'mha_d64': (1, 130, 130, 4, 4, 64, True, None, None, None),
+    'non_causal_ragged': (1, 100, 300, 4, 1, 128, False, None, None, None),
+    'window_softcap': (1, 300, 300, 8, 2, 128, True, None, 70, 30.0),
+    'q_offset': (2, 96, 300, 8, 4, 64, True, 204, None, None),
+    'masked_rows': (1, 64, 128, 4, 2, 128, True, 1000, 16, None),
+}
+
+
+def _bwd_inputs(cuda, b, sq, skv, h, kv, d, causal, off, window, softcap):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(b, sq, h, d, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(b, skv, kv, d, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(b, skv, kv, d, generator=gen, device=cuda).bfloat16()
+    do = torch.randn(b, sq, h, d, generator=gen, device=cuda).bfloat16()
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window,
+                          softcap=softcap, q_offset=off)
+    return q, k, v, do, o, lse
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize('case', list(BWD_CASES))
+def test_backward_kernels_match_plain(cuda, case):
+    b, sq, skv, h, kv, d, causal, off, window, softcap = BWD_CASES[case]
+    q, k, v, do, o, lse = _bwd_inputs(cuda, b, sq, skv, h, kv, d, causal,
+                                      off, window, softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for a, ref in zip(got, want):
+        assert a.shape == ref.shape and a.dtype == torch.bfloat16
+        assert bool(torch.isfinite(a).all())
+        if bool((ref != 0).any()):
+            assert _rel(a, ref) < 0.02
+        else:                       # every row masked: zero gradients
+            assert bool((a == 0).all())
+
+
+def test_autograd_through_flash_launches_backward_kernels(cuda):
+    b, sq, skv, h, kv, d, causal, off, window, softcap = BWD_CASES[
+        'ragged_gqa']
+    q, k, v, do, _, _ = _bwd_inputs(cuda, b, sq, skv, h, kv, d, causal, off,
+                                    window, softcap)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa.flash_attention.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    out = fa.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(n + 1 for n in before)
+    dense = [t.clone().float().requires_grad_(True) for t in (q, k, v)]
+    from skypilot_tpu_torch.ops import attention
+    ref = attention.dense_attention(*dense)
+    want = torch.autograd.grad(ref, dense, do.float())
+    for a, w in zip(grads, want):
+        assert _rel(a, w) < 0.05
+
+
+def test_backward_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
+    q, k, v, do, o, lse = _bwd_inputs(cuda, 1, 64, 64, 4, 2, 128, True,
+                                      None, None, None)
+    delta = fa.bwd_delta(o, do)
+    with pytest.raises(TypeError):          # f32 is not a kernel dtype
+        fa.flash_attention_dq(q.float(), k.float(), v.float(), do.float(),
+                              lse, delta)
+    with pytest.raises(ValueError):         # head_dim 96 is not built
+        fa.flash_attention_dkv(q[..., :96], k[..., :96], v[..., :96],
+                               do[..., :96], lse, delta)
+    with pytest.raises(ValueError):         # lse must be contiguous f32
+        fa.flash_attention_dq(q, k, v, do, lse.transpose(1, 2), delta)
+    with pytest.raises(ValueError):         # last dim not contiguous
+        fa.flash_attention_dkv(q, k.transpose(2, 3).contiguous()
+                               .transpose(2, 3), v, do, lse, delta)
+
+    def no_library():
+        raise RuntimeError('kernel library unavailable')
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention(*leaves)
+    monkeypatch.setattr(_build, 'library', no_library)
+    with pytest.raises(RuntimeError, match='unavailable'):
+        torch.autograd.grad(out, leaves, do)

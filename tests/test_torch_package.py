@@ -51,9 +51,12 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.models.llama',
                    'skypilot_tpu_torch.weights',
                    'skypilot_tpu_torch.envs',
-                   'skypilot_tpu_torch.device'):
+                   'skypilot_tpu_torch.device',
+                   'skypilot_tpu_torch.train',
+                   'skypilot_tpu_torch.train.trainer',
+                   'skypilot_tpu_torch.train.loop'):
         assert module in names.split()
-    assert int(count) >= 12
+    assert int(count) >= 15
 
 
 def test_entry_points_raise_without_cuda():
