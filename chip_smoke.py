@@ -10,10 +10,12 @@ Phases, each printing one JSON line:
                   sm_90a per source, started together) with its time.
   2. check_bf16 - K1 (flash_attention) against its plain PyTorch version
                   on the card: cached-prefill offset, window + softcap,
-                  fully-masked rows, and the engine's prefill shape,
-                  within TOL_O on O and TOL_LSE on lse.
+                  fully-masked rows, the engine's prefill shape, head_dim
+                  64, and ragged q/kv tiles at an unaligned offset, within
+                  TOL_O on O and TOL_LSE on lse.
   3. check_int8 - K2 (flash_attention_quant) the same way.
-  4. timing     - per kernel at the engine's prefill shape: kernel, plain
+  4. timing     - per kernel at the engine's prefill shape (K1 also at the
+                  training shape, TRAIN_TIMING_SHAPE): kernel, plain
                   version, scaled_dot_product_attention as a yardstick
                   (timed only, never used by the port), and the bound.
   5. engine_bf16 - build_engine('llama3-8b') at full width and depth with
@@ -66,9 +68,11 @@ import urllib.request
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s, H100 SXM
 # Limits of the kernel checks, kernel against plain version on the same
-# inputs. Sound kernels read max |dO| 0.0039 (one bf16 step at |O| near
-# 1) and max |dlse| 1e-6; kernel_fault_check.py shows that planted
-# faults (a dropped kv tile, a dropped diagonal) break them.
+# inputs. Sound kernels read max |dO| 0.0039 at the serving shapes and
+# 0.0078 at the training shape (one bf16 step at |O| in [0.5, 1) and
+# [1, 2)) and max |dlse| 2e-6; kernel_fault_check.py shows that planted
+# faults (a dropped kv tile, a dropped diagonal, a stale ring stage, an
+# unmasked frontier tile) break them.
 TOL_O = 0.01               # max |O_kernel - O_plain|, bf16 output
 TOL_LSE = 1e-3             # max |lse_kernel - lse_plain| on finite rows
 TOL_LOGITS_REL = 0.05      # prefill logits, max|a-b| / max|b|
@@ -219,10 +223,16 @@ CHECK_CASES = (
     ('masked_rows', 2, 128, 1024, 32, 8, 128, 1000, 64, None),
     ('engine_chunk', 8, 512, 2048, 32, 8, 128, 1536, None, None),
     ('head_dim_64', 2, 256, 1024, 32, 8, 64, 512, None, None),
+    # A ragged last q tile (200 = 128 + 72 rows) at an offset that is no
+    # multiple of the 128-row kv tile, against a ragged kv length.
+    ('ragged_tiles', 3, 200, 1500, 32, 8, 128, 1299, None, None),
 )
 # The main path's heaviest prefill chunk: batch 8, chunk 512 at cache
 # position 1536 of a 2048-position paged view (llama3-8b heads).
 TIMING_SHAPE = (8, 512, 2048, 32, 8, 128, 1536)
+# The train phase's attention (K1, forward and remat recompute): bench-8b
+# heads at batch 1, seq 4096, causal, no offset.
+TRAIN_TIMING_SHAPE = (1, 4096, 4096, 32, 8, 128, 0)
 
 
 def kernel_readings(torch, fa, quant):
@@ -232,9 +242,12 @@ def kernel_readings(torch, fa, quant):
             for name, *rest in CHECK_CASES}
 
 
-def kernel_timing(torch, fa, quant):
+def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE):
+    """K1 (K2 with `quant`) at `shape` (B, T, S, H, KV, D, q_offset; causal
+    from q_offset): kernel ms, plain ms, one SDPA call over the same
+    (dequantised) inputs, and the bound."""
     import torch.nn.functional as F
-    b, t, s, h, kv, d, off = TIMING_SHAPE
+    b, t, s, h, kv, d, off = shape
     gen = torch.Generator(device=DEV).manual_seed(7)
     q, k, v, ks, vs = attn_inputs(torch, gen, b, t, s, h, kv, d, quant)
     kw = dict(causal=True, q_offset=off)
@@ -249,12 +262,16 @@ def kernel_timing(torch, fa, quant):
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
             q, k, v, **kw), iters=3, warmup=1)
         kd, vd = k, v
-    q_pos = off + torch.arange(t, device=DEV)
-    mask = torch.arange(s, device=DEV)[None, :] <= q_pos[:, None]
     qt, kt, vt = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
+    if off == 0 and t == s:
+        sdpa_kw = dict(is_causal=True)
+    else:
+        q_pos = off + torch.arange(t, device=DEV)
+        sdpa_kw = dict(attn_mask=torch.arange(s, device=DEV)[None, :]
+                       <= q_pos[:, None])
     try:
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            qt, kt, vt, enable_gqa=True, **sdpa_kw))
     except TypeError:  # a torch without enable_gqa: no one-call yardstick
         library_ms = None
     bms, bound_by, flops = bound_ms(b, t, s, h, kv, d, off, None, quant)
@@ -889,7 +906,7 @@ def main():
     info = _build.build_info()
     ptxas = [line.strip() for line in info.log.splitlines()
              if any(w in line for w in ('entry function', 'registers',
-                                        'spill'))]
+                                        'spill', 'C75'))]
     emit('toolchain', python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
          gpu=smi, device=torch.cuda.get_device_name(0),
@@ -911,7 +928,7 @@ def main():
             raise AssertionError(f'{name} disagrees with its plain '
                                  f'version: {bad}')
         timing = kernel_timing(torch, fa, quant)
-        emit('timing', kernel=name, **timing)
+        emit('timing', kernel=name, path='serving', **timing)
         kernels[name] = {
             'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
             'replaces': ('skypilot_tpu/ops/flash_attention.py:100' if quant
@@ -920,6 +937,19 @@ def main():
             'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
             'bound_by': timing['bound_by'],
             'library_ms': timing['library_ms']}
+        if not quant:
+            # K1's second shape, the training path's; its launches come
+            # from the train phase.
+            train_timing = kernel_timing(torch, fa, quant,
+                                         TRAIN_TIMING_SHAPE)
+            emit('timing', kernel=name, path='training', **train_timing)
+            kernels[name]['shapes'] = [
+                {'path': path, 'shape': tm['shape'],
+                 'q_offset': tm['q_offset'], 'launches': 0,
+                 **{key: tm[key] for key in ('ms', 'plain_ms', 'bound_ms',
+                                             'bound_by', 'library_ms')}}
+                for path, tm in (('serving', timing),
+                                 ('training', train_timing))]
 
     # 8-9. backward kernels against their plain version, then timing
     cases = bwd_readings(torch, fa)
@@ -966,6 +996,7 @@ def main():
     out, launches = engine_phase(torch, inference, eng, fa, llama,
                                  engine, rng, quant=False)
     kernels['flash_attention']['launches'] = launches
+    kernels['flash_attention']['shapes'][0]['launches'] = launches
     emit('engine_bf16', model='llama3-8b', layers=32, init_s=init_s,
          **ENGINE_KW, **out)
     params, config = engine.params, engine.config
@@ -1000,6 +1031,8 @@ def main():
 
     # 11. the training main path
     train = train_phase(torch, fa)
+    kernels['flash_attention']['shapes'][1]['launches'] = train[
+        'launches']['K1']
     kernels['flash_attention_dq']['launches'] = train['launches']['K3']
     kernels['flash_attention_dkv']['launches'] = train['launches']['K4']
     emit('train', **train)

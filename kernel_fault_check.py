@@ -10,7 +10,9 @@ for K3/K4), and runs this script again inside the copy (so the copy's
 kernels are built and loaded). There it takes the readings chip_smoke.py
 holds to its limits:
 
-  - forward faults: K1 and K2 against their plain versions on every
+  - forward faults (a kv tile dropped, the diagonal masked, a stale ring
+    stage read, the frontier tile left unmasked): K1 and K2 against
+    their plain versions on every
     CHECK_CASES case (max |dO| < TOL_O, max |dlse| < TOL_LSE, the
     lse = +inf rows), and the llama3-8b prefill logits through the
     kernel against the plain version and the dense forward
@@ -40,18 +42,34 @@ KERNEL_SOURCE = os.path.join('skypilot_tpu_torch', 'ops', 'csrc',
                              'flash_fwd.cu')
 BWD_SOURCE = os.path.join('skypilot_tpu_torch', 'ops', 'csrc',
                           'flash_bwd.cu')
+# The top of the forward consumers' per-tile math, and of K3's kv loop.
+_FWD_TILE_TOP = ('      // S = Q K^T over the tile (wgmma, both operands in '
+                 'shared memory).\n')
 _LOOP_TOP = '    __syncthreads();  // the previous tile is consumed\n'
 # name -> (what it breaks, text in its kernel source, its replacement);
 # the source is KERNEL_SOURCE unless BWD_FAULTS names the fault.
 FAULTS = {
     'drop_kv_tile': (
         'the kv loop skips the second tile it would visit',
-        _LOOP_TOP,
-        '    if (k0 == (kv_lo / kBK) * kBK + kBK) continue;\n' + _LOOP_TOP),
+        _FWD_TILE_TOP,
+        '      if (i == 1) {  // the stage is released, its tile unread\n'
+        '        if (lane == 0) mbar_arrive(empty0 + 8 * stage);\n'
+        '        continue;\n'
+        '      }\n' + _FWD_TILE_TOP),
     'drop_diagonal': (
         'the causal mask hides each query\'s own position',
-        'ok = ok && qpos[half] >= kpos;',
-        'ok = ok && qpos[half] > kpos;'),
+        'ok = ok && qpos >= kpos;',
+        'ok = ok && qpos > kpos;'),
+    'stale_stage': (
+        'the consumers read the ring stage after the one their barrier '
+        'released',
+        'const uint32_t stage_base = operands + stage * L::kStageBytes;',
+        'const uint32_t stage_base =\n'
+        '          operands + ((stage + 1) % kStages) * L::kStageBytes;'),
+    'frontier_tile_unmasked': (
+        'a kv tile crossing the causal frontier takes the unmasked path',
+        'const bool crosses_frontier = p.causal && k0 + kBK - 1 > qp_lo;',
+        'const bool crosses_frontier = false;'),
     'dq_drop_kv_tile': (
         'K3 skips the second kv tile it would visit',
         _LOOP_TOP,

@@ -11,41 +11,88 @@
 // Rows with no visible key give O = 0 and lse = +inf, as the reference.
 //
 // What bounds it on this card: serving prefill at chunk 512-1024 against a
-// cache of a few thousand positions does 4*B*H*T*S_visible*D FLOP over
-// O((T + S_visible)*D) bytes per (b, h), far above the H100's ~295 FLOP per
-// byte, so it is bound by the tensor cores (989 TFLOP/s dense bf16).
+// cache of a few thousand positions (and training at S 4096) does
+// 4*B*H*T*S_visible*D FLOP over O((T + S_visible)*D) bytes per (b, h), far
+// above the H100's ~295 FLOP per byte, so it is bound by the tensor cores
+// (989 TFLOP/s dense bf16), and only wgmma reaches their rate. The first
+// port (mma.sync, loads and math serialised in 4-warp blocks) ran at 61
+// TFLOP/s.
 //
-// What this first design does about it:
-//  * The TPU grid's sequential kv axis becomes a loop inside the block:
-//    one block of 4 warps per (q-tile of 64 rows, head, batch); each warp
-//    owns 16 query rows, held in registers as mma.sync A fragments.
-//  * The kv loop runs only over [lo, hi): hi = min(Skv, q_offset + last
-//    row + 1), lo = q_offset + first row - window + 1 (the reference's
-//    _clamped_kv_index as loop bounds), so tiles past the causal frontier
-//    are never read from device memory.
-//  * QK^T and PV run on the tensor cores through mma.sync.m16n8k16 (bf16
-//    in, f32 accumulate); the score tile never leaves registers: the S
-//    accumulator fragment of QK^T is re-packed as the A fragment of PV.
-//  * int8 K/V tiles are read at half width and widened to bf16 while
-//    they are staged into shared memory; ks scales the score columns and
-//    vs folds into p before the PV product, as the reference does.
-// Not yet done (later work): wgmma, TMA, a multi-stage cp.async pipeline
-// and warp specialisation. Loads and math do not overlap here.
+// What the design does about it:
+//  * One CTA per (128-row q tile, q head, batch): two consumer warpgroups
+//    of 64 q rows each and a producer warpgroup. The producer gives
+//    registers back (setmaxnreg.dec) and the consumers take them
+//    (setmaxnreg.inc): the S tile, the O accumulator and the P fragments
+//    of 64 rows stay in registers, with no spills.
+//  * Loads by TMA: Q once per CTA; K and V in 128-row tiles into a ring
+//    of kStages stages guarded by full/empty mbarriers, so the next tile
+//    is in flight while the consumers compute. TMA writes the tiles
+//    128-byte swizzled (a d 128 bf16 row is two 64-column slabs) and
+//    zero-fills rows past Sq / Skv.
+//  * S = Q K^T and O += P V both on wgmma (bf16 in, f32 accumulate): Q
+//    and K from shared memory (K-major), P from registers (the S
+//    accumulator rounded in place to bf16 A fragments), V from shared
+//    memory as an MN-major operand through wgmma's transpose bit.
+//  * The kv loop runs over [lo, hi) (the reference's _clamped_kv_index as
+//    loop bounds). Each tile is classified against the warpgroup's rows:
+//    only a tile crossing the causal frontier, the window's lower edge or
+//    Skv runs the per-element mask. exp2 with scale * log2(e) folded into
+//    the score; lse goes back to the natural log at the end.
+//  * int8 K/V (K2) arrive by TMA at half the bytes into an int8 ring; the
+//    producer warpgroup widens each tile into the bf16 stage (exact, two
+//    values per bf16x2 subtraction) in the swizzled layout, with its
+//    ks/vs beside it, while the consumers compute on the previous stage.
+//    ks scales the score columns and vs folds into P, as the reference.
+// Measured by chip_smoke.py on an H100 SXM at 700 W (PERF.md section 6):
+// K1 about 440 TFLOP/s at the serving chunk and 420 at the training
+// shape, K2 about 280 (the widening pass competes for issue slots).
+// Not done here: the two-warpgroup softmax/GEMM ping-pong (each warpgroup
+// still runs Q K^T, softmax and P V in turn), persistent CTAs, fp8.
 //
 // Launch contract: runs on the caller's stream, never synchronises and
 // allocates nothing; O and lse are allocated by the wrapper. Each entry
-// point returns cudaGetLastError() of its launch.
+// point returns cudaGetLastError() of its launch (cudaErrorInvalidValue
+// when a tensor map cannot describe an input).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block (4 warps x 16)
-constexpr int kBK = 64;        // kv positions per tile
-constexpr int kThreads = 128;
+constexpr int kBQ = 128;           // q rows per CTA: two warpgroups x 64
+constexpr int kBK = 128;           // kv rows per tile
+constexpr int kStages = 2;         // K/V ring depth
+constexpr int kConsumers = 256;    // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr int kSlab = 128 * 128;   // bytes of one swizzled [128 x 64] bf16 slab
 constexpr float kNegInf = -1e30f;  // the reference's masked score
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr uint32_t kSpinLimit = 1u << 28;  // a lost barrier traps, not hangs
+constexpr int kMaxSmem = 232448;   // a block's dynamic shared memory, opted in
+
+// Byte offsets in dynamic shared memory, from a base aligned to 1024. K
+// and V reach wgmma as bf16 tiles in kStages stages; int8 K/V (K2) land
+// first in an int8 ring of as many stages, with their scales beside.
+template <int D, bool QUANT>
+struct Smem {
+  static constexpr int kSlabs = D / 64;               // slabs of a bf16 row
+  static constexpr int kTile = kSlabs * kSlab;         // 128 bf16 rows
+  static constexpr int kStageBytes = 2 * kTile;        // K then V
+  static constexpr int kInt8Tile = kBK * D;            // 128 int8 rows
+  static constexpr int kQ = 0;
+  static constexpr int kOperands = kQ + kTile;
+  static constexpr int kInt8Ring = kOperands + kStages * kStageBytes;
+  static constexpr int kScales =
+      kInt8Ring + (QUANT ? kStages * 2 * kInt8Tile : 0);   // ks then vs
+  static constexpr int kBars = kScales + (QUANT ? kStages * 2 * kBK * 4 : 0);
+  static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages);
+  static constexpr int kAlloc =
+      kBytes + 1024 < kMaxSmem ? kBytes + 1024 : kMaxSmem;
+  static_assert(kBytes <= kMaxSmem, "shared memory layout too large");
+};
 
 }  // namespace
 
@@ -69,76 +116,212 @@ struct FlashParams {
   float scale, softcap;  // softcap <= 0: off
 };
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
+// ---- barriers, TMA, wgmma (PTX) ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == kSpinLimit) __trap();
+  }
+}
+
+// One box of a 4-D tensor map ({d, head, seq, batch}) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int head,
+                                         int seq, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head),
+      "r"(seq), "r"(batch)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand.
+// lbo / sbo in bytes: K-major uses only sbo (8-row groups, 1024 B apart);
+// MN-major uses lbo between 64-column slabs and sbo between 8-row groups.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads of an accumulator across the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define SKYTPU_F8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+#define SKYTPU_R32                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define SKYTPU_R64                                                          \
+  SKYTPU_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "    \
+             "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+             "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d[64] (+)= A[64x16] B[16x128]; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SKYTPU_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SKYTPU_F8(d, 0), SKYTPU_F8(d, 8), SKYTPU_F8(d, 16), SKYTPU_F8(d, 24),
+        SKYTPU_F8(d, 32), SKYTPU_F8(d, 40), SKYTPU_F8(d, 48), SKYTPU_F8(d, 56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64] += A[64x16] B[16x128]; A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SKYTPU_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SKYTPU_F8(d, 0), SKYTPU_F8(d, 8), SKYTPU_F8(d, 16), SKYTPU_F8(d, 24),
+        SKYTPU_F8(d, 32), SKYTPU_F8(d, 40), SKYTPU_F8(d, 48), SKYTPU_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[32] += A[64x16] B[16x64]; A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SKYTPU_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SKYTPU_F8(d, 0), SKYTPU_F8(d, 8), SKYTPU_F8(d, 16), SKYTPU_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats -> one register of two bf16, `lo` in the low half (the
-// element with the smaller column index in an mma fragment).
+// element with the smaller column index in a fragment).
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// Two int8 in bits 0-7 and 16-23 -> two bf16, exactly, as
+// (128 + (x & 127)) - (128 or 256): the low seven bits set as mantissa
+// bits of 128.0, the sign bit landing on the exponent's lowest bit
+// (128.0 -> 256.0), then one bf16x2 subtraction.
+__device__ __forceinline__ uint32_t widen2(uint32_t spread) {
+  const uint32_t v = (spread & 0x007F007Fu) | 0x43004300u;
+  const uint32_t s = (spread & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+              *reinterpret_cast<const __nv_bfloat162*>(&s));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-__device__ __forceinline__ uint32_t widen2(int8_t lo, int8_t hi) {
-  return pack_f32(static_cast<float>(lo), static_cast<float>(hi));
+__device__ __forceinline__ uint2 ld_shared_v2(uint32_t addr) {
+  uint2 w;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(w.x), "=r"(w.y)
+               : "r"(addr));
+  return w;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
+                                             uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
 }
 
 template <int D, bool QUANT, bool SOFTCAP>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const FlashParams p) {
-  constexpr int LD = D + 8;          // padded smem row: no bank conflicts
-  constexpr int KSTEPS = D / 16;     // k-steps of the QK^T product
-  constexpr int DTILES = D / 8;      // n-tiles of the PV product
-  constexpr int STILES = kBK / 8;    // n-tiles of the score tile
-  constexpr int CHUNKS = kBK * D / 8;  // 8-element chunks per K/V tile
-
-  __shared__ __align__(16) __nv_bfloat16 k_tile[kBK * LD];
-  __shared__ __align__(16) __nv_bfloat16 v_tile[kBK * LD];
-  __shared__ float ks_tile[kBK];
-  __shared__ float vs_tile[kBK];
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ FlashParams p,
+                     const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv) {
+  using L = Smem<D, QUANT>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  if (pad + L::kBytes > L::kAlloc) __trap();
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t q_smem = base + L::kQ;
+  const uint32_t operands = base + L::kOperands;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full0 = q_full + 8;              // full[s] = full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kStages;    // empty[s]
+  const uint32_t int8_full0 = empty0 + 8 * kStages;  // int8 ring (K2)
 
   // Heavier (later) causal q tiles first: they finish last otherwise.
   const int q_tile = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;    // fragment row group
-  const int tig = lane & 3;   // thread in group
   const int q_start = q_tile * kBQ;
-  const int row0 = q_start + warp * 16 + g;  // this thread's rows: row0, row0+8
 
-  // Q fragments (A operand, row-major 16x16 per k-step) straight into
-  // registers; rows past Sq are zero and never stored.
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(p.q) +
-                            b * p.q_sb + h * p.q_sh;
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = row0 + (r & 1) * 8;
-      const int col = kk * 16 + (r >> 1) * 8 + tig * 2;
-      qf[kk][r] = row < p.Sq ? *reinterpret_cast<const uint32_t*>(
-                                   qp + row * p.q_ss + col)
-                             : 0u;
-    }
-  }
-
+  // kv tiles [k_first, kv_hi): nothing past the causal frontier of the
+  // CTA's last row nor before the window of its first row is read.
   int kv_hi = p.Skv;
   int kv_lo = 0;
   if (p.causal) {
@@ -146,184 +329,377 @@ __global__ void __launch_bounds__(kThreads)
     kv_hi = min(p.Skv, p.q_offset + last_row + 1);
     if (p.windowed) kv_lo = max(0, p.q_offset + q_start - p.window + 1);
   }
+  const int k_first = (kv_lo / kBK) * kBK;
+  const int n_tiles = kv_hi > k_first ? (kv_hi - k_first + kBK - 1) / kBK : 0;
 
-  const char* kbase = static_cast<const char*>(p.k);
-  const char* vbase = static_cast<const char*>(p.v);
-  constexpr int ESZ = QUANT ? 1 : 2;
-
-  float acc[DTILES][4];
-#pragma unroll
-  for (int i = 0; i < DTILES; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // per-thread partial row sums
-  const int qpos[2] = {p.q_offset + row0, p.q_offset + row0 + 8};
-
-  for (int k0 = (kv_lo / kBK) * kBK; k0 < kv_hi; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int c = tid; c < CHUNKS; c += kThreads) {
-      const int r = c / (D / 8);
-      const int col = (c % (D / 8)) * 8;
-      const int kpos = k0 + r;
-      uint4 kw = make_uint4(0, 0, 0, 0);
-      uint4 vw = make_uint4(0, 0, 0, 0);
-      if (kpos < p.Skv) {
-        const int64_t koff =
-            (b * p.k_sb + kpos * p.k_ss + kvh * p.k_sh + col) * ESZ;
-        const int64_t voff =
-            (b * p.v_sb + kpos * p.v_ss + kvh * p.v_sh + col) * ESZ;
-        if (QUANT) {
-          const uint2 k8 = *reinterpret_cast<const uint2*>(kbase + koff);
-          const uint2 v8 = *reinterpret_cast<const uint2*>(vbase + voff);
-          const int8_t* kb = reinterpret_cast<const int8_t*>(&k8);
-          const int8_t* vb = reinterpret_cast<const int8_t*>(&v8);
-          kw = make_uint4(widen2(kb[0], kb[1]), widen2(kb[2], kb[3]),
-                          widen2(kb[4], kb[5]), widen2(kb[6], kb[7]));
-          vw = make_uint4(widen2(vb[0], vb[1]), widen2(vb[2], vb[3]),
-                          widen2(vb[4], vb[5]), widen2(vb[6], vb[7]));
-        } else {
-          kw = *reinterpret_cast<const uint4*>(kbase + koff);
-          vw = *reinterpret_cast<const uint4*>(vbase + voff);
-        }
-      }
-      *reinterpret_cast<uint4*>(&k_tile[r * LD + col]) = kw;
-      *reinterpret_cast<uint4*>(&v_tile[r * LD + col]) = vw;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // one arrival a warp
+      mbar_init(int8_full0 + 8 * s, 1);
     }
-    if (QUANT) {
-      for (int c = tid; c < kBK; c += kThreads) {
-        const int kpos = k0 + c;
-        const bool in = kpos < p.Skv;
-        ks_tile[c] = in ? p.ks[b * p.ks_sb + kpos * p.ks_ss + kvh * p.ks_sh]
-                        : 0.f;
-        vs_tile[c] = in ? p.vs[b * p.vs_sb + kpos * p.vs_ss + kvh * p.vs_sh]
-                        : 0.f;
-      }
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns.
-    float s[STILES][4];
-#pragma unroll
-    for (int j = 0; j < STILES; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const __nv_bfloat16* kr = &k_tile[(j * 8 + g) * LD + kk * 16 + tig * 2];
-        mma_16816(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // Score mods in the reference's order (_score_mods): scale, ks,
-    // softcap, then the causal/window mask.
-    float mb[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < STILES; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int col = j * 8 + tig * 2 + (e & 1);
-        const int kpos = k0 + col;
-        float x = s[j][e] * p.scale;
-        if (QUANT) x *= ks_tile[col];
-        if (SOFTCAP) x = p.softcap * tanhf(x / p.softcap);
-        bool ok = kpos < p.Skv;
-        if (p.causal) {
-          ok = ok && qpos[half] >= kpos;
-          if (p.windowed) ok = ok && (qpos[half] - kpos < p.window);
-        }
-        x = ok ? x : kNegInf;
-        s[j][e] = x;
-        mb[half] = fmaxf(mb[half], x);
-      }
-    }
-    float corr[2];
-    float safe_m[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mb[i] = fmaxf(mb[i], __shfl_xor_sync(0xffffffffu, mb[i], 1));
-      mb[i] = fmaxf(mb[i], __shfl_xor_sync(0xffffffffu, mb[i], 2));
-      const float m_new = fmaxf(m[i], mb[i]);
-      safe_m[i] = m_new <= kNegInf * 0.5f ? 0.f : m_new;
-      corr[i] = expf(m[i] - safe_m[i]);
-      m[i] = m_new;
-    }
-    float lsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < STILES; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        float pe = expf(s[j][e] - safe_m[half]);
-        lsum[half] += pe;
-        if (QUANT) pe *= vs_tile[j * 8 + tig * 2 + (e & 1)];
-        s[j][e] = pe;
-      }
-    }
-    l[0] = l[0] * corr[0] + lsum[0];
-    l[1] = l[1] * corr[1] + lsum[1];
-#pragma unroll
-    for (int i = 0; i < DTILES; ++i) {
-      acc[i][0] *= corr[0];
-      acc[i][1] *= corr[0];
-      acc[i][2] *= corr[1];
-      acc[i][3] *= corr[1];
-    }
-
-    // O += P V: the score accumulators of n-tiles (2t, 2t+1) are the A
-    // fragment of k-step t; V (B operand, k = kv, n = d) is gathered
-    // from the row-major tile.
-#pragma unroll
-    for (int t = 0; t < kBK / 16; ++t) {
-      const uint32_t a[4] = {
-          pack_f32(s[2 * t][0], s[2 * t][1]),
-          pack_f32(s[2 * t][2], s[2 * t][3]),
-          pack_f32(s[2 * t + 1][0], s[2 * t + 1][1]),
-          pack_f32(s[2 * t + 1][2], s[2 * t + 1][3]),
-      };
-#pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        const __nv_bfloat16* vr = &v_tile[(t * 16 + tig * 2) * LD + dt * 8 + g];
-        mma_16816(acc[dt], a, pack_bf16(vr[0], vr[LD]),
-                  pack_bf16(vr[8 * LD], vr[9 * LD]));
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // Finalize: full row sums across the 4 threads of a group, then
-  // O = acc / l (l == 0 -> O = 0) and lse (+inf on fully masked rows).
-  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
-                      h * p.o_sh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float lt = l[i];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const int row = row0 + i * 8;
-    if (row >= p.Sq) continue;
-    const float norm = lt == 0.f ? 1.f : lt;
-#pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + row * p.o_ss + dt * 8 + tig * 2) =
-          pack_f32(acc[dt][2 * i] / norm, acc[dt][2 * i + 1] / norm);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread issues the TMA loads; for K2
+    // the whole warpgroup widens each int8 tile into the bf16 stage ----
+    if constexpr (QUANT)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int pt = threadIdx.x - kConsumers;
+    // int8 K/V tile i into int8 ring stage i % kStages.
+    auto load_int8 = [&](int i) {
+      const int s = i % kStages;
+      const uint32_t dst = base + L::kInt8Ring + s * 2 * L::kInt8Tile;
+      const int k0 = k_first + i * kBK;
+      mbar_expect_tx(int8_full0 + 8 * s, 2 * L::kInt8Tile);
+      tma_load(dst, &tk, int8_full0 + 8 * s, 0, kvh, k0, b);
+      tma_load(dst + L::kInt8Tile, &tv, int8_full0 + 8 * s, 0, kvh, k0, b);
+    };
+    if (pt == 0) {
+      mbar_expect_tx(q_full, L::kTile);
+      for (int sl = 0; sl < L::kSlabs; ++sl)
+        tma_load(q_smem + sl * kSlab, &tq, q_full, sl * 64, h, q_start, b);
+      if constexpr (QUANT) {
+        for (int i = 0; i < kStages && i < n_tiles; ++i) load_int8(i);
+      } else {
+        for (int i = 0; i < n_tiles; ++i) {
+          const int s = i % kStages;
+          mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
+          const uint32_t dst = operands + s * L::kStageBytes;
+          const int k0 = k_first + i * kBK;
+          mbar_expect_tx(full0 + 8 * s, L::kStageBytes);
+          for (int sl = 0; sl < L::kSlabs; ++sl) {
+            tma_load(dst + sl * kSlab, &tk, full0 + 8 * s, sl * 64, kvh, k0,
+                     b);
+            tma_load(dst + L::kTile + sl * kSlab, &tv, full0 + 8 * s,
+                     sl * 64, kvh, k0, b);
+          }
+        }
+      }
     }
-    if (tig == 0) {
-      const float sm = m[i] <= kNegInf * 0.5f ? 0.f : m[i];
-      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + row] =
-          lt > 0.f ? sm + logf(fmaxf(lt, 1e-37f)) : __int_as_float(0x7f800000);
+    if constexpr (QUANT) {
+      constexpr int kRowStep = 128 / (D / 8);  // rows widened a pass
+      const int widen_ch = pt % (D / 8);
+      const int widen_row = pt / (D / 8);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t parity = (i / kStages) & 1;
+        const int k0 = k_first + i * kBK;
+        const int kpos = k0 + pt;  // this thread's ks/vs, read early
+        const bool in = kpos < p.Skv;
+        const float ksv =
+            in ? p.ks[b * p.ks_sb + kpos * p.ks_ss + kvh * p.ks_sh] : 0.f;
+        const float vsv =
+            in ? p.vs[b * p.vs_sb + kpos * p.vs_ss + kvh * p.vs_sh] : 0.f;
+        mbar_wait(int8_full0 + 8 * s, parity);
+        mbar_wait(empty0 + 8 * s, parity ^ 1);
+        // Widen into the stage, swizzled as TMA writes a bf16 tile: each
+        // thread takes one 8-column chunk of every kRowStep-th row, so its
+        // swizzle (chunk ^ row % 8) is the same on every row it takes.
+        const uint32_t src = base + L::kInt8Ring + s * 2 * L::kInt8Tile +
+                             widen_row * D + widen_ch * 8;
+        const uint32_t dst = operands + s * L::kStageBytes +
+                             (widen_ch / 8) * kSlab + widen_row * 128 +
+                             (((widen_ch % 8) ^ (widen_row % 8)) * 16);
+#pragma unroll
+        for (int which = 0; which < 2; ++which) {  // K, then V
+#pragma unroll 4
+          for (int r = 0; r < kBK; r += kRowStep) {
+            const uint2 w = ld_shared_v2(src + which * L::kInt8Tile + r * D);
+            st_shared_v4(dst + which * L::kTile + r * 128,
+                         widen2(__byte_perm(w.x, 0, 0x4140)),
+                         widen2(__byte_perm(w.x, 0, 0x4342)),
+                         widen2(__byte_perm(w.y, 0, 0x4140)),
+                         widen2(__byte_perm(w.y, 0, 0x4342)));
+          }
+        }
+        float* sc = reinterpret_cast<float*>(smem + L::kScales) + s * 2 * kBK;
+        sc[pt] = ksv;
+        sc[kBK + pt] = vsv;
+        fence_proxy_async();               // generic writes -> wgmma reads
+        named_barrier_sync(1, 128);        // the int8 stage is read
+        if (pt == 0) {
+          mbar_arrive(full0 + 8 * s);
+          if (i + kStages < n_tiles) load_int8(i + kStages);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows [64 wg, 64 wg + 64) ----
+    if constexpr (QUANT)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int tig = lane % 4;                        // thread in quad
+    const int row0 = q_start + wg * 64 + (t / 32) * 16 + lane / 4;
+    const float scale_log2 = p.scale * kLog2e;
+    // softcap: cap * tanh(scale * s / cap), in log2 units.
+    const float cap_in = SOFTCAP ? p.scale / p.softcap : 0.f;
+    const float cap_out = p.softcap * kLog2e;
+    const uint32_t q_wg = q_smem + wg * 64 * 128;  // 64 rows into each slab
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // running max, log2 units
+    float l[2] = {0.f, 0.f};          // per-thread partial row sums
+    mbar_wait(q_full, 0);
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int stage = i % kStages;
+      const int k0 = k_first + i * kBK;
+      mbar_wait(full0 + 8 * stage, (i / kStages) & 1);
+      const uint32_t stage_base = operands + stage * L::kStageBytes;
+      const uint32_t k_tile = stage_base;
+      const uint32_t v_tile = stage_base + L::kTile;
+      // int8: this thread's ks/vs pairs at column 2 tig, 8 columns apart.
+      const uint32_t ks_pair =
+          base + L::kScales + (stage * 2 * kBK + tig * 2) * 4;
+
+      // S = Q K^T over the tile (wgmma, both operands in shared memory).
+      float s[kBK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kSlab + (kk % 4) * 32;
+        wgmma_ss_n128(s, desc_b128(q_wg + off, 16, 1024),
+                      desc_b128(k_tile + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<kBK / 2>(s);
+
+      // Score mods in the reference's order (_score_mods): scale, ks,
+      // softcap, then the mask; scores in log2 units from here on.
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        uint2 ksj = make_uint2(0u, 0u);
+        if (QUANT) ksj = ld_shared_v2(ks_pair + j * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float kscale = __uint_as_float((e & 1) ? ksj.y : ksj.x);
+          float x = s[4 * j + e];
+          if (SOFTCAP) {
+            x *= QUANT ? cap_in * kscale : cap_in;
+            x = tanhf(x) * cap_out;
+          } else {
+            x *= QUANT ? scale_log2 * kscale : scale_log2;
+          }
+          s[4 * j + e] = x;
+        }
+      }
+      // Only a tile that reaches past Skv, crosses the causal frontier of
+      // the warpgroup's first row or the window of its last row is masked.
+      const int qp_lo = p.q_offset + q_start + wg * 64;  // warpgroup's rows
+      const int qp_hi = qp_lo + 63;
+      const bool past_skv = k0 + kBK > p.Skv;
+      const bool crosses_frontier = p.causal && k0 + kBK - 1 > qp_lo;
+      const bool below_window =
+          p.causal && p.windowed && k0 <= qp_hi - p.window;
+      if (past_skv || crosses_frontier || below_window) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + j * 8 + tig * 2 + (e & 1);
+            const int qpos = p.q_offset + row0 + (e >> 1) * 8;
+            bool ok = kpos < p.Skv;
+            if (p.causal) {
+              ok = ok && qpos >= kpos;
+              if (p.windowed) ok = ok && (qpos - kpos < p.window);
+            }
+            if (!ok) s[4 * j + e] = kNegInf;
+          }
+        }
+      }
+      float mb[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        mb[0] = fmaxf(mb[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mb[1] = fmaxf(mb[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float corr[2];
+      float safe_m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mb[r] = fmaxf(mb[r], __shfl_xor_sync(0xffffffffu, mb[r], 1));
+        mb[r] = fmaxf(mb[r], __shfl_xor_sync(0xffffffffu, mb[r], 2));
+        const float m_new = fmaxf(m[r], mb[r]);
+        safe_m[r] = m_new <= kNegInf * 0.5f ? 0.f : m_new;
+        corr[r] = fast_exp2(m[r] - safe_m[r]);
+        m[r] = m_new;
+      }
+      float lsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        uint2 vsj = make_uint2(0u, 0u);
+        if (QUANT) vsj = ld_shared_v2(ks_pair + kBK * 4 + j * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pe = fast_exp2(s[4 * j + e] - safe_m[e >> 1]);
+          lsum[e >> 1] += pe;
+          if (QUANT) pe *= __uint_as_float((e & 1) ? vsj.y : vsj.x);
+          s[4 * j + e] = pe;
+        }
+      }
+      l[0] = l[0] * corr[0] + lsum[0];
+      l[1] = l[1] * corr[1] + lsum[1];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= corr[0];
+        acc[4 * j + 1] *= corr[0];
+        acc[4 * j + 2] *= corr[1];
+        acc[4 * j + 3] *= corr[1];
+      }
+
+      // O += P V: the score accumulators of columns [16 t, 16 t + 16) are
+      // the A fragment of k-step t, all rounded before the first wgmma;
+      // V's k-step t is its rows 16 t.. (2 KB into each slab), MN-major,
+      // 64-column slabs kSlab apart.
+      uint32_t pa[kBK / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < kBK / 16; ++kt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kt][r] = pack_f32(s[8 * kt + 2 * r], s[8 * kt + 2 * r + 1]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kt = 0; kt < kBK / 16; ++kt) {
+        const uint64_t vd = desc_b128(v_tile + kt * 16 * 128, kSlab, 1024);
+        if constexpr (D == 128)
+          wgmma_rs_n128(acc, pa[kt], vd);
+        else
+          wgmma_rs_n64(acc, pa[kt], vd);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<D / 2>(acc);
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    }
+
+    // Finalize: full row sums across the quad, O = acc / l (l == 0 ->
+    // O = 0) and lse in natural log (+inf on rows with no visible key).
+    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
+                        h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lt = l[r];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int row = row0 + r * 8;
+      if (row >= p.Sq) continue;
+      const float norm = lt == 0.f ? 1.f : lt;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(op + row * p.o_ss + j * 8 + tig * 2) =
+            pack_f32(acc[4 * j + 2 * r] / norm, acc[4 * j + 2 * r + 1] / norm);
+      }
+      if (tig == 0) {
+        const float sm = m[r] <= kNegInf * 0.5f ? 0.f : m[r] * kLn2;
+        p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + row] =
+            lt > 0.f ? sm + logf(fmaxf(lt, 1e-37f))
+                     : __int_as_float(0x7f800000);
+      }
     }
   }
 }
 
+// ---- host side: tensor maps and launch ----
+
+namespace {
+
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime, so the
+// library links only the runtime.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map of a [batch, seq, heads, d] tensor (strides in elements) whose box
+// is 128 rows of one head: 64 bf16 columns, 128-byte swizzled, or the
+// whole int8 row unswizzled. A size-1 dim's stride is never used; it gets
+// the packed value so the driver's checks pass.
+bool make_map(CUtensorMap* map, const void* ptr, bool int8, int64_t sb,
+              int64_t ss, int64_t sh, int batch, int seq, int heads, int d) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const int64_t esz = int8 ? 1 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  int64_t st[3] = {sh, ss, sb};
+  int64_t packed = d;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) st[i] = packed;
+    packed = st[i] * static_cast<int64_t>(dims[i + 1]);
+  }
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[0] * esz),
+                                 static_cast<cuuint64_t>(st[1] * esz),
+                                 static_cast<cuuint64_t>(st[2] * esz)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(int8 ? d : 64), 1,
+                             static_cast<cuuint32_t>(kBK), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map,
+                int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D, bool QUANT, bool SOFTCAP>
-static int launch(const FlashParams& p, cudaStream_t stream) {
+int launch(const FlashParams& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, p.q, false, p.q_sb, p.q_ss, p.q_sh, p.B, p.Sq, p.H,
+                D) ||
+      !make_map(&tk, p.k, QUANT, p.k_sb, p.k_ss, p.k_sh, p.B, p.Skv, p.KV,
+                D) ||
+      !make_map(&tv, p.v, QUANT, p.v_sb, p.v_ss, p.v_sh, p.B, p.Skv, p.KV,
+                D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_kernel<D, QUANT, SOFTCAP>;
+  constexpr int smem = Smem<D, QUANT>::kAlloc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, p.B);
-  flash_fwd_kernel<D, QUANT, SOFTCAP><<<grid, kThreads, 0, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p, tq, tk, tv);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool QUANT>
-static int dispatch(const FlashParams* p, void* stream_ptr) {
+int dispatch(const FlashParams* p, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool softcap = p->softcap > 0.f;
   switch (p->D) {
@@ -337,6 +713,8 @@ static int dispatch(const FlashParams* p, void* stream_ptr) {
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+}  // namespace
 
 extern "C" {
 

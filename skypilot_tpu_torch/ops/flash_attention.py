@@ -18,8 +18,10 @@ Each public entry point dispatches on where its tensors lie:
   online-softmax recurrence over kv blocks, with the same masking order,
   `safe_m` rule, O = 0 and lse = +inf on fully-masked rows.
 - CUDA tensors are checked (dtype, shape, last-dim contiguity, 16-byte
-  aligned strides) and handed to the kernel, or the call raises. There
-  is no fallback from the kernel to the plain version.
+  aligned strides; for the forward, which reads q, k and v by TMA, a
+  positive stride on every dim wider than 1) and handed to the kernel,
+  or the call raises. There is no fallback from the kernel to the plain
+  version.
 
 `flash_attention.launches`, `flash_attention_quant.launches`,
 `flash_attention_dq.launches` and `flash_attention_dkv.launches` count
@@ -252,6 +254,18 @@ def _strides3(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
     return st
 
 
+def _tma_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
+    """`_strides3` of a tensor the forward kernel reads by TMA, whose
+    tensor map also needs a positive stride on every dim wider than 1
+    (a broadcast view, stride 0, cannot be described)."""
+    st = _strides3(t, name)
+    if any(s <= 0 and n > 1 for s, n in zip(st, t.shape[:3])):
+        raise ValueError(f'{name}: strides {tuple(t.stride())}: the TMA '
+                         'tensor map needs a positive stride on every dim '
+                         'wider than 1 (materialise broadcast views)')
+    return st
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window, softcap: Optional[float], q_offset,
             k_scale: Optional[torch.Tensor] = None,
@@ -281,9 +295,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     prm = _build.FlashParams()
     prm.q, prm.k, prm.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
     prm.o, prm.lse = out.data_ptr(), lse.data_ptr()
-    (prm.q_sb, prm.q_ss, prm.q_sh) = _strides3(q, 'q')
-    (prm.k_sb, prm.k_ss, prm.k_sh) = _strides3(k, 'k')
-    (prm.v_sb, prm.v_ss, prm.v_sh) = _strides3(v, 'v')
+    (prm.q_sb, prm.q_ss, prm.q_sh) = _tma_strides(q, 'q')
+    (prm.k_sb, prm.k_ss, prm.k_sh) = _tma_strides(k, 'k')
+    (prm.v_sb, prm.v_ss, prm.v_sh) = _tma_strides(v, 'v')
     (prm.o_sb, prm.o_ss, prm.o_sh) = out.stride()[:3]
     if quant:
         prm.ks, prm.vs = k_scale.data_ptr(), v_scale.data_ptr()

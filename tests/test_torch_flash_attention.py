@@ -149,3 +149,31 @@ def test_window_requires_causal():
         fa.flash_attention(q, k, v, causal=False, window=4)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, causal=False, q_offset=2)
+
+
+@pytest.mark.parametrize('make,ok', [
+    (lambda: torch.zeros(2, 64, 8, 128, dtype=torch.bfloat16), True),
+    # heads 1..8 of 10 at every other position: strided, 16-byte aligned
+    (lambda: torch.zeros(2, 128, 10, 128, dtype=torch.bfloat16)[:, ::2, 1:9],
+     True),
+    # a size-1 batch of stride 0: the stride is never used
+    (lambda: torch.zeros(64, 8, 128, dtype=torch.bfloat16)
+     .as_strided((1, 64, 8, 128), (0, 8 * 128, 128, 1)), True),
+    (lambda: torch.zeros(2, 64, 2, 128, dtype=torch.int8), True),
+    # broadcast over positions (stride 0 on a dim of 64): no tensor map
+    (lambda: torch.zeros(2, 1, 2, 128, dtype=torch.bfloat16)
+     .expand(2, 64, 2, 128), False),
+    # a head stride of 4 bf16 values (8 bytes) is not 16-byte aligned
+    (lambda: torch.zeros(2, 64, 8 * 132, dtype=torch.bfloat16)
+     .as_strided((2, 64, 8, 128), (64 * 8 * 132, 8 * 132, 4, 1)), False),
+])
+def test_forward_launcher_stride_checks(make, ok):
+    """The forward kernel reads q, k and v by TMA: the last dim contiguous,
+    16-byte-aligned base and strides, and a positive stride on every dim
+    wider than 1; `_launch` raises on anything else before a launch."""
+    t = make()
+    if ok:
+        assert fa._tma_strides(t, 'x') == tuple(t.stride()[:3])
+    else:
+        with pytest.raises(ValueError):
+            fa._tma_strides(t, 'x')

@@ -36,6 +36,11 @@ CASES = {
     'square_causal': (3, 130, 130, 6, 3, 64, True, None, None, None),
     'non_causal': (1, 100, 300, 4, 1, 128, False, None, None, None),
     'all_rows_masked': (1, 64, 128, 4, 2, 128, True, 1000, 16, None),
+    # Edges of the 128-row q and kv tiles.
+    'skv_below_one_tile': (2, 40, 100, 8, 2, 128, True, 60, None, None),
+    'window_narrower_than_tile': (1, 300, 700, 8, 2, 128, True, 400, 50,
+                                  None),
+    'd64_sq129': (1, 129, 129, 4, 2, 64, True, None, None, None),
 }
 
 
@@ -72,6 +77,33 @@ def test_kernel_matches_plain(cuda, case, quant):
     assert bool((got[masked] == 0).all())
 
 
+@pytest.mark.parametrize('quant', [False, True], ids=['bf16', 'int8'])
+def test_kernel_takes_strided_q_view(cuda, quant):
+    """q as a 16-byte-aligned view into a wider tensor (heads 1..8 of
+    10, every other position), not a fresh contiguous tensor."""
+    from skypilot_tpu_torch.inference.engine import quantize_kv
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    wide = torch.randn(2, 400, 10, 128, generator=gen,
+                       device=cuda).bfloat16()
+    q = wide[:, ::2, 1:9]                           # [2, 200, 8, 128]
+    assert not q.is_contiguous() and q.data_ptr() % 16 == 0
+    k = torch.randn(2, 500, 2, 128, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(2, 500, 2, 128, generator=gen, device=cuda).bfloat16()
+    kw = dict(causal=True, q_offset=250)
+    if quant:
+        kq, vq = quantize_kv(k), quantize_kv(v)
+        got, lse = fa.flash_fwd(q, kq['q'], vq['q'], k_scale=kq['s'],
+                                v_scale=vq['s'], **kw)
+        want, want_lse = fa.flash_attention_quant_plain(
+            q, kq['q'], kq['s'], vq['q'], vq['s'], **kw)
+    else:
+        got, lse = fa.flash_fwd(q, k, v, **kw)
+        want, want_lse = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < 0.05
+    assert float((lse - want_lse).abs().max()) < 1e-3
+
+
 def test_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
     q = torch.randn(1, 64, 4, 128, device=cuda).bfloat16()
     k = torch.randn(1, 64, 2, 128, device=cuda).bfloat16()
@@ -82,6 +114,8 @@ def test_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
     with pytest.raises(ValueError):         # last dim not contiguous
         fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
                            k, k)
+    with pytest.raises(ValueError):         # broadcast kv: no tensor map
+        fa.flash_attention(q, k[:, :1].expand(1, 64, 2, 128), k, q_offset=0)
 
     def no_library():
         raise RuntimeError('kernel library unavailable')
