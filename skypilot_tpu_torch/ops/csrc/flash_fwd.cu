@@ -623,8 +623,8 @@ using EncodeTiledFn = CUresult (*)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, through the runtime, so the
-// library links only the runtime.
+// cuTensorMapEncodeTiled from libcuda, found through the CUDA runtime, so
+// the library links only the runtime.
 EncodeTiledFn encode_tiled() {
   static const EncodeTiledFn fn = [] {
     void* ptr = nullptr;
@@ -646,7 +646,7 @@ EncodeTiledFn encode_tiled() {
 // A map of a [batch, seq, heads, d] tensor (strides in elements) whose box
 // is 128 rows of one head: 64 bf16 columns, 128-byte swizzled, or the
 // whole int8 row unswizzled. A size-1 dim's stride is never used; it gets
-// the packed value so the driver's checks pass.
+// the packed value so that cuTensorMapEncodeTiled accepts the map.
 bool make_map(CUtensorMap* map, const void* ptr, bool int8, int64_t sb,
               int64_t ss, int64_t sh, int batch, int seq, int heads, int d) {
   const EncodeTiledFn encode = encode_tiled();
