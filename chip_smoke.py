@@ -7,7 +7,11 @@ Phases, each printing one JSON line:
   1. toolchain  - torch/CUDA/nvcc versions, the card's name and power
                   limit, and the build of the hand-written kernels
                   (ops/csrc/flash_fwd.cu and flash_bwd.cu, one nvcc for
-                  sm_90a per source, started together) with its time.
+                  sm_90a per source, started together) with its time;
+                  ptxas' registers, spills and wgmma serialisation of
+                  every forward and backward kernel instance (`ptxas`).
+                  An instance that spills or has its wgmmas serialised
+                  fails.
   2. check_bf16 - K1 (flash_attention) against its plain PyTorch version
                   on the card: cached-prefill offset, window + softcap,
                   fully-masked rows, the engine's prefill shape, head_dim
@@ -29,12 +33,13 @@ Phases, each printing one JSON line:
                   /generate requests, one streaming.
   8. check_bwd  - K3 (flash_attention_dq) and K4 (flash_attention_dkv,
                   ops/csrc/flash_bwd.cu) against flash_attention_bwd_plain
-                  on the same bf16 inputs: the training shape, window +
-                  softcap, non-causal ragged, q_offset and head_dim 64 MHA,
-                  max|a-b| / max|b| of dQ, dK and dV within TOL_BWD_REL;
-                  and K1's O and lse, which both take, against
-                  flash_attention_plain at each of these cases within
-                  TOL_O and TOL_LSE.
+                  on the same bf16 inputs: the training shape, rows with
+                  no visible key (dQ must be 0 there), ragged tiles,
+                  window + softcap, non-causal ragged, q_offset and
+                  head_dim 64 MHA, max|a-b| / max|b| of dQ, dK and dV
+                  within TOL_BWD_REL; and K1's O and lse, which both
+                  take, against flash_attention_plain at each of these
+                  cases within TOL_O and TOL_LSE.
   9. timing_bwd - K3 and K4 at the training shape: kernel, plain version,
                   the backward of scaled_dot_product_attention as a
                   yardstick for both together (never used by the port),
@@ -77,15 +82,21 @@ TOL_O = 0.01               # max |O_kernel - O_plain|, bf16 output
 TOL_LSE = 1e-3             # max |lse_kernel - lse_plain| on finite rows
 TOL_LOGITS_REL = 0.05      # prefill logits, max|a-b| / max|b|
 # Limits of the backward checks, kernel against plain version on the same
-# inputs, max|a-b| / max|b| of each of dQ, dK, dV.
+# inputs, max|a-b| / max|b| of each of dQ, dK, dV. Both are bf16, so a
+# sound reading is whole bf16 steps over max|b|: one step at the largest
+# element reads 2^-8 to 2^-7, and the limit admits two. Sound kernels
+# read at most 0.0061 (one step; bwd_accuracy.py over three seeds);
+# kernel_fault_check.py's five backward faults read 0.073 and more. Rows
+# with no visible key must give dQ = 0 exactly.
 TOL_BWD_REL = 0.02
 # flash against dense training at bench-8b widths (bf16 through 2
 # layers): |loss_f - loss_d|, |gnorm_f - gnorm_d| / gnorm_d, and
 # max|a-b| / max|b| of the stacked wq, wk and wv grads. Sound readings
 # on the H100: 3.1e-4, 2.8e-5 and at most 0.0136; kernel_fault_check.py's
-# K3/K4 faults read a grad-norm difference of 0.0050-0.059 and 0.20-0.67
-# on the grads of the projection each breaks. The loss limit holds only
-# the forward (K1), which check_bwd also holds at the training shape.
+# K3/K4 faults read a grad-norm difference of 0.0050 and more, and 0.20
+# and more on the grads of the projection each breaks. The loss limit
+# holds only the forward (K1), which check_bwd also holds at the training
+# shape.
 TOL_TRAIN_LOSS = 0.005
 TOL_TRAIN_GRAD_REL = 1e-3
 TOL_TRAIN_PROJ_REL = 0.05
@@ -104,6 +115,35 @@ ENGINE_KW = dict(batch_size=8, max_seq_len=2048, prefill_chunk=512,
 
 def emit(phase, **fields):
     print(json.dumps({'phase': phase, **fields}), flush=True)
+
+
+def ptxas_entries(log, prefix):
+    """Per kernel instance whose name starts with `prefix`, from nvcc's
+    -Xptxas=-v log: registers at entry, spill stores and loads (bytes),
+    and whether ptxas serialised its wgmmas (C7512)."""
+    import re
+    out, cur = [], None
+    serialized = set(re.findall(r"serialized due to insufficient register "
+                                r"resources for the function '(\w+)'", log))
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {'kernel': m.group(1), 'registers': None,
+                   'spill_stores': None, 'spill_loads': None,
+                   'serialized': m.group(1) in serialized}
+            if prefix in m.group(1):
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            cur['spill_stores'], cur['spill_loads'] = map(int, m.groups())
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            cur['registers'] = int(m.group(1))
+    return out
 
 
 def sh(cmd):
@@ -607,6 +647,12 @@ def server_phase(torch, inference, fa, params, config):
 BWD_CASES = (
     # (name, B, Sq, Skv, H, KV, D, causal, q_offset, window, softcap)
     ('training', 1, 4096, 4096, 32, 8, 128, True, None, None, None),
+    # q_offset past the window: rows 87-255 see no key (lse = +inf) and
+    # must give dQ = 0; keys before 937 get dK = dV = 0.
+    ('masked_rows', 2, 256, 1024, 32, 8, 128, True, 1000, 64, None),
+    # Ragged last tiles of both kernels (130 = 128 + 2 q rows in K3,
+    # 2 x 64 + 2 kv rows in K4) under GQA.
+    ('ragged_tiles', 2, 130, 130, 32, 8, 128, True, None, None, None),
     ('window_softcap', 1, 2048, 2048, 32, 8, 128, True, None, 600, 50.0),
     ('non_causal_ragged', 1, 1000, 1000, 32, 8, 128, False, None, None,
      None),
@@ -629,10 +675,11 @@ def bwd_inputs(torch, fa, gen, b, sq, skv, h, kv, d, causal, off, window,
 
 def bwd_reading(torch, fa, gen, case):
     """K3 and K4 against flash_attention_bwd_plain on the same inputs:
-    max|a-b| and max|a-b| / max|b| of dQ, dK, dV, and whether the
-    kernels' outputs are finite; and under 'fwd' K1's (O, lse), which
-    both backwards take, against flash_attention_plain at this case's
-    shape and mask, as `fwd_compare` reads them."""
+    max|a-b| and max|a-b| / max|b| of dQ, dK, dV, whether the kernels'
+    outputs are finite, and the largest |dQ| on rows the plain forward
+    gives lse = +inf (no visible key); and under 'fwd' K1's (O, lse),
+    which both backwards take, against flash_attention_plain at this
+    case's shape and mask, as `fwd_compare` reads them."""
     _, b, sq, skv, h, kv, d, causal, off, window, softcap = case
     q, k, v, do, o, lse, delta = bwd_inputs(torch, fa, gen, b, sq, skv, h,
                                             kv, d, causal, off, window,
@@ -640,6 +687,7 @@ def bwd_reading(torch, fa, gen, case):
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
     o_p, lse_p = fa.flash_attention_plain(q, k, v, **kw)
     fwd = fwd_compare(torch, o, lse, o_p, lse_p)
+    masked = ~torch.isfinite(lse_p[..., 0]).permute(0, 2, 1)   # [B,Sq,H]
     del o_p, lse_p
     got = (fa.flash_attention_dq(q, k, v, do, lse, delta, **kw),
            *fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw))
@@ -648,6 +696,10 @@ def bwd_reading(torch, fa, gen, case):
     out = {'shape': [b, sq, skv, h, kv, d], 'causal': causal,
            'q_offset': off, 'window': window, 'softcap': softcap,
            'finite': all(bool(torch.isfinite(t).all()) for t in got),
+           'masked_rows': int(masked.sum()),
+           'masked_rows_max_abs_dq': (float(got[0][masked].float().abs()
+                                            .max())
+                                      if bool(masked.any()) else 0.0),
            'fwd': fwd}
     for name, a, ref in zip(('dq', 'dk', 'dv'), got, want):
         err = float((a.float() - ref.float()).abs().max())
@@ -663,6 +715,8 @@ def bwd_faults(r):
     faults = [f'K1 {f}' for f in kernel_faults(r['fwd'])]
     if not r['finite']:
         faults.append('non-finite gradients')
+    if r['masked_rows_max_abs_dq'] != 0:
+        faults.append('rows with no visible key must give dQ = 0')
     for name in ('dq', 'dk', 'dv'):
         if not r[f'{name}_rel_err'] < TOL_BWD_REL:
             faults.append(f"{name} max|a-b|/max|b| {r[f'{name}_rel_err']} "
@@ -904,14 +958,16 @@ def main():
     _build.library()
     build_s = time.perf_counter() - t0
     info = _build.build_info()
-    ptxas = [line.strip() for line in info.log.splitlines()
-             if any(w in line for w in ('entry function', 'registers',
-                                        'spill', 'C75'))]
+    ptxas = ptxas_entries(info.log, 'flash_')
     emit('toolchain', python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
          gpu=smi, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), build_s=build_s,
          compiled=info.compiled, ptxas=ptxas)
+    bad = [e for e in ptxas if e['spill_stores'] or e['spill_loads']
+           or e['serialized']]
+    if bad:
+        raise AssertionError(f'kernels spill or serialise wgmma: {bad}')
 
     # 2-4. kernels against their plain versions, then timing
     kernels = {}

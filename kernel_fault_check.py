@@ -20,10 +20,13 @@ holds to its limits:
     width and depth, random weights; and K1 against its plain version
     at every BWD_CASES case (the training shape among them), as
     check_bwd holds it;
-  - backward faults: K3 and K4 against flash_attention_bwd_plain on
-    every BWD_CASES case (max|a-b| / max|b| < TOL_BWD_REL for dQ, dK,
-    dV), and train_parity (flash against dense loss_fn + backward at
-    bench-8b widths: loss, grad norm, wq/wk/wv grads).
+  - backward faults (K3 drops a kv tile or leaves its frontier tile
+    unmasked; K4 drops a GQA head, drops delta or reads a stale ring
+    stage): K3 and K4 against flash_attention_bwd_plain on every
+    BWD_CASES case (max|a-b| / max|b| < TOL_BWD_REL for dQ, dK, dV, and
+    dQ = 0 on rows with no visible key), and train_parity (flash
+    against dense loss_fn + backward at bench-8b widths: loss, grad
+    norm, wq/wk/wv grads).
 
 Each fault prints one JSON line with every reading beside its limit and
 the limits it breaks. The script exits non-zero if any fault passes
@@ -42,20 +45,22 @@ KERNEL_SOURCE = os.path.join('skypilot_tpu_torch', 'ops', 'csrc',
                              'flash_fwd.cu')
 BWD_SOURCE = os.path.join('skypilot_tpu_torch', 'ops', 'csrc',
                           'flash_bwd.cu')
-# The top of the forward consumers' per-tile math, and of K3's kv loop.
+# The top of the forward consumers' per-tile math, and of K3's.
 _FWD_TILE_TOP = ('      // S = Q K^T over the tile (wgmma, both operands in '
                  'shared memory).\n')
-_LOOP_TOP = '    __syncthreads();  // the previous tile is consumed\n'
+_DQ_TILE_TOP = ('      // S = Q K^T and dP = dO V^T over the kv tile '
+                '(SS wgmma, K-major).\n')
+_SKIP_STAGE = ('      if (i == 1) {  '
+               '// the stage is released, its tile unread\n'
+               '        if (lane == 0) mbar_arrive(empty0 + 8 * stage);\n'
+               '        continue;\n'
+               '      }\n')
 # name -> (what it breaks, text in its kernel source, its replacement);
 # the source is KERNEL_SOURCE unless BWD_FAULTS names the fault.
 FAULTS = {
     'drop_kv_tile': (
         'the kv loop skips the second tile it would visit',
-        _FWD_TILE_TOP,
-        '      if (i == 1) {  // the stage is released, its tile unread\n'
-        '        if (lane == 0) mbar_arrive(empty0 + 8 * stage);\n'
-        '        continue;\n'
-        '      }\n' + _FWD_TILE_TOP),
+        _FWD_TILE_TOP, _SKIP_STAGE + _FWD_TILE_TOP),
     'drop_diagonal': (
         'the causal mask hides each query\'s own position',
         'ok = ok && qpos >= kpos;',
@@ -72,18 +77,30 @@ FAULTS = {
         'const bool crosses_frontier = false;'),
     'dq_drop_kv_tile': (
         'K3 skips the second kv tile it would visit',
-        _LOOP_TOP,
-        '    if (k0 == (kv_lo / kBK3) * kBK3 + kBK3) continue;\n' + _LOOP_TOP),
+        _DQ_TILE_TOP, _SKIP_STAGE + _DQ_TILE_TOP),
     'dkv_drop_q_head': (
         'K4 drops the last q head of each GQA group',
-        'for (int hh = 0; hh < group; ++hh) {',
-        'for (int hh = 0; hh + 1 < group; ++hh) {'),
+        '    const bool dkv_tile_hidden =\n',
+        '    const bool dkv_tile_hidden = hh + 1 == group ||\n'),
     'dkv_drop_delta': (
         'K4 computes dS = P dP, without - delta',
-        'float ds = pe * (dpt[j][e] - dlt_t[col]);',
-        'float ds = pe * dpt[j][e];'),
+        'math.dscore(pe, dpt[4 * j + e], col_dlt, th);',
+        'math.dscore(pe, dpt[4 * j + e], 0.f, th);'),
+    'bwd_stale_stage': (
+        'K4\'s consumers read the ring stage after the one their barrier '
+        'released',
+        'const uint32_t q_tile = ring + stage * L::kStageBytes;',
+        'const uint32_t q_tile =\n'
+        '        ring + ((stage + 1) % kStages) * L::kStageBytes;'),
+    'dq_frontier_tile_unmasked': (
+        'a kv tile crossing the causal frontier of K3\'s rows takes the '
+        'unmasked path',
+        'const bool crosses_frontier =\n'
+        '            p.causal && k0 + kRingRows - 1 > qp_lo;',
+        'const bool crosses_frontier = false;'),
 }
-BWD_FAULTS = ('dq_drop_kv_tile', 'dkv_drop_q_head', 'dkv_drop_delta')
+BWD_FAULTS = ('dq_drop_kv_tile', 'dkv_drop_q_head', 'dkv_drop_delta',
+              'bwd_stale_stage', 'dq_frontier_tile_unmasked')
 
 
 def source_of(fault):
@@ -119,7 +136,8 @@ def readings(fault):
                'limits': {'tol_bwd_rel': cs.TOL_BWD_REL},
                'kernel': {'flash_attention_bwd': {
                    case: {**{k: c[k] for k in ('dq_rel_err', 'dk_rel_err',
-                                               'dv_rel_err', 'finite')},
+                                               'dv_rel_err', 'finite',
+                                               'masked_rows_max_abs_dq')},
                           'breaks': cs.bwd_faults(c)}
                    for case, c in cases.items()}}}
         out['caught_by_kernel_checks'] = any(

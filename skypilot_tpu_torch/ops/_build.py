@@ -1,14 +1,15 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
 The sources under `csrc/` (`SOURCES`: the flash forward K1/K2 and the
-flash backward K3/K4) are compiled at first use on the machine with the
-card, for `sm_90a`, one nvcc process per source started together, then
+flash backward K3/K4, both including the shared PTX helpers of
+`hopper.cuh`) are compiled at first use on the machine with the card,
+for `sm_90a`, one nvcc process per source started together, then
 linked into one plain-C shared library loaded with `ctypes` (no PyTorch
 headers: the build takes seconds, not minutes).
 The library lands in `ops/_build/` (git-ignored) under a name keyed by
-the hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused. There is no fallback: without `nvcc`, or when
-the build fails, `library()` raises.
+the hash of every file under `csrc/` and the flags, so an edited source
+or header rebuilds and an unchanged tree is reused. There is no
+fallback: without `nvcc`, or when the build fails, `library()` raises.
 """
 from __future__ import annotations
 
@@ -101,10 +102,15 @@ def find_nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every file under `csrc/`: the sources and
+    the headers they include (`hopper.cuh`), so an edited header rebuilds
+    as an edited source does."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), 'rb') as f:
-            h.update(name.encode() + b'\0' + f.read())
+    for name in sorted(os.listdir(CSRC)):
+        path = os.path.join(CSRC, name)
+        if os.path.isfile(path):
+            with open(path, 'rb') as f:
+                h.update(name.encode() + b'\0' + f.read())
     return h.hexdigest()[:16]
 
 

@@ -18,10 +18,10 @@ Each public entry point dispatches on where its tensors lie:
   online-softmax recurrence over kv blocks, with the same masking order,
   `safe_m` rule, O = 0 and lse = +inf on fully-masked rows.
 - CUDA tensors are checked (dtype, shape, last-dim contiguity, 16-byte
-  aligned strides; for the forward, which reads q, k and v by TMA, a
-  positive stride on every dim wider than 1) and handed to the kernel,
-  or the call raises. There is no fallback from the kernel to the plain
-  version.
+  aligned strides; for every tensor a kernel reads by TMA, q, k and v in
+  the forward and q, k, v and dO in the backward, a positive stride on
+  every dim wider than 1) and handed to the kernel, or the call raises.
+  There is no fallback from the kernel to the plain version.
 
 `flash_attention.launches`, `flash_attention_quant.launches`,
 `flash_attention_dq.launches` and `flash_attention_dkv.launches` count
@@ -240,9 +240,12 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                       window, softcap, q_offset)
 
 
-def _strides3(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
-    """(batch, seq, head) strides in elements; the last dim must be
-    contiguous and every stride a multiple of 16 bytes (vector loads)."""
+def _tma_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
+    """(batch, seq, head) strides in elements of a tensor a kernel reads by
+    TMA (q, k, v in the forward; q, k, v, dO in the backward): the last
+    dim contiguous, the base pointer and every stride a multiple of 16
+    bytes, and a positive stride on every dim wider than 1 (a broadcast
+    view, stride 0, cannot be described by a tensor map)."""
     if t.stride(-1) != 1:
         raise ValueError(f'{name}: last dim must be contiguous, strides '
                          f'{tuple(t.stride())}')
@@ -251,14 +254,6 @@ def _strides3(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
     if any(s % per16 for s in st) or t.data_ptr() % 16:
         raise ValueError(f'{name}: strides {tuple(t.stride())} and the '
                          'base pointer must be 16-byte aligned')
-    return st
-
-
-def _tma_strides(t: torch.Tensor, name: str) -> Tuple[int, int, int]:
-    """`_strides3` of a tensor the forward kernel reads by TMA, whose
-    tensor map also needs a positive stride on every dim wider than 1
-    (a broadcast view, stride 0, cannot be described)."""
-    st = _strides3(t, name)
     if any(s <= 0 and n > 1 for s, n in zip(st, t.shape[:3])):
         raise ValueError(f'{name}: strides {tuple(t.stride())}: the TMA '
                          'tensor map needs a positive stride on every dim '
@@ -349,7 +344,8 @@ def _launch_bwd(which: str, q: torch.Tensor, k: torch.Tensor,
                 delta: torch.Tensor, causal: bool, window,
                 softcap: Optional[float], q_offset):
     """Check the CUDA tensors and launch K3 (`which='dq'`, returns dq) or
-    K4 (`which='dkv'`, returns (dk, dv))."""
+    K4 (`which='dkv'`, returns (dk, dv)). Both read q, k, v and dO by TMA;
+    lse and delta by plain loads, as contiguous f32 [B,H,Sq]."""
     from skypilot_tpu_torch.ops import _build
 
     _check_attn_args(q, k, v, torch.bfloat16)
@@ -370,10 +366,10 @@ def _launch_bwd(which: str, q: torch.Tensor, k: torch.Tensor,
     prm.q, prm.k, prm.v, prm.dout = (q.data_ptr(), k.data_ptr(),
                                      v.data_ptr(), do.data_ptr())
     prm.lse, prm.delta = lse.data_ptr(), delta.data_ptr()
-    (prm.q_sb, prm.q_ss, prm.q_sh) = _strides3(q, 'q')
-    (prm.k_sb, prm.k_ss, prm.k_sh) = _strides3(k, 'k')
-    (prm.v_sb, prm.v_ss, prm.v_sh) = _strides3(v, 'v')
-    (prm.do_sb, prm.do_ss, prm.do_sh) = _strides3(do, 'dO')
+    (prm.q_sb, prm.q_ss, prm.q_sh) = _tma_strides(q, 'q')
+    (prm.k_sb, prm.k_ss, prm.k_sh) = _tma_strides(k, 'k')
+    (prm.v_sb, prm.v_ss, prm.v_sh) = _tma_strides(v, 'v')
+    (prm.do_sb, prm.do_ss, prm.do_sh) = _tma_strides(do, 'dO')
     if which == 'dq':
         dq = torch.empty_like(q, memory_format=torch.contiguous_format)
         prm.dq = dq.data_ptr()

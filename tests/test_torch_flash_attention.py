@@ -177,3 +177,25 @@ def test_forward_launcher_stride_checks(make, ok):
     else:
         with pytest.raises(ValueError):
             fa._tma_strides(t, 'x')
+
+
+@pytest.mark.parametrize('which', ['dq', 'dkv'])
+@pytest.mark.parametrize('broadcast', ['q', 'k', 'v', 'do'])
+def test_backward_launcher_refuses_broadcast_views(which, broadcast):
+    """K3 and K4 read q, k, v and dO by TMA: `_launch_bwd` raises on a
+    broadcast (stride-0) view of any of them before a launch, as the
+    forward's launcher does."""
+    def full(s, h):
+        return torch.zeros(1, s, h, 128, dtype=torch.bfloat16)
+
+    def bcast(s, h):
+        return torch.zeros(1, 1, h, 128, dtype=torch.bfloat16).expand(
+            1, s, h, 128)
+
+    t = {name: (bcast if name == broadcast else full)(64, h)
+         for name, h in (('q', 4), ('k', 2), ('v', 2), ('do', 4))}
+    lse = torch.zeros(1, 4, 64, 1)
+    delta = torch.zeros(1, 4, 64)
+    with pytest.raises(ValueError, match='positive stride'):
+        fa._launch_bwd(which, t['q'], t['k'], t['v'], t['do'], lse, delta,
+                       True, None, None, None)

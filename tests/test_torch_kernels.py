@@ -168,6 +168,12 @@ BWD_CASES = {
     'window_softcap': (1, 300, 300, 8, 2, 128, True, None, 70, 30.0),
     'q_offset': (2, 96, 300, 8, 4, 64, True, 204, None, None),
     'masked_rows': (1, 64, 128, 4, 2, 128, True, 1000, 16, None),
+    # Edges of the tiles each kernel owns (128 q rows in K3, 64 kv rows in
+    # K4) and the 64-row tiles it streams.
+    'kv_below_one_tile': (2, 40, 50, 8, 2, 128, True, 10, None, None),
+    'window_narrower_than_tile': (1, 300, 700, 8, 2, 128, True, 400, 50,
+                                  None),
+    'd64_sq129': (1, 129, 129, 4, 2, 64, True, None, None, None),
 }
 
 
@@ -208,6 +214,28 @@ def test_backward_kernels_match_plain(cuda, case):
             assert bool((a == 0).all())
 
 
+def test_backward_kernels_take_strided_q_and_do_views(cuda):
+    """q and dO as 16-byte-aligned views into wider tensors (heads 1..8 of
+    10, every other position), which K3 and K4 read by TMA."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    wide = torch.randn(2, 2, 400, 10, 128, generator=gen,
+                       device=cuda).bfloat16()
+    q, do = wide[0, :, ::2, 1:9], wide[1, :, ::2, 1:9]  # [2, 200, 8, 128]
+    assert not q.is_contiguous() and not do.is_contiguous()
+    assert q.data_ptr() % 16 == 0 and do.data_ptr() % 16 == 0
+    k = torch.randn(2, 500, 2, 128, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(2, 500, 2, 128, generator=gen, device=cuda).bfloat16()
+    kw = dict(causal=True, q_offset=250)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    got = fa.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q.contiguous(), k, v, o, lse,
+                                        do.contiguous(), **kw)
+    for a, ref in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, ref) < 0.02
+
+
 def test_autograd_through_flash_launches_backward_kernels(cuda):
     b, sq, skv, h, kv, d, causal, off, window, softcap = BWD_CASES[
         'ragged_gqa']
@@ -244,6 +272,9 @@ def test_backward_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
     with pytest.raises(ValueError):         # last dim not contiguous
         fa.flash_attention_dkv(q, k.transpose(2, 3).contiguous()
                                .transpose(2, 3), v, do, lse, delta)
+    with pytest.raises(ValueError):         # broadcast kv: no tensor map
+        fa.flash_attention_dq(q, k[:, :1].expand(1, 64, 2, 128), v, do, lse,
+                              delta)
 
     def no_library():
         raise RuntimeError('kernel library unavailable')
