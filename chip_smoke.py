@@ -15,11 +15,14 @@ Phases, each printing one JSON line:
   2. check_bf16 - K1 (flash_attention) against its plain PyTorch version
                   on the card: cached-prefill offset, window + softcap,
                   fully-masked rows, the engine's prefill shape, head_dim
-                  64, and ragged q/kv tiles at an unaligned offset, within
-                  TOL_O on O and TOL_LSE on lse.
+                  64, ragged q/kv tiles at an unaligned offset, and four
+                  warm tails of a prefix-cache hit (16 to 512 rows at
+                  page-aligned offsets, and the repeat's 16 rows at
+                  1215), within TOL_O on O and TOL_LSE on lse.
   3. check_int8 - K2 (flash_attention_quant) the same way.
-  4. timing     - per kernel at the engine's prefill shape (K1 also at the
-                  training shape, TRAIN_TIMING_SHAPE): kernel, plain
+  4. timing     - per kernel at the engine's prefill shape (K1 also at
+                  the training shape, TRAIN_TIMING_SHAPE; both kernels
+                  at the prefix phase's shapes after it): kernel, plain
                   version, scaled_dot_product_attention as a yardstick
                   (timed only, never used by the port), and the bound.
   5. engine_bf16 - build_engine('llama3-8b') at full width and depth with
@@ -31,6 +34,27 @@ Phases, each printing one JSON line:
   6. engine_int8 - the same engine over an int8 KV cache (K2).
   7. server     - the port's HTTP server in-process: /health and three
                   /generate requests, one streaming.
+ 12. prefix_bf16 - the prefix cache (on by default) on the llama3-8b
+                  engine: a cold request (1024-token prefix + 192), 8 warm
+                  ones (the prefix + 64-448 tokens), the cold prompt again
+                  (a full-prompt match, one page copied on write). Every
+                  warm request must match 1024 tokens and run its tail
+                  through K1 at q_offset 1024; warm first-token logits
+                  within TOL_LOGITS_REL of an engine with the cache off;
+                  time to first token, chunk widths, page accounting.
+                  Then K1 against its plain version, and timed, at every
+                  (B, rows, Skv, q_offset) a cache hit launched, each
+                  beside its launch count in the phase (`hit_checks`,
+                  the `warm_tail` entries of `shapes`).
+ 13. prefix_int8 - the same on the int8 engine (K2).
+ 14. migration  - engine to engine: two requests (600, 1500 tokens)
+                  snapshotted after 16 tokens, aborted, restored into a
+                  second engine, token for token equal to an uninterrupted
+                  run; blob bytes, snapshot and restore ms. Server to
+                  server: a stream drained by /internal/drain into a
+                  migrate frame continues through /internal/restore on a
+                  second server with no token lost or repeated; a
+                  corrupted blob gets 400. (12-14 run after phase 7.)
   8. check_bwd  - K3 (flash_attention_dq) and K4 (flash_attention_dkv,
                   ops/csrc/flash_bwd.cu) against flash_attention_bwd_plain
                   on the same bf16 inputs: the training shape, rows with
@@ -59,6 +83,7 @@ Then a `kernels` line and, last, {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
 """
+import collections
 import gc
 import json
 import math
@@ -108,6 +133,9 @@ TRAIN_STEPS = 20
 TRAIN_LR = 1e-3
 TRAIN_WARMUP = 3
 DEV = 'cuda'
+# About 20 ms of device spin at the H100's 1.98 GHz boost clock: far
+# longer than the host takes to queue ten timed calls.
+QUEUE_AHEAD_CYCLES = 40_000_000
 # The main path's engine: llama3-8b slots, cache and chunking.
 ENGINE_KW = dict(batch_size=8, max_seq_len=2048, prefill_chunk=512,
                  kv_page_size=64, prefill_interleave=1536)
@@ -151,14 +179,19 @@ def sh(cmd):
                           check=True).stdout.strip()
 
 
-def time_ms(torch, fn, iters=10, warmup=2):
+def time_ms(torch, fn, iters=10, warmup=2, queue_ahead=False):
     """Mean device time of fn() in ms, by CUDA events over `iters`
-    back-to-back calls after `warmup` calls."""
+    back-to-back calls after `warmup` calls. With `queue_ahead` the
+    stream first spins on the device (QUEUE_AHEAD_CYCLES) while the host
+    queues the calls, so a call whose host side outlasts its kernels
+    reads their time, not the host's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -266,6 +299,16 @@ CHECK_CASES = (
     # A ragged last q tile (200 = 128 + 72 rows) at an offset that is no
     # multiple of the 128-row kv tile, against a ragged kv length.
     ('ragged_tiles', 3, 200, 1500, 32, 8, 128, 1299, None, None),
+    # Warm-tail prefill after a prefix-cache hit: a 16- or 64-row chunk at
+    # a page-aligned offset (17 and 16 pages of 64) against the 2048-row
+    # paged view, so one 128-row q tile is mostly padding and the causal
+    # frontier falls inside a kv tile.
+    ('warm_tail', 1, 16, 2048, 32, 8, 128, 1088, None, None),
+    ('warm_tail_64', 4, 64, 2048, 32, 8, 128, 1024, None, None),
+    # Two shapes the prefix phase launches: its widest warm chunk, and the
+    # repeated prompt's last token re-run at 1215 (a 16-row bucket).
+    ('warm_tail_512', 1, 512, 2048, 32, 8, 128, 1024, None, None),
+    ('warm_repeat', 1, 16, 2048, 32, 8, 128, 1215, None, None),
 )
 # The main path's heaviest prefill chunk: batch 8, chunk 512 at cache
 # position 1536 of a 2048-position paged view (llama3-8b heads).
@@ -285,22 +328,28 @@ def kernel_readings(torch, fa, quant):
 def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE):
     """K1 (K2 with `quant`) at `shape` (B, T, S, H, KV, D, q_offset; causal
     from q_offset): kernel ms, plain ms, one SDPA call over the same
-    (dequantised) inputs, and the bound."""
+    (dequantised) inputs, and the bound, each on a queue the host has
+    filled ahead; and the kernel's ms when the host paces the calls
+    (`host_paced_ms`: the larger of the kernel's and the wrapper's
+    per-call time, as the engine sees it)."""
     import torch.nn.functional as F
     b, t, s, h, kv, d, off = shape
     gen = torch.Generator(device=DEV).manual_seed(7)
     q, k, v, ks, vs = attn_inputs(torch, gen, b, t, s, h, kv, d, quant)
     kw = dict(causal=True, q_offset=off)
     ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v, k_scale=ks,
-                                             v_scale=vs, **kw))
+                                             v_scale=vs, **kw),
+                 queue_ahead=True)
+    host_paced_ms = time_ms(torch, lambda: fa.flash_fwd(
+        q, k, v, k_scale=ks, v_scale=vs, **kw))
     if quant:
         plain_ms = time_ms(torch, lambda: fa.flash_attention_quant_plain(
-            q, k, ks, v, vs, **kw), iters=3, warmup=1)
+            q, k, ks, v, vs, **kw), iters=3, warmup=1, queue_ahead=True)
         kd = (k.float() * ks[..., None]).bfloat16()
         vd = (v.float() * vs[..., None]).bfloat16()
     else:
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
-            q, k, v, **kw), iters=3, warmup=1)
+            q, k, v, **kw), iters=3, warmup=1, queue_ahead=True)
         kd, vd = k, v
     qt, kt, vt = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
     if off == 0 and t == s:
@@ -311,12 +360,12 @@ def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE):
                        <= q_pos[:, None])
     try:
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True, **sdpa_kw))
+            qt, kt, vt, enable_gqa=True, **sdpa_kw), queue_ahead=True)
     except TypeError:  # a torch without enable_gqa: no one-call yardstick
         library_ms = None
     bms, bound_by, flops = bound_ms(b, t, s, h, kv, d, off, None, quant)
     return {'shape': [b, t, s, h, kv, d], 'q_offset': off, 'ms': ms,
-            'plain_ms': plain_ms, 'library_ms': library_ms,
+            'host_paced_ms': host_paced_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
             'bound_ms': bms, 'bound_by': bound_by,
             'tflops': flops / (ms * 1e-3) / 1e12}
 
@@ -642,6 +691,366 @@ def server_phase(torch, inference, fa, params, config):
         srv.server_close()
         if loop is not None:
             loop.stop()
+
+
+def shape_entry(kernel, path):
+    """The entry of `kernel`'s `shapes` list timed for `path`."""
+    return next(e for e in kernel['shapes'] if e['path'] == path)
+
+
+# Kernel-name substrings of a prefill's profile categories.
+PREFILL_SHARES = {
+    'K1/K2 flash_fwd': ('flash_fwd_kernel',),
+    'GEMMs': ('nvjet', 'gemm', 'cutlass', 'xmma'),
+    'elementwise and copies': ('elementwise_kernel', 'copy'),
+    'gather/scatter (paged view)': ('index', 'gather', 'scatter'),
+    'reductions': ('reduce_kernel',),
+}
+
+
+# The prefix phase: a 1024-token (16-page) shared prefix. The cold tail is
+# 192 tokens, so the cold prompt (1216 = 19 pages) repeated is a
+# full-prompt match whose last page is copied on write; the warm tails
+# run the narrowest power-of-two chunks from 64 to 512 rows.
+PREFIX_LEN = 1024
+COLD_TAIL = 192
+WARM_TAILS = (64, 112, 160, 208, 256, 320, 384, 448)
+COLD_NEW = 32
+WARM_NEW = 8
+
+
+def first_token_s(torch, engine):
+    """Time to the first token of the queued requests: the admission
+    half of step() (slot, prefix match, prefill, first sample) run on its
+    own, before the steps that decode; wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine._insert_from_queue()
+    while any(s is not None and s.pending is not None
+              for s in engine.state.slots):
+        engine._advance_prefill()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def capture_first_logits(engine):
+    """Record the logits each first-token sample of `engine` sees, in
+    admission order (a list of [rows, V] f32 tensors)."""
+    seen = []
+    sample = engine._sample_host_params
+
+    def recording(logits, params):
+        seen.append(logits.detach().float().clone())
+        return sample(logits, params)
+
+    engine._sample_host_params = recording
+    return seen
+
+
+def prefix_phase(torch, inference, fa, params, config, rng, quant):
+    """The prefix cache on llama3-8b at ENGINE_KW: one cold request, then
+    8 warm ones sharing its 1024-token prefix, then the cold prompt again
+    (a full-prompt match), one at a time through submit() and step().
+    Each warm request's first-token logits are held against the same
+    prompt on an engine with prefix_cache=False; K1 (K2) launches are
+    counted and their chunk widths and offsets recorded."""
+    kv_quant = 'int8' if quant else 'none'
+    vocab = config.vocab_size
+    on = inference.InferenceEngine(params, config, kv_quant=kv_quant,
+                                   device=DEV, **ENGINE_KW)
+    if on._prefix is None:
+        raise AssertionError('the default engine has no prefix cache')
+    prefix = prompt_tokens(rng, PREFIX_LEN, vocab)
+    cold = prefix + prompt_tokens(rng, COLD_TAIL, vocab)
+    warm = [prefix + prompt_tokens(rng, n, vocab) for n in WARM_TAILS]
+    plan = ([('cold', cold, COLD_NEW)]
+            + [(f'warm_{n}', p, WARM_NEW) for n, p in zip(WARM_TAILS, warm)]
+            + [('repeat', cold, COLD_NEW)])
+    counter = fa.flash_attention_quant if quant else fa.flash_attention
+    launch = fa._launch
+    shapes = []        # (B, rows, Skv, H, KV, D, q_offset) of each launch
+
+    def recording(q, k, v, causal, window, softcap, q_offset, **kw):
+        b, t, h, d = q.shape
+        shapes.append((int(b), int(t), int(k.shape[1]), int(h),
+                       int(k.shape[2]), int(d), int(q_offset or 0)))
+        return launch(q, k, v, causal, window, softcap, q_offset, **kw)
+
+    logits_on = capture_first_logits(on)
+    rows, tokens_on = [], {}
+    fa._launch = recording
+    counter.launches = 0
+    try:
+        for name, prompt, max_new in plan:
+            before = dict(on.stats)
+            n_shapes = len(shapes)
+            rid = on.submit(prompt, inference.SamplingParams(
+                max_new_tokens=max_new))
+            ttft = first_token_s(torch, on)
+            prefill_shapes = shapes[n_shapes:]
+            tokens_on[name] = on.run_to_completion()[rid]
+            rows.append({
+                'request': name, 'prompt_tokens': len(prompt),
+                'matched_tokens': (on.stats['prefix_reused_tokens']
+                                   - before['prefix_reused_tokens']),
+                'cow_copies': on.stats['cow_copies'] - before['cow_copies'],
+                'ttft_s': ttft, 'kernel_launches': len(prefill_shapes),
+                'chunks': [{'b': c[0], 'rows': c[1], 'q_offset': c[-1]}
+                           for c in sorted(set(prefill_shapes))],
+                'launched': prefill_shapes})
+    finally:
+        fa._launch = launch
+    launches = counter.launches
+    warm_rows = [r for r in rows if r['request'].startswith('warm')]
+    warm_launches = sum(r['kernel_launches'] for r in warm_rows)
+    # Launches per shape over the requests that hit the cache (the warm
+    # tails and the repeat).
+    hits = collections.Counter()
+    for r in rows:
+        launched = r.pop('launched')
+        if r['matched_tokens']:
+            hits.update(launched)
+    if any(r['matched_tokens'] != PREFIX_LEN for r in warm_rows):
+        raise AssertionError(f'a warm request missed the prefix: {rows}')
+    if (warm_launches <= 0 or launches != len(shapes) or any(
+            c['q_offset'] != PREFIX_LEN for r in warm_rows
+            for c in r['chunks'])):
+        raise AssertionError(f'K1/K2 launches on warm tails: {warm_launches}'
+                             f' of {launches} ({len(shapes)} recorded)')
+    repeat = rows[-1]
+    if repeat['matched_tokens'] != len(cold) - 1 or repeat['cow_copies'] != 1:
+        raise AssertionError(f'the repeated prompt: {repeat}')
+    total, free, cached = on.pages_total(), on.pages_free(), on.pages_cached()
+    pinned = sum(1 for p in range(1, total + 1) if on._prefix.refcount(p))
+    if free + cached != total or pinned:
+        raise AssertionError(f'pages: free {free} + cached {cached} != '
+                             f'{total}, {pinned} pinned')
+    # Where a warm request's time to first token goes: one more warm
+    # admission (a fresh 256-token tail) under the profiler.
+    on.submit(prefix + prompt_tokens(rng, 256, vocab),
+              inference.SamplingParams(max_new_tokens=1))
+    warm_profile = profile_breakdown(
+        torch, lambda: first_token_s(torch, on), shares=PREFILL_SHARES)
+    on.run_to_completion()
+    # The same prompts without the cache: first-token logits and tokens.
+    off = inference.InferenceEngine(params, config, kv_quant=kv_quant,
+                                    prefix_cache=False, device=DEV,
+                                    **ENGINE_KW)
+    logits_off = capture_first_logits(off)
+    rids = [off.submit(p, inference.SamplingParams(max_new_tokens=max_new))
+            for _, p, max_new in plan[:-1]]
+    done = off.run_to_completion()
+    off_rows = torch.cat(logits_off)
+    on_rows = torch.cat(logits_on[:len(plan)])
+    for i, r in enumerate(rows[:-1]):
+        r['logits_rel_err_vs_cache_off'] = rel_err(torch, on_rows[i],
+                                                   off_rows[i])
+        got, want = tokens_on[r['request']], done[rids[i]]
+        r['tokens_agree_vs_cache_off'] = sum(
+            a == b for a, b in zip(got, want))
+        r['tokens'] = len(got)
+    repeat['logits_rel_err_vs_cache_off'] = rel_err(torch, on_rows[-1],
+                                                    off_rows[0])
+    repeat['tokens_agree_vs_cache_off'] = sum(
+        a == b for a, b in zip(tokens_on['repeat'], done[rids[0]]))
+    repeat['tokens'] = len(tokens_on['repeat'])
+    worst = max(r['logits_rel_err_vs_cache_off'] for r in rows[1:])
+    if not worst < TOL_LOGITS_REL or not bool(torch.isfinite(on_rows).all()):
+        raise AssertionError(f'warm logits vs cache off: {worst} >= '
+                             f'{TOL_LOGITS_REL} (or non-finite)')
+    cold_ttft = rows[0]['ttft_s']
+    warm_ttft = sorted(r['ttft_s'] for r in warm_rows)
+    return {'kv_quant': kv_quant, 'prefix_tokens': PREFIX_LEN,
+            'requests': rows, 'kernel_launches': launches,
+            'warm_tail_launches': warm_launches,
+            'hit_shapes': [{'shape': list(c), 'launches': n}
+                           for c, n in sorted(hits.items())],
+            'ttft_cold_s': cold_ttft,
+            'ttft_warm_median_s': warm_ttft[len(warm_ttft) // 2],
+            'ttft_repeat_s': repeat['ttft_s'],
+            'warm_logits_max_rel_err': worst,
+            'warm_ttft_profile': warm_profile,
+            'pages': {'total': total, 'free': free, 'cached': cached,
+                      'pinned': pinned},
+            'engine_stats': {k: on.stats[k] for k in (
+                'prefix_hits', 'prefix_misses', 'prefix_reused_tokens',
+                'prefix_evictions', 'cow_copies')}}
+
+
+def hit_shape_readings(torch, fa, quant, hit_shapes):
+    """K1 (K2 with `quant`) against its plain version at each shape
+    (B, rows, Skv, H, KV, D, q_offset) the prefix phase's cache hits
+    launched, on fresh random inputs, as `kernel_reading` reads them."""
+    gen = torch.Generator(device=DEV).manual_seed(11 + int(quant))
+    return [kernel_reading(torch, fa, gen, quant, *hit['shape'], None, None)
+            for hit in hit_shapes]
+
+
+def sse_frames(resp):
+    """The SSE frames of an open HTTP response, one dict at a time."""
+    for line in resp:
+        line = line.strip()
+        if line.startswith(b'data: '):
+            yield json.loads(line[len(b'data: '):])
+
+
+def migration_phase(torch, inference, params, config, rng):
+    """Engine to engine: two requests (600 and 1500 tokens, 64 new,
+    greedy) on engine A are snapshotted after 16 tokens, aborted and
+    restored into engine B; their tokens must equal an uninterrupted
+    run. Server to server: a stream on server 1 drained into a migrate
+    frame continues through /internal/restore on server 2 with no token
+    duplicated or missing; a corrupted blob gets 400."""
+    import base64
+
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.inference import server as server_lib
+    vocab = config.vocab_size
+    prompts = [prompt_tokens(rng, n, vocab) for n in (600, 1500)]
+    sampling = inference.SamplingParams(max_new_tokens=64)
+    a = inference.InferenceEngine(params, config, device=DEV, **ENGINE_KW)
+    b = inference.InferenceEngine(params, config, device=DEV, **ENGINE_KW)
+    rids = [a.submit(p, sampling) for p in prompts]
+    done = a.run_to_completion()
+    want = [done[r] for r in rids]
+    a.abort_all()                       # drops the prefix cache too
+    rids = [a.submit(p, sampling) for p in prompts]
+    while min(len(a.active_progress().get(r, ())) for r in rids) < 16:
+        a.step()
+    mid = [a.active_progress()[r] for r in rids]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blobs = [a.snapshot_request(r) for r in rids]
+    snapshot_s = time.perf_counter() - t0
+    # Where the long request's snapshot time goes: the page gather and
+    # device-to-host copy, then packing (host copies and the CRC32).
+    slot = next(i for i, s in enumerate(a.state.slots)
+                if s is not None and s.request_id == rids[1])
+    n_pages = -(-(len(prompts[1]) + len(mid[1]) - 1) // a.kv_page_size)
+    t0 = time.perf_counter()
+    leaves = [eng._gather_pool_pages(a.state.cache[name],
+                                     a._slot_pages[slot][:n_pages]).cpu()
+              for name in ('k', 'v')]
+    d2h_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng._snapshot_pack({}, [('k', leaves[0]), ('v', leaves[1])])
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng._snapshot_unpack(blobs[1])
+    unpack_s = time.perf_counter() - t0
+    del leaves
+    for r in rids:
+        a.abort(r)
+    t0 = time.perf_counter()
+    restored = [b.restore_request(blob) for blob in blobs]
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    done = b.run_to_completion()
+    got = [done[r] for r in restored]
+    if got != want or any(g[:len(m)] != m for g, m in zip(got, mid)):
+        raise AssertionError('migrated tokens differ from the '
+                             'uninterrupted run')
+    engines = {'blob_bytes': [len(x) for x in blobs],
+               'snapshot_ms': snapshot_s * 1e3 / len(blobs),
+               'restore_ms': restore_s * 1e3 / len(blobs),
+               'long_request_ms': {'gather_and_d2h': d2h_s * 1e3,
+                                   'pack': pack_s * 1e3,
+                                   'unpack': unpack_s * 1e3},
+               'tokens_at_snapshot': [len(m) for m in mid],
+               'tokens': [len(g) for g in got], 'equal': True}
+    del a, b, blobs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kw = dict(batch_size=4, max_seq_len=2048, prefill_chunk=512,
+              kv_page_size=64, device=DEV)
+    prompt = prompt_tokens(rng, 200, vocab)
+    max_new = 64
+    one = inference.InferenceEngine(params, config, **kw)
+    two = inference.InferenceEngine(params, config, **kw)
+    rid = two.submit(prompt, inference.SamplingParams(max_new_tokens=max_new))
+    want = two.run_to_completion()[rid]
+    two.abort_all()
+    holders, servers, threads = [], [], []
+    try:
+        for engine in (one, two):
+            holder = {'loop': server_lib.EngineLoop(engine)}
+            srv = server_lib.create_server(holder, host='127.0.0.1', port=0)
+            th = threading.Thread(target=srv.serve_forever, daemon=True)
+            th.start()
+            holders.append(holder)
+            servers.append(srv)
+            threads.append(th)
+        base = [f'http://127.0.0.1:{srv.server_address[1]}'
+                for srv in servers]
+        req = urllib.request.Request(
+            base[0] + '/generate', headers={'Content-Type':
+                                            'application/json'},
+            data=json.dumps({'prompt_tokens': prompt,
+                             'max_new_tokens': max_new,
+                             'stream': True}).encode())
+        drained = {}
+
+        def drain():
+            drained['status'], body = http_json(
+                base[0] + '/internal/drain?deadline=0', {})
+            drained['body'] = json.loads(body)
+
+        first, drainer = [], None
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            for frame in sse_frames(resp):
+                if 'token' not in frame:
+                    break
+                first.append(frame['token'])
+                if len(first) == 2:
+                    drainer = threading.Thread(target=drain)
+                    drainer.start()
+        if drainer is not None:
+            drainer.join(300)
+        if 'migrate' not in frame or drained.get('status') != 200:
+            raise AssertionError(f'drain: last frame {sorted(frame)}, '
+                                 f'{drained}')
+        blob = base64.b64decode(frame['migrate']['snapshot'])
+        sent = frame['migrate']['sent']
+        bad = bytearray(blob)
+        bad[len(bad) // 2] ^= 0xFF
+        bad_status = None
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                base[1] + '/internal/restore?sent=0', data=bytes(bad)),
+                timeout=300)
+        except urllib.error.HTTPError as e:
+            bad_status = e.code
+        if bad_status != 400:
+            raise AssertionError(f'corrupted blob: {bad_status}, want 400')
+        t0 = time.perf_counter()
+        rest = []
+        with urllib.request.urlopen(urllib.request.Request(
+                base[1] + f'/internal/restore?sent={sent}', data=blob),
+                timeout=300) as resp:
+            for frame in sse_frames(resp):
+                if 'token' not in frame:
+                    break
+                rest.append(frame['token'])
+        resumed_s = time.perf_counter() - t0
+        if (sent != len(first) or first + rest != want
+                or frame != {'done': True, 'tokens': want}):
+            raise AssertionError(f'server migration: sent {sent}, '
+                                 f'{len(first)} + {len(rest)} tokens, '
+                                 f'equal {first + rest == want}')
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        for holder in holders:
+            holder['loop'].stop()
+    return {'engine_to_engine': engines,
+            'server_to_server': {
+                'prompt_tokens': len(prompt), 'max_new_tokens': max_new,
+                'tokens_before_drain': len(first), 'sent': sent,
+                'tokens_after_restore': len(rest), 'blob_bytes': len(blob),
+                'drain': drained['body'], 'corrupted_blob_status': bad_status,
+                'restore_to_done_s': resumed_s, 'equal': True}}
 
 
 BWD_CASES = (
@@ -993,19 +1402,20 @@ def main():
             'plain_ms': timing['plain_ms'], 'bound_ms': timing['bound_ms'],
             'bound_by': timing['bound_by'],
             'library_ms': timing['library_ms']}
+        paths = [('serving', timing)]
         if not quant:
             # K1's second shape, the training path's; its launches come
             # from the train phase.
             train_timing = kernel_timing(torch, fa, quant,
                                          TRAIN_TIMING_SHAPE)
             emit('timing', kernel=name, path='training', **train_timing)
-            kernels[name]['shapes'] = [
-                {'path': path, 'shape': tm['shape'],
-                 'q_offset': tm['q_offset'], 'launches': 0,
-                 **{key: tm[key] for key in ('ms', 'plain_ms', 'bound_ms',
-                                             'bound_by', 'library_ms')}}
-                for path, tm in (('serving', timing),
-                                 ('training', train_timing))]
+            paths.append(('training', train_timing))
+        kernels[name]['shapes'] = [
+            {'path': path, 'shape': tm['shape'],
+             'q_offset': tm['q_offset'], 'launches': 0,
+             **{key: tm[key] for key in ('ms', 'plain_ms', 'bound_ms',
+                                         'bound_by', 'library_ms')}}
+            for path, tm in paths]
 
     # 8-9. backward kernels against their plain version, then timing
     cases = bwd_readings(torch, fa)
@@ -1052,7 +1462,7 @@ def main():
     out, launches = engine_phase(torch, inference, eng, fa, llama,
                                  engine, rng, quant=False)
     kernels['flash_attention']['launches'] = launches
-    kernels['flash_attention']['shapes'][0]['launches'] = launches
+    shape_entry(kernels['flash_attention'], 'serving')['launches'] = launches
     emit('engine_bf16', model='llama3-8b', layers=32, init_s=init_s,
          **ENGINE_KW, **out)
     params, config = engine.params, engine.config
@@ -1066,6 +1476,8 @@ def main():
     out, launches = engine_phase(torch, inference, eng, fa, llama,
                                  engine, rng, quant=True)
     kernels['flash_attention_quant']['launches'] = launches
+    shape_entry(kernels['flash_attention_quant'], 'serving')['launches'] = \
+        launches
     emit('engine_int8', model='llama3-8b', layers=32, **out)
     del engine
     torch.cuda.empty_cache()
@@ -1073,7 +1485,37 @@ def main():
     # 7. server
     emit('server', **server_phase(torch, inference, fa, params,
                                   config))
+    torch.cuda.empty_cache()
+
+    # 12-14. prefix cache (bf16, then int8), then request migration
+    for quant, name in ((False, 'flash_attention'),
+                        (True, 'flash_attention_quant')):
+        out = prefix_phase(torch, inference, fa, params, config, rng, quant)
+        # Every shape a prefix hit launched, held against the plain
+        # version and timed, beside its launches in the phase.
+        out['hit_checks'] = hit_shape_readings(torch, fa, quant,
+                                               out['hit_shapes'])
+        emit('prefix_int8' if quant else 'prefix_bf16', model='llama3-8b',
+             **ENGINE_KW, **out)
+        bad = {str(c['shape'] + [c['q_offset']]): kernel_faults(c)
+               for c in out['hit_checks'] if kernel_faults(c)}
+        if bad:
+            raise AssertionError(f'{name} disagrees with its plain version '
+                                 f'at the prefix phase\'s shapes: {bad}')
+        for hit in out['hit_shapes']:
+            tm = kernel_timing(torch, fa, quant, hit['shape'])
+            emit('timing', kernel=name, path='warm_tail', **tm)
+            kernels[name]['shapes'].append({
+                'path': 'warm_tail', 'shape': tm['shape'],
+                'q_offset': tm['q_offset'], 'launches': hit['launches'],
+                **{key: tm[key] for key in ('ms', 'plain_ms', 'bound_ms',
+                                            'bound_by', 'library_ms')}})
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit('migration', **migration_phase(torch, inference, params, config,
+                                        rng))
     del params, config
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 10. flash against dense training at bench-8b widths
@@ -1087,7 +1529,7 @@ def main():
 
     # 11. the training main path
     train = train_phase(torch, fa)
-    kernels['flash_attention']['shapes'][1]['launches'] = train[
+    shape_entry(kernels['flash_attention'], 'training')['launches'] = train[
         'launches']['K1']
     kernels['flash_attention_dq']['launches'] = train['launches']['K3']
     kernels['flash_attention_dkv']['launches'] = train['launches']['K4']

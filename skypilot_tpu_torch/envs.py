@@ -68,3 +68,30 @@ SKYTPU_PREFILL_INTERLEAVE = _declare(
     'Interleaved-prefill threshold in tokens: longer prompts prefill '
     'one chunk per engine step. -1 keeps the default (4x '
     'prefill_chunk); 0 disables.')
+SKYTPU_PREFIX_CACHE = _declare(
+    'SKYTPU_PREFIX_CACHE', bool, True,
+    'Cross-request prefix KV reuse: finished requests\' full KV pages '
+    'stay indexed in a radix tree; a new prompt sharing a cached prefix '
+    'maps those pages copy-on-write and prefills only the unmatched '
+    'tail. Paged, chunked engines only; false disables.')
+SKYTPU_PREFIX_CACHE_MAX_PAGES = _declare(
+    'SKYTPU_PREFIX_CACHE_MAX_PAGES', int, 0,
+    'Cap on KV pages the prefix cache keeps after a publish (LRU-evicted '
+    'down to it). 0 bounds it by the page pool only.')
+SKYTPU_MIGRATION_ENABLE = _declare(
+    'SKYTPU_MIGRATION_ENABLE', bool, True,
+    'Request migration: the server honours X-SkyTPU-Handoff (planned '
+    'prefill->decode handoff). Off, handoff requests serve co-located.')
+SKYTPU_DRAIN_DEADLINE_SECONDS = _declare(
+    'SKYTPU_DRAIN_DEADLINE_SECONDS', float, 10.0,
+    'Seconds /internal/drain waits for in-flight requests to finish '
+    'before snapshotting the stragglers for migration.')
+SKYTPU_MIGRATION_MAX_BYTES = _declare(
+    'SKYTPU_MIGRATION_MAX_BYTES', int, 256 * 1024 * 1024,
+    'Cap on one request\'s serialized KV snapshot; snapshot_request '
+    'refuses larger blobs. 0 disables the cap.')
+SKYTPU_HANDOFF_LEASE_SECONDS = _declare(
+    'SKYTPU_HANDOFF_LEASE_SECONDS', float, 5.0,
+    'Seconds a handoff-paused request holds its slot waiting for the '
+    'decode-leg restore or /internal/resume; past it the engine resumes '
+    'decoding locally.')

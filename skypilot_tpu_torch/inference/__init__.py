@@ -11,14 +11,15 @@ import torch
 from skypilot_tpu_torch.inference.engine import (DecodeState,
                                                  InferenceEngine,
                                                  SamplingParams,
+                                                 SnapshotError,
                                                  decode_step,
                                                  fused_decode_steps,
                                                  init_cache,
                                                  prefill_chunked)
 
 __all__ = ['DecodeState', 'InferenceEngine', 'SamplingParams',
-           'build_engine', 'decode_step', 'fused_decode_steps',
-           'init_cache', 'prefill_chunked']
+           'SnapshotError', 'build_engine', 'decode_step',
+           'fused_decode_steps', 'init_cache', 'prefill_chunked']
 
 
 def build_engine(model: str, *,
@@ -30,9 +31,13 @@ def build_engine(model: str, *,
                  decode_fuse_steps: Optional[int] = None,
                  kv_page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 prefix_cache_max_pages: Optional[int] = None,
                  use_flash: Optional[bool] = None) -> InferenceEngine:
     """Resolve `model`, draw its weights from `seed` on `device` (cuda
-    unless named; raises without CUDA) and build the engine."""
+    unless named; raises without CUDA) and build the engine.
+    `prefix_cache=None` follows SKYTPU_PREFIX_CACHE (on), as the
+    reference's build_engine does."""
     from skypilot_tpu_torch import device as device_lib
     from skypilot_tpu_torch import models as models_lib
 
@@ -47,4 +52,6 @@ def build_engine(model: str, *,
                            prefill_interleave=prefill_interleave,
                            decode_fuse_steps=decode_fuse_steps,
                            kv_page_size=kv_page_size, kv_pages=kv_pages,
+                           prefix_cache=prefix_cache,
+                           prefix_cache_max_pages=prefix_cache_max_pages,
                            device=dev)

@@ -9,10 +9,23 @@ Device math: `quantize_kv` (:92), `init_cache` (:344, unsharded only),
 (:852), `prefill_chunk_at` (:941), `_sample` (:997), `decode_step`
 (:1041) and `fused_decode_steps` (:1067).
 
+Request state (:200-343): the page-pool and dense-row copies
+(`_copy_pool_page`, `_gather_pool_pages`, `_splice_pool_pages`,
+`_gather_dense_row`, `_splice_dense_row`) as plain indexed tensor copies
+in place, and the migration blob (`SnapshotError`, `_snapshot_pack`,
+`_snapshot_unpack`, `SNAPSHOT_VERSION`), byte-compatible with the
+reference's `SKTPUSNP` v1 so the two engines trade requests.
+
 Host side: `SamplingParams`, `_Slot`, `DecodeState` and
 `InferenceEngine` (:1397) with its page allocator and FIFO admission
-(`_insert_from_queue`), interleaved prefill (`_advance_prefill`),
-eviction, abort and the `step()` loop.
+(`_insert_from_queue`), the radix prefix cache with copy-on-write pages
+(`_reclaim`, `_enforce_cache_cap`, `_cow_slot_page`, `_cow_guard`,
+publish in `_free_slot`), interleaved and warm-tail prefill
+(`_advance_prefill`), snapshot/restore, the planned prefill->decode
+handoff with its lease, eviction, abort and the `step()` loop. Page
+bookkeeping follows the reference decision for decision (FIFO
+allocator, the same `extend` orders), so the two engines hand out the
+same page ids for the same request sequence.
 
 Differences by design, each stated where it happens:
 - The KV cache is updated IN PLACE (the reference returns a new,
@@ -26,23 +39,33 @@ Differences by design, each stated where it happens:
 - H100 policy: `use_flash` defaults on for CUDA (off on the CPU, where
   True runs the kernels' plain versions); `kv_quant='auto'` resolves to
   'none'; `_flash_prefill_ok` accepts what the CUDA kernel serves.
+- The reference's `obs` instruments and `spans` phases are not ported
+  (host counters live in `InferenceEngine.stats`), nor its
+  `faults.inject` chaos seams (`engine.snapshot`,
+  `engine.handoff_lease`).
+- The snapshot gathers only the request's pages, where the reference
+  pads the gather to the table width so one XLA compile serves every
+  request; nothing here compiles per shape.
 
-Not ported yet (later slices): the prefix cache with copy-on-write,
-snapshot/handoff, speculative decode, MoE, sharded meshes and the
-observability instruments. Asking for a prefix cache, a draft model or
-a mesh raises NotImplementedError.
+Not ported yet (later slices): speculative decode, MoE and sharded
+meshes. Asking for a draft model or a mesh raises NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import struct
 import time
+import zlib
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from skypilot_tpu_torch import device as device_lib
 from skypilot_tpu_torch import envs
+from skypilot_tpu_torch.inference import prefix_cache as prefix_lib
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import flash_attention as fa_lib
 
@@ -206,6 +229,151 @@ def _dense_write(cache_kv: KV, new: torch.Tensor,
         write_leaf(cache_kv['s'], newq['s'])
         return cache_kv
     return write_leaf(cache_kv, new)
+
+
+def _leaves(kv: KV) -> List[torch.Tensor]:
+    return [kv['q'], kv['s']] if _is_quant(kv) else [kv]
+
+
+def _copy_pool_page(pool: KV, src: int, dst: int) -> None:
+    """Copy page `src` onto page `dst` across every layer of one page
+    pool ([L, P, page, ...] leaves, raw or {'q','s'}), in place: the
+    device half of copy-on-write. Only the page's slice moves; no second
+    pool is allocated."""
+    for leaf in _leaves(pool):
+        leaf[:, dst].copy_(leaf[:, src])
+
+
+def _gather_pool_pages(pool: KV, pages: List[int]) -> KV:
+    """Pages `pages` of a pool's [L, P, page, ...] leaves -> new
+    [L, len(pages), page, ...] leaves (the snapshot half of migration;
+    the pool keeps serving). Unlike the reference this gathers only the
+    pages asked for: nothing here compiles per shape."""
+    def gather(leaf):
+        return leaf.index_select(1, torch.tensor(pages, dtype=torch.long,
+                                                 device=leaf.device))
+    return _map_kv(gather, pool)
+
+
+def _splice_pool_pages(pool: KV, pages: List[int], data: KV) -> None:
+    """Write restored [L, len(pages), page, ...] leaves into page ids
+    `pages` of the pool, in place."""
+    for leaf, d in zip(_leaves(pool), _leaves(data)):
+        leaf.index_copy_(1, torch.tensor(pages, dtype=torch.long,
+                                         device=leaf.device),
+                         d.to(leaf.device))
+
+
+def _gather_dense_row(cache_kv: KV, slot: int, length: int) -> KV:
+    """Positions 0..length-1 of one slot's dense-cache row per leaf:
+    [L, B, S, ...] -> [L, length, ...]."""
+    return _map_kv(lambda leaf: leaf[:, slot, :length], cache_kv)
+
+
+def _splice_dense_row(cache_kv: KV, slot: int, data: KV) -> None:
+    """Write restored [L, n, ...] leaves at positions 0..n-1 of slot
+    `slot` of a dense cache, in place; the rest of the row zeroes, as
+    the reference's zero-padded splice leaves it."""
+    for leaf, d in zip(_leaves(cache_kv), _leaves(data)):
+        n = d.shape[1]
+        leaf[:, slot, :n].copy_(d.to(leaf.device))
+        leaf[:, slot, n:].zero_()
+
+
+# -- request snapshot blobs (migration) -------------------------------------
+# Wire format, the reference's `SKTPUSNP` v1 byte for byte:
+#   magic(8) | version u32 | header_len u32 | header JSON |
+#   array payload (raw C-order bytes, concatenated in header order) |
+#   crc32 u32 over everything after the magic.
+_SNAP_MAGIC = b'SKTPUSNP'
+SNAPSHOT_VERSION = 1
+# Array dtype as the header names it (the reference writes numpy's
+# `str(a.dtype)`) -> (torch dtype, same-width integer the bytes go
+# through). bfloat16 travels as int16 bits: numpy has no bfloat16
+# without ml_dtypes, which the port does not use.
+_BLOB_DTYPES = {
+    'bfloat16': (torch.bfloat16, torch.int16, np.int16),
+    'float16': (torch.float16, torch.int16, np.int16),
+    'float32': (torch.float32, torch.int32, np.int32),
+    'int8': (torch.int8, torch.int8, np.int8),
+}
+_DTYPE_NAMES = {t: name for name, (t, _, _) in _BLOB_DTYPES.items()}
+
+
+class SnapshotError(ValueError):
+    """A migration blob that cannot be trusted or applied: bad magic,
+    version mismatch, truncation, CRC failure, or an engine-geometry
+    mismatch (layout / page size / max_seq_len / shape / dtype)."""
+
+
+def _snapshot_pack(header: Dict[str, Any],
+                   arrays: List[Tuple[str, torch.Tensor]]) -> bytes:
+    """header + named tensors (any device) -> a blob."""
+    header = dict(header)
+    header['arrays'] = [
+        {'name': name, 'dtype': _DTYPE_NAMES[a.dtype],
+         'shape': list(a.shape)} for name, a in arrays]
+    hj = json.dumps(header).encode('utf-8')
+    body = bytearray(struct.pack('<II', SNAPSHOT_VERSION, len(hj)))
+    body += hj
+    for _, a in arrays:
+        bits = _BLOB_DTYPES[_DTYPE_NAMES[a.dtype]][1]
+        body += a.detach().cpu().contiguous().view(bits).numpy().tobytes()
+    return (_SNAP_MAGIC + bytes(body)
+            + struct.pack('<I', zlib.crc32(body)))
+
+
+def _snapshot_unpack(blob: bytes
+                     ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """A blob -> (header, name -> CPU tensor); SnapshotError for
+    anything that cannot be trusted."""
+    if not isinstance(blob, (bytes, bytearray)):
+        raise SnapshotError('snapshot blob must be bytes')
+    if len(blob) < len(_SNAP_MAGIC) + 12:
+        raise SnapshotError(
+            f'snapshot blob truncated ({len(blob)} bytes)')
+    if bytes(blob[:len(_SNAP_MAGIC)]) != _SNAP_MAGIC:
+        raise SnapshotError('bad snapshot magic — not a migration blob')
+    # One writable copy of the body: the arrays are views into it.
+    body = bytearray(blob[len(_SNAP_MAGIC):-4])
+    (crc,) = struct.unpack('<I', blob[-4:])
+    if zlib.crc32(body) != crc:
+        raise SnapshotError('snapshot CRC mismatch — blob corrupted '
+                            'in transit')
+    version, hlen = struct.unpack('<II', body[:8])
+    if version != SNAPSHOT_VERSION:
+        raise SnapshotError(
+            f'snapshot version {version} != supported '
+            f'{SNAPSHOT_VERSION}')
+    if len(body) < 8 + hlen:
+        raise SnapshotError('snapshot blob truncated inside header')
+    try:
+        header = json.loads(body[8:8 + hlen].decode('utf-8'))
+        specs = [(str(spec['name']), str(spec['dtype']),
+                  tuple(int(n) for n in spec['shape']))
+                 for spec in header.get('arrays', ())]
+    except (ValueError, KeyError, TypeError, AttributeError) as e:
+        raise SnapshotError(f'snapshot header unparseable: {e}') from e
+    arrays: Dict[str, torch.Tensor] = {}
+    off = 8 + hlen
+    for name, dtype, shape in specs:
+        if dtype not in _BLOB_DTYPES or any(n < 0 for n in shape):
+            raise SnapshotError(
+                f'snapshot array {name!r}: unsupported dtype {dtype!r} '
+                f'or shape {list(shape)}')
+        t_dtype, _, bits = _BLOB_DTYPES[dtype]
+        count = math.prod(shape)
+        nbytes = np.dtype(bits).itemsize * count
+        if off + nbytes > len(body):
+            raise SnapshotError(
+                f'snapshot blob truncated inside array {name!r}')
+        host = np.frombuffer(body, dtype=bits, count=count, offset=off)
+        arrays[name] = torch.from_numpy(host).view(t_dtype).reshape(shape)
+        off += nbytes
+    if off != len(body):
+        raise SnapshotError(
+            f'{len(body) - off} trailing bytes after snapshot arrays')
+    return header, arrays
 
 
 def _flash_prefill_ok(t: int, s: int, d: int,
@@ -587,10 +755,17 @@ class _Slot:
     generated: List[int]
     logprobs: List[float]
     prompt_len: int
-    # Interleaved prefill: the full prompt while chunks are still being
-    # written (None once decoding), and the next write position.
+    # Interleaved or warm-tail prefill: the full prompt while chunks are
+    # still being written (None once decoding), and the next write
+    # position.
     pending: Optional[List[int]] = None
     pos: int = 0
+    # The truncated prompt: publishing a finished request's pages to the
+    # prefix cache, and a snapshot, need the tokens its KV holds.
+    prompt: List[int] = dataclasses.field(default_factory=list)
+    # Planned handoff: paused at the prefill->decode boundary under a
+    # lease; the slot and its KV stay live but sit out decode.
+    handoff_pause: bool = False
 
 
 class DecodeState:
@@ -618,10 +793,16 @@ class InferenceEngine:
 
     submit() enqueues prompts; step() admits queued requests into free
     slots (batched chunked prefill, or one chunk per step for long
-    prompts) and runs one decode round of up to `decode_fuse_steps`
-    tokens for every decoding slot; results come out of finished().
-    Defaults come from the port's env registry (envs.py); explicit
-    arguments win. Runs on CUDA unless `device` says otherwise.
+    prompts and prefix-cache hits) and runs one decode round of up to
+    `decode_fuse_steps` tokens for every decoding slot; results come out
+    of finished(). On a paged, chunked engine the radix prefix cache is
+    on unless `prefix_cache=False` or SKYTPU_PREFIX_CACHE says otherwise:
+    finished requests publish their full pages, and a new prompt that
+    shares a cached prefix maps those pages copy-on-write and prefills
+    only its tail. snapshot_request/restore_request move a request
+    between engines (of either package). Defaults come from the port's
+    env registry (envs.py); explicit arguments win. Runs on CUDA unless
+    `device` says otherwise.
     """
 
     def __init__(self, params: Params, config: llama.LlamaConfig,
@@ -638,6 +819,7 @@ class InferenceEngine:
                  kv_page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
+                 prefix_cache_max_pages: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None):
         if not isinstance(config, llama.LlamaConfig):
             raise NotImplementedError(
@@ -650,10 +832,6 @@ class InferenceEngine:
         if draft is not None:
             raise NotImplementedError(
                 'speculative decode (draft model) is not ported yet')
-        if prefix_cache:
-            raise NotImplementedError(
-                'the prefix cache is not ported yet; pass '
-                'prefix_cache=None or False')
         self.device = device_lib.resolve_device(device)
         if use_flash is None:
             use_flash = default_use_flash(self.device)
@@ -701,27 +879,55 @@ class InferenceEngine:
         # is the scratch page every empty table entry points at.
         self._page_alloc: List[int] = []
         self._slot_pages: List[List[int]] = [[] for _ in range(batch_size)]
+        # Per-slot table indices mapped copy-on-write from the prefix
+        # cache: reads are free, a write there copies the page first.
+        self._slot_shared: List[set] = [set() for _ in range(batch_size)]
         self._pages_total = 0
         if _is_paged(self.state.cache):
             self._pages_total = int(_leaf(self.state.cache['k']).shape[1]) - 1
             self._page_alloc = list(range(1, self._pages_total + 1))
+        # The radix prefix cache needs the paged layout (reuse is table
+        # edits over shared pages) and chunked prefill (warm tails
+        # resume through prefill_chunk_at).
+        if prefix_cache is None:
+            prefix_cache = envs.SKYTPU_PREFIX_CACHE.get()
+        if prefix_cache_max_pages is None:
+            prefix_cache_max_pages = envs.SKYTPU_PREFIX_CACHE_MAX_PAGES.get()
+        self.prefix_cache_max_pages = max(0, int(prefix_cache_max_pages))
+        self._prefix: Optional[prefix_lib.RadixPrefixCache] = None
+        if prefix_cache and self.kv_page_size and self.prefill_chunk > 0:
+            self._prefix = prefix_lib.RadixPrefixCache(self.kv_page_size)
         self._queue: List[Tuple[int, List[int], SamplingParams]] = []
+        # Planned handoff: requests admitted with the flag, the lease
+        # deadline of each paused one, and those whose snapshot the
+        # server already exported.
+        self._handoff_requests: set = set()
+        self._handoff_deadline: Dict[int, float] = {}
+        self._handoff_exported: set = set()
         self._finished: Dict[int, List[int]] = {}
         self._finished_logprobs: Dict[int, List[float]] = {}
         self._last_logprobs: Dict[int, List[float]] = {}
         self._next_id = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # Host-side counters (the reference's prompt/generated token
-        # counters and prefill/decode latency sums). Times cover work
-        # that ends in a host sync.
+        # Host-side counters (the reference's prompt/generated token,
+        # prefix-cache and handoff counters and prefill/decode latency
+        # sums). Times cover work that ends in a host sync.
         self.stats = {'prompt_tokens': 0, 'generated_tokens': 0,
                       'prefill_seconds': 0.0, 'decode_seconds': 0.0,
-                      'decode_dispatches': 0}
+                      'decode_dispatches': 0, 'prefix_hits': 0,
+                      'prefix_misses': 0, 'prefix_reused_tokens': 0,
+                      'prefix_evictions': 0, 'cow_copies': 0,
+                      'handoff_fallbacks': 0}
 
     # -- public --------------------------------------------------------------
 
     def submit(self, prompt_tokens: List[int],
-               sampling: Optional[SamplingParams] = None) -> int:
+               sampling: Optional[SamplingParams] = None,
+               handoff: bool = False) -> int:
+        """`handoff=True` pauses the request at the prefill->decode
+        boundary (first token emitted, slot held under a lease) so a
+        load balancer can restore it elsewhere; on lease expiry or
+        resume_handoff it decodes here as if never flagged."""
         if not prompt_tokens:
             raise ValueError('prompt_tokens must be non-empty')
         if self.kv_page_size:
@@ -738,6 +944,8 @@ class InferenceEngine:
         self._next_id += 1
         self._queue.append((request_id, list(prompt_tokens),
                             sampling or SamplingParams()))
+        if handoff:
+            self._handoff_requests.add(request_id)
         return request_id
 
     def finished(self) -> Dict[int, List[int]]:
@@ -759,10 +967,12 @@ class InferenceEngine:
                 for s in self.state.slots if s is not None}
 
     def abort(self, request_id: int) -> None:
-        """Drop one queued or in-flight request; unknown ids are a
+        """Drop one queued or in-flight request: its pins on cached
+        pages release and nothing is published. Unknown ids are a
         no-op."""
         self._queue = [(rid, t, s) for rid, t, s in self._queue
                        if rid != request_id]
+        self._handoff_requests.discard(request_id)
         self._finished.pop(request_id, None)
         self._finished_logprobs.pop(request_id, None)
         self._last_logprobs.pop(request_id, None)
@@ -771,19 +981,32 @@ class InferenceEngine:
                 self._free_slot(i)
 
     def abort_all(self) -> None:
-        """Drop every queued and in-flight request."""
+        """Drop every queued and in-flight request, and the whole prefix
+        cache (error recovery must not trust cached KV)."""
         self._queue.clear()
+        self._handoff_requests.clear()
+        self._handoff_deadline.clear()
+        self._handoff_exported.clear()
         self._finished.clear()
         self._finished_logprobs.clear()
         self._last_logprobs.clear()
         for i, slot in enumerate(self.state.slots):
             if slot is not None:
                 self._free_slot(i)
+        if self._prefix is not None:
+            self._page_alloc.extend(self._prefix.clear())
 
     @property
     def has_work(self) -> bool:
         return bool(self._queue) or any(
             s is not None for s in self.state.slots)
+
+    @property
+    def has_runnable_work(self) -> bool:
+        """has_work minus slots parked under a handoff lease."""
+        return bool(self._queue) or any(
+            s is not None and not s.handoff_pause
+            for s in self.state.slots)
 
     def queue_depth(self) -> int:
         return len(self._queue)
@@ -793,6 +1016,10 @@ class InferenceEngine:
 
     def pages_total(self) -> int:
         return self._pages_total
+
+    def pages_cached(self) -> int:
+        """Pages the prefix cache indexes (pinned + reclaimable)."""
+        return self._prefix.num_pages() if self._prefix is not None else 0
 
     def run_to_completion(self, max_steps: int = 100000
                           ) -> Dict[int, List[int]]:
@@ -804,6 +1031,263 @@ class InferenceEngine:
             steps += 1
         results.update(self.finished())
         return results
+
+    # -- planned prefill->decode handoff -------------------------------------
+
+    def handoff_pending(self) -> List[int]:
+        """Requests paused at the prefill->decode boundary whose snapshot
+        has not been exported yet. A pause only happens after the first
+        token exists, so an exported blob always carries KV."""
+        return [s.request_id for s in self.state.slots
+                if s is not None and s.handoff_pause
+                and s.request_id not in self._handoff_exported]
+
+    def mark_handoff_exported(self, request_id: int) -> None:
+        self._handoff_exported.add(request_id)
+
+    def resume_handoff(self, request_id: int) -> bool:
+        """Resume local decode of a handoff-paused request. False when
+        it is not paused here (resumed by lease expiry, finished,
+        aborted or never admitted): calling twice is harmless."""
+        for s in self.state.slots:
+            if s is not None and s.request_id == request_id:
+                if not s.handoff_pause:
+                    return False
+                s.handoff_pause = False
+                self._handoff_deadline.pop(request_id, None)
+                return True
+        return False
+
+    def _maybe_pause_handoff(self, slot: _Slot) -> None:
+        """Pause a handoff-flagged request now that its first token
+        exists, unless it is already done."""
+        rid = slot.request_id
+        if rid not in self._handoff_requests:
+            return
+        self._handoff_requests.discard(rid)
+        s = slot.params
+        done = (len(slot.generated) >= s.max_new_tokens
+                or (s.eos_token_id is not None and slot.generated
+                    and slot.generated[-1] == s.eos_token_id)
+                or (slot.prompt_len + len(slot.generated)
+                    >= self.state.max_seq_len - 1))
+        if done:
+            return
+        slot.handoff_pause = True
+        self._handoff_deadline[rid] = (
+            time.monotonic() + envs.SKYTPU_HANDOFF_LEASE_SECONDS.get())
+
+    def _expire_handoff_leases(self) -> None:
+        """A lease that runs out resumes its request locally (counted as
+        a fallback, never an error)."""
+        if not self._handoff_deadline:
+            return
+        now = time.monotonic()
+        for slot in self.state.slots:
+            if slot is None or not slot.handoff_pause:
+                continue
+            deadline = self._handoff_deadline.get(slot.request_id)
+            if deadline is not None and now >= deadline:
+                slot.handoff_pause = False
+                self._handoff_deadline.pop(slot.request_id, None)
+                self.stats['handoff_fallbacks'] += 1
+
+    # -- request migration (snapshot / restore) ------------------------------
+
+    def snapshot_request(self, request_id: int) -> bytes:
+        """Serialize one queued or in-flight request into a migration
+        blob: its KV pages (dense: its cache row) plus prompt, generated
+        tokens, logprobs, sampling state and length. Non-destructive:
+        the request runs on until the caller aborts it. Queued and
+        mid-prefill requests snapshot as host state only (prefill
+        repays on restore; no token was generated yet). KeyError for a
+        request that is not here; SnapshotError over
+        SKYTPU_MIGRATION_MAX_BYTES."""
+        for rid, tokens, sampling in self._queue:
+            if rid == request_id:
+                return self._pack_host_only(request_id, tokens, sampling)
+        for i, slot in enumerate(self.state.slots):
+            if slot is not None and slot.request_id == request_id:
+                break
+        else:
+            raise KeyError(
+                f'request {request_id} is not queued or in flight '
+                '(finished or aborted — nothing to snapshot)')
+        if slot.pending is not None:
+            return self._pack_host_only(request_id, slot.pending,
+                                        slot.params)
+        length = slot.prompt_len + len(slot.generated) - 1
+        header = self._snapshot_header(
+            request_id, slot.prompt, slot.params, slot.prompt_len,
+            generated=slot.generated, logprobs=slot.logprobs,
+            length=length,
+            layout='paged' if self.kv_page_size else 'dense')
+        if self.kv_page_size:
+            n_used = -(-length // self.kv_page_size)
+            pages = self._slot_pages[i][:n_used]
+            got = {name: _gather_pool_pages(self.state.cache[name], pages)
+                   for name in ('k', 'v')}
+        else:
+            got = {name: _gather_dense_row(self.state.cache[name], i,
+                                           length)
+                   for name in ('k', 'v')}
+        arrays: List[Tuple[str, torch.Tensor]] = []
+        for name in ('k', 'v'):
+            leaf = got[name]
+            if _is_quant(leaf):
+                arrays.append((f'{name}.q', leaf['q']))
+                arrays.append((f'{name}.s', leaf['s']))
+            else:
+                arrays.append((name, leaf))
+        nbytes = sum(a.numel() * a.element_size() for _, a in arrays)
+        cap = envs.SKYTPU_MIGRATION_MAX_BYTES.get()
+        if cap and nbytes > cap:
+            raise SnapshotError(
+                f'snapshot payload is {nbytes} bytes, over '
+                f'SKYTPU_MIGRATION_MAX_BYTES={cap}; the request '
+                'honest-terminates instead of shipping it')
+        return _snapshot_pack(header, arrays)
+
+    def _snapshot_header(self, request_id: int, prompt: List[int],
+                         sampling: SamplingParams, prompt_len: int,
+                         generated: List[int] = (),
+                         logprobs: List[float] = (), length: int = 0,
+                         layout: str = 'none') -> Dict[str, Any]:
+        """A blob's JSON header, its keys in the reference's order (the
+        blobs are byte-identical). The defaults describe a host-only
+        request: nothing generated, no KV."""
+        return {
+            'fmt': 'skytpu-kv-snapshot',
+            'request_id': request_id,
+            'prompt': list(prompt),
+            'generated': list(generated),
+            'logprobs': list(logprobs),
+            'prompt_len': prompt_len,
+            'sampling': dataclasses.asdict(sampling),
+            'length': length,
+            'max_seq_len': self.state.max_seq_len,
+            'page_size': self.kv_page_size,
+            'layout': layout,
+        }
+
+    def _pack_host_only(self, request_id: int, tokens: List[int],
+                        sampling: SamplingParams) -> bytes:
+        return _snapshot_pack(self._snapshot_header(
+            request_id, tokens, sampling, len(tokens)), [])
+
+    def restore_request(self, blob: bytes) -> int:
+        """Splice a snapshot_request blob (from either package) into
+        this engine and resume it: pages come from the allocator
+        (reclaiming cold prefix-cache pages first) and the next step()
+        decodes the next token, so greedy output continues token for
+        token. Returns the NEW request id. SnapshotError for a blob
+        that cannot be trusted or does not fit this engine's geometry;
+        RuntimeError when no slot or not enough pages are free."""
+        header, arrays = _snapshot_unpack(blob)
+        try:
+            sampling = SamplingParams(**header['sampling'])
+            prompt = [int(t) for t in header['prompt']]
+            generated = [int(t) for t in header['generated']]
+            logprobs = [float(x) for x in header['logprobs']]
+            prompt_len = int(header['prompt_len'])
+            length = int(header['length'])
+            layout = header['layout']
+            page_size = int(header['page_size'])
+            max_seq_len = int(header['max_seq_len'])
+        except (KeyError, TypeError, ValueError) as e:
+            raise SnapshotError(
+                f'snapshot header missing/malformed field: {e}') from e
+        if layout == 'none' or not generated:
+            # Host-only snapshot: prefill repays from scratch.
+            return self.submit(prompt, sampling)
+        want_layout = 'paged' if self.kv_page_size else 'dense'
+        if layout != want_layout:
+            raise SnapshotError(
+                f'snapshot layout {layout!r} != engine layout '
+                f'{want_layout!r}')
+        if self.kv_page_size and page_size != self.kv_page_size:
+            raise SnapshotError(
+                f'snapshot page_size {page_size} != engine '
+                f'page_size {self.kv_page_size}')
+        if max_seq_len != self.state.max_seq_len:
+            # The eviction bound (max_seq_len - 1) decides when a
+            # request stops.
+            raise SnapshotError(
+                f'snapshot max_seq_len {max_seq_len} != '
+                f'engine max_seq_len {self.state.max_seq_len}')
+        if length != prompt_len + len(generated) - 1:
+            raise SnapshotError(
+                f'snapshot length {length} inconsistent with '
+                f'prompt_len {prompt_len} + {len(generated)} '
+                'generated tokens')
+        free = [i for i, s in enumerate(self.state.slots) if s is None]
+        if not free:
+            raise RuntimeError(
+                'restore refused: no free slot (try another replica)')
+        i = free[0]
+        page = self.kv_page_size
+        n_used = -(-length // page) if page else 0
+
+        def check_and_get(key, leaf):
+            if key not in arrays:
+                raise SnapshotError(f'snapshot missing array {key!r}')
+            arr = arrays[key]
+            tail = leaf.shape[2:] if page else leaf.shape[3:]
+            want_rows = n_used if page else length
+            if (arr.dim() < 2 or arr.shape[0] != leaf.shape[0]
+                    or arr.shape[1] != want_rows
+                    or tuple(arr.shape[2:]) != tuple(tail)):
+                raise SnapshotError(
+                    f'snapshot array {key!r} shape {tuple(arr.shape)} '
+                    f'does not fit engine leaf {tuple(leaf.shape)}')
+            if arr.dtype != leaf.dtype:
+                raise SnapshotError(
+                    f'snapshot array {key!r} dtype '
+                    f'{_DTYPE_NAMES[arr.dtype]} != engine dtype '
+                    f'{_DTYPE_NAMES.get(leaf.dtype, leaf.dtype)}')
+            return arr
+
+        def build(name):
+            leaf = self.state.cache[name]
+            if _is_quant(leaf):
+                return {'q': check_and_get(f'{name}.q', leaf['q']),
+                        's': check_and_get(f'{name}.s', leaf['s'])}
+            return check_and_get(name, leaf)
+
+        data = {'k': build('k'), 'v': build('v')}
+        if page:
+            w = int(self.state.cache['table'].shape[1])
+            if n_used > w:
+                raise SnapshotError(
+                    f'snapshot spans {n_used} pages, over the table '
+                    f'width {w}')
+            need = max(n_used, self._pages_needed(
+                prompt_len, sampling.max_new_tokens))
+            if need > len(self._page_alloc):
+                self._reclaim(need - len(self._page_alloc))
+            if need > len(self._page_alloc):
+                raise RuntimeError(
+                    f'restore refused: needs {need} free KV pages, '
+                    f'pool has {len(self._page_alloc)} (try another '
+                    'replica)')
+            pages = self._page_alloc[:need]
+            del self._page_alloc[:need]
+            for name in ('k', 'v'):
+                _splice_pool_pages(self.state.cache[name], pages[:n_used],
+                                   data[name])
+            self._slot_pages[i] = pages
+            self._slot_shared[i] = set()
+            self._set_table_rows(i, pages)
+        else:
+            for name in ('k', 'v'):
+                _splice_dense_row(self.state.cache[name], i, data[name])
+        self.state.cache['length'][i] = length
+        self.state.last_tokens[i] = generated[-1]
+        request_id = self._next_id
+        self._next_id += 1
+        self.state.slots[i] = _Slot(request_id, sampling, generated,
+                                    logprobs, prompt_len, prompt=prompt)
+        return request_id
 
     # -- admission and pages -------------------------------------------------
 
@@ -828,32 +1312,102 @@ class InferenceEngine:
         inserts: List[Tuple[int, List[int], SamplingParams]] = []
         slot_ids: List[int] = []
         while free and self._queue:
-            if self.kv_page_size:
-                # FIFO page admission: an oversubscribed pool holds the
-                # head request until evictions free pages.
-                _rid, peek_tokens, peek_sampling = self._queue[0]
-                need = self._pages_needed(
-                    len(peek_tokens[:self.state.max_seq_len - 1]),
-                    peek_sampling.max_new_tokens)
-                if need > len(self._page_alloc):
-                    break
-            slot = free.pop(0)
-            request_id, tokens, sampling = self._queue.pop(0)
-            tokens = tokens[:self.state.max_seq_len - 1]
-            if self.kv_page_size:
-                self._slot_pages[slot] = self._page_alloc[:need]
-                del self._page_alloc[:need]
-                self._set_table_rows(slot, self._slot_pages[slot])
+            matched: Optional[prefix_lib.MatchResult] = None
+            pinned: List[int] = []
+            try:
+                if self.kv_page_size:
+                    # FIFO page admission BEFORE popping: an
+                    # oversubscribed pool holds the head request until
+                    # evictions free pages.
+                    _rid, peek_tokens, peek_sampling = self._queue[0]
+                    peek_trunc = peek_tokens[:self.state.max_seq_len - 1]
+                    need = self._pages_needed(
+                        len(peek_trunc), peek_sampling.max_new_tokens)
+                    need_private = need
+                    if self._prefix is not None:
+                        # Matched full pages map COW into the table;
+                        # acquire() BEFORE any reclaim below, so eviction
+                        # never harvests the pages this request matched.
+                        matched = self._prefix.match(peek_trunc)
+                        if matched.pages:
+                            self._prefix.acquire(matched.pages)
+                            pinned = list(matched.pages)
+                        # A fully-cached prompt re-writes its last token
+                        # for the first logits, which COWs the final
+                        # page: one extra private page.
+                        cow = 1 if (matched.pages and matched.tokens
+                                    >= len(peek_trunc)) else 0
+                        need_private = need - len(matched.pages) + cow
+                    if need_private > len(self._page_alloc):
+                        # Live requests outrank cached history.
+                        self._reclaim(need_private - len(self._page_alloc))
+                        if need_private > len(self._page_alloc):
+                            if pinned:
+                                self._prefix.release(pinned)
+                                pinned = []
+                            break
+                slot = free.pop(0)
+                request_id, tokens, sampling = self._queue.pop(0)
+                tokens = tokens[:self.state.max_seq_len - 1]
+                if self.kv_page_size:
+                    fresh = self._page_alloc[:need_private]
+                    del self._page_alloc[:need_private]
+                    if matched is not None and matched.pages:
+                        # Matched pages head the table; the one extra
+                        # `cow` page rides at the END of `fresh` and goes
+                        # back to the head of the free list, where
+                        # _cow_slot_page takes it.
+                        pages = list(matched.pages) + fresh
+                        self._slot_pages[slot] = pages[:need]
+                        self._slot_shared[slot] = set(
+                            range(len(matched.pages)))
+                        if len(pages) > need:
+                            self._page_alloc[:0] = pages[need:]
+                    else:
+                        self._slot_pages[slot] = fresh
+                        self._slot_shared[slot] = set()
+                    self._set_table_rows(slot, self._slot_pages[slot])
+                # The slot's page list owns the pins from here on.
+                pinned = []
+            except BaseException:
+                # A failure between acquire() and the hand-over would
+                # leak the pins forever.
+                if pinned and self._prefix is not None:
+                    self._prefix.release(pinned)
+                raise
             self.stats['prompt_tokens'] += len(tokens)
+            if self._prefix is not None:
+                hit = matched is not None and bool(matched.pages)
+                self.stats['prefix_hits' if hit else 'prefix_misses'] += 1
+            if matched is not None and matched.pages:
+                # Warm request: prefill resumes at the first unmatched
+                # token, one narrow chunk per step. A fully-cached
+                # prompt re-runs only its last token, whose write lands
+                # in the final shared page: COW it first.
+                start = matched.tokens
+                if start >= len(tokens):
+                    start = len(tokens) - 1
+                    self._cow_slot_page(slot, start // self.kv_page_size)
+                self.stats['prefix_reused_tokens'] += start
+                # Until its first chunk runs, the slot sits out decode
+                # rounds whose masked write lands at cache['length']:
+                # at 0 that is the shared page 0, so park it at the
+                # resume point, in a private page. (The reference
+                # leaves it at 0 and corrupts the cached prefix.)
+                self.state.cache['length'][slot] = start
+                self.state.slots[slot] = _Slot(
+                    request_id, sampling, [], [], len(tokens),
+                    pending=tokens, pos=start, prompt=tokens)
+                continue
             if (self.prefill_interleave
                     and len(tokens) > self.prefill_interleave):
                 # Long prompt: one chunk per step().
                 self.state.slots[slot] = _Slot(
                     request_id, sampling, [], [], len(tokens),
-                    pending=tokens, pos=0)
+                    pending=tokens, pos=0, prompt=tokens)
                 continue
             self.state.slots[slot] = _Slot(request_id, sampling, [], [],
-                                           len(tokens))
+                                           len(tokens), prompt=tokens)
             inserts.append((request_id, tokens, sampling))
             slot_ids.append(slot)
         if not inserts:
@@ -887,6 +1441,7 @@ class InferenceEngine:
         for i, slot in enumerate(slot_ids):
             self.state.slots[slot].generated.append(int(first_host[i]))
             self.state.slots[slot].logprobs.append(float(lp_host[i]))
+            self._maybe_pause_handoff(self.state.slots[slot])
         self.stats['generated_tokens'] += len(slot_ids)
 
     def _sample_host_params(self, logits: torch.Tensor,
@@ -903,11 +1458,70 @@ class InferenceEngine:
                              dtype=torch.float32, device=dev)
         return _sample(logits, temps, topks, topps, self._gen)
 
-    # -- interleaved prefill -------------------------------------------------
+    # -- prefix-cache page machinery -----------------------------------------
+
+    def _reclaim(self, n_pages: int) -> None:
+        """LRU-evict up to `n_pages` cold refcount-0 prefix-cache pages
+        back into the free pool (pinned pages are never touched)."""
+        if self._prefix is None:
+            return
+        freed = self._prefix.evict_lru(n_pages)
+        if freed:
+            self._page_alloc.extend(freed)
+            self.stats['prefix_evictions'] += len(freed)
+
+    def _enforce_cache_cap(self) -> None:
+        """Hold the radix index at prefix_cache_max_pages after a
+        publish (0 = bounded only by the pool)."""
+        cap = self.prefix_cache_max_pages
+        if self._prefix is None or not cap:
+            return
+        over = self._prefix.num_pages() - cap
+        if over > 0:
+            self._reclaim(over)
+
+    def _cow_slot_page(self, i: int, idx: int) -> None:
+        """Copy-on-write: slot i's table entry `idx` maps a page shared
+        with the radix cache and is about to be written. Copy it into a
+        private page first (in-place device copy + table edit), so the
+        cached original survives for the next match."""
+        src = self._slot_pages[i][idx]
+        if not self._page_alloc:
+            self._reclaim(1)
+        if not self._page_alloc:
+            # Admission reserved one page per possible COW, so this is a
+            # bookkeeping bug, not a load condition.
+            raise RuntimeError('COW needs a free page but the pool is empty')
+        dst = self._page_alloc.pop(0)
+        _copy_pool_page(self.state.cache['k'], src, dst)
+        _copy_pool_page(self.state.cache['v'], src, dst)
+        self.stats['cow_copies'] += 1
+        self._slot_pages[i][idx] = dst
+        self._slot_shared[i].discard(idx)
+        self._set_table_rows(i, self._slot_pages[i])
+        self._prefix.release([src])
+        if not self._prefix.owns(src):
+            self._page_alloc.append(src)
+
+    def _cow_guard(self, i: int, first_pos: int, last_pos: int) -> None:
+        """Before writes land at positions [first_pos, last_pos] of slot
+        i, COW any shared page in that span. Matches are page-aligned
+        and below the prefill resume point, so this fires only for the
+        full-prompt match's last page; every write path runs it all the
+        same."""
+        shared = self._slot_shared[i]
+        if not shared:
+            return
+        page = self.kv_page_size
+        for idx in range(first_pos // page, last_pos // page + 1):
+            if idx in shared:
+                self._cow_slot_page(i, idx)
+
+    # -- interleaved / resumed prefill ---------------------------------------
 
     def _advance_prefill(self) -> None:
         """ONE long-prompt chunk per step, plus every slot whose
-        remainder fits one chunk."""
+        remainder fits one chunk (warm prefix-cache tails)."""
         long_done = False
         for i, slot in enumerate(self.state.slots):
             if slot is None or slot.pending is None:
@@ -921,7 +1535,8 @@ class InferenceEngine:
 
     def _advance_prefill_slot(self, i: int, slot: _Slot) -> None:
         """One chunk of prefill for slot i, at the narrowest
-        power-of-two bucket that covers the remainder."""
+        power-of-two bucket that covers the remainder: a 16-token warm
+        tail runs a 16-row chunk."""
         chunk = self.prefill_chunk
         start = slot.pos
         remaining = len(slot.pending) - start
@@ -931,6 +1546,8 @@ class InferenceEngine:
                 bucket *= 2
             chunk = min(chunk, bucket)
         toks = slot.pending[start:start + chunk]
+        # The whole chunk width writes (padding included).
+        self._cow_guard(i, start, start + chunk - 1)
         dev = self.device
         arr = torch.tensor([toks + [0] * (chunk - len(toks))],
                            dtype=torch.int64, device=dev)
@@ -955,20 +1572,58 @@ class InferenceEngine:
         slot.logprobs.append(lp)
         slot.pending = None
         self.stats['generated_tokens'] += 1
+        self._maybe_pause_handoff(slot)
 
     # -- slots and decode ----------------------------------------------------
 
-    def _free_slot(self, i: int) -> None:
+    def _free_slot(self, i: int, publish: bool = False) -> None:
         """Release slot i: its length zeroes (stale keys invisible), its
-        pages return to the pool and its table row resets to the scratch
-        page, so its masked decode writes never land in a page that was
-        re-issued."""
+        table row resets to the scratch page (its masked decode writes
+        never land in a re-issued page) and its pages go back. With
+        `publish` (normal completion) and the prefix cache, the full
+        pages of prompt + generated[:-1] go to the radix index instead;
+        pins on matched pages release either way."""
+        slot = self.state.slots[i]
         self.state.slots[i] = None
+        if slot is not None:
+            self._handoff_requests.discard(slot.request_id)
+            self._handoff_deadline.pop(slot.request_id, None)
+            self._handoff_exported.discard(slot.request_id)
         self.state.cache['length'][i] = 0
-        if self.kv_page_size and self._slot_pages[i]:
-            self._page_alloc.extend(self._slot_pages[i])
-            self._slot_pages[i] = []
-            self._set_table_rows(i, [])
+        if not (self.kv_page_size and self._slot_pages[i]):
+            self._slot_shared[i] = set()
+            return
+        pages = self._slot_pages[i]
+        shared_pages = [pages[j] for j in sorted(self._slot_shared[i])]
+        self._slot_pages[i] = []
+        self._slot_shared[i] = set()
+        self._set_table_rows(i, [])
+        published_upto = 0
+        if (publish and self._prefix is not None and slot is not None
+                and slot.pending is None and slot.generated):
+            # Positions 0..length-1 hold the KV of prompt +
+            # generated[:-1] (the last sampled token was never fed back).
+            length = slot.prompt_len + len(slot.generated) - 1
+            full = length // self.kv_page_size
+            if full > 0:
+                seq = (slot.prompt
+                       + slot.generated)[:full * self.kv_page_size]
+                # Duplicates (the same span published first under other
+                # page ids) come back and return to the pool.
+                leftover = self._prefix.insert(seq, pages[:full])
+                published_upto = full
+                self._page_alloc.extend(leftover)
+        if self._prefix is not None and shared_pages:
+            self._prefix.release(shared_pages)
+            # A released page the tree no longer owns (after clear())
+            # returns to the pool.
+            self._page_alloc.extend(
+                p for p in shared_pages if not self._prefix.owns(p))
+        shared_set = set(shared_pages)
+        self._page_alloc.extend(
+            p for j, p in enumerate(pages)
+            if j >= published_upto and p not in shared_set)
+        self._enforce_cache_cap()
 
     def _slot_bounds(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """Per-slot device bounds of a decode round: remaining budgets,
@@ -999,16 +1654,28 @@ class InferenceEngine:
             if hit_eos or full or len(slot.generated) >= s.max_new_tokens:
                 self._finished[slot.request_id] = slot.generated
                 self._finished_logprobs[slot.request_id] = slot.logprobs
-                self._free_slot(i)
+                self._free_slot(i, publish=True)
 
     def step(self) -> None:
         self._evict_finished()
+        self._expire_handoff_leases()
         self._insert_from_queue()
         self._advance_prefill()
+        # Slots mid-prefill and slots paused under a handoff lease sit
+        # out decode.
         active_mask = [s is not None and s.pending is None
-                       for s in self.state.slots]
+                       and not s.handoff_pause for s in self.state.slots]
         if not any(active_mask):
             return
+        if self._prefix is not None:
+            # A decode write aimed at a shared page COWs it first.
+            for i, on in enumerate(active_mask):
+                if not on or not self._slot_shared[i]:
+                    continue
+                s = self.state.slots[i]
+                length = s.prompt_len + len(s.generated) - 1
+                self._cow_guard(i, length,
+                                length + self.decode_fuse_steps - 1)
         slots = self.state.slots
         dev = self.device
         temps = torch.tensor([s.params.temperature if s else 0.0

@@ -1,8 +1,9 @@
 """Inference HTTP server for the port, on the standard library only.
 
 Ports the serving core of `skypilot_tpu/inference/server.py`: the
-`EngineLoop` (:58) with its `_tick` (:339), and the `/health` and
-`/generate` handlers (:455, :499) with the reference's bodies:
+`EngineLoop` (:58) with its `_tick` (:339), restore and migration
+helpers (:121-231), and the `/health` and `/generate` handlers (:455,
+:499) with the reference's bodies:
   GET  /health    -> 200 {"status": "ok", "engine": {...}} once loaded
   POST /generate  -> {"prompt_tokens": [...], "max_new_tokens": N,
                       "temperature": t, "top_k": k, "top_p": p,
@@ -11,11 +12,23 @@ Ports the serving core of `skypilot_tpu/inference/server.py`: the
                      with "stream": true => SSE: `data: {"token": t}`
                      per token, then `data: {"done": true, "tokens": [...]}`.
 
+Request migration, as the reference's (same status codes and bodies,
+so its load balancer drives a port replica unchanged):
+  POST /internal/drain?deadline=s   stop admission, wait, snapshot the
+                                    stragglers (:645)
+  GET  /internal/snapshot?key=k     one request's blob (:682)
+  GET|POST /internal/resume?key=k[&abandon=1]   handoff fallback (:708)
+  POST /internal/restore?sent=n&stream=1        splice a blob (:748)
+Streams carry `X-SkyTPU-Migration-Key`, a non-terminal `handoff` frame
+for requests sent with `X-SkyTPU-Handoff: 1`, and a terminal `migrate`
+frame when a drain snapshots them; /health adds the page pool's
+composition and the prefix-cache counters. SIGTERM drains, then exits.
+
 One engine-loop thread owns the engine (and the card); HTTP handler
 threads (`ThreadingHTTPServer`) enqueue requests and wait on their
 watcher's queue, so concurrent requests join the running decode batch.
-The OpenAI routes, load shedding, drain/migration endpoints and the
-telemetry plane wait for later slices.
+The OpenAI routes, load shedding and the telemetry plane wait for later
+slices.
 
   python -m skypilot_tpu_torch.inference.server --model llama3-8b \
       --port 8080 [--device cuda]
@@ -23,16 +36,28 @@ telemetry plane wait for later slices.
 from __future__ import annotations
 
 import argparse
+import base64
+import concurrent.futures
 import json
+import os
 import queue
+import signal
+import sys
 import threading
+import time
+import urllib.parse
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
+
+from skypilot_tpu_torch import envs
 
 
 class EngineLoop:
     """Single thread owning the engine: requests arrive through a
-    queue; per-token progress and results go to per-request watchers."""
+    queue; per-token progress and results go to per-request watchers.
+    Drain, snapshot, resume and abandon run on the engine thread
+    between ticks (`run_on_engine`)."""
 
     class Watcher:
         def __init__(self, stream: bool) -> None:
@@ -40,6 +65,14 @@ class EngineLoop:
             self.q: 'queue.Queue' = queue.Queue()
             self.sent = 0
             self.aborted = False
+            # Migration identity: the opaque key a load balancer quotes
+            # at /internal/snapshot and /internal/resume, and the
+            # engine's request id once admitted.
+            self.key: Optional[str] = None
+            self.rid: Optional[int] = None
+            # The request asked to pause at the prefill->decode boundary
+            # for a planned handoff.
+            self.handoff = False
             self.logprobs: Optional[List[float]] = None
 
         def push(self, item) -> None:
@@ -49,7 +82,9 @@ class EngineLoop:
         self.engine = engine
         self._submit_q: 'queue.Queue' = queue.Queue()
         self._abort_q: 'queue.Queue' = queue.Queue()
+        self._cmd_q: 'queue.Queue' = queue.Queue()
         self._watchers: Dict[int, EngineLoop.Watcher] = {}
+        self._by_key: Dict[str, EngineLoop.Watcher] = {}
         self._stop = threading.Event()
         self.gauges: Dict[str, Any] = {}
         self._refresh_gauges()
@@ -57,13 +92,55 @@ class EngineLoop:
                                         name='engine-loop')
         self._thread.start()
 
-    def submit(self, prompt: List[int], sampling,
-               stream: bool = False) -> 'EngineLoop.Watcher':
+    def submit(self, prompt: List[int], sampling, stream: bool = False,
+               key: Optional[str] = None,
+               handoff: bool = False) -> 'EngineLoop.Watcher':
         """Returns the watcher whose queue yields ('token', t)* then
-        ('done', tokens) or ('error', message)."""
+        ('done', tokens), ('migrate', {...}) or ('error', message);
+        with `handoff` (stream requests only) also one non-terminal
+        ('handoff', {...})."""
         watcher = self.Watcher(stream)
-        self._submit_q.put((prompt, sampling, watcher))
+        watcher.key = key
+        watcher.handoff = bool(handoff and stream)
+        self._submit_q.put(('gen', prompt, sampling, watcher))
         return watcher
+
+    def restore(self, blob: bytes, sent: int = 0, stream: bool = True,
+                key: Optional[str] = None) -> 'EngineLoop.Watcher':
+        """Splice a migration blob into this engine (on the engine
+        thread); the watcher streams only the tokens past `sent`, the
+        count the client already received."""
+        watcher = self.Watcher(stream)
+        watcher.key = key
+        watcher.sent = max(0, int(sent))
+        self._submit_q.put(('restore', blob, None, watcher))
+        return watcher
+
+    def run_on_engine(self, fn) -> 'concurrent.futures.Future':
+        """Run `fn` on the engine thread between ticks."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._cmd_q.put((fn, fut))
+        return fut
+
+    def has_pending(self) -> bool:
+        """Any request still queued, admitted or streaming."""
+        return bool(self._watchers) or not self._submit_q.empty()
+
+    def drain(self, deadline_s: float, flush_s: float,
+              timeout: Optional[float] = None
+              ) -> List[Tuple['EngineLoop.Watcher', bytes]]:
+        """Give in-flight requests up to `deadline_s` to finish, then
+        snapshot-and-abort the stragglers on the engine thread
+        (`snapshot_inflight`) and allow `flush_s` for their handlers to
+        flush the migrate frames. Returns the snapshots."""
+        deadline = time.monotonic() + max(0.0, deadline_s)
+        while self.has_pending() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        try:
+            return self.run_on_engine(self.snapshot_inflight).result(
+                timeout=timeout)
+        finally:
+            time.sleep(flush_s)
 
     def abort(self, watcher: 'EngineLoop.Watcher') -> None:
         """Free a request's slot (client gone); applied by the engine
@@ -78,26 +155,110 @@ class EngineLoop:
             raise RuntimeError('engine loop did not stop within '
                                f'{timeout}s')
 
+    # -- engine-thread-only helpers (call via run_on_engine) -----------------
+
+    def snapshot_inflight(self) -> List[Tuple['EngineLoop.Watcher',
+                                              bytes]]:
+        """Snapshot-and-abort every remaining request (drain). Each
+        watcher gets a terminal ('migrate', {snapshot, sent}); one whose
+        client is gone is freed instead."""
+        out: List[Tuple[EngineLoop.Watcher, bytes]] = []
+        for rid, watcher in list(self._watchers.items()):
+            self._watchers.pop(rid, None)
+            if watcher.key:
+                self._by_key.pop(watcher.key, None)
+            if watcher.aborted:
+                self.engine.abort(rid)
+                continue
+            try:
+                blob = self.engine.snapshot_request(rid)
+            except Exception as e:  # noqa: BLE001 — reported to the client
+                watcher.push(('error', f'drain snapshot failed: {e}'))
+                self.engine.abort(rid)
+                continue
+            self.engine.abort(rid)
+            watcher.push(('migrate', {
+                'snapshot': base64.b64encode(blob).decode('ascii'),
+                'sent': watcher.sent}))
+            out.append((watcher, blob))
+        return out
+
+    def snapshot_by_key(self, key: str) -> Tuple[bytes, int]:
+        """Snapshot-and-abort one request by its migration key. Returns
+        (blob, tokens already pushed to its stream); KeyError when it
+        finished or was never here."""
+        watcher = self._by_key.pop(key, None)
+        if watcher is None or watcher.rid is None:
+            raise KeyError(f'unknown migration key {key!r}')
+        blob = self.engine.snapshot_request(watcher.rid)
+        self.engine.abort(watcher.rid)
+        self._watchers.pop(watcher.rid, None)
+        watcher.push(('error', 'request migrated away'))
+        return blob, watcher.sent
+
+    def resume_by_key(self, key: str) -> str:
+        """Resume a handoff-paused request locally: 'resumed' when the
+        lease was still held, 'active' when it already decodes here.
+        KeyError when it finished, aborted or was never admitted."""
+        watcher = self._by_key.get(key)
+        if watcher is None or watcher.rid is None:
+            raise KeyError(f'unknown migration key {key!r}')
+        return 'resumed' if self.engine.resume_handoff(watcher.rid) \
+            else 'active'
+
+    def abandon_by_key(self, key: str) -> None:
+        """Drop the co-located copy of a handed-off request (its
+        decode-leg restore succeeded elsewhere). KeyError when it
+        finished, aborted or was never admitted."""
+        watcher = self._by_key.pop(key, None)
+        if watcher is None or watcher.rid is None:
+            raise KeyError(f'unknown migration key {key!r}')
+        self._watchers.pop(watcher.rid, None)
+        self.engine.abort(watcher.rid)
+        watcher.push(('error', 'request handed off to the decode pool'))
+
+    # -- the loop ------------------------------------------------------------
+
     def _refresh_gauges(self) -> None:
         e = self.engine
         in_flight = sum(1 for s in e.state.slots if s is not None)
+        total, free = e.pages_total(), e.pages_free()
+        cached = e.pages_cached()
+        st = e.stats
         self.gauges = {
             'queue_depth': e.queue_depth(),
             'in_flight': in_flight,
             'batch_occupancy': in_flight / max(1, len(e.state.slots)),
-            'kv_pages': {'total': e.pages_total(), 'free': e.pages_free()},
+            'kv_pages': {'total': total, 'free': free, 'cached': cached,
+                         'private': total - free - cached},
+            'prefix_cache': {'hits': st['prefix_hits'],
+                             'misses': st['prefix_misses'],
+                             'reused_tokens': st['prefix_reused_tokens'],
+                             'evictions': st['prefix_evictions']},
         }
 
     def _process_submission(self, item) -> None:
-        prompt, sampling, watcher = item
+        kind, payload, sampling, watcher = item
         if watcher.aborted:
             return
         try:
-            rid = self.engine.submit(prompt, sampling)
-        except ValueError as e:
-            watcher.push(('error', str(e)))
+            if kind == 'restore':
+                rid = self.engine.restore_request(payload)
+            else:
+                rid = self.engine.submit(payload, sampling,
+                                         handoff=watcher.handoff)
+        except Exception as e:  # noqa: BLE001 — the handler must hear
+            # Restore keeps the exception type: SnapshotError (bad blob,
+            # 400) and RuntimeError (no room here, 409) drive different
+            # load-balancer decisions.
+            msg = (f'{type(e).__name__}: {e}' if kind == 'restore'
+                   else str(e))
+            watcher.push(('error', msg))
             return
+        watcher.rid = rid
         self._watchers[rid] = watcher
+        if watcher.key:
+            self._by_key[watcher.key] = watcher
 
     def _drain_submissions(self) -> None:
         while True:
@@ -106,6 +267,19 @@ class EngineLoop:
             except queue.Empty:
                 return
             self._process_submission(item)
+
+    def _drain_commands(self) -> None:
+        while True:
+            try:
+                fn, fut = self._cmd_q.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                result = fn()
+            except Exception as e:  # noqa: BLE001 — the future carries it
+                fut.set_exception(e)
+            else:
+                fut.set_result(result)
 
     def _drain_aborts(self) -> None:
         while True:
@@ -116,6 +290,8 @@ class EngineLoop:
             for rid, watcher in list(self._watchers.items()):
                 if watcher is target:
                     self._watchers.pop(rid)
+                    if watcher.key:
+                        self._by_key.pop(watcher.key, None)
                     self.engine.abort(rid)
 
     def _run(self) -> None:
@@ -128,10 +304,12 @@ class EngineLoop:
                 for watcher in self._watchers.values():
                     watcher.push(('error', f'{type(e).__name__}: {e}'))
                 self._watchers.clear()
+                self._by_key.clear()
                 self.engine.abort_all()
             self._refresh_gauges()
 
     def _tick(self) -> None:
+        self._drain_commands()
         self._drain_submissions()
         self._drain_aborts()
         if not self.engine.has_work:
@@ -141,6 +319,15 @@ class EngineLoop:
                 return
             self._process_submission(item)
             return
+        if not self.engine.has_runnable_work:
+            # Every live slot is parked under a handoff lease: park
+            # briefly instead of spinning (step() still expires leases).
+            try:
+                item = self._submit_q.get(timeout=0.005)
+            except queue.Empty:
+                pass
+            else:
+                self._process_submission(item)
         self.engine.step()
         self._drain_aborts()
         progress = self.engine.active_progress()
@@ -155,8 +342,27 @@ class EngineLoop:
         for rid, tokens in finished.items():
             watcher = self._watchers.pop(rid, None)
             if watcher is not None:
+                if watcher.key:
+                    self._by_key.pop(watcher.key, None)
                 watcher.logprobs = finished_lps.get(rid)
                 watcher.push(('done', tokens))
+        # Handoff export AFTER the token fan-out: the frame's sent count
+        # includes the first token, so the decode leg starts at the next.
+        for rid in self.engine.handoff_pending():
+            watcher = self._watchers.get(rid)
+            self.engine.mark_handoff_exported(rid)
+            if watcher is None or watcher.aborted or not watcher.stream:
+                self.engine.resume_handoff(rid)
+                continue
+            try:
+                blob = self.engine.snapshot_request(rid)
+            except Exception:  # noqa: BLE001 — degrade, don't fail
+                # Unsnapshottable (size cap): decode co-located.
+                self.engine.resume_handoff(rid)
+                continue
+            watcher.push(('handoff', {
+                'snapshot': base64.b64encode(blob).decode('ascii'),
+                'sent': watcher.sent}))
 
 
 def _parse_sampling(body: Dict[str, Any]):
@@ -170,9 +376,14 @@ def _parse_sampling(body: Dict[str, Any]):
         eos_token_id=None if eos is None else int(eos))
 
 
+def _sse(payload: Dict[str, Any]) -> bytes:
+    return f'data: {json.dumps(payload)}\n\n'.encode()
+
+
 def make_handler(holder: Dict[str, Any]):
     """The request handler class, bound to `holder` ({'loop':
-    EngineLoop or None while loading})."""
+    EngineLoop or None while loading; 'draining': True once a drain
+    started})."""
 
     class Handler(BaseHTTPRequestHandler):
         server_version = 'skypilot-tpu-torch'
@@ -180,35 +391,65 @@ def make_handler(holder: Dict[str, Any]):
         def log_message(self, format, *args):  # noqa: A002
             pass  # keep the serving log to errors
 
-        def _json(self, doc: Dict[str, Any], status: int = 200) -> None:
+        def _json(self, doc: Dict[str, Any], status: int = 200,
+                  headers: Optional[Dict[str, str]] = None) -> None:
             body = json.dumps(doc).encode()
             self.send_response(status)
             self.send_header('Content-Type', 'application/json')
             self.send_header('Content-Length', str(len(body)))
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
             self.end_headers()
             self.wfile.write(body)
 
+        def _route(self) -> Tuple[str, Dict[str, str]]:
+            url = urllib.parse.urlsplit(self.path)
+            return url.path, dict(urllib.parse.parse_qsl(url.query))
+
+        def _body(self) -> bytes:
+            return self.rfile.read(int(self.headers.get('Content-Length',
+                                                        0)))
+
         def do_GET(self):  # noqa: N802
-            if self.path != '/health':
-                self._json({'error': 'not found'}, 404)
-                return
+            path, query = self._route()
             loop: Optional[EngineLoop] = holder.get('loop')
-            if loop is None:
-                self._json({'status': 'loading'}, 503)
-                return
-            self._json({'status': 'ok', 'engine': dict(loop.gauges)})
+            if path in ('/health', '/'):
+                if loop is None:
+                    self._json({'status': 'loading'}, 503)
+                    return
+                self._json({'status': 'ok', 'engine': dict(loop.gauges)})
+            elif path == '/internal/snapshot':
+                self._snapshot(loop, query)
+            elif path == '/internal/resume':
+                self._resume(loop, query)
+            else:
+                self._json({'error': 'not found'}, 404)
 
         def do_POST(self):  # noqa: N802
-            if self.path != '/generate':
-                self._json({'error': 'not found'}, 404)
-                return
+            path, query = self._route()
             loop: Optional[EngineLoop] = holder.get('loop')
+            if path == '/generate':
+                self._generate(loop)
+            elif path == '/internal/drain':
+                self._drain(loop, query)
+            elif path == '/internal/resume':
+                self._resume(loop, query)
+            elif path == '/internal/restore':
+                self._restore(loop, query)
+            else:
+                self._json({'error': 'not found'}, 404)
+
+        def _generate(self, loop: Optional[EngineLoop]) -> None:
             if loop is None:
                 self._json({'error': 'model loading'}, 503)
                 return
+            if holder.get('draining'):
+                # No new admissions once a drain started.
+                self._json({'error': 'replica draining'}, 503,
+                           {'Retry-After': '1'})
+                return
             try:
-                n = int(self.headers.get('Content-Length', 0))
-                body = json.loads(self.rfile.read(n) or b'{}')
+                body = json.loads(self._body() or b'{}')
                 prompt = [int(t) for t in body['prompt_tokens']]
                 sampling = _parse_sampling(body)
             except (json.JSONDecodeError, KeyError, TypeError, ValueError,
@@ -221,45 +462,184 @@ def make_handler(holder: Dict[str, Any]):
                            400)
                 return
             stream = bool(body.get('stream', False))
-            watcher = loop.submit(prompt, sampling, stream=stream)
+            # A load balancer flags the prefill leg it will hand off to
+            # the decode pool; stream requests only.
+            handoff = (stream
+                       and self.headers.get('X-SkyTPU-Handoff') == '1'
+                       and envs.SKYTPU_MIGRATION_ENABLE.get())
+            key = uuid.uuid4().hex
+            watcher = loop.submit(prompt, sampling, stream=stream, key=key,
+                                  handoff=handoff)
             try:
                 if stream:
-                    self._stream(watcher)
+                    self._stream(watcher, key)
                 else:
                     self._wait(watcher, bool(body.get('logprobs', False)))
             except (BrokenPipeError, ConnectionResetError):
                 loop.abort(watcher)
 
-        def _wait(self, watcher, want_logprobs: bool) -> None:
+        def _wait(self, watcher, want_logprobs: bool,
+                  first: Optional[Tuple[str, Any]] = None) -> None:
             while True:
-                kind, payload = watcher.q.get()
+                kind, payload = first or watcher.q.get()
+                first = None
                 if kind == 'done':
                     doc = {'tokens': payload}
                     if want_logprobs:
                         doc['logprobs'] = watcher.logprobs
                     self._json(doc)
                     return
+                if kind == 'migrate':
+                    # A drain caught this request: the caller finishes
+                    # it elsewhere from the blob.
+                    self._json({'error': 'replica draining',
+                                'migrate': payload}, 409,
+                               {'X-SkyTPU-Migrate': '1'})
+                    return
                 if kind == 'error':
                     self._json({'error': payload}, 500)
                     return
 
-        def _stream(self, watcher) -> None:
+        def _stream(self, watcher, key: str,
+                    first: Optional[Tuple[str, Any]] = None) -> None:
             self.send_response(200)
             self.send_header('Content-Type', 'text/event-stream')
             self.send_header('Cache-Control', 'no-cache')
+            self.send_header('X-SkyTPU-Migration-Key', key)
             self.end_headers()
+            self.wfile.flush()
+            kind, payload = first or watcher.q.get()
             while True:
-                kind, payload = watcher.q.get()
                 if kind == 'token':
                     frame = {'token': payload}
-                elif kind == 'error':
-                    frame = {'error': payload}
+                elif kind in ('handoff', 'migrate', 'error'):
+                    # handoff is the one non-terminal frame: the slot
+                    # stays live under its lease and the stream goes on.
+                    frame = {kind: payload}
                 else:
                     frame = {'done': True, 'tokens': payload}
-                self.wfile.write(f'data: {json.dumps(frame)}\n\n'.encode())
+                self.wfile.write(_sse(frame))
                 self.wfile.flush()
-                if kind != 'token':
+                if kind not in ('token', 'handoff'):
                     return
+                kind, payload = watcher.q.get()
+
+        def _drain(self, loop: Optional[EngineLoop],
+                   query: Dict[str, str]) -> None:
+            """Stop admission, give in-flight requests `?deadline=`
+            (default SKYTPU_DRAIN_DEADLINE_SECONDS) to finish, then
+            snapshot-and-abort the stragglers: streams get a terminal
+            migrate frame, the others' blobs come back here."""
+            if loop is None:
+                self._json({'status': 'empty'})
+                return
+            holder['draining'] = True
+            try:
+                deadline_s = float(query.get(
+                    'deadline', envs.SKYTPU_DRAIN_DEADLINE_SECONDS.get()))
+            except ValueError:
+                deadline_s = envs.SKYTPU_DRAIN_DEADLINE_SECONDS.get()
+            snapshots = loop.drain(deadline_s, flush_s=0.1)
+            self._json({
+                'status': 'drained',
+                'finished_naturally': not snapshots,
+                'snapshots': [
+                    {'snapshot': base64.b64encode(blob).decode('ascii'),
+                     'sent': watcher.sent}
+                    for watcher, blob in snapshots if not watcher.stream],
+                'migrated_streams': sum(
+                    1 for watcher, _ in snapshots if watcher.stream),
+            })
+
+        def _snapshot(self, loop: Optional[EngineLoop],
+                      query: Dict[str, str]) -> None:
+            key = query.get('key')
+            if loop is None or not key:
+                self._json({'error': 'need ?key= and a live engine'}, 400)
+                return
+            try:
+                blob, sent = loop.run_on_engine(
+                    lambda: loop.snapshot_by_key(key)).result()
+            except KeyError:
+                self._json({'error': f'unknown migration key {key!r} '
+                                     '(request finished, aborted, or '
+                                     'never admitted here)'}, 404)
+                return
+            except Exception as e:  # noqa: BLE001 — snapshot refusal
+                self._json({'error': str(e)}, 500)
+                return
+            self.send_response(200)
+            self.send_header('Content-Type', 'application/octet-stream')
+            self.send_header('Content-Length', str(len(blob)))
+            self.send_header('X-SkyTPU-Sent', str(sent))
+            self.end_headers()
+            self.wfile.write(blob)
+
+        def _resume(self, loop: Optional[EngineLoop],
+                    query: Dict[str, str]) -> None:
+            """Resume a handoff-paused request here (idempotent with
+            lease expiry), or with ?abandon=1 drop it (its decode leg
+            was restored elsewhere)."""
+            key = query.get('key')
+            if loop is None or not key:
+                self._json({'error': 'need ?key= and a live engine'}, 400)
+                return
+            if query.get('abandon'):
+                try:
+                    loop.run_on_engine(
+                        lambda: loop.abandon_by_key(key)).result()
+                except KeyError:
+                    self._json({'error': f'unknown migration key {key!r}'},
+                               404)
+                    return
+                self._json({'status': 'abandoned'})
+                return
+            try:
+                status = loop.run_on_engine(
+                    lambda: loop.resume_by_key(key)).result()
+            except KeyError:
+                self._json({'error': f'unknown migration key {key!r} '
+                                     '(request finished, aborted, or '
+                                     'never admitted here)'}, 404)
+                return
+            self._json({'status': status})
+
+        def _restore(self, loop: Optional[EngineLoop],
+                     query: Dict[str, str]) -> None:
+            """Splice a blob and resume it: ?sent=N tokens already
+            reached the client, so the stream starts at token N+1. 400
+            for a bad blob, 409 for no room here, 503 while loading or
+            draining."""
+            if loop is None:
+                self._json({'error': 'model loading'}, 503)
+                return
+            if holder.get('draining'):
+                self._json({'error': 'replica draining'}, 503,
+                           {'Retry-After': '1'})
+                return
+            blob = self._body()
+            try:
+                sent = max(0, int(query.get('sent', '0')))
+            except ValueError:
+                self._json({'error': 'bad ?sent='}, 400)
+                return
+            stream = query.get('stream', '1') not in ('0', 'false')
+            key = uuid.uuid4().hex
+            watcher = loop.restore(blob, sent=sent, stream=stream, key=key)
+            # The first event says whether the engine took the blob,
+            # while the status is still open.
+            kind, payload = watcher.q.get()
+            if kind == 'error':
+                bad_blob = str(payload).startswith('SnapshotError')
+                self._json({'error': payload}, 400 if bad_blob else 409)
+                return
+            try:
+                if stream:
+                    self._stream(watcher, key, (kind, payload))
+                else:
+                    self._wait(watcher, False, (kind, payload))
+            except (BrokenPipeError, ConnectionResetError):
+                loop.abort(watcher)
 
     return Handler
 
@@ -271,6 +651,12 @@ def create_server(holder: Dict[str, Any], host: str = '0.0.0.0',
     server = ThreadingHTTPServer((host, port), make_handler(holder))
     server.daemon_threads = True
     return server
+
+
+def prefix_cache_arg(flag: str) -> Optional[bool]:
+    """--prefix-cache auto|on|off -> build_engine's prefix_cache
+    (None = follow SKYTPU_PREFIX_CACHE, as the reference)."""
+    return None if flag == 'auto' else flag == 'on'
 
 
 def main() -> None:
@@ -292,6 +678,16 @@ def main() -> None:
     parser.add_argument('--decode-fuse-steps', type=int, default=None)
     parser.add_argument('--kv-page-size', type=int, default=None)
     parser.add_argument('--kv-pages', type=int, default=None)
+    parser.add_argument('--prefix-cache', default='auto',
+                        choices=['auto', 'on', 'off'],
+                        help='Cross-request prefix KV reuse (radix cache, '
+                             'copy-on-write pages). auto (default) '
+                             'resolves via SKYTPU_PREFIX_CACHE (on); paged, '
+                             'chunked engines only.')
+    parser.add_argument('--prefix-cache-max-pages', type=int, default=None,
+                        help='Cap on KV pages the prefix cache keeps '
+                             '(default: SKYTPU_PREFIX_CACHE_MAX_PAGES, '
+                             '0 = bounded by the pool only).')
     args = parser.parse_args()
 
     holder: Dict[str, Any] = {'loop': None}
@@ -309,7 +705,9 @@ def main() -> None:
                 prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant,
                 prefill_interleave=args.prefill_interleave,
                 decode_fuse_steps=args.decode_fuse_steps,
-                kv_page_size=args.kv_page_size, kv_pages=args.kv_pages)
+                kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
+                prefix_cache=prefix_cache_arg(args.prefix_cache),
+                prefix_cache_max_pages=args.prefix_cache_max_pages)
         except Exception as e:  # noqa: BLE001 — reported by main()
             load_errors.append(e)
             server.shutdown()
@@ -317,6 +715,25 @@ def main() -> None:
         holder['loop'] = EngineLoop(engine)
 
     threading.Thread(target=_load, daemon=True).start()
+
+    def _drain_and_exit() -> None:
+        # SIGTERM is a preemption notice: stop admission, let in-flight
+        # requests finish within the drain deadline, snapshot the
+        # stragglers (their streams end in a migrate frame), then exit.
+        holder['draining'] = True
+        loop: Optional[EngineLoop] = holder.get('loop')
+        if loop is not None:
+            try:
+                loop.drain(envs.SKYTPU_DRAIN_DEADLINE_SECONDS.get(),
+                           flush_s=1.0, timeout=30)
+            except Exception as e:  # noqa: BLE001 — exit regardless
+                print(f'drain snapshot on SIGTERM failed: {e}',
+                      file=sys.stderr, flush=True)
+        os._exit(0)  # noqa: SLF001 — the engine thread never joins
+
+    # Never block in a signal handler: the drain sleeps.
+    signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+        target=_drain_and_exit, daemon=True).start())
     try:
         server.serve_forever()
     finally:

@@ -264,3 +264,98 @@ def test_fault_check_refuses_to_run_without_cuda():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert 'missed_by_kernel_checks' not in proc.stdout
+
+
+def test_check_cases_include_warm_tails():
+    """Warm-tail prefill after a prefix hit: 16 and 64 q rows (one
+    mostly-padded 128-row tile) at page-aligned offsets off the 128-row
+    kv tile grid (1088) and on it (1024), against the 2048-row view; the
+    prefix phase's widest warm chunk, and its repeated prompt's last
+    token at 1215."""
+    cases = {name: rest for name, *rest in chip_smoke.CHECK_CASES}
+    assert cases['warm_tail'] == [1, 16, 2048, 32, 8, 128, 1088, None, None]
+    assert cases['warm_tail_64'] == [4, 64, 2048, 32, 8, 128, 1024, None,
+                                     None]
+    assert cases['warm_tail_512'] == [1, 512, 2048, 32, 8, 128,
+                                      chip_smoke.PREFIX_LEN, None, None]
+    repeat_at = chip_smoke.PREFIX_LEN + chip_smoke.COLD_TAIL - 1
+    assert cases['warm_repeat'] == [1, 16, 2048, 32, 8, 128, repeat_at,
+                                    None, None]
+    page = chip_smoke.ENGINE_KW['kv_page_size']
+    assert 1088 % page == 0 and 1088 % 128
+    assert max(chip_smoke.WARM_TAILS) <= 512
+
+
+def test_prefix_and_migration_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke's prefix and migration phases at the `tiny` size on the
+    CPU, with a stand-in for the kernel launch that counts like the
+    wrappers and computes the plain version: every warm request matches
+    the whole prefix, the repeat is a full-prompt match with one copy on
+    write, and both migrations give the uninterrupted tokens."""
+    import numpy as np
+
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch import models as models_lib
+    from skypilot_tpu_torch.ops import flash_attention as fa
+
+    def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
+               v_scale=None):
+        counter = fa.flash_attention if k_scale is None else \
+            fa.flash_attention_quant
+        counter.launches += 1
+        return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
+                         k_scale=k_scale, v_scale=v_scale)
+
+    def flash_fwd(q, k, v, causal=True, block_q=512, block_k=512,
+                  window=None, softcap=None, q_offset=None, k_scale=None,
+                  v_scale=None):
+        return fa._launch(q, k, v, causal, window, softcap, q_offset,
+                          k_scale=k_scale, v_scale=v_scale)
+
+    monkeypatch.setattr(fa, '_launch', launch)
+    monkeypatch.setattr(fa, 'flash_fwd', flash_fwd)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    monkeypatch.setattr(chip_smoke, 'profile_breakdown',
+                        lambda torch, fn, **kw: fn() and {})
+    monkeypatch.setattr(chip_smoke, 'DEV', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'ENGINE_KW', dict(
+        batch_size=8, max_seq_len=128, prefill_chunk=32, kv_page_size=8,
+        prefill_interleave=96, use_flash=True))
+    monkeypatch.setattr(chip_smoke, 'PREFIX_LEN', 32)
+    monkeypatch.setattr(chip_smoke, 'COLD_TAIL', 8)
+    monkeypatch.setattr(chip_smoke, 'WARM_TAILS', (8, 12, 16, 20, 24, 31))
+    family, config = models_lib.resolve('tiny')
+    params = family.init_params(config, torch.Generator().manual_seed(0),
+                                'cpu')
+    rng = np.random.default_rng(0)
+    for quant in (False, True):
+        out = chip_smoke.prefix_phase(torch, inference, fa, params, config,
+                                      rng, quant)
+        warm = [r for r in out['requests'] if r['request'] != 'cold'][:-1]
+        assert [r['matched_tokens'] for r in warm] == [32] * 6
+        assert {r['chunks'][0]['rows'] for r in warm} == {16, 32}
+        assert out['warm_tail_launches'] == 6 * config.num_layers
+        # Launches by shape over the cache hits: three 16-row and three
+        # 32-row warm chunks at 32, the repeat's last token at 39.
+        hit = {(h['shape'][1], h['shape'][-1]): h['launches']
+               for h in out['hit_shapes']}
+        layers = config.num_layers
+        assert hit == {(16, 32): 3 * layers, (32, 32): 3 * layers,
+                       (16, 39): layers}
+        readings = chip_smoke.hit_shape_readings(torch, fa, quant,
+                                                 out['hit_shapes'])
+        assert [r['shape'] + [r['q_offset']] for r in readings] == [
+            h['shape'] for h in out['hit_shapes']]
+        assert not any(chip_smoke.kernel_faults(r) for r in readings)
+        assert out['requests'][-1]['cow_copies'] == 1
+        assert out['pages']['free'] + out['pages']['cached'] == \
+            out['pages']['total']
+    small = chip_smoke.prompt_tokens
+    monkeypatch.setattr(chip_smoke, 'prompt_tokens',
+                        lambda rng, n, vocab: small(rng, max(4, n // 20),
+                                                    vocab))
+    out = chip_smoke.migration_phase(torch, inference, params, config, rng)
+    assert out['engine_to_engine']['tokens_at_snapshot'] == [17, 17]
+    srv = out['server_to_server']
+    assert srv['corrupted_blob_status'] == 400 and srv['equal']
+    assert srv['tokens_before_drain'] + srv['tokens_after_restore'] == 64

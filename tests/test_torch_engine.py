@@ -380,11 +380,25 @@ def test_h100_policy_defaults(tiny, monkeypatch):
                     (512, 2048, 128), (16, 40, 16)):
         assert ok(t, s, d, torch.device('cpu')) == ref_eng._flash_prefill_ok(
             t, s, d)
+    monkeypatch.delenv('SKYTPU_PREFIX_CACHE', raising=False)
     engine = port_inference.InferenceEngine(tparams, config, device='cpu')
     assert engine._use_flash is False and engine.kv_quant == 'none'
     assert engine.kv_page_size == 64 and engine.decode_fuse_steps == 8
-    for bad in (dict(prefix_cache=True), dict(mesh=object()),
-                dict(draft=(tparams, config))):
+    # The prefix cache is live exactly where the reference's is: paged,
+    # chunked engines, unless turned off by argument or knob.
+    assert engine._prefix is not None
+    for kw, live in ((dict(prefix_cache=True), True),
+                     (dict(prefix_cache=False), False),
+                     (dict(kv_page_size=0), False),
+                     (dict(prefill_chunk=0), False)):
+        engine = port_inference.InferenceEngine(tparams, config,
+                                                device='cpu', **kw)
+        assert (engine._prefix is not None) is live, kw
+    monkeypatch.setenv('SKYTPU_PREFIX_CACHE', '0')
+    assert port_inference.InferenceEngine(tparams, config,
+                                          device='cpu')._prefix is None
+    monkeypatch.delenv('SKYTPU_PREFIX_CACHE')
+    for bad in (dict(mesh=object()), dict(draft=(tparams, config))):
         with pytest.raises(NotImplementedError):
             port_inference.InferenceEngine(tparams, config, device='cpu',
                                            **bad)
@@ -395,7 +409,10 @@ def test_env_defaults_match_reference_registry():
     port_vars = port_envs.declared()
     assert set(port_vars) == {
         'SKYTPU_DECODE_FUSE_STEPS', 'SKYTPU_KV_PAGE_SIZE', 'SKYTPU_KV_PAGES',
-        'SKYTPU_KV_QUANT', 'SKYTPU_PREFILL_INTERLEAVE'}
+        'SKYTPU_KV_QUANT', 'SKYTPU_PREFILL_INTERLEAVE',
+        'SKYTPU_PREFIX_CACHE', 'SKYTPU_PREFIX_CACHE_MAX_PAGES',
+        'SKYTPU_MIGRATION_ENABLE', 'SKYTPU_DRAIN_DEADLINE_SECONDS',
+        'SKYTPU_MIGRATION_MAX_BYTES', 'SKYTPU_HANDOFF_LEASE_SECONDS'}
     for name, var in port_vars.items():
         assert (var.type, var.default) == (ref_vars[name].type,
                                            ref_vars[name].default), name
@@ -408,19 +425,37 @@ def test_env_knobs_are_read_at_call_time(monkeypatch):
     assert port_envs.SKYTPU_DECODE_FUSE_STEPS.get() == 8
 
 
-def test_page_pool_admission_is_fifo(tiny):
-    """An oversubscribed pool queues the head request until pages free,
-    and every page returns to the pool afterwards."""
+def _fifo_admission(tiny, prefix_cache):
+    """Two requests through an oversubscribed 6-page pool: the head
+    request queues until pages free. Returns the engine afterwards."""
     _, _, config, tparams = tiny
     engine = port_inference.InferenceEngine(
         tparams, config, batch_size=2, max_seq_len=64, prefill_chunk=16,
-        kv_page_size=8, kv_pages=6, device='cpu')
+        kv_page_size=8, kv_pages=6, prefix_cache=prefix_cache,
+        device='cpu')
     sp = port_eng.SamplingParams(max_new_tokens=8)
     a = engine.submit(list(range(1, 30)), sp)   # 37 positions: 5 pages
     b = engine.submit(list(range(1, 10)), sp)   # 17 positions: 3 pages
     engine.step()
     assert engine.state.slots[1] is None and engine.queue_depth() == 1
     out = engine.run_to_completion()
-    assert sorted(out) == [a, b] and engine.pages_free() == 6
+    assert sorted(out) == [a, b]
     with pytest.raises(ValueError, match='pool holds only'):
         engine.submit(list(range(1, 60)), sp)
+    return engine
+
+
+def test_page_pool_admission_is_fifo(tiny):
+    """An oversubscribed pool queues the head request until pages free,
+    and every page returns to the pool afterwards."""
+    engine = _fifo_admission(tiny, prefix_cache=False)
+    assert engine.pages_free() == 6
+
+
+def test_page_pool_admission_is_fifo_with_prefix_cache(tiny):
+    """The same with the prefix cache on: every page is free again or
+    held, unpinned, by the cache (the published full pages)."""
+    engine = _fifo_admission(tiny, prefix_cache=True)
+    assert engine.pages_cached() > 0
+    assert engine.pages_free() + engine.pages_cached() == 6
+    assert not any(engine._prefix.refcount(p) for p in range(1, 7))

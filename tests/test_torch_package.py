@@ -47,6 +47,7 @@ def test_port_imports_without_jax_or_the_reference_package():
     for module in ('skypilot_tpu_torch.ops.flash_attention',
                    'skypilot_tpu_torch.ops._build',
                    'skypilot_tpu_torch.inference.engine',
+                   'skypilot_tpu_torch.inference.prefix_cache',
                    'skypilot_tpu_torch.inference.server',
                    'skypilot_tpu_torch.models.llama',
                    'skypilot_tpu_torch.weights',
@@ -56,7 +57,7 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.train.trainer',
                    'skypilot_tpu_torch.train.loop'):
         assert module in names.split()
-    assert int(count) >= 15
+    assert int(count) >= 16
 
 
 def test_entry_points_raise_without_cuda():
