@@ -54,7 +54,21 @@ Phases, each printing one JSON line:
                   server: a stream drained by /internal/drain into a
                   migrate frame continues through /internal/restore on a
                   second server with no token lost or repeated; a
-                  corrupted blob gets 400. (12-14 run after phase 7.)
+                  corrupted blob gets 400.
+ 15. spec       - speculative decode on llama3-8b (no interleave, SPEC_KW):
+                  8 greedy prompts of 100-1500 tokens, 32 new each, with
+                  the llama3-1b draft (spec_k 4, 8 rounds a dispatch),
+                  bf16 then int8 target KV, token for token against the
+                  same engine without a draft; a divergence passes only
+                  as a near-tie: both tokens within TOL_SPEC_GAP of the
+                  target's top logit there.
+                  A draft that is the target itself (one params object)
+                  must accept at least TOL_SPEC_ACCEPT of its proposals.
+                  Round costs against plain fused decode; K1 (K2) must
+                  launch on the spec engines' prefill. Then the port's
+                  server as a process with --draft-model llama3-1b:
+                  greedy /generate against the draft-free server, and
+                  /health's spec.rounds > 0. (12-15 run after phase 7.)
   8. check_bwd  - K3 (flash_attention_dq) and K4 (flash_attention_dkv,
                   ops/csrc/flash_bwd.cu) against flash_attention_bwd_plain
                   on the same bf16 inputs: the training shape, rows with
@@ -126,6 +140,24 @@ TOL_TRAIN_LOSS = 0.005
 TOL_TRAIN_GRAD_REL = 1e-3
 TOL_TRAIN_PROJ_REL = 0.05
 PARITY_PROJ = ('wq', 'wk', 'wv')
+# Speculative decode against plain greedy on the card. The spec path
+# verifies k tokens in one [B, k] forward where plain decode runs [B, 1]
+# ones: other GEMM kernels, other bf16 rounding. The logits are bf16
+# values (steps of 0.03125 at the random-weight llama3-8b's top logits),
+# so exact ties and near-ties at the top are common and a path may flip
+# one. At the first divergence, a dense forward over the prompt and the
+# draft-free tokens before it gives each path's token a deficit, the top
+# logit minus its own; the divergence passes only where both are below
+# TOL_SPEC_GAP. Sound readings (this script and spec_fault_check.py on
+# an H100 at 700 W): 9 of 16 bf16 and int8 requests diverge here, with
+# deficits 0 to 0.0625; spec_fault_check.py's wrong rounds emit tokens
+# 0.25 to 7.7 below the top. The target as its own draft accepts at
+# most 31 of every 32 proposals (the last round's budget), and its
+# [B, 1] draft decodes flip near-ties against the [B, k] verify: sound
+# 0.8676 and 0.8696; the planted pairing and length faults read 0.0 to
+# 0.48.
+TOL_SPEC_GAP = 0.25
+TOL_SPEC_ACCEPT = 0.75
 KERNEL_SOURCE = 'skypilot_tpu_torch/ops/csrc/flash_fwd.cu'
 BWD_SOURCE = 'skypilot_tpu_torch/ops/csrc/flash_bwd.cu'
 # The train phase: steps, peak learning rate and warmup on the fixed batch.
@@ -139,6 +171,17 @@ QUEUE_AHEAD_CYCLES = 40_000_000
 # The main path's engine: llama3-8b slots, cache and chunking.
 ENGINE_KW = dict(batch_size=8, max_seq_len=2048, prefill_chunk=512,
                  kv_page_size=64, prefill_interleave=1536)
+# The spec phase: the same engine without interleave (a draft forbids
+# it), its target and draft presets, draft length and rounds a dispatch.
+SPEC_KW = dict(batch_size=8, max_seq_len=2048, prefill_chunk=512,
+               kv_page_size=64)
+SPEC_MODEL = 'llama3-8b'
+SPEC_DRAFT = 'llama3-1b'
+SPEC_K = 4
+SPEC_ROUNDS = 8
+SPEC_NEW = 32
+SPEC_PROMPT_LENGTHS = (100, 1500)    # 8 prompts drawn in this range
+SPEC_SERVER_PROMPT = 300
 
 
 def emit(phase, **fields):
@@ -1053,6 +1096,304 @@ def migration_phase(torch, inference, params, config, rng):
                 'restore_to_done_s': resumed_s, 'equal': True}}
 
 
+def first_divergence(a, b):
+    """Index of the first token where two outputs differ, or None."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def divergence_reading(torch, llama, params, config, prompt, plain, spec):
+    """Where `spec` first leaves `plain` (greedy tokens of one prompt):
+    the index, both tokens, the target's top two tokens and their logit
+    gap, and each token's deficit (the top logit minus the token's),
+    from a dense forward over the prompt and the plain tokens before
+    it."""
+    j = first_divergence(plain, spec)
+    if j is None:
+        return {'equal': True}
+    out = {'equal': False, 'index': j, 'plain_token': None,
+           'spec_token': None, 'top2': None, 'gap': None, 'deficits': None}
+    if j < min(len(plain), len(spec)):
+        with torch.inference_mode():
+            logits = llama.forward(params, torch.tensor(
+                [list(prompt) + list(plain[:j])], device=DEV),
+                config)[0, -1].float()
+        top = torch.topk(logits, 2)
+        out.update(plain_token=plain[j], spec_token=spec[j],
+                   top2=[int(t) for t in top.indices],
+                   gap=float(top.values[0] - top.values[1]),
+                   deficits=[float(top.values[0] - logits[t])
+                             for t in (plain[j], spec[j])])
+    return out
+
+
+def divergence_faults(readings, limit=None):
+    """The divergences the rule does not pass: any but a near-tie, where
+    both paths' tokens lie within the limit of the target's top logit
+    (a length mismatch never passes)."""
+    limit = TOL_SPEC_GAP if limit is None else limit
+    faults = []
+    for i, r in enumerate(readings):
+        if r['equal']:
+            continue
+        if r['deficits'] is None or not max(r['deficits']) < limit:
+            faults.append(f'request {i} diverges at token {r["index"]}: '
+                          f'{r["spec_token"]} for {r["plain_token"]}, '
+                          f'deficits {r["deficits"]} (limit {limit}), top '
+                          f'two {r["top2"]}')
+    return faults
+
+
+def acceptance_faults(accepted, proposed, limit=None):
+    limit = TOL_SPEC_ACCEPT if limit is None else limit
+    rate = accepted / proposed if proposed else 0.0
+    return ([] if rate >= limit else
+            [f'accepted {accepted} of {proposed} proposals ({rate}), under '
+             f'{limit}'])
+
+
+def run_greedy(torch, inference, engine, prompts, max_new):
+    """`prompts` through submit() and step() to completion, greedy:
+    (tokens per prompt, the engine's decode counters)."""
+    sampling = inference.SamplingParams(max_new_tokens=max_new)
+    rids = [engine.submit(p, sampling) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = [done[r] for r in rids]
+    vocab = engine.config.vocab_size
+    if any(len(t) != max_new or not all(0 <= x < vocab for x in t)
+           for t in tokens):
+        raise AssertionError(f'bad greedy tokens: {[len(t) for t in tokens]}')
+    st = engine.stats
+    decode_tokens = st['generated_tokens'] - len(prompts)
+    dispatches = st['decode_dispatches']
+    out = {'wall_s': wall, 'decode_tokens': decode_tokens,
+           'decode_s': st['decode_seconds'], 'decode_dispatches': dispatches,
+           'decode_tok_s': decode_tokens / max(st['decode_seconds'], 1e-9),
+           'ms_per_dispatch': st['decode_seconds'] * 1e3 / max(dispatches, 1)}
+    if st['spec_rounds']:
+        rounds = st['spec_rounds']
+        out.update({
+            'spec_dispatches': st['spec_dispatches'], 'spec_rounds': rounds,
+            'rounds_per_dispatch': rounds / max(st['spec_dispatches'], 1),
+            'ms_per_round': st['decode_seconds'] * 1e3 / rounds,
+            'tokens_per_round': decode_tokens / rounds,
+            'proposed_tokens': st['spec_proposed_tokens'],
+            'accepted_tokens': st['spec_accepted_tokens'],
+            'acceptance': (st['spec_accepted_tokens']
+                           / max(st['spec_proposed_tokens'], 1)),
+            'accepted_per_round': list(st['spec_accepted_per_round'])})
+    return tokens, out
+
+
+def spec_engines(torch, inference, fa, llama, params, config, dparams,
+                 dconfig, prompts, quant, target_as_draft):
+    """One KV type of the spec phase: the engine without a draft, then
+    with the draft (and, with `target_as_draft`, with the target as its
+    own draft), the same greedy prompts through each. K1 (K2 with
+    `quant`) launches and their shapes are read around the draft
+    engines' runs only. After them, on bf16 KV, one pure spec dispatch
+    (8 rounds) of the draft engine runs under the profiler. Returns the
+    readings, with
+    `faults`: each divergence the rule does not pass and (target as
+    draft) acceptance under TOL_SPEC_ACCEPT. Raises when K1/K2 never
+    launched."""
+    kw = dict(kv_quant='int8' if quant else 'none', prefix_cache=False,
+              device=DEV, **SPEC_KW)
+    plain_engine = inference.InferenceEngine(params, config, **kw)
+    plain, plain_run = run_greedy(torch, inference, plain_engine, prompts,
+                                  SPEC_NEW)
+    del plain_engine
+    torch.cuda.empty_cache()
+    counter = fa.flash_attention_quant if quant else fa.flash_attention
+    launch = fa._launch
+    shapes = []
+
+    def recording(q, k, v, causal, window, softcap, q_offset, **lkw):
+        b, t, h, d = q.shape
+        shapes.append((int(b), int(t), int(k.shape[1]), int(h),
+                       int(k.shape[2]), int(d), int(q_offset or 0)))
+        return launch(q, k, v, causal, window, softcap, q_offset, **lkw)
+
+    drafts = [('draft', (dparams, dconfig))]
+    if target_as_draft:
+        drafts.append(('target_as_draft', (params, config)))
+    out = {'kv_quant': kw['kv_quant'], 'spec_k': SPEC_K,
+           'spec_fuse_rounds': SPEC_ROUNDS, 'plain': plain_run}
+    fa._launch = recording
+    counter.launches = 0
+    runs, profiled = {}, None
+    try:
+        for name, draft in drafts:
+            engine = inference.InferenceEngine(
+                params, config, draft=draft, spec_k=SPEC_K,
+                spec_fuse_rounds=SPEC_ROUNDS, **kw)
+            runs[name] = run_greedy(torch, inference, engine, prompts,
+                                    SPEC_NEW)
+            if name == 'draft' and not quant:
+                profiled = engine
+            del engine
+            torch.cuda.empty_cache()
+    finally:
+        fa._launch = launch
+    out['kernel_launches'] = counter.launches
+    if profiled is not None:
+        # Where a dispatch's time goes: the prompts again, the step that
+        # admits them, then the next (a pure spec dispatch) under the
+        # profiler.
+        for p in prompts:
+            profiled.submit(p, inference.SamplingParams(
+                max_new_tokens=SPEC_NEW))
+        profiled.step()
+        out['dispatch_profile'] = profile_breakdown(
+            torch, profiled.step,
+            shares={k: v for k, v in PREFILL_SHARES.items()
+                    if not k.startswith('K1')})
+        profiled.abort_all()
+        del profiled
+        torch.cuda.empty_cache()
+    out['launched_shapes'] = [{'shape': list(c), 'launches': n} for c, n in
+                              sorted(collections.Counter(shapes).items())]
+    if not 0 < out['kernel_launches'] == len(shapes):
+        raise AssertionError(f'spec engines launched K1/K2 '
+                             f'{out["kernel_launches"]} times ({len(shapes)} '
+                             'recorded)')
+    faults = []
+    for name, (tokens, run) in runs.items():
+        readings = [divergence_reading(torch, llama, params, config, p, a, b)
+                    for p, a, b in zip(prompts, plain, tokens)]
+        run['divergences'] = [dict(r, request=i)
+                              for i, r in enumerate(readings)
+                              if not r['equal']]
+        run['tokens_equal'] = sum(r['equal'] for r in readings)
+        run['decode_tok_s_vs_plain'] = (run['decode_tok_s']
+                                        / plain_run['decode_tok_s'])
+        faults += [f'{name}: {f}' for f in divergence_faults(readings)]
+        out[name] = run
+    if target_as_draft:
+        run = out['target_as_draft']
+        faults += [f'target_as_draft: {f}' for f in acceptance_faults(
+            run['accepted_tokens'], run['proposed_tokens'])]
+    out['tol_gap'], out['tol_accept'] = TOL_SPEC_GAP, TOL_SPEC_ACCEPT
+    out['faults'] = faults
+    return out
+
+
+def spec_server(torch, inference, params, config, prompt):
+    """The port's server as a process with --draft-model SPEC_DRAFT
+    (weights from --seed 0, as the params in hand): one greedy
+    /generate against the draft-free server in this process on the same
+    params, under the divergence rule; /health must count spec
+    rounds."""
+    import socket
+    import tempfile
+
+    from skypilot_tpu_torch.inference import server as server_lib
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
+           '--model', SPEC_MODEL, '--draft-model', SPEC_DRAFT, '--spec-k',
+           str(SPEC_K), '--spec-fuse-rounds', str(SPEC_ROUNDS), '--device',
+           DEV, '--port', str(port), '--seed', '0',
+           '--batch-size', str(SPEC_KW['batch_size']),
+           '--max-seq-len', str(SPEC_KW['max_seq_len']),
+           '--prefill-chunk', str(SPEC_KW['prefill_chunk']),
+           '--kv-page-size', str(SPEC_KW['kv_page_size'])]
+    body = {'prompt_tokens': prompt, 'max_new_tokens': SPEC_NEW}
+    plain_engine = inference.InferenceEngine(params, config,
+                                             prefix_cache=False, device=DEV,
+                                             **SPEC_KW)
+    holder = {'loop': server_lib.EngineLoop(plain_engine)}
+    srv = server_lib.create_server(holder, host='127.0.0.1', port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    log = tempfile.TemporaryFile()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=log,
+                            stderr=subprocess.STDOUT)
+    try:
+        plain = json.loads(http_json(
+            f'http://127.0.0.1:{srv.server_address[1]}/generate',
+            body)[1])['tokens']
+        base = f'http://127.0.0.1:{port}'
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                log.seek(0)
+                raise AssertionError('spec server exited: '
+                                     + log.read().decode()[-2000:])
+            try:
+                if http_json(base + '/health', timeout=10)[0] == 200:
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError('spec server never loaded')
+            time.sleep(0.1)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spec = json.loads(http_json(base + '/generate', body)[1])['tokens']
+        request_s = time.perf_counter() - t0
+        health = json.loads(http_json(base + '/health')[1])['engine']
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        srv.shutdown()
+        srv.server_close()
+        holder['loop'].stop()
+    from skypilot_tpu_torch.models import llama
+    reading = divergence_reading(torch, llama, params, config, prompt, plain,
+                                 spec)
+    faults = divergence_faults([reading])
+    if health['spec']['rounds'] <= 0:
+        faults.append(f'/health spec {health["spec"]}: no rounds')
+    return {'command': ' '.join(cmd[1:]), 'load_s': load_s,
+            'request_s': request_s, 'prompt_tokens': len(prompt),
+            'tokens': len(spec), 'tokens_equal': reading['equal'],
+            'divergence': None if reading['equal'] else reading,
+            'health_spec': health['spec'], 'faults': faults}
+
+
+def spec_phase(torch, inference, fa, params, config, rng):
+    """Speculative decode on the target in hand: the draft's weights
+    drawn as build_engine draws them (seed 1), 8 prompts of 100-1500
+    tokens through spec_engines with bf16 KV (and the target as its own
+    draft), then int8 KV, then the server. `faults` gathers every
+    part's."""
+    from skypilot_tpu_torch.models import llama
+    dparams, dconfig = inference.draw_params(SPEC_DRAFT, 1, DEV)
+    vocab = config.vocab_size
+    lo, hi = SPEC_PROMPT_LENGTHS
+    lengths = [int(x) for x in rng.integers(lo, hi + 1, size=8)]
+    prompts = [prompt_tokens(rng, m, vocab) for m in lengths]
+    out = {'model': SPEC_MODEL, 'draft_model': SPEC_DRAFT, **SPEC_KW,
+           'prompt_lengths': lengths, 'max_new_tokens': SPEC_NEW}
+    for quant in (False, True):
+        out['int8' if quant else 'bf16'] = spec_engines(
+            torch, inference, fa, llama, params, config, dparams, dconfig,
+            prompts, quant, target_as_draft=not quant)
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    out['server'] = spec_server(torch, inference, params, config,
+                                prompt_tokens(rng, SPEC_SERVER_PROMPT,
+                                              vocab))
+    out['faults'] = [f'{part}: {f}' for part in ('bf16', 'int8', 'server')
+                     for f in out[part]['faults']]
+    return out
+
+
 BWD_CASES = (
     # (name, B, Sq, Skv, H, KV, D, causal, q_offset, window, softcap)
     ('training', 1, 4096, 4096, 32, 8, 128, True, None, None, None),
@@ -1514,6 +1855,28 @@ def main():
         torch.cuda.empty_cache()
     emit('migration', **migration_phase(torch, inference, params, config,
                                         rng))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15. speculative decode: engines and the server with a draft
+    t0 = time.perf_counter()
+    spec = spec_phase(torch, inference, fa, params, config, rng)
+    emit('spec', phase_s=time.perf_counter() - t0, **spec)
+    if spec['faults']:
+        raise AssertionError(f'spec decode: {spec["faults"]}')
+    for quant, name in ((False, 'flash_attention'),
+                        (True, 'flash_attention_quant')):
+        run = spec['int8' if quant else 'bf16']
+        # The spec engines' prefill is the main path's batched one: its
+        # heaviest chunk is the serving shape timed above.
+        serving = shape_entry(kernels[name], 'serving')
+        heaviest = max(run['launched_shapes'],
+                       key=lambda c: (c['shape'][1], c['shape'][-1]))
+        if heaviest['shape'] != serving['shape'] + [serving['q_offset']]:
+            raise AssertionError(f'spec prefill shapes {heaviest} differ '
+                                 f'from the serving shape {serving}')
+        kernels[name]['shapes'].append({
+            **serving, 'path': 'spec', 'launches': run['kernel_launches']})
     del params, config
     gc.collect()
     torch.cuda.empty_cache()

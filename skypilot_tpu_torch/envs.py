@@ -12,6 +12,7 @@ import os
 from typing import Any, Dict
 
 _FALSEY = ('0', 'false', 'no', 'off')
+_UNSET = object()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,16 +22,20 @@ class EnvVar:
     default: Any
     doc: str
 
-    def get(self) -> Any:
+    def get(self, default: Any = _UNSET) -> Any:
+        """The parsed value; unset, empty or malformed reads give the
+        declared default, or `default` where the caller's plane has its
+        own (as the reference's per-call override)."""
+        fallback = self.default if default is _UNSET else default
         value = os.environ.get(self.name)
         if value is None or value == '':
-            return self.default
+            return fallback
         if self.type is bool:
             return value.strip().lower() not in _FALSEY
         try:
             return self.type(value)
         except (TypeError, ValueError):
-            return self.default
+            return fallback
 
 
 _REGISTRY: Dict[str, EnvVar] = {}
@@ -95,3 +100,17 @@ SKYTPU_HANDOFF_LEASE_SECONDS = _declare(
     'Seconds a handoff-paused request holds its slot waiting for the '
     'decode-leg restore or /internal/resume; past it the engine resumes '
     'decoding locally.')
+SKYTPU_SPEC_K = _declare(
+    'SKYTPU_SPEC_K', int, 4,
+    'Speculative-decoding draft length: tokens the draft model proposes '
+    'per big-model verify pass when a draft is attached.')
+SKYTPU_SPEC_FUSE_ROUNDS = _declare(
+    'SKYTPU_SPEC_FUSE_ROUNDS', int, 8,
+    'Speculative draft/verify rounds fused into ONE dispatch per engine '
+    'host step (up to rounds * SKYTPU_SPEC_K tokens per round-trip), '
+    'aligned with SKYTPU_DECODE_FUSE_STEPS by default. 1 falls back to '
+    'one host dispatch per speculative round.')
+SKYTPU_WATCHDOG_INTERVAL = _declare(
+    'SKYTPU_WATCHDOG_INTERVAL', float, 30.0,
+    'Seconds between watchdog checks (the inference server\'s '
+    'parent-death watchdog overrides the default to 5s).')

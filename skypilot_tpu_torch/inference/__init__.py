@@ -14,12 +14,23 @@ from skypilot_tpu_torch.inference.engine import (DecodeState,
                                                  SnapshotError,
                                                  decode_step,
                                                  fused_decode_steps,
+                                                 fused_spec_rounds,
                                                  init_cache,
                                                  prefill_chunked)
 
 __all__ = ['DecodeState', 'InferenceEngine', 'SamplingParams',
-           'SnapshotError', 'build_engine', 'decode_step',
-           'fused_decode_steps', 'init_cache', 'prefill_chunked']
+           'SnapshotError', 'build_engine', 'decode_step', 'draw_params',
+           'fused_decode_steps', 'fused_spec_rounds', 'init_cache',
+           'prefill_chunked']
+
+
+def draw_params(model: str, seed: int, device: torch.device):
+    """(params, config) of `model` with random weights drawn from a
+    generator seeded `seed` on `device`: what build_engine serves."""
+    from skypilot_tpu_torch import models as models_lib
+    family, config = models_lib.resolve(model)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return family.init_params(config, gen, device), config
 
 
 def build_engine(model: str, *,
@@ -33,23 +44,29 @@ def build_engine(model: str, *,
                  kv_pages: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  prefix_cache_max_pages: Optional[int] = None,
-                 use_flash: Optional[bool] = None) -> InferenceEngine:
+                 use_flash: Optional[bool] = None,
+                 draft_model: Optional[str] = None,
+                 spec_k: Optional[int] = None,
+                 spec_fuse_rounds: Optional[int] = None) -> InferenceEngine:
     """Resolve `model`, draw its weights from `seed` on `device` (cuda
     unless named; raises without CUDA) and build the engine.
     `prefix_cache=None` follows SKYTPU_PREFIX_CACHE (on), as the
-    reference's build_engine does."""
+    reference's build_engine does. `draft_model` attaches a same-vocab
+    draft for speculative decode, its weights drawn from its own
+    generator seeded `seed + 1` (the reference draws the target from
+    key 0 and the draft from key 1)."""
     from skypilot_tpu_torch import device as device_lib
-    from skypilot_tpu_torch import models as models_lib
 
     dev = device_lib.resolve_device(device)
-    family, config = models_lib.resolve(model)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = family.init_params(config, gen, dev)
+    params, config = draw_params(model, seed, dev)
+    draft = draw_params(draft_model, seed + 1, dev) if draft_model else None
     return InferenceEngine(params, config, batch_size=batch_size,
                            max_seq_len=max_seq_len, seed=seed,
                            prefill_chunk=prefill_chunk,
                            use_flash=use_flash, kv_quant=kv_quant,
                            prefill_interleave=prefill_interleave,
+                           draft=draft, spec_k=spec_k,
+                           spec_fuse_rounds=spec_fuse_rounds,
                            decode_fuse_steps=decode_fuse_steps,
                            kv_page_size=kv_page_size, kv_pages=kv_pages,
                            prefix_cache=prefix_cache,

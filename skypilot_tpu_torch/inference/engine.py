@@ -7,7 +7,8 @@ Device math: `quantize_kv` (:92), `init_cache` (:344, unsharded only),
 `_cached_attention` (:488), `_attn_with_cache`, `_layer_with_cache`,
 `_hidden_with_cache`, `_project_logits` (:581-830), `prefill_chunked`
 (:852), `prefill_chunk_at` (:941), `_sample` (:997), `decode_step`
-(:1041) and `fused_decode_steps` (:1067).
+(:1041), `fused_decode_steps` (:1067) and `fused_spec_rounds` (:1144),
+the greedy draft-propose / verify / accept rounds of speculative decode.
 
 Request state (:200-343): the page-pool and dense-row copies
 (`_copy_pool_page`, `_gather_pool_pages`, `_splice_pool_pages`,
@@ -16,13 +17,14 @@ in place, and the migration blob (`SnapshotError`, `_snapshot_pack`,
 `_snapshot_unpack`, `SNAPSHOT_VERSION`), byte-compatible with the
 reference's `SKTPUSNP` v1 so the two engines trade requests.
 
-Host side: `SamplingParams`, `_Slot`, `DecodeState` and
-`InferenceEngine` (:1397) with its page allocator and FIFO admission
-(`_insert_from_queue`), the radix prefix cache with copy-on-write pages
-(`_reclaim`, `_enforce_cache_cap`, `_cow_slot_page`, `_cow_guard`,
-publish in `_free_slot`), interleaved and warm-tail prefill
-(`_advance_prefill`), snapshot/restore, the planned prefill->decode
-handoff with its lease, eviction, abort and the `step()` loop. Page
+Host side: `SamplingParams`, `_Slot`, `DecodeState` (with the draft
+model's cache, :1360) and `InferenceEngine` (:1397) with its page
+allocator and FIFO admission (`_insert_from_queue`), the radix prefix
+cache with copy-on-write pages (`_reclaim`, `_enforce_cache_cap`,
+`_cow_slot_page`, `_cow_guard`, publish in `_free_slot`), interleaved
+and warm-tail prefill (`_advance_prefill`), snapshot/restore, the
+planned prefill->decode handoff with its lease, speculative rounds
+(`_spec_round`, :2730), eviction, abort and the `step()` loop. Page
 bookkeeping follows the reference decision for decision (FIFO
 allocator, the same `extend` orders), so the two engines hand out the
 same page ids for the same request sequence.
@@ -33,7 +35,9 @@ Differences by design, each stated where it happens:
   so call sites read like the reference's.
 - `fused_decode_steps` is a Python loop of up to `n_steps` decode
   steps that stops once no slot is active (one `.any()` host sync per
-  step), where the reference runs a `lax.while_loop`.
+  step), where the reference runs a `lax.while_loop`;
+  `fused_spec_rounds` likewise checks once per round, never inside its
+  draft decodes.
 - Randomness comes from a `torch.Generator`; sampled tokens differ
   from `jax.random`'s, greedy tokens and logprobs do not.
 - H100 policy: `use_flash` defaults on for CUDA (off on the CPU, where
@@ -47,8 +51,8 @@ Differences by design, each stated where it happens:
   pads the gather to the table width so one XLA compile serves every
   request; nothing here compiles per shape.
 
-Not ported yet (later slices): speculative decode, MoE and sharded
-meshes. Asking for a draft model or a mesh raises NotImplementedError.
+Not ported yet (later slices): MoE and sharded meshes. Asking for a
+mesh raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -727,6 +731,125 @@ def fused_decode_steps(params: Params, cache: Cache,
     return toks, lps, emitted, last, cache
 
 
+@torch.no_grad()
+def fused_spec_rounds(params: Params, cache: Cache, draft_params: Params,
+                      draft_cache: Cache, last_tokens: torch.Tensor,
+                      active: torch.Tensor, eos_ids: torch.Tensor,
+                      budgets: torch.Tensor, max_len: int, slab_cap: int,
+                      config: llama.LlamaConfig,
+                      draft_config: llama.LlamaConfig, k: int,
+                      n_rounds: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, int, torch.Tensor,
+                                 torch.Tensor, Cache, Cache]:
+    """Up to `n_rounds` GREEDY speculative rounds per host dispatch.
+
+    One round: the draft proposes `k` tokens (k sequential 1-token
+    decodes over its own cache), the target verifies them in ONE [B, k]
+    forward at positions L..L+k-1 fed [last, d1..d_{k-1}], and the
+    longest matching prefix m is emitted plus the target's correction at
+    m (emit = m+1 if m < k, else k: no bonus token, so both caches stay
+    position-aligned). Greedy output is token for token plain greedy
+    decode's. Per slot, the remaining budget caps a round's emission,
+    then the cache-full bound `max_len`, then the first eos inside the
+    budgeted span ends it at the eos. Both caches' lengths roll back to
+    L + emitted; stale keys past it are invisible. A slot deactivates on
+    eos, budget or `max_len`; when any live slot's next k-wide verify
+    slab would pass `slab_cap`, the WHOLE batch ends its burst (a dense
+    cache's clamped write would land on visible keys of a slot that
+    resumes through plain decode). One `.any()` host sync per round,
+    none inside the draft decodes; caches update in place.
+
+    Returns (tokens [B, n_rounds*k] packed per slot, logprobs [B,
+    n_rounds*k], emitted [B], new last tokens [B], rounds run (int),
+    proposed tokens (scalar tensor), accepted [B, n_rounds] drafted
+    tokens emitted per round (-1 where the slot sat out), cache,
+    draft_cache)."""
+    b = last_tokens.shape[0]
+    dev = last_tokens.device
+    idx = torch.arange(k, device=dev)[None]
+    rows = torch.arange(b, device=dev)[:, None]
+    toks = torch.zeros((b, n_rounds * k), dtype=torch.int32, device=dev)
+    lps = torch.zeros((b, n_rounds * k), dtype=torch.float32, device=dev)
+    accepted = torch.full((b, n_rounds), -1, dtype=torch.int32, device=dev)
+    emitted = torch.zeros((b,), dtype=torch.int32, device=dev)
+    proposed = torch.zeros((), dtype=torch.int32, device=dev)
+    last = last_tokens.clone()
+    act = active.clone()
+    rounds = 0
+    for r in range(n_rounds):
+        if not bool(act.any()):
+            break
+        rounds += 1
+        length = cache['length']
+        dlast, drafts = last, []
+        for _ in range(k):
+            dlen = draft_cache['length']
+            new_dlen = torch.where(act, dlen + 1, dlen)
+            x = _hidden_with_cache(draft_params, dlast[:, None], draft_cache,
+                                   dlen[:, None], dlen, new_dlen,
+                                   draft_config)
+            nxt = torch.argmax(_project_logits(x[:, 0], draft_params,
+                                               draft_config),
+                               dim=-1).to(torch.int32)
+            dlast = torch.where(act, nxt, dlast)
+            draft_cache['length'] = new_dlen
+            drafts.append(dlast)
+        drafts = torch.stack(drafts, dim=1)                  # [B, k]
+        # The logits at step j predict position L+j+1: the token d_{j+1}
+        # claims to be.
+        inputs = torch.cat([last[:, None], drafts[:, :k - 1]], dim=1)
+        x = _hidden_with_cache(params, inputs, cache, length[:, None] + idx,
+                               length, torch.where(act, length + k, length),
+                               config)
+        logits = _project_logits(x, params, config)          # [B, k, V]
+        preds = torch.argmax(logits, dim=-1).to(torch.int32)
+        lp_full = torch.log_softmax(logits.float(), dim=-1)
+        m = torch.cumprod((drafts == preds).to(torch.int32), dim=1).sum(
+            dim=1).to(torch.int32)                           # in [0, k]
+        emit = torch.where(m < k, m + 1, torch.full_like(m, k))
+        corr = torch.gather(preds, 1,
+                            torch.clamp(m, max=k - 1).long()[:, None])
+        tokens_out = torch.where(
+            idx < m[:, None], drafts,
+            torch.where(idx == m[:, None], corr, torch.zeros_like(drafts)))
+        chosen_lp = torch.gather(lp_full, 2,
+                                 tokens_out.long()[..., None])[..., 0]
+        # Truncation in the reference's order: budget, cache-full bound,
+        # then the first eos inside the budgeted span.
+        emit_b = torch.minimum(emit, torch.clamp(budgets - emitted, min=0))
+        emit_b = torch.minimum(emit_b, torch.clamp(max_len - length, min=0))
+        is_eos = (tokens_out == eos_ids[:, None]) & (idx < emit_b[:, None])
+        has_eos = is_eos.any(dim=1)
+        emit_eff = torch.where(has_eos, is_eos.to(torch.int32).argmax(dim=1)
+                               .to(torch.int32) + 1, emit_b)
+        emit_eff = torch.where(act, emit_eff, torch.zeros_like(emit_eff))
+        # Pack at each slot's running offset; what lies past emit_eff is
+        # overwritten by the next round or never read.
+        cols = (emitted[:, None] + idx).long()
+        toks[rows, cols] = tokens_out
+        lps[rows, cols] = chosen_lp
+        new_len = torch.where(act, length + emit_eff, length)
+        cache['length'] = new_len
+        draft_cache['length'] = new_len.clone()
+        last_tok = torch.gather(
+            tokens_out, 1, torch.clamp(emit_eff - 1, 0, k - 1).long()[:, None]
+        )[:, 0]
+        last = torch.where(act & (emit_eff > 0), last_tok, last)
+        # Accepted counts DRAFTED tokens emitted (not the correction).
+        accepted[:, r] = torch.where(act, torch.minimum(m, emit_eff),
+                                     torch.full_like(m, -1))
+        proposed = proposed + k * act.sum().to(torch.int32)
+        emitted = emitted + emit_eff
+        done = has_eos | (emitted >= budgets) | (new_len >= max_len)
+        act = act & ~done
+        fits = torch.where(act, new_len + k <= slab_cap,
+                           torch.ones_like(act))
+        act = act & fits.all()
+    return (toks, lps, emitted, last, rounds, proposed, accepted, cache,
+            draft_cache)
+
+
 # -- host side ---------------------------------------------------------------
 
 
@@ -769,13 +892,21 @@ class _Slot:
 
 
 class DecodeState:
-    """Host-side view of the device cache + slots."""
+    """Host-side view of the device cache + slots, on `device` (cuda
+    unless named, like every entry point). With `draft_config`,
+    `draft_cache` mirrors the cache for speculative decode: never
+    quantised, and paged with the main cache's geometry (the same table
+    width and pool size, read from the main pool's int8 leaf when the
+    main cache is int8), so one allocation decision serves both tables.
+    Without a draft it is None."""
 
     def __init__(self, config: llama.LlamaConfig, batch_size: int,
                  max_seq_len: Optional[int] = None,
                  prefill_chunk: int = 0, kv_quant: str = 'none',
                  page_size: int = 0, num_pages: int = 0,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 draft_config: Optional[llama.LlamaConfig] = None):
+        device = device_lib.resolve_device(device)
         self.max_seq_len = max_seq_len or config.max_seq_len
         pad_to = (prefill_chunk
                   if 0 < prefill_chunk < self.max_seq_len else 1)
@@ -783,6 +914,14 @@ class DecodeState:
                                 pad_to=pad_to, kv_quant=kv_quant,
                                 page_size=page_size, num_pages=num_pages,
                                 device=device)
+        self.draft_cache: Optional[Cache] = None
+        if draft_config is not None:
+            draft_pages = num_pages
+            if page_size > 0:
+                draft_pages = int(_leaf(self.cache['k']).shape[1]) - 1
+            self.draft_cache = init_cache(
+                draft_config, batch_size, self.max_seq_len, pad_to=pad_to,
+                page_size=page_size, num_pages=draft_pages, device=device)
         self.last_tokens = torch.zeros((batch_size,), dtype=torch.int32,
                                        device=device)
         self.slots: List[Optional[_Slot]] = [None] * batch_size
@@ -815,6 +954,8 @@ class InferenceEngine:
                  kv_quant: str = 'auto',
                  prefill_interleave: Optional[int] = None,
                  draft: Optional[Tuple[Params, Any]] = None,
+                 spec_k: Optional[int] = None,
+                 spec_fuse_rounds: Optional[int] = None,
                  decode_fuse_steps: Optional[int] = None,
                  kv_page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None,
@@ -829,9 +970,6 @@ class InferenceEngine:
             raise NotImplementedError(
                 'sharded serving (mesh) is not ported yet; serve on one '
                 'device')
-        if draft is not None:
-            raise NotImplementedError(
-                'speculative decode (draft model) is not ported yet')
         self.device = device_lib.resolve_device(device)
         if use_flash is None:
             use_flash = default_use_flash(self.device)
@@ -857,6 +995,33 @@ class InferenceEngine:
             prefill_interleave = 4 * prefill_chunk if prefill_chunk else 0
         if prefill_chunk <= 0:
             prefill_interleave = 0
+        # Speculative decode (greedy, lossless: fused_spec_rounds). The
+        # draft cache must hold every prompt, which the batched one-shot
+        # prefill writes, so a draft turns interleaved prefill off.
+        self._draft_params: Optional[Params] = None
+        self._draft_config: Optional[llama.LlamaConfig] = None
+        if spec_k is None:
+            spec_k = envs.SKYTPU_SPEC_K.get()
+        self.spec_k = int(spec_k)
+        if spec_fuse_rounds is None:
+            spec_fuse_rounds = envs.SKYTPU_SPEC_FUSE_ROUNDS.get()
+        self.spec_fuse_rounds = max(1, int(spec_fuse_rounds))
+        if draft is not None:
+            dparams, dconfig = draft
+            if dconfig.vocab_size != config.vocab_size:
+                raise ValueError(
+                    'draft model must share the vocab: '
+                    f'{dconfig.vocab_size} != {config.vocab_size}')
+            if self.spec_k < 1:
+                raise ValueError(f'spec_k must be >= 1, got {self.spec_k}')
+            if explicit_interleave and prefill_interleave > 0:
+                raise ValueError(
+                    'prefill_interleave is incompatible with a draft model '
+                    '(the draft cache needs one-shot prefill); drop one of '
+                    'the two.')
+            self._draft_params = _to_device(dparams, self.device)
+            self._draft_config = dconfig
+            prefill_interleave = 0
         eff_max_seq_len = max_seq_len or config.max_seq_len
         if prefill_interleave > 0 and prefill_chunk >= eff_max_seq_len:
             if explicit_interleave:
@@ -873,7 +1038,8 @@ class InferenceEngine:
                                  kv_quant=kv_quant,
                                  page_size=self.kv_page_size,
                                  num_pages=max(0, int(kv_pages)),
-                                 device=self.device)
+                                 device=self.device,
+                                 draft_config=self._draft_config)
         self._capacity = cache_capacity(self.state.cache)
         # Host-side page allocator: pages 1..P-1 are allocatable; page 0
         # is the scratch page every empty table entry points at.
@@ -887,15 +1053,17 @@ class InferenceEngine:
             self._pages_total = int(_leaf(self.state.cache['k']).shape[1]) - 1
             self._page_alloc = list(range(1, self._pages_total + 1))
         # The radix prefix cache needs the paged layout (reuse is table
-        # edits over shared pages) and chunked prefill (warm tails
-        # resume through prefill_chunk_at).
+        # edits over shared pages), a draft-free engine (reusing only the
+        # target's pages would desynchronise the draft cache) and chunked
+        # prefill (warm tails resume through prefill_chunk_at).
         if prefix_cache is None:
             prefix_cache = envs.SKYTPU_PREFIX_CACHE.get()
         if prefix_cache_max_pages is None:
             prefix_cache_max_pages = envs.SKYTPU_PREFIX_CACHE_MAX_PAGES.get()
         self.prefix_cache_max_pages = max(0, int(prefix_cache_max_pages))
         self._prefix: Optional[prefix_lib.RadixPrefixCache] = None
-        if prefix_cache and self.kv_page_size and self.prefill_chunk > 0:
+        if (prefix_cache and self.kv_page_size
+                and self._draft_params is None and self.prefill_chunk > 0):
             self._prefix = prefix_lib.RadixPrefixCache(self.kv_page_size)
         self._queue: List[Tuple[int, List[int], SamplingParams]] = []
         # Planned handoff: requests admitted with the flag, the lease
@@ -910,14 +1078,20 @@ class InferenceEngine:
         self._next_id = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # Host-side counters (the reference's prompt/generated token,
-        # prefix-cache and handoff counters and prefill/decode latency
-        # sums). Times cover work that ends in a host sync.
+        # prefix-cache, handoff and speculative counters and
+        # prefill/decode latency sums). Times cover work that ends in a
+        # host sync. `spec_accepted_per_round[n]` counts (slot, round)
+        # cells that accepted n drafted tokens.
         self.stats = {'prompt_tokens': 0, 'generated_tokens': 0,
                       'prefill_seconds': 0.0, 'decode_seconds': 0.0,
                       'decode_dispatches': 0, 'prefix_hits': 0,
                       'prefix_misses': 0, 'prefix_reused_tokens': 0,
                       'prefix_evictions': 0, 'cow_copies': 0,
-                      'handoff_fallbacks': 0}
+                      'handoff_fallbacks': 0, 'spec_dispatches': 0,
+                      'spec_rounds': 0, 'spec_proposed_tokens': 0,
+                      'spec_accepted_tokens': 0,
+                      'spec_accepted_per_round': [0] * (
+                          max(0, self.spec_k) + 1)}
 
     # -- public --------------------------------------------------------------
 
@@ -927,7 +1101,8 @@ class InferenceEngine:
         """`handoff=True` pauses the request at the prefill->decode
         boundary (first token emitted, slot held under a lease) so a
         load balancer can restore it elsewhere; on lease expiry or
-        resume_handoff it decodes here as if never flagged."""
+        resume_handoff it decodes here as if never flagged. Ignored on
+        a speculative engine (its snapshots are refused anyway)."""
         if not prompt_tokens:
             raise ValueError('prompt_tokens must be non-empty')
         if self.kv_page_size:
@@ -944,7 +1119,7 @@ class InferenceEngine:
         self._next_id += 1
         self._queue.append((request_id, list(prompt_tokens),
                             sampling or SamplingParams()))
-        if handoff:
+        if handoff and self._draft_params is None:
             self._handoff_requests.add(request_id)
         return request_id
 
@@ -1060,11 +1235,13 @@ class InferenceEngine:
 
     def _maybe_pause_handoff(self, slot: _Slot) -> None:
         """Pause a handoff-flagged request now that its first token
-        exists, unless it is already done."""
+        exists, unless it is already done or a draft is attached."""
         rid = slot.request_id
         if rid not in self._handoff_requests:
             return
         self._handoff_requests.discard(rid)
+        if self._draft_params is not None:
+            return
         s = slot.params
         done = (len(slot.generated) >= s.max_new_tokens
                 or (s.eos_token_id is not None and slot.generated
@@ -1102,7 +1279,8 @@ class InferenceEngine:
         mid-prefill requests snapshot as host state only (prefill
         repays on restore; no token was generated yet). KeyError for a
         request that is not here; SnapshotError over
-        SKYTPU_MIGRATION_MAX_BYTES."""
+        SKYTPU_MIGRATION_MAX_BYTES, or for a decoding request of a
+        speculative engine (its draft cache would desynchronise)."""
         for rid, tokens, sampling in self._queue:
             if rid == request_id:
                 return self._pack_host_only(request_id, tokens, sampling)
@@ -1116,6 +1294,11 @@ class InferenceEngine:
         if slot.pending is not None:
             return self._pack_host_only(request_id, slot.pending,
                                         slot.params)
+        if self._draft_params is not None:
+            raise SnapshotError(
+                'speculative engines are not migratable (the draft cache '
+                'pages would desynchronize); drop the draft or let the '
+                'request honest-terminate')
         length = slot.prompt_len + len(slot.generated) - 1
         header = self._snapshot_header(
             request_id, slot.prompt, slot.params, slot.prompt_len,
@@ -1200,6 +1383,10 @@ class InferenceEngine:
         if layout == 'none' or not generated:
             # Host-only snapshot: prefill repays from scratch.
             return self.submit(prompt, sampling)
+        if self._draft_params is not None:
+            raise SnapshotError(
+                'speculative engines are not migratable; restore on a '
+                'draft-free replica')
         want_layout = 'paged' if self.kv_page_size else 'dense'
         if layout != want_layout:
             raise SnapshotError(
@@ -1292,18 +1479,21 @@ class InferenceEngine:
     # -- admission and pages -------------------------------------------------
 
     def _pages_needed(self, prompt_len: int, max_new: int) -> int:
-        """Worst-case pages a request can touch (prompt + budget),
-        capped at capacity."""
-        reserve = min(prompt_len + max_new, self._capacity)
+        """Worst-case pages a request can touch (prompt + budget + the
+        speculative verify slab), capped at capacity."""
+        slack = self.spec_k if self._draft_params is not None else 0
+        reserve = min(prompt_len + max_new + slack, self._capacity)
         return -(-reserve // self.kv_page_size)
 
     def _set_table_rows(self, slot: int, pages: List[int]) -> None:
-        """Point slot `slot`'s block-table row at `pages`; the tail
-        targets scratch page 0."""
+        """Point slot `slot`'s block-table row (main and draft caches)
+        at `pages`; the tail targets scratch page 0."""
         w = self.state.cache['table'].shape[1]
         row = torch.tensor(pages + [0] * (w - len(pages)),
-                           dtype=torch.int32)
-        self.state.cache['table'][slot] = row.to(self.device)
+                           dtype=torch.int32).to(self.device)
+        self.state.cache['table'][slot] = row
+        if self.state.draft_cache is not None:
+            self.state.draft_cache['table'][slot] = row
 
     def _insert_from_queue(self) -> None:
         free = [i for i, s in enumerate(self.state.slots) if s is None]
@@ -1432,6 +1622,12 @@ class InferenceEngine:
         logits, _ = prefill_chunked(
             self.params, padded, lengths, self.state.cache, slot_arr,
             self.config, chunk, use_flash=self._use_flash)
+        if self._draft_params is not None:
+            # The draft cache holds the prompts too (its logits are
+            # discarded); dense attention, as the reference's.
+            prefill_chunked(self._draft_params, padded, lengths,
+                            self.state.draft_cache, slot_arr,
+                            self._draft_config, chunk, use_flash=False)
         first, first_lp = self._sample_host_params(
             logits, [s for _, _, s in inserts])
         self.state.last_tokens[slot_arr] = first
@@ -1577,9 +1773,10 @@ class InferenceEngine:
     # -- slots and decode ----------------------------------------------------
 
     def _free_slot(self, i: int, publish: bool = False) -> None:
-        """Release slot i: its length zeroes (stale keys invisible), its
-        table row resets to the scratch page (its masked decode writes
-        never land in a re-issued page) and its pages go back. With
+        """Release slot i: its length zeroes in both caches (stale keys
+        invisible), its table rows reset to the scratch page (its masked
+        decode writes never land in a re-issued page) and its pages go
+        back. With
         `publish` (normal completion) and the prefix cache, the full
         pages of prompt + generated[:-1] go to the radix index instead;
         pins on matched pages release either way."""
@@ -1590,6 +1787,8 @@ class InferenceEngine:
             self._handoff_deadline.pop(slot.request_id, None)
             self._handoff_exported.discard(slot.request_id)
         self.state.cache['length'][i] = 0
+        if self.state.draft_cache is not None:
+            self.state.draft_cache['length'][i] = 0
         if not (self.kv_page_size and self._slot_pages[i]):
             self._slot_shared[i] = set()
             return
@@ -1642,6 +1841,47 @@ class InferenceEngine:
              for s in slots], dtype=torch.int32, device=dev)
         return budgets, eos_arr, self.state.max_seq_len - 2
 
+    def _spec_round(self, active_mask: List[bool]) -> None:
+        """ONE speculative host dispatch: up to `spec_fuse_rounds`
+        draft/verify rounds (fused_spec_rounds), up to
+        spec_fuse_rounds * spec_k tokens per slot. Budget and eos
+        truncation happen on the device, so the host appends exactly
+        `emitted[i]` tokens, as on the fused decode path."""
+        slots = self.state.slots
+        active = torch.tensor(active_mask, dtype=torch.bool,
+                              device=self.device)
+        budgets, eos_arr, max_len = self._slot_bounds()
+        t0 = time.perf_counter()
+        (toks, lps, emitted_dev, new_last, rounds, proposed_dev,
+         accepted_dev, _, _) = fused_spec_rounds(
+            self.params, self.state.cache, self._draft_params,
+            self.state.draft_cache, self.state.last_tokens, active,
+            eos_arr, budgets, max_len, self._capacity, self.config,
+            self._draft_config, self.spec_k, self.spec_fuse_rounds)
+        self.state.last_tokens = new_last
+        # One host sync for every output of the dispatch.
+        toks_host, lps_host, emit_host, proposed, acc_host = (
+            toks.tolist(), lps.tolist(), emitted_dev.tolist(),
+            int(proposed_dev), accepted_dev.tolist())
+        self.stats['decode_seconds'] += time.perf_counter() - t0
+        self.stats['decode_dispatches'] += 1
+        self.stats['spec_dispatches'] += 1
+        self.stats['spec_rounds'] += rounds
+        self.stats['spec_proposed_tokens'] += proposed
+        per_round = self.stats['spec_accepted_per_round']
+        for row in acc_host:
+            for n in row:
+                if n >= 0:
+                    per_round[n] += 1
+                    self.stats['spec_accepted_tokens'] += n
+        for i, slot in enumerate(slots):
+            if slot is None or slot.pending is not None:
+                continue
+            n = int(emit_host[i])
+            slot.generated.extend(int(t) for t in toks_host[i][:n])
+            slot.logprobs.extend(float(x) for x in lps_host[i][:n])
+            self.stats['generated_tokens'] += n
+
     def _evict_finished(self) -> None:
         for i, slot in enumerate(self.state.slots):
             if slot is None or slot.pending is not None:
@@ -1655,6 +1895,14 @@ class InferenceEngine:
                 self._finished[slot.request_id] = slot.generated
                 self._finished_logprobs[slot.request_id] = slot.logprobs
                 self._free_slot(i, publish=True)
+
+    def _slab_fits(self, i: int) -> bool:
+        """Does slot i's next k-wide verify slab fit the cache? Read from
+        host bookkeeping: a decoding slot's cache length is exactly
+        prompt_len + len(generated) - 1."""
+        s = self.state.slots[i]
+        return (s.prompt_len + len(s.generated) - 1
+                + self.spec_k) <= self._capacity
 
     def step(self) -> None:
         self._evict_finished()
@@ -1676,6 +1924,18 @@ class InferenceEngine:
                 length = s.prompt_len + len(s.generated) - 1
                 self._cow_guard(i, length,
                                 length + self.decode_fuse_steps - 1)
+        if (self._draft_params is not None
+                and all(s.params.temperature <= 0.0
+                        for s in self.state.slots
+                        if s is not None and s.pending is None)
+                and all(self._slab_fits(i)
+                        for i, on in enumerate(active_mask) if on)):
+            # Greedy batch with a draft: fused speculative rounds. Near
+            # the cache end the k-wide verify slab would clamp onto
+            # valid keys, so such a step runs plain fused decode.
+            self._spec_round(active_mask)
+            self._evict_finished()
+            return
         slots = self.state.slots
         dev = self.device
         temps = torch.tensor([s.params.temperature if s else 0.0

@@ -22,7 +22,10 @@ so its load balancer drives a port replica unchanged):
 Streams carry `X-SkyTPU-Migration-Key`, a non-terminal `handoff` frame
 for requests sent with `X-SkyTPU-Handoff: 1`, and a terminal `migrate`
 frame when a drain snapshots them; /health adds the page pool's
-composition and the prefix-cache counters. SIGTERM drains, then exits.
+composition, the prefix-cache counters and the speculative-decode
+counters (:486-494). SIGTERM drains, then exits; the server also exits
+when its launcher dies (`_watch_parent`, :853), unless
+`--no-exit-with-parent`.
 
 One engine-loop thread owns the engine (and the card); HTTP handler
 threads (`ThreadingHTTPServer`) enqueue requests and wait on their
@@ -31,7 +34,7 @@ The OpenAI routes, load shedding and the telemetry plane wait for later
 slices.
 
   python -m skypilot_tpu_torch.inference.server --model llama3-8b \
-      --port 8080 [--device cuda]
+      --port 8080 [--device cuda] [--draft-model llama3-1b --spec-k 4]
 """
 from __future__ import annotations
 
@@ -235,6 +238,11 @@ class EngineLoop:
                              'misses': st['prefix_misses'],
                              'reused_tokens': st['prefix_reused_tokens'],
                              'evictions': st['prefix_evictions']},
+            # Zeros without a draft; acceptance over a window is the
+            # accepted/proposed counter-delta ratio.
+            'spec': {'rounds': st['spec_rounds'],
+                     'proposed_tokens': st['spec_proposed_tokens'],
+                     'accepted_tokens': st['spec_accepted_tokens']},
         }
 
     def _process_submission(self, item) -> None:
@@ -659,6 +667,26 @@ def prefix_cache_arg(flag: str) -> Optional[bool]:
     return None if flag == 'auto' else flag == 'on'
 
 
+def _watch_parent() -> None:
+    """Exit when the launching process dies (the server is reparented):
+    a replica dies with its launcher and never lingers holding the card.
+    A server started by PID 1 (a container entrypoint) cannot see a
+    reparent, so the watchdog stands down there."""
+    interval = envs.SKYTPU_WATCHDOG_INTERVAL.get(default=5.0)
+    original = os.getppid()
+    if original == 1:
+        return
+
+    def _loop():
+        while True:
+            if os.getppid() != original:
+                os._exit(0)  # noqa: SLF001 — the engine thread never joins
+            time.sleep(interval)
+
+    threading.Thread(target=_loop, daemon=True,
+                     name='parent-watchdog').start()
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='tiny',
@@ -673,6 +701,20 @@ def main() -> None:
     parser.add_argument('--max-seq-len', type=int, default=None)
     parser.add_argument('--prefill-chunk', type=int, default=1024)
     parser.add_argument('--prefill-interleave', type=int, default=None)
+    parser.add_argument('--draft-model', default=None,
+                        help='Speculative decoding: a small same-vocab draft '
+                             'model (random weights from --seed + 1) '
+                             'proposes spec-k tokens per target verify pass '
+                             '(greedy requests; lossless). Incompatible '
+                             'with --prefill-interleave (the draft cache '
+                             'needs one-shot prefill).')
+    parser.add_argument('--spec-k', type=int, default=None,
+                        help='Draft tokens per speculative round (default: '
+                             'SKYTPU_SPEC_K).')
+    parser.add_argument('--spec-fuse-rounds', type=int, default=None,
+                        help='Speculative draft/verify rounds per host '
+                             'dispatch (default: SKYTPU_SPEC_FUSE_ROUNDS, '
+                             '8; 1 = one dispatch per round).')
     parser.add_argument('--kv-quant', default='auto',
                         choices=['auto', 'none', 'int8'])
     parser.add_argument('--decode-fuse-steps', type=int, default=None)
@@ -688,7 +730,12 @@ def main() -> None:
                         help='Cap on KV pages the prefix cache keeps '
                              '(default: SKYTPU_PREFIX_CACHE_MAX_PAGES, '
                              '0 = bounded by the pool only).')
+    parser.add_argument('--no-exit-with-parent', action='store_true',
+                        help='Keep serving after the launcher exits '
+                             '(deliberate daemonization only).')
     args = parser.parse_args()
+    if not args.no_exit_with_parent:
+        _watch_parent()
 
     holder: Dict[str, Any] = {'loop': None}
     server = create_server(holder, port=args.port)
@@ -704,6 +751,8 @@ def main() -> None:
                 batch_size=args.batch_size, max_seq_len=args.max_seq_len,
                 prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant,
                 prefill_interleave=args.prefill_interleave,
+                draft_model=args.draft_model, spec_k=args.spec_k,
+                spec_fuse_rounds=args.spec_fuse_rounds,
                 decode_fuse_steps=args.decode_fuse_steps,
                 kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
                 prefix_cache=prefix_cache_arg(args.prefix_cache),

@@ -1,6 +1,7 @@
-"""The limits chip_smoke.py holds the kernels (K1-K4) and the training
-parity to, and the planted faults of kernel_fault_check.py that show
-those limits catch a wrong kernel.
+"""The limits chip_smoke.py holds the kernels (K1-K4), the training
+parity and speculative decode to, and the planted faults of
+kernel_fault_check.py and spec_fault_check.py that show those limits
+catch a wrong kernel or a wrong round.
 
 The readings themselves come from the card; here the verdict functions
 are held to their limits and every planted fault is held to apply
@@ -18,6 +19,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 import kernel_fault_check  # noqa: E402
+import spec_fault_check  # noqa: E402
 
 SOUND = {'max_abs_err': 0.0078125, 'lse_max_abs_err': 2e-6,
          'inf_rows_agree': True, 'masked_rows': 2624,
@@ -359,3 +361,167 @@ def test_prefix_and_migration_phases_rehearse_on_cpu(monkeypatch):
     srv = out['server_to_server']
     assert srv['corrupted_blob_status'] == 400 and srv['equal']
     assert srv['tokens_before_drain'] + srv['tokens_after_restore'] == 64
+
+
+# -- the spec phase ------------------------------------------------------------
+
+
+def test_divergence_rule():
+    """A divergence passes only as a near-tie: both tokens within the
+    limit of the target's top logit (an exact tie, a three-way near-tie);
+    a token further down, or a length mismatch, fails."""
+    limit = chip_smoke.TOL_SPEC_GAP
+    sound = {'equal': False, 'index': 7, 'plain_token': 11,
+             'spec_token': 42, 'top2': [42, 11], 'gap': 0.0,
+             'deficits': [0.0, 0.0]}
+    three_way = {**sound, 'top2': [42, 90], 'gap': 0.03125,
+                 'deficits': [0.0625, 0.0]}
+    assert chip_smoke.divergence_faults(
+        [{'equal': True}, sound, three_way]) == []
+    for bad in ({'deficits': [0.0, limit]},                # spec too low
+                {'deficits': [4.5, 0.0]},                  # plain too low
+                {'deficits': None, 'top2': None}):         # length differs
+        faults = chip_smoke.divergence_faults([{**sound, **bad}])
+        assert len(faults) == 1 and 'request 0' in faults[0]
+    # The limit sits between the sound readings on the H100 (deficits 0
+    # to 0.0625) and spec_fault_check.py's wrong rounds (0.25 to 7.7).
+    assert 0.0625 < limit <= 0.25
+    assert chip_smoke.first_divergence([1, 2, 3], [1, 2, 3]) is None
+    assert chip_smoke.first_divergence([1, 2, 3], [1, 5, 3]) == 1
+    assert chip_smoke.first_divergence([1, 2], [1, 2, 3]) == 2
+    limit = chip_smoke.TOL_SPEC_ACCEPT
+    assert chip_smoke.acceptance_faults(31, 32) == []
+    assert chip_smoke.acceptance_faults(236, 272) == []    # sound, H100
+    assert chip_smoke.acceptance_faults(int(limit * 100) - 1, 100)
+    assert chip_smoke.acceptance_faults(191, 396)          # a length fault
+    assert 0.48 < limit < 0.8676
+    assert chip_smoke.acceptance_faults(0, 0)
+
+
+def _planted_engine(fault):
+    """The engine module with one of spec_fault_check.py's faults planted
+    in its source."""
+    import types
+
+    from skypilot_tpu_torch.inference import engine as eng
+    with open(eng.__file__) as f:
+        source = f.read()
+    module = types.ModuleType('planted_engine')
+    # The engine's dataclasses resolve their annotations through
+    # sys.modules while the source runs.
+    sys.modules[module.__name__] = module
+    try:
+        exec(compile(spec_fault_check.plant(source, fault), eng.__file__,
+                     'exec'), module.__dict__)
+    finally:
+        del sys.modules[module.__name__]
+    return module
+
+
+@pytest.fixture
+def one_torch_thread(monkeypatch):
+    """The tiny engines (in this process and in a server process it
+    starts) gain nothing from intra-op threads, and the suite runs in
+    several worker processes on few cores."""
+    monkeypatch.setenv('OMP_NUM_THREADS', '1')
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_spec_phase_rehearses_on_cpu(monkeypatch, one_torch_thread):
+    """chip_smoke's spec phase at the `tiny` size on the CPU (f32, so the
+    spec path equals plain greedy exactly), with a counting stand-in for
+    the kernel launch, the server as a process included. Then two
+    planted faults: m+1 drafted tokens emitted on a miss fails the
+    divergence rule, and a draft table row left unwritten (the pairing)
+    fails the target-as-draft acceptance limit: both are planted from
+    spec_fault_check.py's list."""
+    import numpy as np
+
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+
+    def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
+               v_scale=None):
+        counter = fa.flash_attention if k_scale is None else \
+            fa.flash_attention_quant
+        counter.launches += 1
+        return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
+                         k_scale=k_scale, v_scale=v_scale)
+
+    def flash_fwd(q, k, v, causal=True, block_q=512, block_k=512,
+                  window=None, softcap=None, q_offset=None, k_scale=None,
+                  v_scale=None):
+        return fa._launch(q, k, v, causal, window, softcap, q_offset,
+                          k_scale=k_scale, v_scale=v_scale)
+
+    monkeypatch.setattr(fa, '_launch', launch)
+    monkeypatch.setattr(fa, 'flash_fwd', flash_fwd)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    monkeypatch.setattr(chip_smoke, 'profile_breakdown',
+                        lambda torch, fn, **kw: fn() and {})
+    monkeypatch.setattr(chip_smoke, 'DEV', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'SPEC_KW', dict(
+        batch_size=8, max_seq_len=128, prefill_chunk=32, kv_page_size=8,
+        use_flash=True))
+    monkeypatch.setattr(chip_smoke, 'SPEC_MODEL', 'tiny')
+    monkeypatch.setattr(chip_smoke, 'SPEC_DRAFT', 'tiny')
+    monkeypatch.setattr(chip_smoke, 'SPEC_NEW', 9)
+    monkeypatch.setattr(chip_smoke, 'SPEC_PROMPT_LENGTHS', (8, 30))
+    monkeypatch.setattr(chip_smoke, 'SPEC_SERVER_PROMPT', 20)
+    params, config = inference.draw_params('tiny', 0, 'cpu')
+    out = chip_smoke.spec_phase(torch, inference, fa, params, config,
+                                np.random.default_rng(0))
+    for kv in ('bf16', 'int8'):
+        run = out[kv]
+        assert run['draft']['tokens_equal'] == 8
+        assert run['kernel_launches'] > 0
+        assert run['draft']['spec_rounds'] > 0
+    tad = out['bf16']['target_as_draft']
+    assert tad['tokens_equal'] == 8 and tad['acceptance'] == 8 / 8
+    assert out['server']['tokens_equal']
+    assert out['server']['health_spec']['rounds'] > 0
+
+    dparams, dconfig = inference.draw_params('tiny', 1, 'cpu')
+    rng = np.random.default_rng(1)
+    prompts = [chip_smoke.prompt_tokens(rng, int(n), config.vocab_size)
+               for n in rng.integers(8, 31, size=4)]
+    assert out['faults'] == []
+    with monkeypatch.context() as m:
+        m.setattr(eng, 'fused_spec_rounds', _planted_engine(
+            'emit_drafted_on_miss').fused_spec_rounds)
+        faults = chip_smoke.spec_engines(
+            torch, inference, fa, llama, params, config, dparams, dconfig,
+            prompts, False, target_as_draft=False)['faults']
+        assert faults and all('diverges' in f for f in faults)
+    monkeypatch.setattr(
+        eng.InferenceEngine, '_set_table_rows', _planted_engine(
+            'draft_table_row_unwritten').InferenceEngine._set_table_rows)
+    faults = chip_smoke.spec_engines(
+        torch, inference, fa, llama, params, config, dparams, dconfig,
+        prompts, False, target_as_draft=True)['faults']
+    assert len(faults) == 1 and 'target_as_draft: accepted' in faults[0]
+
+
+@pytest.mark.parametrize('fault', sorted(spec_fault_check.FAULTS))
+def test_planted_spec_fault_applies_once(fault):
+    """Each spec fault's anchor occurs once in the engine source and the
+    planted source still compiles."""
+    with open(os.path.join(REPO, spec_fault_check.ENGINE_SOURCE)) as f:
+        source = f.read()
+    planted = spec_fault_check.plant(source, fault)
+    assert planted != source
+    compile(planted, spec_fault_check.ENGINE_SOURCE, 'exec')
+
+
+def test_spec_fault_check_refuses_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('CUDA present')
+    proc = subprocess.run([sys.executable, os.path.join(
+        REPO, 'spec_fault_check.py')], capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 2 and 'wrong_verdicts' not in proc.stdout

@@ -398,10 +398,14 @@ def test_h100_policy_defaults(tiny, monkeypatch):
     assert port_inference.InferenceEngine(tparams, config,
                                           device='cpu')._prefix is None
     monkeypatch.delenv('SKYTPU_PREFIX_CACHE')
-    for bad in (dict(mesh=object()), dict(draft=(tparams, config))):
-        with pytest.raises(NotImplementedError):
-            port_inference.InferenceEngine(tparams, config, device='cpu',
-                                           **bad)
+    with pytest.raises(NotImplementedError):
+        port_inference.InferenceEngine(tparams, config, device='cpu',
+                                       mesh=object())
+    # Speculative decode is ported: a draft builds (and turns the prefix
+    # cache off, as the reference does).
+    engine = port_inference.InferenceEngine(tparams, config, device='cpu',
+                                            draft=(tparams, config))
+    assert engine.state.draft_cache is not None and engine._prefix is None
 
 
 def test_env_defaults_match_reference_registry():
@@ -412,7 +416,9 @@ def test_env_defaults_match_reference_registry():
         'SKYTPU_KV_QUANT', 'SKYTPU_PREFILL_INTERLEAVE',
         'SKYTPU_PREFIX_CACHE', 'SKYTPU_PREFIX_CACHE_MAX_PAGES',
         'SKYTPU_MIGRATION_ENABLE', 'SKYTPU_DRAIN_DEADLINE_SECONDS',
-        'SKYTPU_MIGRATION_MAX_BYTES', 'SKYTPU_HANDOFF_LEASE_SECONDS'}
+        'SKYTPU_MIGRATION_MAX_BYTES', 'SKYTPU_HANDOFF_LEASE_SECONDS',
+        'SKYTPU_SPEC_K', 'SKYTPU_SPEC_FUSE_ROUNDS',
+        'SKYTPU_WATCHDOG_INTERVAL'}
     for name, var in port_vars.items():
         assert (var.type, var.default) == (ref_vars[name].type,
                                            ref_vars[name].default), name
@@ -423,6 +429,14 @@ def test_env_knobs_are_read_at_call_time(monkeypatch):
     assert port_envs.SKYTPU_DECODE_FUSE_STEPS.get() == 3
     monkeypatch.setenv('SKYTPU_DECODE_FUSE_STEPS', 'x')
     assert port_envs.SKYTPU_DECODE_FUSE_STEPS.get() == 8
+    # A per-call default wins over the declared one, as the reference's
+    # (the server's watchdog reads SKYTPU_WATCHDOG_INTERVAL at 5 s).
+    monkeypatch.delenv('SKYTPU_WATCHDOG_INTERVAL', raising=False)
+    for var in (port_envs.SKYTPU_WATCHDOG_INTERVAL,
+                ref_envs.SKYTPU_WATCHDOG_INTERVAL):
+        assert var.get() == 30.0 and var.get(default=5.0) == 5.0
+    monkeypatch.setenv('SKYTPU_WATCHDOG_INTERVAL', '0.3')
+    assert port_envs.SKYTPU_WATCHDOG_INTERVAL.get(default=5.0) == 0.3
 
 
 def _fifo_admission(tiny, prefix_cache):

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no ml_dtypes, no aiohttp, no skypilot_tpu.
 
 A subprocess blocks those packages in `sys.modules`, then imports every
-module of `skypilot_tpu_torch` and the root `chip_smoke.py` and
-`kernel_fault_check.py`; any
+module of `skypilot_tpu_torch` and the root `chip_smoke.py`,
+`kernel_fault_check.py` and `spec_fault_check.py`; any
 forbidden import fails it. Entry points raise without CUDA unless the
 caller names a device.
 """
@@ -31,6 +31,7 @@ for info in pkgutil.walk_packages(skypilot_tpu_torch.__path__,
     names.append(info.name)
 import chip_smoke
 import kernel_fault_check
+import spec_fault_check
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in BLOCKED and sys.modules[m] is not None)
 assert not leaked, leaked
@@ -72,6 +73,23 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         device_lib.resolve_device('cuda')
     assert device_lib.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_decode_state_keeps_every_tensor_on_the_resolved_device(
+        monkeypatch):
+    """DecodeState with no device resolves it once, for the cache and the
+    last-token row alike (it used to leave the row on the CPU beside a
+    CUDA cache). 'meta' stands in for the card here."""
+    from skypilot_tpu_torch import device as device_lib
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.models import llama
+    monkeypatch.setattr(device_lib, 'resolve_device',
+                        lambda device=None: torch.device(device or 'meta'))
+    state = eng.DecodeState(llama.CONFIGS['tiny'], 2, page_size=8,
+                            draft_config=llama.CONFIGS['tiny'])
+    for t in (state.last_tokens, state.cache['length'],
+              state.draft_cache['table']):
+        assert t.device.type == 'meta'
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
