@@ -9,22 +9,32 @@ Phases, each printing one JSON line:
                   (ops/csrc/flash_fwd.cu and flash_bwd.cu, one nvcc for
                   sm_90a per source, started together) with its time;
                   ptxas' registers, spills and wgmma serialisation of
-                  every forward and backward kernel instance (`ptxas`).
+                  every forward and backward kernel instance (`ptxas`),
+                  the head_dim 256 instances of K1/K2 among them.
                   An instance that spills or has its wgmmas serialised
                   fails.
   2. check_bf16 - K1 (flash_attention) against its plain PyTorch version
                   on the card: cached-prefill offset, window + softcap,
                   fully-masked rows, the engine's prefill shape, head_dim
-                  64, ragged q/kv tiles at an unaligned offset, and four
+                  64, ragged q/kv tiles at an unaligned offset, four
                   warm tails of a prefix-cache hit (16 to 512 rows at
                   page-aligned offsets, and the repeat's 16 rows at
-                  1215), within TOL_O on O and TOL_LSE on lse.
+                  1215), gemma2-9b heads at head_dim 256 with softcap 50
+                  (a local layer past its 4096 window, a global layer,
+                  masked rows, ragged tiles, a 16-row warm tail),
+                  gemma2-2b heads at the engine's chunk, qwen2.5-1.5b's
+                  GQA group of 6 and mistral-7b's all-local window,
+                  within TOL_O on O and TOL_LSE on lse.
   3. check_int8 - K2 (flash_attention_quant) the same way.
   4. timing     - per kernel at the engine's prefill shape (K1 also at
                   the training shape, TRAIN_TIMING_SHAPE; both kernels
-                  at the prefix phase's shapes after it): kernel, plain
+                  at gemma2-9b's heaviest chunk, GEMMA_TIMING_SHAPE, for
+                  a local and a global layer at softcap 50, and at the
+                  prefix phase's shapes after it): kernel, plain
                   version, scaled_dot_product_attention as a yardstick
-                  (timed only, never used by the port), and the bound.
+                  (timed only, never used by the port; it has no
+                  softcap, so it runs the function without one, and so
+                  does `ms_softcap_off`), and the bound.
   5. engine_bf16 - build_engine('llama3-8b') at full width and depth with
                   random weights: prefill logits through the kernel
                   against the plain version and against the dense
@@ -68,7 +78,26 @@ Phases, each printing one JSON line:
                   launch on the spec engines' prefill. Then the port's
                   server as a process with --draft-model llama3-1b:
                   greedy /generate against the draft-free server, and
-                  /health's spec.rounds > 0. (12-15 run after phase 7.)
+                  /health's spec.rounds > 0.
+ 16. gemma_bf16 - build_engine('gemma2-9b') at full width and depth (42
+                  layers, d 256, vocab 256128, random weights, seed 0;
+                  GEMMA_KW: 8 slots, max_seq_len 8192, chunk 512, page
+                  64, batched prefill): prefill logits through K1 against
+                  the plain version and the dense forward (a 5000-token
+                  prompt, past the window), then 8 greedy prompts of
+                  1000-7000 tokens (two past 4608), 32 new each, with K1's
+                  launches read around them and held to the count the
+                  batched prefill must make (every chunk of every layer:
+                  42 x 16); prefill and decode tok/s, a profiled batch,
+                  peak memory.
+ 17. gemma_int8 - the same engine over an int8 KV cache (K2).
+ 18. checkpoint - a synthetic HF gemma2 checkpoint (gemma2-2b widths,
+                  depth cut to 2 layers) written by the port's writer
+                  over two shards with an index, imported (every tensor
+                  equal; seconds and peak host bytes), then served by
+                  build_engine(checkpoint=) and by the server as a process
+                  with --checkpoint: greedy /generate token for token
+                  equal. (12-18 run after phase 7.)
   8. check_bwd  - K3 (flash_attention_dq) and K4 (flash_attention_dkv,
                   ops/csrc/flash_bwd.cu) against flash_attention_bwd_plain
                   on the same bf16 inputs: the training shape, rows with
@@ -98,6 +127,7 @@ Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
 """
 import collections
+import dataclasses
 import gc
 import json
 import math
@@ -352,6 +382,22 @@ CHECK_CASES = (
     # repeated prompt's last token re-run at 1215 (a 16-row bucket).
     ('warm_tail_512', 1, 512, 2048, 32, 8, 128, 1024, None, None),
     ('warm_repeat', 1, 16, 2048, 32, 8, 128, 1215, None, None),
+    # gemma2-9b heads (16 q / 8 kv, d 256: 64-row q CTAs, 64-row kv
+    # tiles), softcap 50: a local layer's cached prefill past its 4096
+    # window (keys below it masked), a global layer (window 2**30, as
+    # models/llama.layer_windows gives it), rows with no visible key, a
+    # ragged q tile at an offset off the tile grid, and a 16-row warm tail.
+    ('gemma9b_past_window', 2, 512, 8192, 16, 8, 256, 5120, 4096, 50.0),
+    ('gemma9b_global', 2, 512, 8192, 16, 8, 256, 5120, 2 ** 30, 50.0),
+    ('gemma9b_masked_rows', 2, 128, 1024, 16, 8, 256, 1000, 64, 50.0),
+    ('gemma9b_ragged_tiles', 3, 200, 1500, 16, 8, 256, 1299, 4096, 50.0),
+    ('gemma9b_warm_tail', 1, 16, 8192, 16, 8, 256, 6208, 4096, 50.0),
+    # gemma2-2b heads (8 / 4, d 256) at the engine's chunk.
+    ('gemma2b_chunk', 8, 512, 2048, 8, 4, 256, 1536, 4096, 50.0),
+    # qwen2.5-1.5b heads: a GQA group of 6 (12 q / 2 kv), d 128.
+    ('qwen_gqa6', 2, 512, 4096, 12, 2, 128, 2048, None, None),
+    # mistral-7b: every layer local (window 4096), past the window.
+    ('mistral_window', 2, 512, 8192, 32, 8, 128, 6144, 4096, None),
 )
 # The main path's heaviest prefill chunk: batch 8, chunk 512 at cache
 # position 1536 of a 2048-position paged view (llama3-8b heads).
@@ -359,6 +405,12 @@ TIMING_SHAPE = (8, 512, 2048, 32, 8, 128, 1536)
 # The train phase's attention (K1, forward and remat recompute): bench-8b
 # heads at batch 1, seq 4096, causal, no offset.
 TRAIN_TIMING_SHAPE = (1, 4096, 4096, 32, 8, 128, 0)
+# gemma2-9b's heaviest serving chunk (the gemma phases' last prefill
+# chunk): batch 8, chunk 512 at q_offset 7680 of 8192, d 256, timed for
+# a local layer (window 4096) and a global one, both at softcap 50.
+GEMMA_TIMING_SHAPE = (8, 512, 8192, 16, 8, 256, 7680)
+GEMMA_TIMING_LAYERS = (('local', 4096), ('global', 2 ** 30))
+GEMMA_SOFTCAP = 50.0
 
 
 def kernel_readings(torch, fa, quant):
@@ -368,18 +420,21 @@ def kernel_readings(torch, fa, quant):
             for name, *rest in CHECK_CASES}
 
 
-def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE):
+def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE, window=None,
+                  softcap=None):
     """K1 (K2 with `quant`) at `shape` (B, T, S, H, KV, D, q_offset; causal
-    from q_offset): kernel ms, plain ms, one SDPA call over the same
-    (dequantised) inputs, and the bound, each on a queue the host has
-    filled ahead; and the kernel's ms when the host paces the calls
-    (`host_paced_ms`: the larger of the kernel's and the wrapper's
-    per-call time, as the engine sees it)."""
+    from q_offset, with `window` and `softcap`): kernel ms, plain ms, one
+    SDPA call over the same (dequantised) inputs and mask, and the bound,
+    each on a queue the host has filled ahead; and the kernel's ms when
+    the host paces the calls (`host_paced_ms`: the larger of the kernel's
+    and the wrapper's per-call time, as the engine sees it). SDPA has no
+    softcap: with one, `library_ms` is SDPA without it, and
+    `ms_softcap_off` the kernel on that same function."""
     import torch.nn.functional as F
     b, t, s, h, kv, d, off = shape
     gen = torch.Generator(device=DEV).manual_seed(7)
     q, k, v, ks, vs = attn_inputs(torch, gen, b, t, s, h, kv, d, quant)
-    kw = dict(causal=True, q_offset=off)
+    kw = dict(causal=True, q_offset=off, window=window, softcap=softcap)
     ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v, k_scale=ks,
                                              v_scale=vs, **kw),
                  queue_ahead=True)
@@ -395,22 +450,31 @@ def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE):
             q, k, v, **kw), iters=3, warmup=1, queue_ahead=True)
         kd, vd = k, v
     qt, kt, vt = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
-    if off == 0 and t == s:
+    if off == 0 and t == s and window is None:
         sdpa_kw = dict(is_causal=True)
     else:
-        q_pos = off + torch.arange(t, device=DEV)
-        sdpa_kw = dict(attn_mask=torch.arange(s, device=DEV)[None, :]
-                       <= q_pos[:, None])
+        q_pos = off + torch.arange(t, device=DEV)[:, None]
+        k_pos = torch.arange(s, device=DEV)[None, :]
+        mask = k_pos <= q_pos
+        if window is not None:
+            mask = mask & (q_pos - k_pos < window)
+        sdpa_kw = dict(attn_mask=mask)
     try:
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=True, **sdpa_kw), queue_ahead=True)
     except TypeError:  # a torch without enable_gqa: no one-call yardstick
         library_ms = None
-    bms, bound_by, flops = bound_ms(b, t, s, h, kv, d, off, None, quant)
-    return {'shape': [b, t, s, h, kv, d], 'q_offset': off, 'ms': ms,
-            'host_paced_ms': host_paced_ms, 'plain_ms': plain_ms, 'library_ms': library_ms,
-            'bound_ms': bms, 'bound_by': bound_by,
-            'tflops': flops / (ms * 1e-3) / 1e12}
+    bms, bound_by, flops = bound_ms(b, t, s, h, kv, d, off, window, quant)
+    out = {'shape': [b, t, s, h, kv, d], 'q_offset': off, 'window': window,
+           'softcap': softcap, 'ms': ms, 'host_paced_ms': host_paced_ms,
+           'plain_ms': plain_ms, 'library_ms': library_ms,
+           'bound_ms': bms, 'bound_by': bound_by,
+           'tflops': flops / (ms * 1e-3) / 1e12}
+    if softcap is not None:
+        out['ms_softcap_off'] = time_ms(torch, lambda: fa.flash_fwd(
+            q, k, v, k_scale=ks, v_scale=vs, **{**kw, 'softcap': None}),
+            queue_ahead=True)
+    return out
 
 
 def profile_breakdown(torch, fn, top=8, shares=None):
@@ -593,12 +657,13 @@ def run_main_path(torch, inference, engine, rng, lengths, long_len,
     return results, wall
 
 
-def logits_readings(torch, eng, fa, llama, engine, rng):
-    """Last-token prefill logits of two prompts (700 and 1300 tokens)
+def logits_readings(torch, eng, fa, llama, engine, rng, lengths=(700, 1300)):
+    """Last-token prefill logits of two prompts (`lengths` tokens)
     through the kernel, against the plain version and, on a bf16 cache,
-    against the dense forward: max|a-b| / max|b| of each."""
+    against the dense forward of the first (attention_impl 'dense'):
+    max|a-b| / max|b| of each."""
     check_prompts = [prompt_tokens(rng, m, engine.config.vocab_size)
-                     for m in (700, 1300)]
+                     for m in lengths]
     k_logits, p_logits = prefill_paths(torch, eng, fa, engine,
                                        check_prompts)
     out = {'prefill_logits_finite': bool(torch.isfinite(k_logits).all()),
@@ -607,9 +672,10 @@ def logits_readings(torch, eng, fa, llama, engine, rng):
            'argmax_agree_vs_plain': int((k_logits.argmax(-1)
                                          == p_logits.argmax(-1)).sum())}
     if engine.kv_quant == 'none':
+        dense = dataclasses.replace(engine.config, attention_impl='dense')
         with torch.inference_mode():
             ref = llama.forward(engine.params, torch.tensor(
-                [check_prompts[0]], device=DEV), engine.config)[0, -1]
+                [check_prompts[0]], device=DEV), dense)[0, -1]
         out['prefill_logits_rel_err_vs_dense_forward'] = rel_err(
             torch, k_logits[0], ref)
     return out
@@ -1394,6 +1460,284 @@ def spec_phase(torch, inference, fa, params, config, rng):
     return out
 
 
+# The gemma phases: gemma2-9b at full width and depth (42 layers,
+# 3584/14336, 16 q / 8 kv heads, d 256, vocab 256128), random weights
+# from seed 0. Batched prefill (no interleave): all 8 prompts in one
+# admission, padded to 8192 in 16 chunks of 512, every chunk of every
+# layer through K1 (K2).
+GEMMA_MODEL = 'gemma2-9b'
+GEMMA_KW = dict(batch_size=8, max_seq_len=8192, prefill_chunk=512,
+                kv_page_size=64, prefill_interleave=0)
+GEMMA_PROMPT_LENGTHS = (1000, 7000)  # 6 prompts drawn in this range,
+GEMMA_LONG_LENGTHS = (4609, 7000)    # and 2 past the window + 512
+GEMMA_CHECK_LENGTHS = (5000, 1300)   # logits check; the dense forward: 5000
+GEMMA_NEW = 32
+# The profiled batch: 8 prompts of 1000-2000 tokens (4 chunks a layer),
+# 8 new each. A 16-chunk batch makes ~150,000 kernel events, whose
+# post-processing took 80-120 s of the phase on the card's host.
+GEMMA_PROFILE_LENGTHS = (1000, 2000)
+GEMMA_PROFILE_NEW = 8
+# The checkpoint phase: a synthetic HF gemma2 checkpoint at gemma2-2b's
+# widths, depth cut to 2 layers, over two shards with an index.
+CKPT_MODEL = 'gemma2-2b'
+CKPT_LAYERS = 2
+CKPT_KW = dict(batch_size=4, max_seq_len=2048, prefill_chunk=512,
+               kv_page_size=64)
+CKPT_PROMPT = 300
+CKPT_NEW = 24
+# The server and the in-process engine run the same kernels on the same
+# imported tensors, so their logprobs should agree to the bit; the limit
+# leaves room for a GEMM that sums in another order.
+TOL_CKPT_LOGPROB = 1e-3
+
+
+def expected_prefill_launches(engine, lengths):
+    """K1 (K2) launches of one batched admission of prompts of
+    `lengths`: the engine pads them to a power-of-two bucket in whole
+    chunks (InferenceEngine._insert_from_queue), and every chunk of every
+    layer launches once."""
+    bucket = 16
+    while bucket < max(lengths):
+        bucket *= 2
+    bucket = min(bucket, engine.state.max_seq_len - 1)
+    chunk = engine.prefill_chunk if 0 < engine.prefill_chunk < bucket \
+        else bucket
+    return engine.config.num_layers * (-(-bucket // chunk))
+
+
+def gemma_phase(torch, inference, eng, fa, llama, engine, rng, quant):
+    """gemma2-9b on `engine` (GEMMA_KW; bf16 or int8 KV): prefill
+    logits through the kernel against the plain version and the dense
+    forward, then the main path (8 greedy prompts of 1000-7000 tokens, two
+    past 4608, 32 new each) with the K1 (K2) launches read around it and
+    held to expected_prefill_launches, then a shorter batch
+    (GEMMA_PROFILE_LENGTHS) under the profiler."""
+    counter = fa.flash_attention_quant if quant else fa.flash_attention
+    t0 = time.perf_counter()
+    out = {'kv_quant': engine.kv_quant,
+           **logits_readings(torch, eng, fa, llama, engine, rng,
+                             lengths=GEMMA_CHECK_LENGTHS)}
+    out['logits_check_s'] = time.perf_counter() - t0
+    if logits_faults(out):
+        raise AssertionError(f'gemma prefill logits: {logits_faults(out)}')
+    torch.cuda.empty_cache()
+    cfg = engine.config
+    lo, hi = GEMMA_PROMPT_LENGTHS
+    lengths = ([int(x) for x in rng.integers(lo, hi + 1, size=6)]
+               + [int(x) for x in rng.integers(*GEMMA_LONG_LENGTHS, size=2)])
+    sampling = inference.SamplingParams(max_new_tokens=GEMMA_NEW)
+    expected = expected_prefill_launches(engine, lengths)
+    rids = [engine.submit(prompt_tokens(rng, m, cfg.vocab_size), sampling)
+            for m in lengths]
+    counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    if sorted(results) != sorted(rids) or any(
+            len(results[r]) != GEMMA_NEW
+            or not all(0 <= x < cfg.vocab_size for x in results[r])
+            for r in rids):
+        raise AssertionError(f'gemma requests incomplete: '
+                             f'{ {r: len(t) for r, t in results.items()} }')
+    if launches != expected:
+        raise AssertionError(f'gemma main path launched the kernel '
+                             f'{launches} times, expected {expected}')
+    st = engine.stats
+    out.update({'requests': len(rids), 'prompt_lengths': lengths,
+                'max_new_tokens': GEMMA_NEW, 'e2e_wall_s': wall,
+                'kernel_launches': launches,
+                'expected_launches': expected,
+                'prefill_tok_s': st['prompt_tokens'] / st['prefill_seconds'],
+                'decode_tok_s': ((st['generated_tokens'] - len(rids))
+                                 / max(st['decode_seconds'], 1e-9)),
+                'engine_prefill_s': st['prefill_seconds'],
+                'engine_decode_s': st['decode_seconds']})
+    profiled = [int(x) for x in rng.integers(*GEMMA_PROFILE_LENGTHS,
+                                              size=len(lengths))]
+    for m in profiled:
+        engine.submit(prompt_tokens(rng, m, cfg.vocab_size),
+                      inference.SamplingParams(
+                          max_new_tokens=GEMMA_PROFILE_NEW))
+    out['profile'] = profile_breakdown(torch, engine.run_to_completion,
+                                       shares=PREFILL_SHARES)
+    out['profile'].update(prompt_lengths=profiled,
+                          max_new_tokens=GEMMA_PROFILE_NEW)
+    out['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    return out, launches
+
+
+def hf_config_json(config):
+    """The config.json of an HF gemma2 checkpoint of `config`."""
+    return {
+        'model_type': 'gemma2', 'architectures': ['Gemma2ForCausalLM'],
+        'vocab_size': config.vocab_size, 'hidden_size': config.hidden_size,
+        'intermediate_size': config.intermediate_size,
+        'num_hidden_layers': config.num_layers,
+        'num_attention_heads': config.num_heads,
+        'num_key_value_heads': config.num_kv_heads,
+        'head_dim': config.head_dim,
+        'max_position_embeddings': config.max_seq_len,
+        'rope_theta': config.rope_theta, 'rms_norm_eps': config.rms_norm_eps,
+        'tie_word_embeddings': config.tied_embeddings,
+        'torch_dtype': str(config.dtype).replace('torch.', ''),
+        'attn_logit_softcapping': config.attn_logit_softcap,
+        'final_logit_softcapping': config.final_logit_softcap,
+        'sliding_window': config.sliding_window,
+        'query_pre_attn_scalar': config.head_dim}
+
+
+def write_hf_checkpoint(params, config, out_dir):
+    """`params` as an HF checkpoint in HF's tensor order (embeddings,
+    layers, final norm) through the port's ShardedWriter, the embedding
+    alone in the first of two shards, then config.json. Returns the
+    files written."""
+    from skypilot_tpu_torch.checkpoints import hf_import
+    from skypilot_tpu_torch.checkpoints import safetensors_io
+    specs = {spec.key: spec for spec in hf_import.param_specs(config)}
+    embed = params['embed']
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    rest = nbytes(params['final_norm']) + sum(
+        nbytes(t) for t in params['layers'].values())
+    writer = safetensors_io.ShardedWriter(
+        out_dir, max_shard_bytes=max(nbytes(embed), rest),
+        metadata={'format': 'pt'})
+    writer.add(specs['embed'].hf, hf_import._to_hf(specs['embed'], embed,
+                                                   config))
+    for i in range(config.num_layers):
+        for key, spec in specs.items():
+            if spec.stacked:
+                writer.add(spec.hf.format(i=i), hf_import._to_hf(
+                    spec, params['layers'][key][i], config))
+    writer.add(specs['final_norm'].hf, params['final_norm'])
+    written = writer.close()
+    with open(os.path.join(out_dir, 'config.json'), 'w') as f:
+        json.dump(hf_config_json(config), f, indent=2, sort_keys=True)
+    return written + ['config.json']
+
+
+def greedy_tokens(inference, engine, prompt, max_new):
+    """(tokens, logprobs) of one greedy request run alone."""
+    rid = engine.submit(prompt, inference.SamplingParams(
+        max_new_tokens=max_new))
+    tokens = engine.run_to_completion()[rid]
+    return tokens, engine.finished_logprobs()[rid]
+
+
+def checkpoint_phase(torch, inference, rng):
+    """A synthetic HF gemma2 checkpoint (gemma2-2b widths, CKPT_LAYERS
+    layers, random bf16 weights from seed 2) written by the port's writer
+    over two shards, imported by load_params (every tensor equal to the
+    one written; import seconds and peak host bytes), served by
+    build_engine(checkpoint=) in this process and by the server started
+    as a process with --checkpoint: greedy /generate must equal the
+    in-process engine's tokens."""
+    import shutil
+    import socket
+    import tempfile
+
+    from skypilot_tpu_torch import checkpoints
+    from skypilot_tpu_torch import models as models_lib
+    family, preset = models_lib.resolve(CKPT_MODEL)
+    config = dataclasses.replace(preset, num_layers=CKPT_LAYERS)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    params = family.init_params(config, gen, DEV)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
+    out = {'model': CKPT_MODEL, 'layers': CKPT_LAYERS,
+           'reduced': f'depth {preset.num_layers} -> {CKPT_LAYERS} layers',
+           **CKPT_KW}
+    proc = log = None
+    try:
+        t0 = time.perf_counter()
+        out['files'] = write_hf_checkpoint(params, config, tmp)
+        out['write_s'] = time.perf_counter() - t0
+        out['bytes'] = sum(os.path.getsize(os.path.join(tmp, f))
+                           for f in out['files'])
+        loaded, detected, stats = checkpoints.load_params(tmp, device=DEV)
+        out['import'] = dataclasses.asdict(stats)
+        if detected != dataclasses.replace(config, remat=True,
+                                           attention_impl='dense'):
+            raise AssertionError(f'detected config {detected} != {config}')
+        leaves = [('embed', loaded['embed'], params['embed']),
+                  ('final_norm', loaded['final_norm'], params['final_norm'])]
+        leaves += [(k, loaded['layers'][k], v)
+                   for k, v in params['layers'].items()]
+        unequal = [k for k, a, b in leaves if not torch.equal(a, b)]
+        if stats.shards != 2 or unequal:
+            raise AssertionError(f'import: {stats.shards} shards, unequal '
+                                 f'{unequal}')
+        del loaded, params
+        engine = inference.build_engine(CKPT_MODEL, device=DEV,
+                                        checkpoint=tmp, **CKPT_KW)
+        prompt = prompt_tokens(rng, CKPT_PROMPT, config.vocab_size)
+        in_process, in_process_lps = greedy_tokens(inference, engine, prompt,
+                                                   CKPT_NEW)
+        del engine
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(('127.0.0.1', 0))
+            port = sock.getsockname()[1]
+        cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
+               '--model', CKPT_MODEL, '--checkpoint', tmp, '--device', DEV,
+               '--port', str(port)]
+        for key, value in CKPT_KW.items():
+            cmd += ['--' + key.replace('_', '-'), str(value)]
+        log = tempfile.TemporaryFile()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(
+            os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
+        base = f'http://127.0.0.1:{port}'
+        while True:
+            if proc.poll() is not None:
+                log.seek(0)
+                raise AssertionError('checkpoint server exited: '
+                                     + log.read().decode()[-2000:])
+            try:
+                if http_json(base + '/health', timeout=10)[0] == 200:
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError('checkpoint server never loaded')
+            time.sleep(0.1)
+        out['server_load_s'] = time.perf_counter() - t0
+        doc = json.loads(http_json(base + '/generate', {
+            'prompt_tokens': prompt, 'max_new_tokens': CKPT_NEW,
+            'logprobs': True})[1])
+        served, served_lps = doc['tokens'], doc['logprobs']
+    finally:
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        if log is not None:
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update({'command': ' '.join(cmd[1:]), 'prompt_tokens': CKPT_PROMPT,
+                'tokens': len(served), 'in_process_tokens': in_process,
+                'server_tokens': served,
+                'tokens_equal': served == in_process,
+                'logprob_max_abs_diff': max(abs(a - b) for a, b in zip(
+                    served_lps, in_process_lps)),
+                'tol_logprob': TOL_CKPT_LOGPROB})
+    if not out['tokens_equal'] or len(served) != CKPT_NEW:
+        raise AssertionError(f'--checkpoint server tokens {served} != the '
+                             f'in-process engine\'s {in_process}')
+    if not out['logprob_max_abs_diff'] < TOL_CKPT_LOGPROB:
+        raise AssertionError(f'--checkpoint server logprobs differ from the '
+                             f'in-process engine\'s by '
+                             f'{out["logprob_max_abs_diff"]}')
+    return out
+
+
 BWD_CASES = (
     # (name, B, Sq, Skv, H, KV, D, causal, q_offset, window, softcap)
     ('training', 1, 4096, 4096, 32, 8, 128, True, None, None, None),
@@ -1551,8 +1895,6 @@ def _global_norm(torch, tensors):
 def train_parity(torch):
     """One loss_fn + backward at bench-8b widths (2 layers, S2048) through
     flash and dense attention on the same params and tokens."""
-    import dataclasses
-
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import trainer
     base = dataclasses.replace(llama.CONFIGS['bench-8b'], num_layers=2)
@@ -1724,10 +2066,13 @@ def main():
     for quant, name in ((False, 'flash_attention'),
                         (True, 'flash_attention_quant')):
         cases = kernel_readings(torch, fa, quant)
-        max_err = max(c['max_abs_err'] for c in cases.values())
+        max_err = max(c['max_abs_err'] for c in cases.values()
+                      if c['shape'][-1] != 256)
+        max_err_d256 = max(c['max_abs_err'] for c in cases.values()
+                           if c['shape'][-1] == 256)
         emit('check_int8' if quant else 'check_bf16', kernel=name,
-             cases=cases, max_abs_err=max_err, tol_o=TOL_O,
-             tol_lse=TOL_LSE)
+             cases=cases, max_abs_err=max_err,
+             max_abs_err_d256=max_err_d256, tol_o=TOL_O, tol_lse=TOL_LSE)
         bad = {case: kernel_faults(c) for case, c in cases.items()
                if kernel_faults(c)}
         if bad:
@@ -1757,6 +2102,29 @@ def main():
              **{key: tm[key] for key in ('ms', 'plain_ms', 'bound_ms',
                                          'bound_by', 'library_ms')}}
             for path, tm in paths]
+        # The d 256 instance at gemma2-9b's heaviest chunk, a local and a
+        # global layer; the entry's numbers are the global layer's (the
+        # larger bound). Its launches come from the gemma phases.
+        d256 = {}
+        for layer, window in GEMMA_TIMING_LAYERS:
+            d256[layer] = kernel_timing(torch, fa, quant, GEMMA_TIMING_SHAPE,
+                                        window=window, softcap=GEMMA_SOFTCAP)
+            emit('timing', kernel=name, path=f'gemma_{layer}', **d256[layer])
+        top = d256['global']
+        kernels[name + '_d256'] = {
+            'name': name + '_d256', 'route': 'cuda', 'source': KERNEL_SOURCE,
+            'replaces': kernels[name]['replaces'], 'launches': 0,
+            'max_abs_err': max_err_d256, 'ms': top['ms'],
+            'plain_ms': top['plain_ms'], 'bound_ms': top['bound_ms'],
+            'bound_by': top['bound_by'], 'library_ms': top['library_ms'],
+            'ms_softcap_off': top['ms_softcap_off'],
+            'shapes': [{'path': f'gemma_{layer}', 'shape': tm['shape'],
+                        'q_offset': tm['q_offset'], 'window': tm['window'],
+                        'softcap': tm['softcap'],
+                        **{key: tm[key] for key in (
+                            'ms', 'ms_softcap_off', 'plain_ms', 'bound_ms',
+                            'bound_by', 'library_ms')}}
+                       for layer, tm in d256.items()]}
 
     # 8-9. backward kernels against their plain version, then timing
     cases = bwd_readings(torch, fa)
@@ -1878,6 +2246,39 @@ def main():
         kernels[name]['shapes'].append({
             **serving, 'path': 'spec', 'launches': run['kernel_launches']})
     del params, config
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 16-17. gemma2-9b at full width and depth through the d 256 instances
+    for quant, name in ((False, 'flash_attention'),
+                        (True, 'flash_attention_quant')):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        if quant:
+            engine = inference.InferenceEngine(
+                gparams, gconfig, kv_quant='int8', device=DEV, **GEMMA_KW)
+        else:
+            engine = inference.build_engine(GEMMA_MODEL, device=DEV, seed=0,
+                                            kv_quant='none', **GEMMA_KW)
+            gparams, gconfig = engine.params, engine.config
+        init_s = time.perf_counter() - t0
+        out, launches = gemma_phase(torch, inference, eng, fa, llama,
+                                    engine, rng, quant)
+        kernels[name + '_d256']['launches'] = launches
+        emit('gemma_int8' if quant else 'gemma_bf16', model=GEMMA_MODEL,
+             layers=gconfig.num_layers, init_s=init_s,
+             phase_s=time.perf_counter() - t0, **GEMMA_KW, **out)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del gparams, gconfig
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 18. an HF checkpoint through build_engine and the server's --checkpoint
+    t0 = time.perf_counter()
+    out = checkpoint_phase(torch, inference, rng)
+    emit('checkpoint', phase_s=time.perf_counter() - t0, **out)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of chip_smoke.py's limits, on one GPU.
 
-    python3 kernel_fault_check.py
+    python3 kernel_fault_check.py [FAULT ...]   # every fault, or those named
 
 For each planted fault it copies `skypilot_tpu_torch/`, `chip_smoke.py`
 and this script into a temporary directory, plants the fault in the
@@ -10,6 +10,11 @@ for K3/K4), and runs this script again inside the copy (so the copy's
 kernels are built and loaded). There it takes the readings chip_smoke.py
 holds to its limits:
 
+  - head_dim 256 faults (the last 64-column slab of V left out of P V,
+    the tile across a window's lower edge left unmasked, the window's
+    first kv tile skipped), planted in the d 256 instances only: K1 and
+    K2 against their plain versions on every CHECK_CASES case (the
+    gemma2 cases among them);
   - forward faults (a kv tile dropped, the diagonal masked, a stale ring
     stage read, the frontier tile left unmasked): K1 and K2 against
     their plain versions on every
@@ -92,6 +97,22 @@ FAULTS = {
         'const uint32_t q_tile = ring + stage * L::kStageBytes;',
         'const uint32_t q_tile =\n'
         '        ring + ((stage + 1) % kStages) * L::kStageBytes;'),
+    'd256_drop_last_v_slab': (
+        'at d 256, P V leaves out V\'s last 64-column slab (O columns '
+        '192-255 stay 0)',
+        '          wgmma_rs_n128(acc + 64, pa[kt],\n',
+        '          wgmma_rs_n64(acc + 64, pa[kt],\n'),
+    'd256_window_edge_unmasked': (
+        'at d 256, the kv tile across a window\'s lower edge takes the '
+        'unmasked path',
+        'p.causal && p.windowed && k0 <= qp_hi - p.window;',
+        'p.causal && p.windowed &&\n'
+        '          k0 + (D == 256 ? kBK : 0) <= qp_hi - p.window;'),
+    'd256_window_tile_skipped': (
+        'at d 256, the windowed kv loop starts one 64-row tile late',
+        'const int k_first = (kv_lo / kBK) * kBK;',
+        'const int k_first = (kv_lo / kBK + (D == 256 && p.windowed)) * '
+        'kBK;'),
     'dq_frontier_tile_unmasked': (
         'a kv tile crossing the causal frontier of K3\'s rows takes the '
         'unmasked path',
@@ -101,6 +122,10 @@ FAULTS = {
 }
 BWD_FAULTS = ('dq_drop_kv_tile', 'dkv_drop_q_head', 'dkv_drop_delta',
               'bwd_stale_stage', 'dq_frontier_tile_unmasked')
+# Faults in the head_dim 256 instances only: the llama3-8b readings
+# (d 128) cannot see them, so only the kernel checks are read.
+D256_FAULTS = ('d256_drop_last_v_slab', 'd256_window_edge_unmasked',
+               'd256_window_tile_skipped')
 
 
 def source_of(fault):
@@ -165,6 +190,11 @@ def readings(fault):
                    'inf_rows_agree': c['inf_rows_agree'],
                    'breaks': cs.kernel_faults(c)}
             for case, c in cases.items()}
+    if fault in D256_FAULTS:
+        out['caught_by_kernel_checks'] = all(
+            any(c['breaks'] for c in out['kernel'][name].values())
+            for name in ('flash_attention', 'flash_attention_quant'))
+        return out
     out['kernel']['flash_attention_at_bwd_cases'] = {
         case: {'max_abs_err': c['fwd']['max_abs_err'],
                'lse_max_abs_err': c['fwd']['lse_max_abs_err'],
@@ -229,7 +259,12 @@ def main(argv):
               'this script runs on an NVIDIA GPU', file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    faults = list(FAULTS)
+    faults = argv or list(FAULTS)
+    unknown = sorted(set(faults) - set(FAULTS))
+    if unknown:
+        print(f'kernel_fault_check: unknown faults {unknown}; known: '
+              f'{sorted(FAULTS)}', file=sys.stderr)
+        return 2
     missed = []
     workdir = tempfile.mkdtemp(prefix='kernel_fault_check_')
     try:

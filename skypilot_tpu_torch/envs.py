@@ -1,4 +1,4 @@
-"""The port's copy of the SKYTPU_* knobs its serving path reads.
+"""The port's copy of the SKYTPU_* knobs its serving and import paths read.
 
 Same names, types and defaults as the declarations in
 `skypilot_tpu/envs.py` (the reference registry); a test pins them
@@ -114,3 +114,14 @@ SKYTPU_WATCHDOG_INTERVAL = _declare(
     'SKYTPU_WATCHDOG_INTERVAL', float, 30.0,
     'Seconds between watchdog checks (the inference server\'s '
     'parent-death watchdog overrides the default to 5s).')
+SKYTPU_HF_IMPORT_STRICT = _declare(
+    'SKYTPU_HF_IMPORT_STRICT', bool, True,
+    'HF checkpoint import: fail on tensors that do not map onto the '
+    'parameter tree (usually a wrong config.json or family). 0 turns '
+    'unexpected-tensor errors into warnings; missing tensors are always '
+    'fatal.')
+SKYTPU_HF_IMPORT_CONCURRENCY = _declare(
+    'SKYTPU_HF_IMPORT_CONCURRENCY', int, 1,
+    'Shard read/transform threads running ahead of device placement '
+    'during HF checkpoint import. 1 is synchronous; N>1 keeps up to N '
+    'transformed tensors on the host at once.')

@@ -35,6 +35,7 @@ slices.
 
   python -m skypilot_tpu_torch.inference.server --model llama3-8b \
       --port 8080 [--device cuda] [--draft-model llama3-1b --spec-k 4]
+      [--checkpoint HF_DIR] [--draft-checkpoint HF_DIR]
 """
 from __future__ import annotations
 
@@ -697,6 +698,11 @@ def main() -> None:
                              'the plain PyTorch paths).')
     parser.add_argument('--seed', type=int, default=0,
                         help='Seed of the random weights.')
+    parser.add_argument('--checkpoint', default=None,
+                        help='HF safetensors checkpoint dir (config.json + '
+                             '*.safetensors; its geometry wins over '
+                             '--model, streamed import). Without it the '
+                             'weights are random from --seed.')
     parser.add_argument('--batch-size', type=int, default=8)
     parser.add_argument('--max-seq-len', type=int, default=None)
     parser.add_argument('--prefill-chunk', type=int, default=1024)
@@ -708,6 +714,8 @@ def main() -> None:
                              '(greedy requests; lossless). Incompatible '
                              'with --prefill-interleave (the draft cache '
                              'needs one-shot prefill).')
+    parser.add_argument('--draft-checkpoint', default=None,
+                        help='HF safetensors checkpoint of the draft model.')
     parser.add_argument('--spec-k', type=int, default=None,
                         help='Draft tokens per speculative round (default: '
                              'SKYTPU_SPEC_K).')
@@ -748,6 +756,8 @@ def main() -> None:
         try:
             engine = inference.build_engine(
                 args.model, device=args.device, seed=args.seed,
+                checkpoint=args.checkpoint,
+                draft_checkpoint=args.draft_checkpoint,
                 batch_size=args.batch_size, max_seq_len=args.max_seq_len,
                 prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant,
                 prefill_interleave=args.prefill_interleave,

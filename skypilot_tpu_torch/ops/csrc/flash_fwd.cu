@@ -23,7 +23,7 @@
 //    of 64 q rows each and a producer warpgroup. The producer gives
 //    registers back (setmaxnreg.dec) and the consumers take them
 //    (setmaxnreg.inc): the S tile, the O accumulator and the P fragments
-//    of 64 rows stay in registers, with no spills.
+//    of 64 rows stay in registers, with no spills. (d 256: see below.)
 //  * Loads by TMA: Q once per CTA; K and V in 128-row tiles into a ring
 //    of kStages stages guarded by full/empty mbarriers, so the next tile
 //    is in flight while the consumers compute. TMA writes the tiles
@@ -43,6 +43,25 @@
 //    values per bf16x2 subtraction) in the swizzled layout, with its
 //    ks/vs beside it, while the consumers compute on the previous stage.
 //    ks scales the score columns and vs folds into P, as the reference.
+//  * head_dim 256 (gemma-2) runs 64-row q CTAs of one consumer
+//    warpgroup and the producer (256 threads), kv tiles of 64 rows, and
+//    P V as two m64n128k16 issues a k-step (V's slabs 0-1 and 2-3 into
+//    the accumulator's two halves). Why:
+//    - registers: a consumer thread holds 128 f32 of O at d 256, plus
+//      the S tile. ptxas plans a 384-thread launch within 168 registers
+//      a thread whatever setmaxnreg grants (it spilled ~500 bytes and
+//      serialised every wgmma of a two-consumer d 256 CTA); a 256-thread
+//      launch may use 255, so the one consumer warpgroup keeps O, S and
+//      P in registers with no setmaxnreg at all;
+//    - shared memory: a 128-row K+V stage is 128 KB at d 256. With 64-row
+//      kv tiles and a 64-row Q tile, Q (32 KB) and two 64 KB stages take
+//      160 KB, and K2's int8 ring keeps its two 32 KB stages beside them
+//      (225 KB of the 227 KB a block may use). A one-stage bf16 or int8
+//      ring would stall the consumer or the widening on every tile;
+//    - the S tile of a 64-row kv tile is 32 registers (Q K^T on
+//      m64n64k16), against 64 at a 128-row tile.
+//    The cost: one warpgroup per SM alternates Q K^T, softmax and P V,
+//    and each Q tile feeds half the rows it feeds at d 128.
 // Measured by chip_smoke.py on an H100 SXM at 700 W (PERF.md section 6):
 // K1 about 440 TFLOP/s at the serving chunk and 420 at the training
 // shape, K2 about 280 (the widening pass competes for issue slots).
@@ -58,26 +77,31 @@
 
 namespace {
 
-constexpr int kBQ = 128;           // q rows per CTA: two warpgroups x 64
-constexpr int kBK = 128;           // kv rows per tile
 constexpr int kStages = 2;         // K/V ring depth
-constexpr int kConsumers = 256;    // two consumer warpgroups
-constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
-constexpr int kSlab = 128 * 128;   // bytes of one swizzled [128 x 64] bf16 slab
 constexpr float kNegInf = -1e30f;  // the reference's masked score
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Byte offsets in dynamic shared memory, from a base aligned to 1024. K
-// and V reach wgmma as bf16 tiles in kStages stages; int8 K/V (K2) land
-// first in an int8 ring of as many stages, with their scales beside.
+// The CTA's shape and its byte offsets in dynamic shared memory, from a
+// base aligned to 1024. Consumer warpgroup w owns q rows [64 w, 64 w +
+// 64); the producer warpgroup comes after them. K and V reach wgmma as
+// bf16 tiles of kBK rows in kStages stages; int8 K/V (K2) land first in
+// an int8 ring of as many stages, with their scales beside.
 template <int D, bool QUANT>
 struct Smem {
-  static constexpr int kSlabs = D / 64;               // slabs of a bf16 row
-  static constexpr int kTile = kSlabs * kSlab;         // 128 bf16 rows
+  static constexpr int kBQ = D == 256 ? 64 : 128;      // q rows per CTA
+  static constexpr int kBK = D == 256 ? 64 : 128;      // kv rows per tile
+  static constexpr int kConsumerWGs = kBQ / 64;
+  static constexpr int kConsumers = 128 * kConsumerWGs;
+  static constexpr int kThreads = kConsumers + 128;    // + the producer
+  static constexpr int kSlabs = D / 64;                // slabs of a bf16 row
+  static constexpr int kQSlab = kBQ * 128;             // one [kBQ x 64] slab
+  static constexpr int kKvSlab = kBK * 128;            // one [kBK x 64] slab
+  static constexpr int kQTile = kSlabs * kQSlab;
+  static constexpr int kTile = kSlabs * kKvSlab;       // kBK bf16 kv rows
   static constexpr int kStageBytes = 2 * kTile;        // K then V
-  static constexpr int kInt8Tile = kBK * D;            // 128 int8 rows
+  static constexpr int kInt8Tile = kBK * D;            // kBK int8 rows
   static constexpr int kQ = 0;
-  static constexpr int kOperands = kQ + kTile;
+  static constexpr int kOperands = kQ + kQTile;
   static constexpr int kInt8Ring = kOperands + kStages * kStageBytes;
   static constexpr int kScales =
       kInt8Ring + (QUANT ? kStages * 2 * kInt8Tile : 0);   // ks then vs
@@ -138,12 +162,15 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
 }
 
 template <int D, bool QUANT, bool SOFTCAP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Smem<D, QUANT>::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ FlashParams p,
                      const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv) {
   using L = Smem<D, QUANT>;
+  constexpr int kBQ = L::kBQ;
+  constexpr int kBK = L::kBK;
+  constexpr int kConsumers = L::kConsumers;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   if (pad + L::kBytes > L::kAlloc) __trap();
@@ -187,13 +214,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (wg == L::kConsumerWGs) {
     // ---- producer warpgroup: one thread issues the TMA loads; for K2
-    // the whole warpgroup widens each int8 tile into the bf16 stage ----
-    if constexpr (QUANT)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    else
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    // the whole warpgroup widens each int8 tile into the bf16 stage.
+    // With two consumer warpgroups it gives registers back to them. ----
+    if constexpr (L::kConsumerWGs == 2) {
+      if constexpr (QUANT)
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+      else
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    }
     const int pt = threadIdx.x - kConsumers;
     // int8 K/V tile i into int8 ring stage i % kStages.
     auto load_int8 = [&](int i) {
@@ -205,9 +235,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_load(dst + L::kInt8Tile, &tv, int8_full0 + 8 * s, 0, kvh, k0, b);
     };
     if (pt == 0) {
-      mbar_expect_tx(q_full, L::kTile);
+      mbar_expect_tx(q_full, L::kQTile);
       for (int sl = 0; sl < L::kSlabs; ++sl)
-        tma_load(q_smem + sl * kSlab, &tq, q_full, sl * 64, h, q_start, b);
+        tma_load(q_smem + sl * L::kQSlab, &tq, q_full, sl * 64, h, q_start,
+                 b);
       if constexpr (QUANT) {
         for (int i = 0; i < kStages && i < n_tiles; ++i) load_int8(i);
       } else {
@@ -218,9 +249,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int k0 = k_first + i * kBK;
           mbar_expect_tx(full0 + 8 * s, L::kStageBytes);
           for (int sl = 0; sl < L::kSlabs; ++sl) {
-            tma_load(dst + sl * kSlab, &tk, full0 + 8 * s, sl * 64, kvh, k0,
-                     b);
-            tma_load(dst + L::kTile + sl * kSlab, &tv, full0 + 8 * s,
+            tma_load(dst + sl * L::kKvSlab, &tk, full0 + 8 * s, sl * 64, kvh,
+                     k0, b);
+            tma_load(dst + L::kTile + sl * L::kKvSlab, &tv, full0 + 8 * s,
                      sl * 64, kvh, k0, b);
           }
         }
@@ -235,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t parity = (i / kStages) & 1;
         const int k0 = k_first + i * kBK;
         const int kpos = k0 + pt;  // this thread's ks/vs, read early
-        const bool in = kpos < p.Skv;
+        const bool in = pt < kBK && kpos < p.Skv;
         const float ksv =
             in ? p.ks[b * p.ks_sb + kpos * p.ks_ss + kvh * p.ks_sh] : 0.f;
         const float vsv =
@@ -243,19 +274,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(int8_full0 + 8 * s, parity);
         mbar_wait(empty0 + 8 * s, parity ^ 1);
         // Widen into the stage, swizzled as TMA writes a bf16 tile: each
-        // thread takes one 8-column chunk of every kRowStep-th row, so its
-        // swizzle (chunk ^ row % 8) is the same on every row it takes.
+        // thread takes one 8-column chunk of every kRowStep-th row, at
+        // the 16-byte chunk (chunk ^ row % 8) of the row.
         const uint32_t src = base + L::kInt8Ring + s * 2 * L::kInt8Tile +
                              widen_row * D + widen_ch * 8;
         const uint32_t dst = operands + s * L::kStageBytes +
-                             (widen_ch / 8) * kSlab + widen_row * 128 +
-                             (((widen_ch % 8) ^ (widen_row % 8)) * 16);
+                             (widen_ch / 8) * L::kKvSlab + widen_row * 128;
 #pragma unroll
         for (int which = 0; which < 2; ++which) {  // K, then V
 #pragma unroll 4
           for (int r = 0; r < kBK; r += kRowStep) {
             const uint2 w = ld_shared_v2(src + which * L::kInt8Tile + r * D);
-            st_shared_v4(dst + which * L::kTile + r * 128,
+            const int row = widen_row + r;
+            st_shared_v4(dst + which * L::kTile + r * 128 +
+                             (((widen_ch % 8) ^ (row % 8)) * 16),
                          widen2(__byte_perm(w.x, 0, 0x4140)),
                          widen2(__byte_perm(w.x, 0, 0x4342)),
                          widen2(__byte_perm(w.y, 0, 0x4140)),
@@ -263,8 +295,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
         float* sc = reinterpret_cast<float*>(smem + L::kScales) + s * 2 * kBK;
-        sc[pt] = ksv;
-        sc[kBK + pt] = vsv;
+        if (pt < kBK) {
+          sc[pt] = ksv;
+          sc[kBK + pt] = vsv;
+        }
         fence_proxy_async();               // generic writes -> wgmma reads
         named_barrier_sync(1, 128);        // the int8 stage is read
         if (pt == 0) {
@@ -275,10 +309,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns q rows [64 wg, 64 wg + 64) ----
-    if constexpr (QUANT)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    else
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if constexpr (L::kConsumerWGs == 2) {
+      if constexpr (QUANT)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+      else
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    }
     const int t = threadIdx.x % 128;
     const int lane = t % 32;
     const int tig = lane % 4;                        // thread in quad
@@ -312,9 +348,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kSlab + (kk % 4) * 32;
-        wgmma_ss_n128(s, desc_b128(q_wg + off, 16, 1024),
-                      desc_b128(k_tile + off, 16, 1024), kk > 0);
+        const uint64_t qd = desc_b128(
+            q_wg + (kk / 4) * L::kQSlab + (kk % 4) * 32, 16, 1024);
+        const uint64_t kd = desc_b128(
+            k_tile + (kk / 4) * L::kKvSlab + (kk % 4) * 32, 16, 1024);
+        if constexpr (kBK == 128)
+          wgmma_ss_n128(s, qd, kd, kk > 0);
+        else
+          wgmma_ss_n64(s, qd, kd, kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -406,7 +447,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       // O += P V: the score accumulators of columns [16 t, 16 t + 16) are
       // the A fragment of k-step t, all rounded before the first wgmma;
       // V's k-step t is its rows 16 t.. (2 KB into each slab), MN-major,
-      // 64-column slabs kSlab apart.
+      // 64-column slabs kKvSlab apart. At D 256 each k-step issues twice:
+      // slabs 0-1 into acc[0, 64), slabs 2-3 into acc[64, 128).
       uint32_t pa[kBK / 16][4];
 #pragma unroll
       for (int kt = 0; kt < kBK / 16; ++kt) {
@@ -417,11 +459,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < kBK / 16; ++kt) {
-        const uint64_t vd = desc_b128(v_tile + kt * 16 * 128, kSlab, 1024);
-        if constexpr (D == 128)
+        const uint32_t v_k = v_tile + kt * 16 * 128;
+        const uint64_t vd = desc_b128(v_k, L::kKvSlab, 1024);
+        if constexpr (D == 256) {
           wgmma_rs_n128(acc, pa[kt], vd);
-        else
+          wgmma_rs_n128(acc + 64, pa[kt],
+                        desc_b128(v_k + 2 * L::kKvSlab, L::kKvSlab, 1024));
+        } else if constexpr (D == 128) {
+          wgmma_rs_n128(acc, pa[kt], vd);
+        } else {
           wgmma_rs_n64(acc, pa[kt], vd);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -464,19 +512,19 @@ template <int D, bool QUANT, bool SOFTCAP>
 int launch(const FlashParams& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, p.q, false, p.q_sb, p.q_ss, p.q_sh, p.B, p.Sq, p.H,
-                D, kBQ) ||
+                D, Smem<D, QUANT>::kBQ) ||
       !make_map(&tk, p.k, QUANT, p.k_sb, p.k_ss, p.k_sh, p.B, p.Skv, p.KV,
-                D, kBK) ||
+                D, Smem<D, QUANT>::kBK) ||
       !make_map(&tv, p.v, QUANT, p.v_sb, p.v_ss, p.v_sh, p.B, p.Skv, p.KV,
-                D, kBK))
+                D, Smem<D, QUANT>::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
+  using L = Smem<D, QUANT>;
   auto kernel = flash_fwd_kernel<D, QUANT, SOFTCAP>;
-  constexpr int smem = Smem<D, QUANT>::kAlloc;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, p.B);
-  kernel<<<grid, kThreads, smem, stream>>>(p, tq, tk, tv);
+  const dim3 grid((p.Sq + L::kBQ - 1) / L::kBQ, p.H, p.B);
+  kernel<<<grid, L::kThreads, L::kAlloc, stream>>>(p, tq, tk, tv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -491,6 +539,9 @@ int dispatch(const FlashParams* p, void* stream_ptr) {
     case 128:
       return softcap ? launch<128, QUANT, true>(*p, stream)
                      : launch<128, QUANT, false>(*p, stream);
+    case 256:
+      return softcap ? launch<256, QUANT, true>(*p, stream)
+                     : launch<256, QUANT, false>(*p, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

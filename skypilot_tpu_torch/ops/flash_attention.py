@@ -22,6 +22,10 @@ Each public entry point dispatches on where its tensors lie:
   the forward and q, k, v and dO in the backward, a positive stride on
   every dim wider than 1) and handed to the kernel, or the call raises.
   There is no fallback from the kernel to the plain version.
+The forward is built for head_dim 64, 128 and 256
+(`KERNEL_FWD_HEAD_DIMS`), the backward for 64 and 128
+(`KERNEL_BWD_HEAD_DIMS`): on CUDA, `flash_attention` refuses a d 256
+call that needs a gradient before K1 runs (`check_backward`).
 
 `flash_attention.launches`, `flash_attention_quant.launches`,
 `flash_attention_dq.launches` and `flash_attention_dkv.launches` count
@@ -42,8 +46,13 @@ from typing import Optional, Tuple
 import torch
 
 _NEG_INF = -1e30
-# Head dims the CUDA kernel is instantiated for (csrc/flash_fwd.cu).
-KERNEL_HEAD_DIMS = (64, 128)
+# Head dims the CUDA kernels are instantiated for: the forward, K1/K2
+# (csrc/flash_fwd.cu), and the backward, K3/K4 (csrc/flash_bwd.cu).
+KERNEL_FWD_HEAD_DIMS = (64, 128, 256)
+KERNEL_BWD_HEAD_DIMS = (64, 128)
+_BWD_ROADMAP = ('the flash backward (K3/K4) is built for head_dim '
+                f'{KERNEL_BWD_HEAD_DIMS} only; head_dim 256 is the next '
+                'kernel item of ROADMAP.md (Queue 2)')
 
 
 def _check_args(causal: bool, window, q_offset) -> None:
@@ -270,7 +279,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from skypilot_tpu_torch.ops import _build
 
     quant = k_scale is not None
-    _check_attn_args(q, k, v, torch.int8 if quant else torch.bfloat16)
+    _check_attn_args(q, k, v, torch.int8 if quant else torch.bfloat16,
+                     KERNEL_FWD_HEAD_DIMS)
     b, s_q, h, d = q.shape
     tensors = [q, k, v] + ([k_scale, v_scale] if quant else [])
     if any(t.device != q.device for t in tensors):
@@ -320,8 +330,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_attn_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_dtype: torch.dtype) -> None:
-    """Shapes, head_dim and dtypes a kernel takes; raises otherwise."""
+                     kv_dtype: torch.dtype, head_dims: Tuple[int, ...]
+                     ) -> None:
+    """Shapes, head_dim (one of `head_dims`, the forward's or the
+    backward's set) and dtypes a kernel takes; raises otherwise."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f'want q [B,Sq,H,D], k/v [B,Skv,KV,D]; got '
                          f'{tuple(q.shape)} {tuple(k.shape)} '
@@ -330,9 +342,8 @@ def _check_attn_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f'incompatible q {tuple(q.shape)} and kv '
                          f'{tuple(k.shape)}')
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f'head_dim {d} not in the kernel\'s '
-                         f'{KERNEL_HEAD_DIMS}')
+    if d not in head_dims:
+        raise ValueError(f'head_dim {d} not in the kernel\'s {head_dims}')
     if q.dtype != torch.bfloat16:
         raise TypeError(f'q must be bfloat16, got {q.dtype}')
     if k.dtype != kv_dtype or v.dtype != kv_dtype:
@@ -348,7 +359,7 @@ def _launch_bwd(which: str, q: torch.Tensor, k: torch.Tensor,
     lse and delta by plain loads, as contiguous f32 [B,H,Sq]."""
     from skypilot_tpu_torch.ops import _build
 
-    _check_attn_args(q, k, v, torch.bfloat16)
+    _check_attn_args(q, k, v, torch.bfloat16, KERNEL_BWD_HEAD_DIMS)
     b, s_q, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f'dO must be {q.dtype} {tuple(q.shape)}, got '
@@ -506,6 +517,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    k_scale=k_scale, v_scale=v_scale)
 
 
+def check_backward(device: torch.device, head_dim: int,
+                   needs_grad: bool) -> None:
+    """Refuse, before any kernel launches, a flash call on `device` whose
+    backward has no kernel: on CUDA, a head_dim outside
+    KERNEL_BWD_HEAD_DIMS with a gradient to take. The CPU's plain
+    versions take any head_dim."""
+    if (needs_grad and device.type == 'cuda'
+            and head_dim not in KERNEL_BWD_HEAD_DIMS):
+        raise NotImplementedError(
+            f'flash attention with head_dim {head_dim} needs a gradient '
+            f'on {device}, but {_BWD_ROADMAP}. Serve it (no gradient) '
+            'through K1/K2, or train it on the CPU.')
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: int = 512,
                     block_k: int = 512, window: Optional[int] = None,
@@ -513,11 +538,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_offset: Optional[int] = None) -> torch.Tensor:
     """Flash attention. q [B,Sq,H,D], k/v [B,Skv,KV,D] -> [B,Sq,H,D].
 
-    Differentiable: forward K1, backward K3 and K4 (`_FlashFn`).
+    Differentiable: forward K1, backward K3 and K4 (`_FlashFn`). On CUDA
+    a call that needs a gradient at a head_dim K3/K4 are not built for
+    raises before K1 runs (`check_backward`).
     window: position q attends k iff q_pos - k_pos < window (causal
     only). softcap: cap * tanh(s / cap). q_offset: global position of q
     row 0 (cached-prefill chunk against a longer cache; causal only).
     block_q/block_k shape only the plain version's blocking."""
+    check_backward(q.device, q.shape[-1], torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)))
     return _FlashFn.apply(q, k, v, causal, block_q, block_k, window,
                           softcap, q_offset)
 

@@ -31,7 +31,9 @@ is the one it was given, with its tensors overwritten.
 Neither the optimizer nor the loss is a Pallas kernel in the reference,
 so no hand-written kernel stands behind them; the attention inside the
 loss is the flash kernels K1/K3/K4 when the model's `attention_impl` is
-'flash'.
+'flash'. On CUDA a flash config at a head_dim K3/K4 are not built for
+(gemma2-2b/9b, head_dim 256) is refused before any step
+(`check_kernels`); the CPU trains it through the plain versions.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import torch
 
 from skypilot_tpu_torch import device as device_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.ops import flash_attention as fa
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 
@@ -167,6 +170,15 @@ class AdamW:
         return norm
 
 
+def check_kernels(config: llama.LlamaConfig, device: torch.device) -> None:
+    """Refuse a model config whose training step has no kernel on
+    `device`: flash attention at a head_dim the backward kernels are not
+    built for raises NotImplementedError naming ROADMAP.md, before any
+    parameter is drawn or any kernel launches."""
+    if getattr(config, 'attention_impl', None) == 'flash':
+        fa.check_backward(device, config.head_dim, needs_grad=True)
+
+
 def make_optimizer(cfg: TrainerConfig) -> AdamW:
     return AdamW(cfg)
 
@@ -179,6 +191,7 @@ def make_train_state(cfg: TrainerConfig,
     and the config dtype), the optimizer state and the step count."""
     dev = device_lib.resolve_device(device)
     mcfg = cfg.model_config()
+    check_kernels(mcfg, dev)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = cfg.model_family().init_params(mcfg, gen, dev)
@@ -198,8 +211,8 @@ def make_train_step(cfg: TrainerConfig,
     params and the optimizer moments IN PLACE and returns the same state
     dict with 'step' advanced; metrics hold 'loss' and 'grad_norm' as
     device scalars and 'step' as an int."""
-    device_lib.resolve_device(device)
     mcfg = cfg.model_config()
+    check_kernels(mcfg, device_lib.resolve_device(device))
     family = cfg.model_family()
     optimizer = make_optimizer(cfg)
 

@@ -525,3 +525,77 @@ def test_spec_fault_check_refuses_to_run_without_cuda():
         REPO, 'spec_fault_check.py')], capture_output=True, text=True,
         timeout=120)
     assert proc.returncode == 2 and 'wrong_verdicts' not in proc.stdout
+
+
+# -- the gemma and checkpoint phases ------------------------------------------
+
+
+def test_gemma_and_checkpoint_phases_rehearse_on_cpu(monkeypatch,
+                                                     one_torch_thread):
+    """chip_smoke's gemma phases at the tiny-gemma size on the CPU (local
+    and global layers, softcaps), with a counting stand-in for the kernel
+    launch: the main path launches exactly the count the batched prefill
+    must make (every chunk of every layer), for bf16 and int8 KV. Then
+    the checkpoint phase: the port's writer, the import, build_engine and
+    the server as a process with --checkpoint, token for token."""
+    import numpy as np
+
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+
+    def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
+               v_scale=None):
+        counter = fa.flash_attention if k_scale is None else \
+            fa.flash_attention_quant
+        counter.launches += 1
+        return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
+                         k_scale=k_scale, v_scale=v_scale)
+
+    def flash_fwd(q, k, v, causal=True, block_q=512, block_k=512,
+                  window=None, softcap=None, q_offset=None, k_scale=None,
+                  v_scale=None):
+        return fa._launch(q, k, v, causal, window, softcap, q_offset,
+                          k_scale=k_scale, v_scale=v_scale)
+
+    monkeypatch.setattr(fa, '_launch', launch)
+    monkeypatch.setattr(fa, 'flash_fwd', flash_fwd)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    monkeypatch.setattr(torch.cuda, 'max_memory_allocated', lambda: 0)
+    monkeypatch.setattr(chip_smoke, 'profile_breakdown',
+                        lambda torch, fn, **kw: fn() and {})
+    monkeypatch.setattr(chip_smoke, 'DEV', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'GEMMA_KW', dict(
+        batch_size=8, max_seq_len=128, prefill_chunk=16, kv_page_size=8,
+        prefill_interleave=0, use_flash=True))
+    monkeypatch.setattr(chip_smoke, 'GEMMA_PROMPT_LENGTHS', (20, 100))
+    monkeypatch.setattr(chip_smoke, 'GEMMA_LONG_LENGTHS', (70, 100))
+    monkeypatch.setattr(chip_smoke, 'GEMMA_CHECK_LENGTHS', (60, 30))
+    monkeypatch.setattr(chip_smoke, 'GEMMA_NEW', 6)
+    monkeypatch.setattr(chip_smoke, 'GEMMA_PROFILE_LENGTHS', (10, 40))
+    params, config = inference.draw_params('tiny-gemma', 0, 'cpu')
+    assert config.sliding_window == 16 and config.final_logit_softcap
+    rng = np.random.default_rng(0)
+    for quant in (False, True):
+        engine = inference.InferenceEngine(
+            params, config, kv_quant='int8' if quant else 'none',
+            device='cpu', **chip_smoke.GEMMA_KW)
+        out, launches = chip_smoke.gemma_phase(torch, inference, eng, fa,
+                                               llama, engine, rng, quant)
+        # Prompts of up to 100 tokens pad to 128: 8 chunks of 16 a layer.
+        assert launches == out['expected_launches'] == 8 * config.num_layers
+        assert max(out['prompt_lengths']) >= 70
+        assert not chip_smoke.logits_faults(out)
+        assert out['prefill_tok_s'] > 0 and out['decode_tok_s'] > 0
+    monkeypatch.setattr(chip_smoke, 'CKPT_MODEL', 'tiny-gemma')
+    monkeypatch.setattr(chip_smoke, 'CKPT_KW', dict(
+        batch_size=2, max_seq_len=64, prefill_chunk=16, kv_page_size=8))
+    monkeypatch.setattr(chip_smoke, 'CKPT_PROMPT', 20)
+    monkeypatch.setattr(chip_smoke, 'CKPT_NEW', 6)
+    out = chip_smoke.checkpoint_phase(torch, inference, rng)
+    assert out['tokens_equal'] and out['tokens'] == 6
+    assert out['import']['shards'] == 2
+    assert 'model.safetensors.index.json' in out['files']
+    assert 0 < out['import']['peak_host_bytes'] <= \
+        out['import']['largest_tensor_bytes']

@@ -418,7 +418,8 @@ def test_env_defaults_match_reference_registry():
         'SKYTPU_MIGRATION_ENABLE', 'SKYTPU_DRAIN_DEADLINE_SECONDS',
         'SKYTPU_MIGRATION_MAX_BYTES', 'SKYTPU_HANDOFF_LEASE_SECONDS',
         'SKYTPU_SPEC_K', 'SKYTPU_SPEC_FUSE_ROUNDS',
-        'SKYTPU_WATCHDOG_INTERVAL'}
+        'SKYTPU_WATCHDOG_INTERVAL', 'SKYTPU_HF_IMPORT_STRICT',
+        'SKYTPU_HF_IMPORT_CONCURRENCY'}
     for name, var in port_vars.items():
         assert (var.type, var.default) == (ref_vars[name].type,
                                            ref_vars[name].default), name

@@ -199,3 +199,73 @@ def test_backward_launcher_refuses_broadcast_views(which, broadcast):
     with pytest.raises(ValueError, match='positive stride'):
         fa._launch_bwd(which, t['q'], t['k'], t['v'], t['do'], lse, delta,
                        True, None, None, None)
+
+
+# -- head_dim 256 (gemma2-2b/9b) ---------------------------------------------
+
+@pytest.mark.parametrize('quant', [False, True], ids=['bf16', 'int8'])
+def test_flash_plain_matches_reference_at_head_dim_256(quant):
+    """K1's and K2's plain versions at d 256, with a window, a softcap and
+    a q_offset past the window (rows whose window starts inside the
+    cache), against the reference in interpret mode."""
+    sq, skv, h, kv, bq, bk, window, softcap, off = (16, 64, 4, 2, 8, 16, 12,
+                                                     25.0, 40)
+    window_j, off_j = jnp.int32(window), jnp.int32(off)
+    kw = dict(causal=True, block_q=bq, block_k=bk, window=window,
+              softcap=softcap, q_offset=off)
+    if quant:
+        q, kq, ks, vq, vs = _quant_inputs(8, 2, sq, skv, h, kv, 256)
+        want = np.asarray(ref.flash_attention_quant(
+            jnp.asarray(q), jnp.asarray(kq), jnp.asarray(ks),
+            jnp.asarray(vq), jnp.asarray(vs),
+            **{**kw, 'window': window_j, 'q_offset': off_j}))
+        t = torch.from_numpy
+        got, lse = fa.flash_attention_quant_plain(t(q), t(kq), t(ks), t(vq),
+                                                  t(vs), **kw)
+        want_lse = _ref_lse(q, kq, vq, True, bq, bk, window, softcap, off,
+                            ks, vs)
+    else:
+        q, k, v = _inputs(8, 2, sq, skv, h, kv, 256)
+        want = np.asarray(ref.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            **{**kw, 'window': window_j, 'q_offset': off_j}))
+        got, lse = fa.flash_attention_plain(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            **kw)
+        want_lse = _ref_lse(q, k, v, True, bq, bk, window, softcap, off)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    _assert_lse_close(lse.numpy(), want_lse)
+
+
+def test_kernel_head_dims_split_forward_and_backward():
+    """K1/K2 are built for d 64, 128 and 256, K3/K4 for 64 and 128: the
+    launchers' checks take the set that applies."""
+    assert fa.KERNEL_FWD_HEAD_DIMS == (64, 128, 256)
+    assert fa.KERNEL_BWD_HEAD_DIMS == (64, 128)
+    q = torch.zeros(1, 8, 4, 256, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
+    fa._check_attn_args(q, k, k, torch.bfloat16, fa.KERNEL_FWD_HEAD_DIMS)
+    with pytest.raises(ValueError, match='head_dim 256'):
+        fa._check_attn_args(q, k, k, torch.bfloat16, fa.KERNEL_BWD_HEAD_DIMS)
+    with pytest.raises(ValueError, match='head_dim 96'):
+        fa._check_attn_args(q[..., :96], k[..., :96], k[..., :96],
+                            torch.bfloat16, fa.KERNEL_FWD_HEAD_DIMS)
+
+
+def test_head_dim_256_gradient_is_refused_for_cuda_before_the_forward():
+    """On CUDA a d 256 call that needs a gradient raises, naming ROADMAP,
+    before K1 would launch; without a gradient it is K1's to serve. The
+    CPU's plain versions take the gradient at any head_dim."""
+    cuda = torch.device('cuda')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        fa.check_backward(cuda, 256, needs_grad=True)
+    fa.check_backward(cuda, 256, needs_grad=False)
+    fa.check_backward(cuda, 128, needs_grad=True)
+    fa.check_backward(torch.device('cpu'), 256, needs_grad=True)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _inputs(9, 1, 16, 16, 2, 1, 256))
+    out = fa.flash_attention(q, k, v, block_q=8, block_k=8, window=6,
+                             softcap=20.0)
+    out.square().sum().backward()
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in (q, k, v))

@@ -41,6 +41,13 @@ CASES = {
     'window_narrower_than_tile': (1, 300, 700, 8, 2, 128, True, 400, 50,
                                   None),
     'd64_sq129': (1, 129, 129, 4, 2, 64, True, None, None, None),
+    # head_dim 256 (64-row q CTAs and kv tiles): window + softcap on a
+    # ragged tile, a global layer's 2**30 window, non-causal.
+    'd256_ragged_window_softcap': (2, 200, 700, 8, 4, 256, True, 450, 300,
+                                   50.0),
+    'd256_global_window': (1, 100, 5000, 16, 8, 256, True, 4900, 2 ** 30,
+                           50.0),
+    'd256_non_causal': (1, 100, 300, 4, 2, 256, False, None, None, None),
 }
 
 
@@ -123,6 +130,20 @@ def test_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
     monkeypatch.setattr(_build, 'library', no_library)
     with pytest.raises(RuntimeError, match='unavailable'):
         fa.flash_attention(q, k, k, q_offset=0)
+
+
+def test_head_dim_256_gradient_is_refused_before_k1(cuda):
+    """K3/K4 have no d 256 instance: a d 256 call that needs a gradient
+    raises before K1 launches; without one it runs on K1."""
+    q = torch.randn(1, 64, 4, 256, device=cuda).bfloat16()
+    k = torch.randn(1, 64, 2, 256, device=cuda).bfloat16()
+    before = fa.flash_attention.launches
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        fa.flash_attention(q.requires_grad_(), k, k)
+    assert fa.flash_attention.launches == before
+    with torch.no_grad():
+        fa.flash_attention(q, k, k)
+    assert fa.flash_attention.launches == before + 1
 
 
 def test_engine_prefill_through_kernel_matches_dense_path(cuda):

@@ -51,6 +51,12 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.inference.prefix_cache',
                    'skypilot_tpu_torch.inference.server',
                    'skypilot_tpu_torch.models.llama',
+                   'skypilot_tpu_torch.models.gemma',
+                   'skypilot_tpu_torch.models.mistral',
+                   'skypilot_tpu_torch.models.qwen',
+                   'skypilot_tpu_torch.checkpoints',
+                   'skypilot_tpu_torch.checkpoints.hf_import',
+                   'skypilot_tpu_torch.checkpoints.safetensors_io',
                    'skypilot_tpu_torch.weights',
                    'skypilot_tpu_torch.envs',
                    'skypilot_tpu_torch.device',
@@ -58,7 +64,7 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.train.trainer',
                    'skypilot_tpu_torch.train.loop'):
         assert module in names.split()
-    assert int(count) >= 16
+    assert int(count) >= 22
 
 
 def test_entry_points_raise_without_cuda():
