@@ -27,7 +27,8 @@ Phases, each printing one JSON line:
                   within TOL_O on O and TOL_LSE on lse.
   3. check_int8 - K2 (flash_attention_quant) the same way.
   4. timing     - per kernel at the engine's prefill shape (K1 also at
-                  the training shape, TRAIN_TIMING_SHAPE; both kernels
+                  the training shape, TRAIN_TIMING_SHAPE, and at gemma2-2b's,
+                  GEMMA_TRAIN_TIMING_SHAPE; both kernels
                   at gemma2-9b's heaviest chunk, GEMMA_TIMING_SHAPE, for
                   a local and a global layer at softcap 50, and at the
                   prefix phase's shapes after it): kernel, plain
@@ -103,14 +104,20 @@ Phases, each printing one JSON line:
                   on the same bf16 inputs: the training shape, rows with
                   no visible key (dQ must be 0 there), ragged tiles,
                   window + softcap, non-causal ragged, q_offset and
-                  head_dim 64 MHA, max|a-b| / max|b| of dQ, dK and dV
-                  within TOL_BWD_REL; and K1's O and lse, which both
+                  head_dim 64 MHA; at head_dim 256, gemma2-2b's local and
+                  global layers at seq 8192 (softcap 50), rows with no
+                  visible key, ragged tiles, non-causal, and softcap 2
+                  (its Jacobian far from 1); max|a-b| / max|b| of dQ, dK
+                  and dV within TOL_BWD_REL; and K1's O and lse, which both
                   take, against flash_attention_plain at each of these
                   cases within TOL_O and TOL_LSE.
-  9. timing_bwd - K3 and K4 at the training shape: kernel, plain version,
-                  the backward of scaled_dot_product_attention as a
-                  yardstick for both together (never used by the port),
-                  and each kernel's bound.
+  9. timing_bwd - K3 and K4 at the training shape and (d 256) at gemma2-2b's
+                  local and global layers: kernel (and, at softcap 50, the
+                  kernel with the softcap off), plain version, the
+                  backward of scaled_dot_product_attention over the same
+                  mask without the softcap as a yardstick for both
+                  together (never used by the port), and each kernel's
+                  bound.
  10. train_parity - one loss_fn + backward at bench-8b widths (2 layers,
                   S2048) through attention_impl 'flash' and 'dense': loss
                   and grad norm within TOL_TRAIN_LOSS / TOL_TRAIN_GRAD_REL,
@@ -122,6 +129,15 @@ Phases, each printing one JSON line:
                   batch, with the K1/K3/K4 launch counts read around it;
                   the loss must be finite and fall; step time, tok/s, MFU,
                   peak memory, and one step under the profiler.
+ 19. train_parity_gemma - train_parity at gemma2-2b widths (d 256), 2
+                  layers (one local, one global), seq 8192, the same
+                  limits.
+ 20. train_gemma - the training main path on gemma2-2b at full width and
+                  depth (26 layers), batch 1 x 8192, 10 steps: K3 and K4
+                  must launch exactly 26 x 10 times, K1 2 x 26 x 10, K2
+                  never; the loss must be finite and fall; step time,
+                  tok/s, MFU, peak memory, the optimizer's ms and one step
+                  under the profiler. (19-20 run after phase 11.)
 Then a `kernels` line and, last, {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
@@ -154,8 +170,10 @@ TOL_LOGITS_REL = 0.05      # prefill logits, max|a-b| / max|b|
 # inputs, max|a-b| / max|b| of each of dQ, dK, dV. Both are bf16, so a
 # sound reading is whole bf16 steps over max|b|: one step at the largest
 # element reads 2^-8 to 2^-7, and the limit admits two. Sound kernels
-# read at most 0.0061 (one step; bwd_accuracy.py over three seeds);
-# kernel_fault_check.py's five backward faults read 0.073 and more. Rows
+# read at most 0.0061 (one step; bwd_accuracy.py over three seeds), at
+# head_dim 256 at most 0.0043; kernel_fault_check.py's d 64/128 backward
+# faults read 0.073 and more, its d 256 ones 0.339 and more on their
+# strongest case (the unmasked window edge 0.0205 on gemma2b_local). Rows
 # with no visible key must give dQ = 0 exactly.
 TOL_BWD_REL = 0.02
 # flash against dense training at bench-8b widths (bf16 through 2
@@ -411,6 +429,9 @@ TRAIN_TIMING_SHAPE = (1, 4096, 4096, 32, 8, 128, 0)
 GEMMA_TIMING_SHAPE = (8, 512, 8192, 16, 8, 256, 7680)
 GEMMA_TIMING_LAYERS = (('local', 4096), ('global', 2 ** 30))
 GEMMA_SOFTCAP = 50.0
+# The gemma train phase's attention (K1, forward and remat recompute):
+# gemma2-2b heads at batch 1, seq 8192, causal, no offset.
+GEMMA_TRAIN_TIMING_SHAPE = (1, 8192, 8192, 8, 4, 256, 0)
 
 
 def kernel_readings(torch, fa, quant):
@@ -1752,9 +1773,31 @@ BWD_CASES = (
      None),
     ('q_offset', 1, 1024, 2048, 32, 8, 128, True, 1024, None, None),
     ('head_dim_64_mha', 2, 1024, 1024, 16, 16, 64, True, None, None, None),
+    # head_dim 256 (64-row q CTAs in K3, no producer warpgroup in K4):
+    # gemma2-2b's training attention (8 / 4 heads, batch 1, seq 8192,
+    # softcap 50), a local layer (window 4096: the window masks half of
+    # each late row's keys) and a global one (window 2**30, as
+    # models/llama.layer_windows gives it);
+    ('gemma2b_local', 1, 8192, 8192, 8, 4, 256, True, None, 4096, 50.0),
+    ('gemma2b_global', 1, 8192, 8192, 8, 4, 256, True, None, 2 ** 30,
+     50.0),
+    # q_offset past a small window (rows 87-255 see no key), ragged tiles
+    # of both kernels (130 = 2 x 64 + 2 rows), non-causal ragged;
+    ('masked_rows_d256', 2, 256, 1024, 8, 4, 256, True, 1000, 64, 50.0),
+    ('ragged_tiles_d256', 2, 130, 130, 8, 4, 256, True, None, None, None),
+    ('non_causal_d256', 1, 1000, 1000, 8, 4, 256, False, None, None, None),
+    # and a softcap of 2, which the scores (about N(0, 1)) reach, so the
+    # softcap's Jacobian 1 - tanh^2 is far from 1 (at 50 it is within
+    # 1e-3 of 1 and a kernel that dropped it would pass).
+    ('softcap_jacobian_d256', 2, 512, 512, 8, 4, 256, True, None, 256,
+     2.0),
 )
 # The train phase's attention: bench-8b heads at batch 1, seq 4096.
 BWD_TIMING_CASE = BWD_CASES[0]
+# The gemma train phase's attention at head_dim 256, softcap 50: a local
+# and a global layer.
+BWD_GEMMA_TIMING_CASES = tuple(c for c in BWD_CASES
+                               if c[0] in ('gemma2b_local', 'gemma2b_global'))
 
 
 def bwd_inputs(torch, fa, gen, b, sq, skv, h, kv, d, causal, off, window,
@@ -1844,12 +1887,14 @@ def bwd_bounds(b, sq, skv, h, kv, d, off, window):
     return out
 
 
-def bwd_timing(torch, fa):
-    """K3 and K4 at the training shape: kernel ms, plain ms, the bound,
-    and the backward of scaled_dot_product_attention (K3 + K4's work in
-    one call, timed only)."""
+def bwd_timing(torch, fa, case=BWD_TIMING_CASE):
+    """K3 and K4 at a BWD_CASES case (the bench-8b training shape by
+    default): kernel ms, plain ms, the bound, and the backward of
+    scaled_dot_product_attention (K3 + K4's work in one call, timed
+    only, over the same mask). SDPA has no softcap: with one,
+    `library_ms` is SDPA's backward without it, and `ms_softcap_off`
+    the kernel on that same function."""
     import torch.nn.functional as F
-    case = BWD_TIMING_CASE
     _, b, sq, skv, h, kv, d, causal, off, window, softcap = case
     gen = torch.Generator(device=DEV).manual_seed(9)
     q, k, v, do, _, lse, delta = bwd_inputs(torch, fa, gen, b, sq, skv, h,
@@ -1858,10 +1903,15 @@ def bwd_timing(torch, fa):
     kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
     plain_kw = dict(causal=causal, block_k=512, window=window,
                     softcap=softcap, q_offset=off)
-    ms = {'dq': time_ms(torch, lambda: fa.flash_attention_dq(
-              q, k, v, do, lse, delta, **kw)),
-          'dkv': time_ms(torch, lambda: fa.flash_attention_dkv(
-              q, k, v, do, lse, delta, **kw))}
+    def kernel_ms(**over):
+        k_kw = {**kw, **over}
+        return {'dq': time_ms(torch, lambda: fa.flash_attention_dq(
+                    q, k, v, do, lse, delta, **k_kw)),
+                'dkv': time_ms(torch, lambda: fa.flash_attention_dkv(
+                    q, k, v, do, lse, delta, **k_kw))}
+    ms = kernel_ms()
+    # Softcap off: the function SDPA computes (a window stays in the mask).
+    ms_off = kernel_ms(softcap=None) if softcap is not None else None
     plain_ms = {'dq': time_ms(torch, lambda: fa._plain_bwd(
                     q, k, v, do, lse, delta, want_dkv=False, **plain_kw),
                     iters=3, warmup=1),
@@ -1870,21 +1920,32 @@ def bwd_timing(torch, fa):
                     iters=3, warmup=1)}
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
+    if window is not None and window < skv:
+        q_pos = (off or 0) + torch.arange(sq, device=DEV)[:, None]
+        k_pos = torch.arange(skv, device=DEV)[None, :]
+        sdpa_kw = dict(attn_mask=(k_pos <= q_pos) & (q_pos - k_pos < window))
+    else:
+        sdpa_kw = dict(is_causal=causal)
     try:
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                             enable_gqa=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **sdpa_kw)
         go = do.transpose(1, 2)
         library_ms = time_ms(torch, lambda: torch.autograd.grad(
             out, (qt, kt, vt), go, retain_graph=True))
     except TypeError:  # a torch without enable_gqa: no one-call yardstick
         library_ms = None
     bounds = bwd_bounds(b, sq, skv, h, kv, d, off, window)
-    return {name: {'shape': [b, sq, skv, h, kv, d], 'causal': causal,
-                   'ms': ms[name], 'plain_ms': plain_ms[name],
-                   'library_ms': library_ms, 'bound_ms': bounds[name][0],
-                   'bound_by': bounds[name][1],
-                   'tflops': bounds[name][2] / (ms[name] * 1e-3) / 1e12}
-            for name in ('dq', 'dkv')}
+    out = {}
+    for name in ('dq', 'dkv'):
+        out[name] = {'shape': [b, sq, skv, h, kv, d], 'causal': causal,
+                     'window': window, 'softcap': softcap,
+                     'ms': ms[name], 'plain_ms': plain_ms[name],
+                     'library_ms': library_ms, 'bound_ms': bounds[name][0],
+                     'bound_by': bounds[name][1],
+                     'tflops': bounds[name][2] / (ms[name] * 1e-3) / 1e12}
+        if ms_off is not None:
+            out[name]['ms_softcap_off'] = ms_off[name]
+    return out
 
 
 def _global_norm(torch, tensors):
@@ -1892,23 +1953,32 @@ def _global_norm(torch, tensors):
         torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors])))
 
 
-def train_parity(torch):
-    """One loss_fn + backward at bench-8b widths (2 layers, S2048) through
-    flash and dense attention on the same params and tokens."""
-    from skypilot_tpu_torch.models import llama
+# train_parity's configurations: (model, layers, seq_len). bench-8b's
+# layer widths at d 128; gemma2-2b's at d 256 with one local (window
+# 4096, past which seq 8192 reaches) and one global layer, softcaps 50
+# and 30, tied embeddings.
+PARITY_BENCH = ('bench-8b', 2, 2048)
+PARITY_GEMMA = ('gemma2-2b', 2, 8192)
+
+
+def train_parity(torch, model, layers, seq_len):
+    """One loss_fn + backward at `model`'s widths, depth cut to `layers`,
+    through flash and dense attention on the same params and tokens."""
+    import skypilot_tpu_torch.models as models
     from skypilot_tpu_torch.train import trainer
-    base = dataclasses.replace(llama.CONFIGS['bench-8b'], num_layers=2)
+    family, config = models.resolve(model)
+    base = dataclasses.replace(config, num_layers=layers)
     gen = torch.Generator(device=DEV).manual_seed(5)
-    params = llama.init_params(base, gen, DEV)
+    params = family.init_params(base, gen, DEV)
     params = trainer.tree_map(lambda p: p.requires_grad_(True), params)
     leaves = trainer.tree_leaves(params)
-    batch = {'tokens': torch.randint(0, base.vocab_size, (1, 2048),
+    batch = {'tokens': torch.randint(0, base.vocab_size, (1, seq_len),
                                      generator=gen, device=DEV)}
     out = {}
     grads = {}
     for impl in ('flash', 'dense'):
         config = dataclasses.replace(base, attention_impl=impl)
-        loss = llama.loss_fn(params, batch, config)
+        loss = family.loss_fn(params, batch, config)
         grads[impl] = torch.autograd.grad(loss, leaves)
         out[f'{impl}_loss'] = float(loss.detach())
         out[f'{impl}_grad_norm'] = _global_norm(torch, grads[impl])
@@ -1957,12 +2027,26 @@ TRAIN_SHARES = {
 }
 
 
-def train_phase(torch, fa):
-    """The training main path: fit() on bench-8b with the launch counts
-    of K1, K2, K3 and K4 set to 0 just before and read just after."""
+# The gemma train phase: gemma2-2b at full width and depth (26 layers,
+# d 256, window 4096 on every other layer, softcaps 50 / 30), batch 1 x
+# 8192 (past the window, so the local layers' K3/K4 mask it), 10 steps.
+GEMMA_TRAIN_MODEL = 'gemma2-2b'
+GEMMA_TRAIN_SEQ = 8192
+GEMMA_TRAIN_STEPS = 10
+
+
+def train_phase(torch, fa, model='bench-8b', seq_len=4096,
+                steps=TRAIN_STEPS):
+    """A training main path: fit() on `model` at batch 1 x `seq_len` for
+    `steps` steps, with the launch counts of K1, K2, K3 and K4 set to 0
+    just before and read just after. Each step launches K3 and K4 once a
+    layer and K1 twice (the forward and the remat recompute), K2 never;
+    the launches of each window (`window_launches`) are those of the
+    layers `layer_windows` gives that window."""
+    from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.train import loop, trainer
-    cfg = trainer.TrainerConfig(model='bench-8b', batch_size=1,
-                                seq_len=4096, max_steps=TRAIN_STEPS,
+    cfg = trainer.TrainerConfig(model=model, batch_size=1,
+                                seq_len=seq_len, max_steps=steps,
                                 learning_rate=TRAIN_LR,
                                 warmup_steps=TRAIN_WARMUP)
     mcfg = cfg.model_config()
@@ -1977,18 +2061,30 @@ def train_phase(torch, fa):
     logs = []
     for c in counters:
         c.launches = 0
+        c.window_launches = {}
     t0 = time.perf_counter()
     res = loop.fit(cfg, DEV, log_every=1, log_fn=logs.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, quant, dq, dkv = (c.launches for c in counters)
+    by_window = {name: dict(c.window_launches) for name, c in zip(
+        ('K1', 'K2', 'K3', 'K4'), counters)}
     layers = mcfg.num_layers
     if min(fwd, dq, dkv) <= 0:
         raise AssertionError(f'train path launches: K1 {fwd}, K3 {dq}, '
                              f'K4 {dkv}')
-    if dq != layers * TRAIN_STEPS or dkv != layers * TRAIN_STEPS:
+    if dq != layers * steps or dkv != layers * steps:
         raise AssertionError(f'K3 {dq} / K4 {dkv} launches, want '
-                             f'{layers} x {TRAIN_STEPS}')
+                             f'{layers} x {steps}')
+    if fwd != 2 * layers * steps or quant != 0:
+        raise AssertionError(f'K1 {fwd} / K2 {quant} launches, want '
+                             f'2 x {layers} x {steps} / 0')
+    windows = llama.layer_windows(mcfg)
+    want = {w: windows.count(w) * steps for w in set(windows)}
+    want = {'K1': {w: 2 * n for w, n in want.items()}, 'K2': {},
+            'K3': want, 'K4': want}
+    if by_window != want:
+        raise AssertionError(f'launches by window {by_window}, want {want}')
     losses = [h['loss'] for h in res['history']]
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
@@ -2010,13 +2106,13 @@ def train_phase(torch, fa):
         state['params'])]
     optimizer_ms = time_ms(torch, lambda: opt.update_(
         zeros, state['opt_state'], state['params']), iters=3, warmup=1)
-    return {'model': 'bench-8b', 'layers': layers,
+    return {'model': model, 'layers': layers,
             'hidden': mcfg.hidden_size,
             'intermediate': mcfg.intermediate_size,
             'heads': [mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim],
             'vocab': mcfg.vocab_size, 'params': mcfg.num_params(),
             'batch': cfg.batch_size, 'seq_len': cfg.seq_len,
-            'steps': TRAIN_STEPS, 'learning_rate': TRAIN_LR,
+            'steps': steps, 'learning_rate': TRAIN_LR,
             'warmup_steps': TRAIN_WARMUP, 'remat': mcfg.remat,
             'losses': losses, 'wall_s': wall,
             'step_s': [h['step_s'] for h in res['history']],
@@ -2025,7 +2121,7 @@ def train_phase(torch, fa):
                                trainer.PEAK_FLOPS['h100']),
             'peak_mem_gb': peak_mem, 'optimizer_ms': optimizer_ms,
             'launches': {'K1': fwd, 'K2': quant, 'K3': dq, 'K4': dkv},
-            'step_profile': profile}
+            'window_launches': by_window, 'step_profile': profile}
 
 
 def main():
@@ -2110,6 +2206,15 @@ def main():
             d256[layer] = kernel_timing(torch, fa, quant, GEMMA_TIMING_SHAPE,
                                         window=window, softcap=GEMMA_SOFTCAP)
             emit('timing', kernel=name, path=f'gemma_{layer}', **d256[layer])
+        if not quant:
+            # K1's d 256 training shape (the gemma train phase's forward
+            # and remat recompute); its launches come from that phase.
+            for layer, window in GEMMA_TIMING_LAYERS:
+                d256['train_' + layer] = kernel_timing(
+                    torch, fa, quant, GEMMA_TRAIN_TIMING_SHAPE,
+                    window=window, softcap=GEMMA_SOFTCAP)
+                emit('timing', kernel=name, path=f'gemma_train_{layer}',
+                     **d256['train_' + layer])
         top = d256['global']
         kernels[name + '_d256'] = {
             'name': name + '_d256', 'route': 'cuda', 'source': KERNEL_SOURCE,
@@ -2134,24 +2239,45 @@ def main():
     if bad:
         raise AssertionError(f'flash forward or backward disagrees with its '
                              f'plain version: {bad}')
-    kernels['flash_attention']['max_abs_err'] = max(
-        kernels['flash_attention']['max_abs_err'],
-        *(c['fwd']['max_abs_err'] for c in cases.values()))
+    for suffix, at_d256 in (('', False), ('_d256', True)):
+        name = 'flash_attention' + suffix
+        kernels[name]['max_abs_err'] = max(
+            kernels[name]['max_abs_err'],
+            *(c['fwd']['max_abs_err'] for c in cases.values()
+              if (c['shape'][-1] == 256) == at_d256))
     timing = bwd_timing(torch, fa)
-    emit('timing_bwd', **timing)
+    emit('timing_bwd', path='training', **timing)
+    # The d 256 instances at gemma2-2b's training attention, a local and
+    # a global layer; the entries' numbers are the global layer's (the
+    # larger bound). Their launches come from the gemma train phase.
+    d256 = {}
+    for case in BWD_GEMMA_TIMING_CASES:
+        d256[case[0]] = bwd_timing(torch, fa, case)
+        emit('timing_bwd', path=case[0], **d256[case[0]])
+        torch.cuda.empty_cache()
     for name, key, parts, line in (
             ('flash_attention_dq', 'dq', ('dq',), 178),
             ('flash_attention_dkv', 'dkv', ('dk', 'dv'), 229)):
-        kernels[name] = {
-            'name': name, 'route': 'cuda', 'source': BWD_SOURCE,
-            'replaces': f'skypilot_tpu/ops/flash_attention.py:{line}',
-            'launches': 0,
-            'max_abs_err': max(c[f'{part}_max_abs_err']
-                               for c in cases.values() for part in parts),
-            'ms': timing[key]['ms'], 'plain_ms': timing[key]['plain_ms'],
-            'bound_ms': timing[key]['bound_ms'],
-            'bound_by': timing[key]['bound_by'],
-            'library_ms': timing[key]['library_ms']}
+        for suffix, tm, at_d256 in (('', timing[key], False),
+                                    ('_d256', d256['gemma2b_global'][key],
+                                     True)):
+            kernels[name + suffix] = {
+                'name': name + suffix, 'route': 'cuda', 'source': BWD_SOURCE,
+                'replaces': f'skypilot_tpu/ops/flash_attention.py:{line}',
+                'launches': 0,
+                'max_abs_err': max(c[f'{part}_max_abs_err']
+                                   for c in cases.values() for part in parts
+                                   if (c['shape'][-1] == 256) == at_d256),
+                **{k: tm[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                      'bound_by', 'library_ms')}}
+        kernels[name + '_d256']['ms_softcap_off'] = d256['gemma2b_global'][
+            key]['ms_softcap_off']
+        kernels[name + '_d256']['shapes'] = [
+            {'path': layer, 'launches': 0,
+             **{k: tm[key][k] for k in (
+                 'shape', 'window', 'softcap', 'ms', 'ms_softcap_off',
+                 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}}
+            for layer, tm in d256.items()]
     torch.cuda.empty_cache()
 
     import numpy as np
@@ -2283,8 +2409,9 @@ def main():
     torch.cuda.empty_cache()
 
     # 10. flash against dense training at bench-8b widths
-    parity = train_parity(torch)
-    emit('train_parity', model='bench-8b', layers=2, seq_len=2048,
+    model, layers, seq_len = PARITY_BENCH
+    parity = train_parity(torch, model, layers, seq_len)
+    emit('train_parity', model=model, layers=layers, seq_len=seq_len,
          tol_loss=TOL_TRAIN_LOSS, tol_grad_rel=TOL_TRAIN_GRAD_REL,
          tol_proj_rel=TOL_TRAIN_PROJ_REL, **parity)
     if train_faults(parity):
@@ -2298,6 +2425,37 @@ def main():
     kernels['flash_attention_dq']['launches'] = train['launches']['K3']
     kernels['flash_attention_dkv']['launches'] = train['launches']['K4']
     emit('train', **train)
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 19. flash against dense training at gemma2-2b widths (d 256)
+    model, layers, seq_len = PARITY_GEMMA
+    parity = train_parity(torch, model, layers, seq_len)
+    emit('train_parity_gemma', model=model, layers=layers, seq_len=seq_len,
+         tol_loss=TOL_TRAIN_LOSS, tol_grad_rel=TOL_TRAIN_GRAD_REL,
+         tol_proj_rel=TOL_TRAIN_PROJ_REL, **parity)
+    if train_faults(parity):
+        raise AssertionError(f'gemma train parity: {train_faults(parity)}')
+    del parity
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 20. gemma2-2b trained at full width and depth through K3/K4 at d 256
+    train = train_phase(torch, fa, GEMMA_TRAIN_MODEL, GEMMA_TRAIN_SEQ,
+                        GEMMA_TRAIN_STEPS)
+    # Each shape's launches are those its window was counted for.
+    for shape in kernels['flash_attention_d256']['shapes']:
+        if shape['path'].startswith('gemma_train'):
+            shape['launches'] = train['window_launches']['K1'].get(
+                shape['window'], 0)
+    for name, counter in (('flash_attention_dq_d256', 'K3'),
+                          ('flash_attention_dkv_d256', 'K4')):
+        kernels[name]['launches'] = train['launches'][counter]
+        for shape in kernels[name]['shapes']:
+            shape['launches'] = train['window_launches'][counter].get(
+                shape['window'], 0)
+    emit('train_gemma', **train)
 
     emit('done', seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -27,11 +27,14 @@ holds to its limits:
     check_bwd holds it;
   - backward faults (K3 drops a kv tile or leaves its frontier tile
     unmasked; K4 drops a GQA head, drops delta or reads a stale ring
-    stage): K3 and K4 against flash_attention_bwd_plain on every
-    BWD_CASES case (max|a-b| / max|b| < TOL_BWD_REL for dQ, dK, dV, and
-    dQ = 0 on rows with no visible key), and train_parity (flash
-    against dense loss_fn + backward at bench-8b widths: loss, grad
-    norm, wq/wk/wv grads).
+    stage), and head_dim 256 backward faults planted in the d 256
+    instances only (K4 leaves dK's last 64-column slab unwritten, K4
+    leaves the kv tile across a window's edge unmasked, K3 drops the
+    softcap's Jacobian): K3 and K4 against flash_attention_bwd_plain on
+    every BWD_CASES case (max|a-b| / max|b| < TOL_BWD_REL for dQ, dK,
+    dV, and dQ = 0 on rows with no visible key), and train_parity (flash
+    against dense loss_fn + backward at bench-8b widths, or gemma2-2b's
+    for the d 256 faults: loss, grad norm, wq/wk/wv grads).
 
 Each fault prints one JSON line with every reading beside its limit and
 the limits it breaks. The script exits non-zero if any fault passes
@@ -119,9 +122,36 @@ FAULTS = {
         'const bool crosses_frontier =\n'
         '            p.causal && k0 + kRingRows - 1 > qp_lo;',
         'const bool crosses_frontier = false;'),
+    'd256_dk_last_slab_unwritten': (
+        'at d 256, K4 leaves dK\'s last 64-column slab (columns 192-255) '
+        'unwritten',
+        '    for (int j = 0; j < D / 8; ++j) {\n'
+        '      *reinterpret_cast<uint32_t*>(out + row * out_ss',
+        '    for (int j = 0; j < (IS_DK && D == 256 ? D / 8 - 8 : D / 8); '
+        '++j) {\n'
+        '      *reinterpret_cast<uint32_t*>(out + row * out_ss'),
+    'd256_dkv_window_edge_unmasked': (
+        'at d 256, the q tile across a window\'s edge of K4\'s kv rows '
+        'takes the unmasked path',
+        'p.causal && p.windowed && qp0 + kRingRows - 1 - kp_lo >= p.window;',
+        'D != 256 && p.causal && p.windowed &&\n'
+        '          qp0 + kRingRows - 1 - kp_lo >= p.window;'),
+    'd256_dq_softcap_jacobian_dropped': (
+        'at d 256, K3 computes dS without the softcap\'s Jacobian '
+        '1 - tanh^2',
+        'sc[4 * j + e] = math.dscore(pe, dp[4 * j + e], dlt[e >> 1], th);',
+        'sc[4 * j + e] =\n'
+        '                math.dscore(pe, dp[4 * j + e], dlt[e >> 1],\n'
+        '                            D == 256 ? 0.f : th);'),
 }
+# Faults in the head_dim 256 backward instances only: train_parity reads
+# them at gemma2-2b's widths.
+D256_BWD_FAULTS = ('d256_dk_last_slab_unwritten',
+                   'd256_dkv_window_edge_unmasked',
+                   'd256_dq_softcap_jacobian_dropped')
 BWD_FAULTS = ('dq_drop_kv_tile', 'dkv_drop_q_head', 'dkv_drop_delta',
-              'bwd_stale_stage', 'dq_frontier_tile_unmasked')
+              'bwd_stale_stage', 'dq_frontier_tile_unmasked',
+              *D256_BWD_FAULTS)
 # Faults in the head_dim 256 instances only: the llama3-8b readings
 # (d 128) cannot see them, so only the kernel checks are read.
 D256_FAULTS = ('d256_drop_last_v_slab', 'd256_window_edge_unmasked',
@@ -169,7 +199,8 @@ def readings(fault):
             c['breaks'] for c in out['kernel']['flash_attention_bwd']
             .values())
         torch.cuda.empty_cache()
-        parity = cs.train_parity(torch)
+        parity = cs.train_parity(torch, *(
+            cs.PARITY_GEMMA if fault in D256_BWD_FAULTS else cs.PARITY_BENCH))
         out['limits'].update(tol_train_loss=cs.TOL_TRAIN_LOSS,
                              tol_train_grad_rel=cs.TOL_TRAIN_GRAD_REL,
                              tol_train_proj_rel=cs.TOL_TRAIN_PROJ_REL)

@@ -390,7 +390,7 @@ def _flash_prefill_ok(t: int, s: int, d: int,
     if t < 2:
         return False
     if device.type == 'cuda':
-        return d in fa_lib.KERNEL_FWD_HEAD_DIMS
+        return d in fa_lib.KERNEL_HEAD_DIMS
     bq, bk = min(512, t), min(512, s)
     return not (t % bq or s % bk)
 

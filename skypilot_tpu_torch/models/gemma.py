@@ -6,11 +6,9 @@ shared core (`models/llama.py`). Gemma-2 is a GeGLU MLP, (1+w) RMSNorm
 with zero init, the sqrt(hidden) embedding scale, tied embeddings,
 post-norms, attention and final logit softcaps, and local (4096) /
 global layers in turn; every one of these is a `LlamaConfig` knob. The
-presets run `attention_impl='flash'`: on the card K1/K2 carry the window
-and the softcap inside the kernel, at head_dim 256 for gemma2-2b and
-gemma2-9b. Their backward (K3/K4) is built for head_dim 64 and 128 only,
-so training gemma2-2b/9b with flash on CUDA is refused (see
-`ops/flash_attention.check_backward`).
+presets run `attention_impl='flash'`: on the card K1/K2 (serving) and
+K1/K3/K4 (training) carry the window and the softcap inside the kernel,
+at head_dim 256 for gemma2-2b and gemma2-9b.
 """
 import torch
 

@@ -65,6 +65,27 @@
 //  * Each tile is classified against the warpgroup's rows: a tile with no
 //    visible pair skips its products; only a tile crossing the causal
 //    frontier, the window's edge, Skv or Sq runs the per-element mask.
+//  * head_dim 256 (gemma-2 training) cannot keep the 384-thread CTA: a
+//    thread's accumulator doubles to 128 f32 (dQ in K3; dV or dK in K4),
+//    which with the S and dP tiles (32 f32 each) exceeds the 168
+//    registers ptxas plans a 384-thread launch within, and a 64-row bf16
+//    tile is 32 KB, so neither the 4-stage rings nor K3's 128 own rows
+//    fit the 227 KB a block may use. So at d 256 both run 256-thread CTAs
+//    (up to 255 registers a thread, no setmaxnreg) with 2-stage rings:
+//    - K3: one CTA per (64-row q tile, q head, batch) of one consumer
+//      warpgroup and the producer warpgroup: Q and dO once (64 KB), K/V
+//      64-row tiles in 2 stages (128 KB); dQ += dS K as two m64n128k16
+//      issues a k-step (K's slabs 0-1 and 2-3), as the forward's P V;
+//    - K4: two consumer warpgroups (dV and dK, as at d 128) and NO
+//      producer warpgroup. The first warp of dK's warpgroup loads: K and
+//      V once (64 KB), and each (Q, dO) stage (2 x 64 KB) with its lse
+//      and delta values, refilling a stage as soon as both warpgroups
+//      have released it (dK's warpgroup finishes a tile after dV's, so
+//      its wait is short) and reading the next stage's lse/delta before
+//      its own products so their latency hides behind them. With the two
+//      16 KB S^T hand-over buffers the layout takes 225.1 KB of the 227.
+//    The cost: a 64-row q tile feeds half the kv rows per CTA it feeds at
+//    d 128 (K3), and a 2-stage ring has one tile in flight, not three.
 // Not done here: the fused single pass (dS K added into an f32 dQ from
 // K4's CTA by atomics or a TMA reduce-add, 10*d FLOP a pair instead of
 // 14*d); hiding K4's score math behind the other warpgroup's products
@@ -80,10 +101,10 @@
 
 namespace {
 
-constexpr int kConsumers = 256;    // two consumer warpgroups
-constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
-
-// Byte offsets in dynamic shared memory, from a base aligned to 1024:
+// A CTA's shape: CONSUMER_WGS consumer warpgroups, then (with PRODUCER)
+// the producer warpgroup; a 384-thread CTA moves registers from the
+// producer to the consumers with setmaxnreg. And its byte offsets in
+// dynamic shared memory, from a base aligned to 1024:
 // the CTA's own two tiles of OWN rows (Q, dO in K3; K, V in K4), a ring of
 // STAGES streamed tile pairs of ROWS rows (K, V in K3; Q, dO in K4), K4's
 // per-stage lse and delta, HANDOFF f32 [OWN x ROWS] score buffers (K4's
@@ -91,8 +112,14 @@ constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 // (own_full, full[STAGES], empty[STAGES], s_full[HANDOFF],
 // s_empty[HANDOFF]). A bf16 row is D / 64 slabs of 64 columns, each slab
 // 128-byte swizzled by TMA.
-template <int D, int OWN, int ROWS, int STAGES, int HANDOFF>
+template <int D, int OWN, int ROWS, int STAGES, int HANDOFF,
+          int CONSUMER_WGS, bool PRODUCER>
 struct Smem {
+  static constexpr int kConsumerWGs = CONSUMER_WGS;
+  static constexpr int kConsumers = 128 * CONSUMER_WGS;
+  static constexpr bool kProducer = PRODUCER;
+  static constexpr int kThreads = kConsumers + (PRODUCER ? 128 : 0);
+  static constexpr bool kMoveRegs = kThreads == 384;  // setmaxnreg
   static constexpr int kOwnRows = OWN;
   static constexpr int kRows = ROWS;
   static constexpr int kStages = STAGES;
@@ -115,15 +142,18 @@ struct Smem {
   static_assert(kBytes <= kMaxSmem, "shared memory layout too large");
 };
 // K3: 128 q rows a CTA (64 a consumer warpgroup), K/V streamed in 64-row
-// tiles through 4 stages.
+// tiles through 4 stages; at d 256, 64 q rows of one consumer warpgroup
+// and 2 stages (192 KB).
 template <int D>
-using DqSmem = Smem<D, 128, 64, 4, 0>;
+using DqSmem = Smem<D, D == 256 ? 64 : 128, 64, D == 256 ? 2 : 4, 0,
+                    D == 256 ? 1 : 2, true>;
 // K4: 64 kv rows a CTA (both consumer warpgroups on the same rows), Q/dO
 // streamed in 64-row tiles through 4 stages, S^T handed over through 2
 // buffers (194 KB at d 128). 64-row q tiles give the score products
-// m64n64; 32-row ones (m64n32, twice the stages) were slower.
+// m64n64; 32-row ones (m64n32, twice the stages) were slower. At d 256:
+// 2 stages and no producer warpgroup (225.1 KB).
 template <int D>
-using DkvSmem = Smem<D, 64, 64, 4, 2>;
+using DkvSmem = Smem<D, 64, 64, D == 256 ? 2 : 4, 2, 2, D != 256>;
 
 }  // namespace
 
@@ -152,16 +182,19 @@ struct FlashBwdParams {
 
 namespace {
 
-// Barriers of a CTA: own_full (the CTA's own tiles), full[s], empty[s],
-// and K4's s_full[h], s_empty[h] (one arrival a thread of a warpgroup).
-template <int STAGES, int HANDOFF>
+// Barriers of a CTA: own_full (the CTA's own tiles), full[s], empty[s]
+// (one arrival a consumer warp), and K4's s_full[h], s_empty[h] (one
+// arrival a thread of a warpgroup).
+template <typename L>
 __device__ __forceinline__ void init_barriers(uint32_t own_full,
                                               uint32_t full_count) {
+  constexpr int STAGES = L::kStages;
+  constexpr int HANDOFF = L::kHandoffs;
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(own_full + 8 + 8 * s, full_count);
-      mbar_init(own_full + 8 + 8 * (STAGES + s), kConsumers / 32);
+      mbar_init(own_full + 8 + 8 * (STAGES + s), L::kConsumers / 32);
     }
     for (int h = 0; h < 2 * HANDOFF; ++h)
       mbar_init(own_full + 8 + 8 * (2 * STAGES + h), 128);
@@ -211,21 +244,27 @@ __device__ __forceinline__ void ld_shared_f4(uint32_t addr, float* v) {
                : "memory");
 }
 
-// d[N / 2] += A[64x16] B[16xN]; A in registers, B MN-major.
-template <int N>
+// d[D / 2] += A[64x16] B[16xD]; A in registers, B MN-major at `b` in
+// 64-column slabs `slab` bytes apart. At D 256 two m64n128k16 issues:
+// slabs 0-1 into d[0, 64), slabs 2-3 into d[64, 128).
+template <int D>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (N == 128)
-    wgmma_rs_n128(d, a, b);
-  else
-    wgmma_rs_n64(d, a, b);
+                                         uint32_t b, uint32_t slab) {
+  if constexpr (D == 256) {
+    wgmma_rs_n128(d, a, desc_b128(b, slab, 1024));
+    wgmma_rs_n128(d + 64, a, desc_b128(b + 2 * slab, slab, 1024));
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, desc_b128(b, slab, 1024));
+  } else {
+    wgmma_rs_n64(d, a, desc_b128(b, slab, 1024));
+  }
 }
 
 }  // namespace
 
-// K3: dQ for one (128-row q tile, q head, batch).
+// K3: dQ for one (128-row q tile, q head, batch); 64 rows at d 256.
 template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DqSmem<D>::kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ FlashBwdParams p,
                         const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -270,13 +309,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_tiles =
       kv_hi > k_first ? (kv_hi - k_first + kRingRows - 1) / kRingRows : 0;
 
-  init_barriers<kStages, L::kHandoffs>(own_full, 1);
+  init_barriers<L>(own_full, 1);
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (wg == L::kConsumerWGs) {
     // ---- producer warpgroup: one thread issues the TMA loads ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == kConsumers && n_tiles > 0) {
+    if constexpr (L::kMoveRegs)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == L::kConsumers && n_tiles > 0) {
       mbar_expect_tx(own_full, 2 * L::kOwnTile);
       for (int sl = 0; sl < L::kSlabs; ++sl) {
         tma_load(q_smem + sl * kOwnSlab, &tq, own_full, sl * 64, h, q_start,
@@ -300,7 +340,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns q rows [64 wg, 64 wg + 64) ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if constexpr (L::kMoveRegs)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int t = threadIdx.x % 128;
     const int lane = t % 32;
     const int tig = lane % 4;                        // thread in quad
@@ -407,11 +448,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         wgmma_fence();
 #pragma unroll
-        for (int kt = 0; kt < 4; ++kt) {
-          const uint64_t kd = desc_b128(k_tile + kt * 16 * 128, kRingSlab,
-                                        1024);
-          wgmma_rs<D>(dq, da[kt], kd);
-        }
+        for (int kt = 0; kt < 4; ++kt)
+          wgmma_rs<D>(dq, da[kt], k_tile + kt * 16 * 128, kRingSlab);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs<D / 2>(dq);
@@ -434,6 +472,102 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// What K4's loads need: the tensor maps of Q and dO (the streamed side)
+// and K and V (the CTA's own rows), the kv head, batch and GQA group, the
+// first visible q tile and the number of them.
+struct DkvLoads {
+  const CUtensorMap* tq;
+  const CUtensorMap* tk;
+  const CUtensorMap* tv;
+  const CUtensorMap* tdo;
+  int k_start, kvh, b, group, q_first, n_q;
+  // Step i's q head and first q row: q head kvh * group + i / n_q, q
+  // tile i % n_q.
+  __device__ __forceinline__ int head(int i) const {
+    return kvh * group + i / n_q;
+  }
+  __device__ __forceinline__ int q0(int i, int rows) const {
+    return q_first + (i % n_q) * rows;
+  }
+};
+
+// The row values of one K4 stage a loading lane writes: lse (times
+// log2 e) and delta of rows q0 + lane + 32 r; rows past Sq get lse = +inf
+// (P = 0) and delta = 0. Read from global memory ahead of the stage's
+// fill, so their latency hides behind other work.
+template <int ROWS>
+struct StageRows {
+  float lse2[ROWS / 32];
+  float dlt[ROWS / 32];
+};
+
+template <int ROWS>
+__device__ __forceinline__ StageRows<ROWS> read_stage_rows(
+    const FlashBwdParams& p, const DkvLoads& ld, int i, int lane) {
+  StageRows<ROWS> r;
+  const int q0 = ld.q0(i, ROWS);
+  const int64_t row_base =
+      (static_cast<int64_t>(ld.b) * p.H + ld.head(i)) * p.Sq;
+#pragma unroll
+  for (int j = 0; j < ROWS / 32; ++j) {
+    const int row = q0 + lane + 32 * j;
+    const bool in = row < p.Sq;
+    r.lse2[j] = in ? p.lse[row_base + row] * kLog2e
+                   : __int_as_float(0x7f800000);
+    r.dlt[j] = in ? p.delta[row_base + row] : 0.f;
+  }
+  return r;
+}
+
+// K and V, the CTA's own rows, onto own_full (lane 0 of the loading warp).
+template <typename L>
+__device__ __forceinline__ void load_own_kv(uint32_t base,
+                                            const DkvLoads& ld) {
+  const uint32_t k_smem = base + L::kOwn;
+  const uint32_t v_smem = k_smem + L::kOwnTile;
+  const uint32_t own_full = base + L::kBars;
+  mbar_expect_tx(own_full, 2 * L::kOwnTile);
+  for (int sl = 0; sl < L::kSlabs; ++sl) {
+    tma_load(k_smem + sl * L::kOwnSlab, ld.tk, own_full, sl * 64, ld.kvh,
+             ld.k_start, ld.b);
+    tma_load(v_smem + sl * L::kOwnSlab, ld.tv, own_full, sl * 64, ld.kvh,
+             ld.k_start, ld.b);
+  }
+}
+
+// Fill K4's stage i % kStages with step i, by the 32 lanes of the loading
+// warp once the stage is free: each lane writes its rows' values, then
+// lane 0 issues the Q and dO tiles with the stage's bytes and the others
+// arrive (full[s] counts 32 arrivals).
+template <typename L>
+__device__ __forceinline__ void fill_dkv_stage(
+    uint8_t* smem, uint32_t base, const DkvLoads& ld, int i, int lane,
+    const StageRows<L::kRows>& rows) {
+  constexpr int kRows = L::kRows;
+  const int s = i % L::kStages;
+  const uint32_t full = base + L::kBars + 8 + 8 * s;
+  float* vals = reinterpret_cast<float*>(smem + L::kRowVals) + s * 2 * kRows;
+#pragma unroll
+  for (int j = 0; j < kRows / 32; ++j) {
+    vals[lane + 32 * j] = rows.lse2[j];
+    vals[kRows + lane + 32 * j] = rows.dlt[j];
+  }
+  if (lane == 0) {
+    const uint32_t dst = base + L::kRing + s * L::kStageBytes;
+    const int head = ld.head(i);
+    const int q0 = ld.q0(i, kRows);
+    mbar_expect_tx(full, L::kStageBytes);
+    for (int sl = 0; sl < L::kSlabs; ++sl) {
+      tma_load(dst + sl * L::kRingSlab, ld.tq, full, sl * 64, head, q0,
+               ld.b);
+      tma_load(dst + L::kRingTile + sl * L::kRingSlab, ld.tdo, full,
+               sl * 64, head, q0, ld.b);
+    }
+  } else {
+    mbar_arrive(full);
+  }
+}
+
 // One consumer warpgroup of K4 over the CTA's 64 kv rows. IS_DK false:
 // S^T = K Q^T, handed to the other warpgroup, then P^T and dV += P^T dO.
 // IS_DK true: dP^T = V dO^T while the other computes S^T, then S^T from
@@ -442,12 +576,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 // accumulator (64 f32 a thread at d 128): with dK and dV both in one
 // warpgroup (128 f32) ptxas, which plans the wgmma pipeline within the
 // 168 registers of a 384-thread launch, spilled and serialised every
-// wgmma.
+// wgmma. Without a producer warpgroup (d 256) the first warp of dK's
+// warpgroup also loads: K and V and the first kStages stages up front,
+// then stage s again for step i + kStages once step i has released it.
 template <int D, bool SOFTCAP, bool IS_DK>
 __device__ __forceinline__ void dkv_consumer(const FlashBwdParams& p,
-                                             uint32_t base, int k_start,
-                                             int kvh, int b, int group,
-                                             int q_first, int n_q) {
+                                             uint8_t* smem, uint32_t base,
+                                             const DkvLoads& ld) {
   using L = DkvSmem<D>;
   constexpr int kRingRows = L::kRows;
   constexpr int kStages = L::kStages;
@@ -462,6 +597,9 @@ __device__ __forceinline__ void dkv_consumer(const FlashBwdParams& p,
   const uint32_t empty0 = full0 + 8 * kStages;
   const uint32_t s_full0 = empty0 + 8 * kStages;    // S^T written
   const uint32_t s_empty0 = s_full0 + 8 * L::kHandoffs;  // S^T read
+  const int k_start = ld.k_start;
+  const int group = ld.group;
+  const int n_q = ld.n_q;
   const int n_steps = group * n_q;
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
@@ -475,6 +613,17 @@ __device__ __forceinline__ void dkv_consumer(const FlashBwdParams& p,
   // of the same index in the other warpgroup wrote).
   const uint32_t handoff = base + L::kHandoff + t * 16;
   int visible = 0;                                  // hand-overs so far
+  // The loading warp (no producer warpgroup): warp-uniform.
+  const bool loader = !L::kProducer && IS_DK && t < 32;
+  if constexpr (!L::kProducer) {
+    if (loader && n_steps > 0) {
+      if (lane == 0) load_own_kv<L>(base, ld);
+      for (int i = 0; i < kStages && i < n_steps; ++i)
+        fill_dkv_stage<L>(smem, base, ld, i, lane,
+                          read_stage_rows<kRingRows>(p, ld, i, lane));
+    }
+    __syncwarp();
+  }
 
   float acc[D / 2];
 #pragma unroll
@@ -484,8 +633,13 @@ __device__ __forceinline__ void dkv_consumer(const FlashBwdParams& p,
   for (int i = 0; i < n_steps; ++i) {
     const int stage = i % kStages;
     const int hh = i / n_q;                         // q head in the group
-    const int q0 = q_first + (i - hh * n_q) * kRingRows;
+    const int q0 = ld.q_first + (i - hh * n_q) * kRingRows;
     const int qp0 = p.q_offset + q0;                // tile's first q pos
+    // The loader's row values of step i + kStages, read now.
+    const bool refill = loader && i + kStages < n_steps;
+    StageRows<kRingRows> next_rows;
+    if (refill)
+      next_rows = read_stage_rows<kRingRows>(p, ld, i + kStages, lane);
     mbar_wait(full0 + 8 * stage, (i / kStages) & 1);
     const uint32_t q_tile = ring + stage * L::kStageBytes;
     const uint32_t do_tile = q_tile + L::kRingTile;
@@ -588,18 +742,27 @@ __device__ __forceinline__ void dkv_consumer(const FlashBwdParams& p,
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < kRingRows / 16; ++kt)
-        wgmma_rs<D>(acc, fa[kt],
-                    desc_b128(b_tile + kt * 16 * 128, kRingSlab, 1024));
+        wgmma_rs<D>(acc, fa[kt], b_tile + kt * 16 * 128, kRingSlab);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs<D / 2>(acc);
     }
     if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+    if constexpr (!L::kProducer) {
+      if (refill) {
+        // Both warpgroups are done with this stage: refill it.
+        mbar_wait(empty0 + 8 * stage, (i / kStages) & 1);
+        fill_dkv_stage<L>(smem, base, ld, i + kStages, lane, next_rows);
+      }
+      __syncwarp();
+    }
   }
 
   __nv_bfloat16* out =
-      IS_DK ? static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh
-            : static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+      IS_DK ? static_cast<__nv_bfloat16*>(p.dk) + ld.b * p.dk_sb +
+                  ld.kvh * p.dk_sh
+            : static_cast<__nv_bfloat16*>(p.dv) + ld.b * p.dv_sb +
+                  ld.kvh * p.dv_sh;
   const int64_t out_ss = IS_DK ? p.dk_ss : p.dv_ss;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -616,7 +779,7 @@ __device__ __forceinline__ void dkv_consumer(const FlashBwdParams& p,
 // K4: dK and dV for one (64-row kv tile, kv head, batch), summed over the
 // q heads of the GQA group.
 template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DkvSmem<D>::kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ FlashBwdParams p,
                          const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -626,110 +789,74 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kRingRows = L::kRows;
   constexpr int kStages = L::kStages;
   constexpr int kOwnRows = L::kOwnRows;
-  constexpr int kLaneRows = kRingRows / 32;  // rows a producer lane
-  static_assert(kRingRows % 32 == 0, "whole rows for every producer lane");
+  static_assert(kRingRows % 32 == 0, "whole rows for every loading lane");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   if (pad + L::kBytes > L::kAlloc) __trap();
   uint8_t* smem = smem_raw + pad;
   const uint32_t base = smem_u32(smem);
-  const uint32_t k_smem = base + L::kOwn;
-  const uint32_t v_smem = k_smem + L::kOwnTile;
-  const uint32_t ring = base + L::kRing;
   const uint32_t own_full = base + L::kBars;
   const uint32_t full0 = own_full + 8;
   const uint32_t empty0 = full0 + 8 * kStages;
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.z;
-  const int group = p.H / p.KV;
+  DkvLoads ld;
+  ld.tq = &tq;
+  ld.tk = &tk;
+  ld.tv = &tv;
+  ld.tdo = &tdo;
+  ld.kvh = blockIdx.x;
+  ld.b = blockIdx.z;
+  ld.group = p.H / p.KV;
   // Under a causal mask the first kv tiles see the most queries: they go
   // first, across all kv heads (blockIdx.x, the head, is dispatched
   // fastest).
-  const int k_start = blockIdx.y * kOwnRows;
+  ld.k_start = blockIdx.y * kOwnRows;
 
   // Visible local q rows [q_lo, q_hi): q_pos >= k_pos, and under a window
   // q_pos - k_pos < window (the reference's _clamped_q_index as bounds).
   int q_lo = 0;
   int q_hi = p.Sq;
   if (p.causal) {
-    q_lo = max(0, k_start - p.q_offset);
+    q_lo = max(0, ld.k_start - p.q_offset);
     if (p.windowed) {
-      q_hi = min(p.Sq, k_start + kOwnRows - 1 + p.window - p.q_offset);
+      q_hi = min(p.Sq, ld.k_start + kOwnRows - 1 + p.window - p.q_offset);
     }
   }
-  const int q_first = (q_lo / kRingRows) * kRingRows;
-  const int n_q =
-      q_hi > q_first ? (q_hi - q_first + kRingRows - 1) / kRingRows : 0;
+  ld.q_first = (q_lo / kRingRows) * kRingRows;
+  ld.n_q = q_hi > ld.q_first
+               ? (q_hi - ld.q_first + kRingRows - 1) / kRingRows
+               : 0;
   // Stage i holds q head kvh * group + i / n_q, q tile i % n_q.
-  const int n_steps = group * n_q;
+  const int n_steps = ld.group * ld.n_q;
 
-  // full[s]: the 32 lanes of the producer warp, one with the TMA bytes.
-  init_barriers<kStages, L::kHandoffs>(own_full, 32);
+  // full[s]: the 32 lanes of the loading warp, one with the TMA bytes.
+  init_barriers<L>(own_full, 32);
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (wg == L::kConsumerWGs) {
     // ---- producer warp: lse/delta by plain loads, Q/dO by TMA ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    const int pt = threadIdx.x - kConsumers;
-    if (pt < 32 && n_steps > 0) {
-      if (pt == 0) {
-        mbar_expect_tx(own_full, 2 * L::kOwnTile);
-        for (int sl = 0; sl < L::kSlabs; ++sl) {
-          tma_load(k_smem + sl * L::kOwnSlab, &tk, own_full, sl * 64, kvh,
-                   k_start, b);
-          tma_load(v_smem + sl * L::kOwnSlab, &tv, own_full, sl * 64, kvh,
-                   k_start, b);
-        }
-      }
-      for (int i = 0; i < n_steps; ++i) {
-        const int s = i % kStages;
-        const int head = kvh * group + i / n_q;
-        const int q0 = q_first + (i % n_q) * kRingRows;
-        // This lane's rows q0 + pt + 32 r, read before the wait; rows past
-        // Sq get lse = +inf (P = 0) and delta = 0.
-        const int64_t row_base = (static_cast<int64_t>(b) * p.H + head) * p.Sq;
-        float lse2[kLaneRows];
-        float dlt[kLaneRows];
-#pragma unroll
-        for (int r = 0; r < kLaneRows; ++r) {
-          const int row = q0 + pt + 32 * r;
-          const bool in = row < p.Sq;
-          lse2[r] = in ? p.lse[row_base + row] * kLog2e
-                       : __int_as_float(0x7f800000);
-          dlt[r] = in ? p.delta[row_base + row] : 0.f;
-        }
-        mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
-        float* vals = reinterpret_cast<float*>(smem + L::kRowVals) +
-                      s * 2 * kRingRows;
-#pragma unroll
-        for (int r = 0; r < kLaneRows; ++r) {
-          vals[pt + 32 * r] = lse2[r];
-          vals[kRingRows + pt + 32 * r] = dlt[r];
-        }
-        if (pt == 0) {
-          const uint32_t dst = ring + s * L::kStageBytes;
-          mbar_expect_tx(full0 + 8 * s, L::kStageBytes);
-          for (int sl = 0; sl < L::kSlabs; ++sl) {
-            tma_load(dst + sl * L::kRingSlab, &tq, full0 + 8 * s, sl * 64,
-                     head, q0, b);
-            tma_load(dst + L::kRingTile + sl * L::kRingSlab, &tdo,
-                     full0 + 8 * s, sl * 64, head, q0, b);
-          }
-        } else {
-          mbar_arrive(full0 + 8 * s);
+    if constexpr (L::kProducer) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+      const int pt = threadIdx.x - L::kConsumers;
+      if (pt < 32 && n_steps > 0) {
+        if (pt == 0) load_own_kv<L>(base, ld);
+        for (int i = 0; i < n_steps; ++i) {
+          // This lane's rows, read before the wait.
+          const StageRows<kRingRows> rows =
+              read_stage_rows<kRingRows>(p, ld, i, pt);
+          mbar_wait(empty0 + 8 * (i % kStages), ((i / kStages) & 1) ^ 1);
+          fill_dkv_stage<L>(smem, base, ld, i, pt, rows);
         }
       }
     }
   } else {
     // ---- consumers: warpgroup 0 sums dV, warpgroup 1 dK ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    if constexpr (L::kMoveRegs)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     if (wg == 0)
-      dkv_consumer<D, SOFTCAP, false>(p, base, k_start, kvh, b, group,
-                                      q_first, n_q);
+      dkv_consumer<D, SOFTCAP, false>(p, smem, base, ld);
     else
-      dkv_consumer<D, SOFTCAP, true>(p, base, k_start, kvh, b, group,
-                                     q_first, n_q);
+      dkv_consumer<D, SOFTCAP, true>(p, smem, base, ld);
   }
 }
 
@@ -757,12 +884,13 @@ int launch(const FlashBwdParams& p, cudaStream_t stream) {
   auto kernel = DKV ? flash_bwd_dkv_kernel<D, SOFTCAP>
                     : flash_bwd_dq_kernel<D, SOFTCAP>;
   constexpr int smem = DKV ? DkvSmem<D>::kAlloc : DqSmem<D>::kAlloc;
+  constexpr int threads = DKV ? DkvSmem<D>::kThreads : DqSmem<D>::kThreads;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid = DKV ? dim3(p.KV, (p.Skv + own_rows - 1) / own_rows, p.B)
                         : dim3(p.H, (p.Sq + own_rows - 1) / own_rows, p.B);
-  kernel<<<grid, kThreads, smem, stream>>>(p, tq, tk, tv, tdo);
+  kernel<<<grid, threads, smem, stream>>>(p, tq, tk, tv, tdo);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -777,6 +905,9 @@ int dispatch(const FlashBwdParams* p, void* stream_ptr) {
     case 128:
       return softcap ? launch<128, true, DKV>(*p, stream)
                      : launch<128, false, DKV>(*p, stream);
+    case 256:
+      return softcap ? launch<256, true, DKV>(*p, stream)
+                     : launch<256, false, DKV>(*p, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,14 +22,17 @@ Each public entry point dispatches on where its tensors lie:
   the forward and q, k, v and dO in the backward, a positive stride on
   every dim wider than 1) and handed to the kernel, or the call raises.
   There is no fallback from the kernel to the plain version.
-The forward is built for head_dim 64, 128 and 256
-(`KERNEL_FWD_HEAD_DIMS`), the backward for 64 and 128
-(`KERNEL_BWD_HEAD_DIMS`): on CUDA, `flash_attention` refuses a d 256
-call that needs a gradient before K1 runs (`check_backward`).
+All four kernels are built for head_dim 64, 128 and 256
+(`KERNEL_HEAD_DIMS`); at d 256 the window and the softcap run inside
+K3/K4 as inside K1. On CUDA, `flash_attention` refuses a call that
+needs a gradient at another head_dim before K1 runs (`check_backward`).
 
 `flash_attention.launches`, `flash_attention_quant.launches`,
 `flash_attention_dq.launches` and `flash_attention_dkv.launches` count
-kernel launches (plain integers, never the plain version's calls).
+kernel launches (plain integers, never the plain version's calls); each
+wrapper's `window_launches` splits the same launches by the window they
+were given (None or its size), which tells a model's local layers from
+its global ones.
 
 K4 differs from the reference in one place: it sums the q heads of a GQA
 group inside the kernel in f32 and rounds dK/dV once, where the
@@ -46,13 +49,9 @@ from typing import Optional, Tuple
 import torch
 
 _NEG_INF = -1e30
-# Head dims the CUDA kernels are instantiated for: the forward, K1/K2
-# (csrc/flash_fwd.cu), and the backward, K3/K4 (csrc/flash_bwd.cu).
-KERNEL_FWD_HEAD_DIMS = (64, 128, 256)
-KERNEL_BWD_HEAD_DIMS = (64, 128)
-_BWD_ROADMAP = ('the flash backward (K3/K4) is built for head_dim '
-                f'{KERNEL_BWD_HEAD_DIMS} only; head_dim 256 is the next '
-                'kernel item of ROADMAP.md (Queue 2)')
+# Head dims the CUDA kernels are instantiated for: K1/K2
+# (csrc/flash_fwd.cu) and K3/K4 (csrc/flash_bwd.cu).
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _check_args(causal: bool, window, q_offset) -> None:
@@ -279,8 +278,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from skypilot_tpu_torch.ops import _build
 
     quant = k_scale is not None
-    _check_attn_args(q, k, v, torch.int8 if quant else torch.bfloat16,
-                     KERNEL_FWD_HEAD_DIMS)
+    _check_attn_args(q, k, v, torch.int8 if quant else torch.bfloat16)
     b, s_q, h, d = q.shape
     tensors = [q, k, v] + ([k_scale, v_scale] if quant else [])
     if any(t.device != q.device for t in tensors):
@@ -322,18 +320,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f'flash forward kernel launch failed: CUDA '
                            f'error {err}')
-    if quant:
-        flash_attention_quant.launches += 1
-    else:
-        flash_attention.launches += 1
+    _count(flash_attention_quant if quant else flash_attention, window)
     return out, lse
 
 
+def _count(wrapper, window) -> None:
+    """One launch of `wrapper`'s kernel, also tallied under its window."""
+    wrapper.launches += 1
+    key = None if window is None else int(window)
+    wrapper.window_launches[key] = wrapper.window_launches.get(key, 0) + 1
+
+
 def _check_attn_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_dtype: torch.dtype, head_dims: Tuple[int, ...]
-                     ) -> None:
-    """Shapes, head_dim (one of `head_dims`, the forward's or the
-    backward's set) and dtypes a kernel takes; raises otherwise."""
+                     kv_dtype: torch.dtype) -> None:
+    """Shapes, head_dim (one of KERNEL_HEAD_DIMS) and dtypes a kernel
+    takes; raises otherwise."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f'want q [B,Sq,H,D], k/v [B,Skv,KV,D]; got '
                          f'{tuple(q.shape)} {tuple(k.shape)} '
@@ -342,8 +343,9 @@ def _check_attn_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise ValueError(f'incompatible q {tuple(q.shape)} and kv '
                          f'{tuple(k.shape)}')
-    if d not in head_dims:
-        raise ValueError(f'head_dim {d} not in the kernel\'s {head_dims}')
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f'head_dim {d} not in the kernel\'s '
+                         f'{KERNEL_HEAD_DIMS}')
     if q.dtype != torch.bfloat16:
         raise TypeError(f'q must be bfloat16, got {q.dtype}')
     if k.dtype != kv_dtype or v.dtype != kv_dtype:
@@ -359,7 +361,7 @@ def _launch_bwd(which: str, q: torch.Tensor, k: torch.Tensor,
     lse and delta by plain loads, as contiguous f32 [B,H,Sq]."""
     from skypilot_tpu_torch.ops import _build
 
-    _check_attn_args(q, k, v, torch.bfloat16, KERNEL_BWD_HEAD_DIMS)
+    _check_attn_args(q, k, v, torch.bfloat16)
     b, s_q, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f'dO must be {q.dtype} {tuple(q.shape)}, got '
@@ -412,10 +414,8 @@ def _launch_bwd(which: str, q: torch.Tensor, k: torch.Tensor,
     if err != 0:
         raise RuntimeError(f'flash backward ({which}) kernel launch failed: '
                            f'CUDA error {err}')
-    if which == 'dq':
-        flash_attention_dq.launches += 1
-    else:
-        flash_attention_dkv.launches += 1
+    _count(flash_attention_dq if which == 'dq' else flash_attention_dkv,
+           window)
     return out
 
 
@@ -520,15 +520,16 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_backward(device: torch.device, head_dim: int,
                    needs_grad: bool) -> None:
     """Refuse, before any kernel launches, a flash call on `device` whose
-    backward has no kernel: on CUDA, a head_dim outside
-    KERNEL_BWD_HEAD_DIMS with a gradient to take. The CPU's plain
-    versions take any head_dim."""
+    backward has no kernel: on CUDA, a head_dim outside KERNEL_HEAD_DIMS
+    with a gradient to take. The CPU's plain versions take any
+    head_dim."""
     if (needs_grad and device.type == 'cuda'
-            and head_dim not in KERNEL_BWD_HEAD_DIMS):
+            and head_dim not in KERNEL_HEAD_DIMS):
         raise NotImplementedError(
             f'flash attention with head_dim {head_dim} needs a gradient '
-            f'on {device}, but {_BWD_ROADMAP}. Serve it (no gradient) '
-            'through K1/K2, or train it on the CPU.')
+            f'on {device}, but the kernels are built for head_dim '
+            f'{KERNEL_HEAD_DIMS} only (ROADMAP.md, Queue 2: a new head_dim '
+            'is a new kernel instance). Train it on the CPU.')
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -566,7 +567,8 @@ def flash_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
                      v_scale=v_scale)[0]
 
 
-flash_attention.launches = 0
-flash_attention_quant.launches = 0
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+for _wrapper in (flash_attention, flash_attention_quant, flash_attention_dq,
+                 flash_attention_dkv):
+    _wrapper.launches = 0
+    _wrapper.window_launches = {}
+del _wrapper

@@ -31,9 +31,11 @@ is the one it was given, with its tensors overwritten.
 Neither the optimizer nor the loss is a Pallas kernel in the reference,
 so no hand-written kernel stands behind them; the attention inside the
 loss is the flash kernels K1/K3/K4 when the model's `attention_impl` is
-'flash'. On CUDA a flash config at a head_dim K3/K4 are not built for
-(gemma2-2b/9b, head_dim 256) is refused before any step
-(`check_kernels`); the CPU trains it through the plain versions.
+'flash', at head_dim 64, 128 and 256: gemma2-2b trains on the card with
+its sliding window and attention softcap inside K1/K3/K4. On CUDA a
+flash config at a head_dim K3/K4 are not built for is refused before
+any step (`check_kernels`); the CPU trains it through the plain
+versions.
 """
 from __future__ import annotations
 

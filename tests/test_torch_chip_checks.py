@@ -145,9 +145,13 @@ def test_backward_limit_sits_between_sound_and_faulty_readings():
     0.0061 on the same inputs. The limit admits two steps at the largest
     element wherever it falls in its binade and sits 3.3x over the sound
     peak; the mildest planted fault (dkv_drop_delta, q_offset case)
-    reads 0.073-0.082, 3.6x over it."""
+    reads 0.073-0.082, 3.6x over it. The head_dim 256 instances read at
+    most 0.0043 on their six cases (seeds 3-5), under a third of the
+    limit; their planted faults read 0.339 and more on their strongest
+    case."""
     assert 2 * 2 ** -7 < chip_smoke.TOL_BWD_REL < 0.073 / 3
     assert 0.0061 * 3 < chip_smoke.TOL_BWD_REL
+    assert 0.0043 * 3 < chip_smoke.TOL_BWD_REL < 0.339 / 3
 
 
 def test_bwd_bounds_count_the_training_shape():
@@ -599,3 +603,136 @@ def test_gemma_and_checkpoint_phases_rehearse_on_cpu(monkeypatch,
     assert 'model.safetensors.index.json' in out['files']
     assert 0 < out['import']['peak_host_bytes'] <= \
         out['import']['largest_tensor_bytes']
+
+
+# -- head_dim 256 backward (gemma2-2b training) ------------------------------
+
+@pytest.mark.parametrize('name,pairs,dq_ms,dkv_ms', [
+    ('gemma2b_global', 33_558_528, 0.417, 0.556),
+    ('gemma2b_local', 25_167_872, 0.313, 0.417),
+])
+def test_bwd_bounds_count_gemma2b_training_attention(name, pairs, dq_ms,
+                                                     dkv_ms):
+    """gemma2-2b's training attention (B 1, S 8192, 8 / 4 heads, d 256,
+    causal): S(S+1)/2 visible pairs a head on a global layer (window
+    2**30), 4096 * 4097 / 2 + 4096 * 4096 on a local one (window 4096);
+    6*d (K3) and 8*d (K4) FLOP a pair, both bound by the tensor cores."""
+    cases = {case[0]: case[1:] for case in chip_smoke.BWD_CASES}
+    b, sq, skv, h, kv, d, causal, off, window, softcap = cases[name]
+    assert (b, sq, skv, h, kv, d, causal, off, softcap) == (
+        1, 8192, 8192, 8, 4, 256, True, None, 50.0)
+    assert chip_smoke.visible_span(sq, skv, 0, window) == (pairs, 8192)
+    bounds = chip_smoke.bwd_bounds(b, sq, skv, h, kv, d, off, window)
+    for kernel, per_pair, ms in (('dq', 6, dq_ms), ('dkv', 8, dkv_ms)):
+        assert bounds[kernel][2] == per_pair * d * pairs * h
+        assert bounds[kernel][1] == 'operations'
+        assert bounds[kernel][0] == pytest.approx(ms, abs=5e-4)
+    assert cases[name] in [c[1:] for c in chip_smoke.BWD_GEMMA_TIMING_CASES]
+
+
+def test_bwd_cases_add_head_dim_256():
+    """The d 256 backward cases: gemma2-2b's local and global layers at
+    seq 8192 (the timing cases), rows with no visible key, ragged tiles
+    of both kernels (64-row q tiles in K3, 64-row kv tiles in K4),
+    non-causal, and a softcap whose Jacobian is far from 1."""
+    cases = {name: rest for name, *rest in chip_smoke.BWD_CASES}
+    d256 = [name for name, rest in cases.items() if rest[5] == 256]
+    assert d256 == ['gemma2b_local', 'gemma2b_global', 'masked_rows_d256',
+                    'ragged_tiles_d256', 'non_causal_d256',
+                    'softcap_jacobian_d256']
+    assert [c[0] for c in chip_smoke.BWD_GEMMA_TIMING_CASES] == [
+        'gemma2b_local', 'gemma2b_global']
+    assert cases['gemma2b_local'][8] == 4096
+    assert cases['gemma2b_global'][8] == 2 ** 30
+    b, sq, skv, h, kv, d, causal, off, window, softcap = cases[
+        'masked_rows_d256']
+    assert causal and off + sq - 1 - window + 1 >= skv  # last rows see none
+    b, sq, skv, h, kv, d, causal, off, window, softcap = cases[
+        'ragged_tiles_d256']
+    assert sq % 64 and skv % 64 and h != kv
+    assert not cases['non_causal_d256'][6]
+    # Scores about N(0, 1): tanh(3 / 2)^2 = 0.82, so 1 - tanh^2 is far
+    # from 1 on the larger scores.
+    assert cases['softcap_jacobian_d256'][9] <= 2.0
+
+
+def test_d256_backward_faults_are_read_at_gemma_widths():
+    """The three d 256 backward faults are backward faults, planted in
+    the d 256 instances only, and read by train_parity at gemma2-2b's
+    widths (bench-8b's d 128 cannot see them)."""
+    d256 = kernel_fault_check.D256_BWD_FAULTS
+    assert len(d256) == 3 and set(d256) <= set(kernel_fault_check.BWD_FAULTS)
+    assert len(kernel_fault_check.FAULTS) == 15
+    assert chip_smoke.PARITY_GEMMA == ('gemma2-2b', 2, 8192)
+    for fault in d256:
+        _, old, new = kernel_fault_check.FAULTS[fault]
+        assert 'D == 256' in new or 'D != 256' in new
+        assert '256' not in old
+
+
+@pytest.fixture
+def tiny_gemma_d256(monkeypatch):
+    """tiny-gemma at head_dim 256 through flash with remat on, as the
+    preset 'tiny-gemma-d256'."""
+    import dataclasses
+
+    from skypilot_tpu_torch.models import gemma
+    config = dataclasses.replace(
+        gemma.CONFIGS['tiny-gemma'], head_dim=256, num_heads=2,
+        num_kv_heads=1, attention_impl='flash', attention_block_size=16,
+        remat=True)
+    monkeypatch.setitem(gemma.CONFIGS, 'tiny-gemma-d256', config)
+    return config
+
+
+def test_gemma_train_phases_rehearse_on_cpu(monkeypatch, one_torch_thread,
+                                            tiny_gemma_d256):
+    """chip_smoke's train_parity and train phases on a tiny d 256 gemma
+    (a local and a global layer, softcaps, remat) on the CPU, with
+    counting stand-ins for the K1/K3/K4 launches (each tallied under its
+    window, as the launchers do): flash against dense within the limits,
+    then fit() with exactly 2 x layers x steps K1, layers x steps K3 and
+    K4, and no K2 launches, split between the local and the global
+    window as the layers are, the loss falling."""
+    import inspect
+
+    from skypilot_tpu_torch.ops import flash_attention as fa
+
+    def counting(fn, counter=None):
+        def wrapper(*args, **kwargs):
+            window = inspect.signature(fn).bind(
+                *args, **kwargs).arguments.get('window')
+            fa._count(counter or wrapper, window)
+            return fn(*args, **kwargs)
+        wrapper.launches, wrapper.window_launches = 0, {}
+        return wrapper
+
+    monkeypatch.setattr(fa, 'flash_fwd',
+                        counting(fa.flash_fwd, fa.flash_attention))
+    monkeypatch.setattr(fa.flash_attention, 'launches', 0)
+    monkeypatch.setattr(fa.flash_attention, 'window_launches', {})
+    for name in ('flash_attention_dq', 'flash_attention_dkv'):
+        monkeypatch.setattr(fa, name, counting(getattr(fa, name)))
+    for name in ('synchronize', 'empty_cache', 'reset_peak_memory_stats'):
+        monkeypatch.setattr(torch.cuda, name, lambda: None)
+    monkeypatch.setattr(torch.cuda, 'max_memory_allocated', lambda: 0)
+    monkeypatch.setattr(chip_smoke, 'profile_breakdown',
+                        lambda torch, fn, **kw: (fn(), {})[1])
+    monkeypatch.setattr(chip_smoke, 'time_ms',
+                        lambda torch, fn, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, 'DEV', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'TRAIN_LR', 1e-2)
+    monkeypatch.setattr(chip_smoke, 'TRAIN_WARMUP', 1)
+    parity = chip_smoke.train_parity(torch, 'tiny-gemma-d256', 2, 32)
+    assert chip_smoke.train_faults(parity) == []
+    assert parity['loss_abs_diff'] < 1e-4
+    out = chip_smoke.train_phase(torch, fa, 'tiny-gemma-d256', 32, 4)
+    layers = tiny_gemma_d256.num_layers
+    assert out['launches'] == {'K1': 2 * layers * 4, 'K2': 0,
+                               'K3': layers * 4, 'K4': layers * 4}
+    local = tiny_gemma_d256.sliding_window
+    assert out['window_launches'] == {
+        'K1': {local: 8, 2 ** 30: 8}, 'K2': {},
+        'K3': {local: 4, 2 ** 30: 4}, 'K4': {local: 4, 2 ** 30: 4}}
+    assert out['heads'] == [2, 1, 256] and out['remat']
+    assert out['losses'][-1] < out['losses'][0]

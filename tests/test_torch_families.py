@@ -11,8 +11,10 @@
   equal, dense and paged, dense attention and the flash path's plain
   version.
 - head_dim 256 on CUDA: the engine routes prefill chunks to K1/K2, and a
-  flash config that needs a gradient there (gemma2-2b/9b) is refused
-  before any step, while the CPU trains it through the plain versions.
+  flash training config there (gemma2-2b/9b) passes the trainer's kernel
+  check (K3/K4 have d 256 instances), while one at a head_dim the
+  backward is not built for is refused before any step; the CPU trains
+  either through the plain versions.
 """
 import dataclasses
 
@@ -160,25 +162,37 @@ def test_engine_routes_head_dim_256_prefill_to_the_kernel():
 
 
 def test_trainer_refuses_head_dim_256_flash_on_cuda(monkeypatch):
-    """Refused before any parameter is drawn or kernel launched: the check
-    runs on the resolved device, here made CUDA without a card."""
+    """A flash config at a head_dim K3/K4 are not built for (tiny-gemma's
+    d 16) is refused before any parameter is drawn or kernel launched:
+    the check runs on the resolved device, here made CUDA without a
+    card. gemma2-2b and gemma2-9b at d 256 are no longer refused."""
     calls = []
     monkeypatch.setattr(trainer.device_lib, 'resolve_device',
                         lambda device=None: torch.device('cuda'))
     monkeypatch.setattr(gemma, 'init_params',
                         lambda *a, **k: calls.append(a))
-    cfg = trainer.TrainerConfig(model='gemma2-2b', attention_impl='flash',
+    cfg = trainer.TrainerConfig(model='tiny-gemma', attention_impl='flash',
                                 batch_size=1, seq_len=64, max_steps=1)
+    assert cfg.model_config().head_dim == 16
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         train_loop.fit(cfg)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         trainer.make_train_step(cfg)
     assert not calls
-    # The same preset with dense attention, and llama at d 128, pass.
-    trainer.check_kernels(dataclasses.replace(
-        gemma.CONFIGS['gemma2-2b'], attention_impl='dense'),
-        torch.device('cuda'))
+    # gemma2-2b's flash preset (d 256) builds its step on CUDA, and the
+    # kernel check passes it and gemma2-9b, with dense attention too, and
+    # llama at d 128.
+    cfg = trainer.TrainerConfig(model='gemma2-2b', batch_size=1,
+                                seq_len=8192, max_steps=1)
+    assert cfg.model_config().attention_impl == 'flash'
+    assert callable(trainer.make_train_step(cfg))
+    for name in ('gemma2-2b', 'gemma2-9b'):
+        for impl in ('flash', 'dense'):
+            trainer.check_kernels(dataclasses.replace(
+                gemma.CONFIGS[name], attention_impl=impl),
+                torch.device('cuda'))
     trainer.check_kernels(llama.CONFIGS['bench-8b'], torch.device('cuda'))
+    assert not calls
 
 
 def test_head_dim_256_flash_config_trains_on_cpu(monkeypatch):

@@ -238,29 +238,58 @@ def test_flash_plain_matches_reference_at_head_dim_256(quant):
 
 
 def test_kernel_head_dims_split_forward_and_backward():
-    """K1/K2 are built for d 64, 128 and 256, K3/K4 for 64 and 128: the
-    launchers' checks take the set that applies."""
-    assert fa.KERNEL_FWD_HEAD_DIMS == (64, 128, 256)
-    assert fa.KERNEL_BWD_HEAD_DIMS == (64, 128)
+    """The forward (K1/K2) and the backward (K3/K4) no longer split: since
+    the d 256 backward instances, all four are built for d 64, 128 and
+    256, one set the launchers' checks share, and each refuses a
+    head_dim outside it."""
+    assert fa.KERNEL_HEAD_DIMS == (64, 128, 256)
+    assert not hasattr(fa, 'KERNEL_FWD_HEAD_DIMS')
+    assert not hasattr(fa, 'KERNEL_BWD_HEAD_DIMS')
     q = torch.zeros(1, 8, 4, 256, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, 256, dtype=torch.bfloat16)
-    fa._check_attn_args(q, k, k, torch.bfloat16, fa.KERNEL_FWD_HEAD_DIMS)
-    with pytest.raises(ValueError, match='head_dim 256'):
-        fa._check_attn_args(q, k, k, torch.bfloat16, fa.KERNEL_BWD_HEAD_DIMS)
+    fa._check_attn_args(q, k, k, torch.bfloat16)
+    fa._check_attn_args(q, k.to(torch.int8), k.to(torch.int8), torch.int8)
+    with pytest.raises(ValueError, match='head_dim 16'):
+        fa._check_attn_args(q[..., :16], k[..., :16], k[..., :16],
+                            torch.bfloat16)
     with pytest.raises(ValueError, match='head_dim 96'):
         fa._check_attn_args(q[..., :96], k[..., :96], k[..., :96],
-                            torch.bfloat16, fa.KERNEL_FWD_HEAD_DIMS)
+                            torch.bfloat16)
+
+
+def test_launch_count_tallies_each_window():
+    """`_count`, which each launcher calls once where its kernel launches,
+    adds one to the wrapper's launches and one to its tally for that
+    window, so a run can read a model's local and global layers apart.
+    Every wrapper starts with an empty tally."""
+    for wrapper in (fa.flash_attention, fa.flash_attention_quant,
+                    fa.flash_attention_dq, fa.flash_attention_dkv):
+        assert isinstance(wrapper.window_launches, dict)
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.window_launches = 0, {}
+    for window in (4096, 2 ** 30, 4096, None, np.int64(4096)):
+        fa._count(wrapper, window)
+    assert wrapper.launches == 5
+    assert wrapper.window_launches == {4096: 3, 2 ** 30: 1, None: 1}
+    assert all(type(key) is int for key in wrapper.window_launches
+               if key is not None)
 
 
 def test_head_dim_256_gradient_is_refused_for_cuda_before_the_forward():
-    """On CUDA a d 256 call that needs a gradient raises, naming ROADMAP,
-    before K1 would launch; without a gradient it is K1's to serve. The
-    CPU's plain versions take the gradient at any head_dim."""
+    """On CUDA a call that needs a gradient at a head_dim K3/K4 are not
+    built for (d 16) raises, naming ROADMAP, before K1 would launch; d
+    256, gemma2-2b/9b's, is no longer refused: its backward has kernels.
+    The CPU's plain versions take the gradient at any head_dim."""
     cuda = torch.device('cuda')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fa.check_backward(cuda, 256, needs_grad=True)
-    fa.check_backward(cuda, 256, needs_grad=False)
+        fa.check_backward(cuda, 16, needs_grad=True)
+    fa.check_backward(cuda, 16, needs_grad=False)
+    fa.check_backward(cuda, 256, needs_grad=True)
     fa.check_backward(cuda, 128, needs_grad=True)
+    fa.check_backward(torch.device('cpu'), 16, needs_grad=True)
     fa.check_backward(torch.device('cpu'), 256, needs_grad=True)
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _inputs(9, 1, 16, 16, 2, 1, 256))

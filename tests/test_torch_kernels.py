@@ -133,17 +133,27 @@ def test_wrapper_raises_instead_of_falling_back(cuda, monkeypatch):
 
 
 def test_head_dim_256_gradient_is_refused_before_k1(cuda):
-    """K3/K4 have no d 256 instance: a d 256 call that needs a gradient
-    raises before K1 launches; without one it runs on K1."""
-    q = torch.randn(1, 64, 4, 256, device=cuda).bfloat16()
-    k = torch.randn(1, 64, 2, 256, device=cuda).bfloat16()
+    """A call that needs a gradient at a head_dim K3/K4 are not built for
+    (d 16) raises before K1 launches. At d 256, which K3/K4 now have,
+    the gradient runs K1 and then K3 and K4, once each, each tallied
+    under its window."""
+    q = torch.randn(1, 64, 4, 16, device=cuda).bfloat16()
+    k = torch.randn(1, 64, 2, 16, device=cuda).bfloat16()
     before = fa.flash_attention.launches
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         fa.flash_attention(q.requires_grad_(), k, k)
     assert fa.flash_attention.launches == before
-    with torch.no_grad():
-        fa.flash_attention(q, k, k)
-    assert fa.flash_attention.launches == before + 1
+    q = torch.randn(1, 64, 4, 256, device=cuda).bfloat16().requires_grad_()
+    k = torch.randn(1, 64, 2, 256, device=cuda).bfloat16()
+    wrappers = (fa.flash_attention, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    before = [(w.launches, w.window_launches.get(32, 0)) for w in wrappers]
+    out = fa.flash_attention(q, k, k, window=32, softcap=50.0)
+    (grad,) = torch.autograd.grad(out.float().sum(), (q,))
+    torch.cuda.synchronize()
+    assert [(w.launches, w.window_launches.get(32, 0))
+            for w in wrappers] == [(n + 1, m + 1) for n, m in before]
+    assert bool(torch.isfinite(grad).all())
 
 
 def test_engine_prefill_through_kernel_matches_dense_path(cuda):
@@ -195,6 +205,17 @@ BWD_CASES = {
     'window_narrower_than_tile': (1, 300, 700, 8, 2, 128, True, 400, 50,
                                   None),
     'd64_sq129': (1, 129, 129, 4, 2, 64, True, None, None, None),
+    # head_dim 256 (64-row q CTAs in K3, no producer warpgroup in K4):
+    # window + softcap on ragged tiles, rows with no visible key, a
+    # global layer's 2**30 window, non-causal, and a softcap of 2 (its
+    # Jacobian far from 1).
+    'd256_ragged_window_softcap': (2, 200, 200, 8, 4, 256, True, None, 70,
+                                   50.0),
+    'd256_masked_rows': (1, 64, 128, 4, 2, 256, True, 1000, 16, 50.0),
+    'd256_global_window': (1, 300, 300, 8, 4, 256, True, None, 2 ** 30,
+                           50.0),
+    'd256_non_causal': (1, 100, 300, 4, 1, 256, False, None, None, None),
+    'd256_softcap_2': (2, 130, 130, 8, 4, 256, True, 20, None, 2.0),
 }
 
 
