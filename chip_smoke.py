@@ -44,7 +44,31 @@ Phases, each printing one JSON line:
                   with the K1 launch count read around it.
   6. engine_int8 - the same engine over an int8 KV cache (K2).
   7. server     - the port's HTTP server in-process: /health and three
-                  /generate requests, one streaming.
+                  /generate requests, one streaming. The phase runs the
+                  telemetry plane (every trace kept, the sampler at
+                  0.2 s, the watchdog at 0.5 s) and prints an
+                  `observability` line: /metrics scraped before and
+                  after, its counter deltas held exactly to the prompt
+                  and generated tokens, the finished requests, the
+                  POST 200s, and the host steps that decode and the
+                  prefills, counted outside the engine's books
+                  (`engine_calls`); each response's X-Trace-ID pulled from
+                  /internal/trace, a tree rooted at `inference.request`
+                  with the engine's admission, prefill and decode spans
+                  inside it; a windowed rate from /internal/timeseries
+                  and the default rules from /internal/alerts.
+ 7b. overhead   - decode host-step time on three engines of the main
+                  path's shape (ENGINE_KW: 8 slots, fused decode, here
+                  OVERHEAD_FUSE steps a host step) over the same 8
+                  prompts, one step each a round in a rotating order,
+                  the sampler and the watchdog running through all the
+                  rounds (their passes counted): two engines with
+                  tracing off, one with every trace kept. The median
+                  per-round ratio of the traced to the untraced, minus
+                  1, plus the threads' own host time at their cadence,
+                  must stay within TOL_OBS_OVERHEAD, beside the
+                  reference's 2% and 1% targets and the two untraced
+                  engines' reading (the noise floor).
  12. prefix_bf16 - the prefix cache (on by default) on the llama3-8b
                   engine: a cold request (1024-token prefix + 192), 8 warm
                   ones (the prefix + 64-448 tokens), the cold prompt again
@@ -61,7 +85,10 @@ Phases, each printing one JSON line:
  14. migration  - engine to engine: two requests (600, 1500 tokens)
                   snapshotted after 16 tokens, aborted, restored into a
                   second engine, token for token equal to an uninterrupted
-                  run; blob bytes, snapshot and restore ms. Server to
+                  run, after a first snapshot refused by the armed
+                  `engine.snapshot` fault seam (FaultInjected, one
+                  FAULTS_INJECTED); blob bytes, snapshot and restore ms.
+                  Server to
                   server: a stream drained by /internal/drain into a
                   migrate frame continues through /internal/restore on a
                   second server with no token lost or repeated; a
@@ -98,7 +125,8 @@ Phases, each printing one JSON line:
                   equal; seconds and peak host bytes), then served by
                   build_engine(checkpoint=) and by the server as a process
                   with --checkpoint: greedy /generate token for token
-                  equal. (12-18 run after phase 7.)
+                  equal; the import's CKPT_IMPORT_* deltas equal its
+                  ImportStats. (12-18 run after phase 7.)
   8. check_bwd  - K3 (flash_attention_dq) and K4 (flash_attention_dkv,
                   ops/csrc/flash_bwd.cu) against flash_attention_bwd_plain
                   on the same bf16 inputs: the training shape, rows with
@@ -127,7 +155,10 @@ Phases, each printing one JSON line:
                   on bench-8b (5 layers at llama3-8b width, vocab 32768),
                   batch 1 x 4096, random weights and a fixed synthetic
                   batch, with the K1/K3/K4 launch counts read around it;
-                  the loss must be finite and fall; step time, tok/s, MFU,
+                  the loss must be finite and fall; TRAIN_STEP, the
+                  TRAIN_TOKENS and TRAIN_STEP_SECONDS deltas, TRAIN_LOSS
+                  and TRAIN_MFU must equal the loop's own steps and last
+                  logged values; step time, tok/s, MFU,
                   peak memory, and one step under the profiler.
  19. train_parity_gemma - train_parity at gemma2-2b widths (d 256), 2
                   layers (one local, one global), seq 8192, the same
@@ -135,7 +166,8 @@ Phases, each printing one JSON line:
  20. train_gemma - the training main path on gemma2-2b at full width and
                   depth (26 layers), batch 1 x 8192, 10 steps: K3 and K4
                   must launch exactly 26 x 10 times, K1 2 x 26 x 10, K2
-                  never; the loss must be finite and fall; step time,
+                  never; the loss must be finite and fall; the TRAIN_*
+                  instruments as in phase 11; step time,
                   tok/s, MFU, peak memory, the optimizer's ms and one step
                   under the profiler. (19-20 run after phase 11.)
 Then a `kernels` line and, last, {"ok": true, "device": {...}}.
@@ -143,6 +175,7 @@ Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
 """
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -230,6 +263,42 @@ SPEC_ROUNDS = 8
 SPEC_NEW = 32
 SPEC_PROMPT_LENGTHS = (100, 1500)    # 8 prompts drawn in this range
 SPEC_SERVER_PROMPT = 300
+# The telemetry plane's cost on a decode host step (see overhead_phase):
+# a traced engine's steps against an untraced one's, read within rounds
+# with the sampler and the watchdog running through them, plus the two
+# threads' own host time at their cadence. The limit sits above the
+# noise two untraced engines read against each other (`aa_frac`) and
+# below a render of the registry four times a generated token
+# (obs_overhead_check.py plants it). The reference's targets (met on a
+# CPU with the tiny model: tracing 2%, sampler and watchdog 1%) stand
+# beside the reading.
+TOL_OBS_OVERHEAD = 0.10
+OBS_TARGETS = {'trace': 0.02, 'sampler_and_watchdog': 0.01}
+OVERHEAD_ROUNDS = 60
+OVERHEAD_PROMPT = 128
+# Decode steps a host step in the overhead phase: a quarter of the
+# default 8, so a cost paid once a host step reads four times as large
+# against it (the stricter reading).
+OVERHEAD_FUSE = 2
+# The knobs of each telemetry mode (every other one of them unset). A
+# mode that sets the sampler's interval runs the sampler and the
+# watchdog threads.
+OBS_ENV = {'off': {'SKYTPU_TRACE_MAX_SPANS': '0'},
+           'threads': {'SKYTPU_TRACE_MAX_SPANS': '0',
+                       'SKYTPU_TS_SAMPLE_SECONDS': '0.2',
+                       'SKYTPU_WATCHDOG_TICK_SECONDS': '0.5'},
+           'on': {'SKYTPU_TRACE_SAMPLE': '1.0',
+                  'SKYTPU_TS_SAMPLE_SECONDS': '0.2',
+                  'SKYTPU_WATCHDOG_TICK_SECONDS': '0.5'}}
+# The overhead phase's engines and the mode each admits its prompts in
+# (tracing is decided at admission).
+OVERHEAD_ENGINES = (('off', 'off'), ('off2', 'off'), ('on', 'on'))
+OBS_ROOT = 'inference.request'
+# The server phase: its engine, and its three requests (prompt tokens 1..n,
+# new tokens, streamed).
+SERVER_KW = dict(batch_size=4, max_seq_len=2048, prefill_chunk=512,
+                 kv_page_size=64)
+SERVER_REQUESTS = ((300, 8, False), (900, 12, False), (600, 16, True))
 
 
 def emit(phase, **fields):
@@ -751,76 +820,392 @@ def http_json(url, body=None, timeout=300):
         return resp.status, resp.read().decode()
 
 
+@contextlib.contextmanager
+def telemetry(mode):
+    """Run the block with the telemetry plane in `mode` (OBS_ENV): the
+    sampler and the watchdog threads run in the modes that set the
+    sampler's interval, and stop, with every knob restored, on the way
+    out."""
+    from skypilot_tpu_torch.observability import timeseries, watchdog
+    keys = sorted({k for env in OBS_ENV.values() for k in env})
+    saved = {k: os.environ.get(k) for k in keys}
+    try:
+        for k in keys:
+            os.environ.pop(k, None)
+        os.environ.update(OBS_ENV[mode])
+        if 'SKYTPU_TS_SAMPLE_SECONDS' in OBS_ENV[mode] and (
+                not timeseries.start_sampler()
+                or watchdog.start_watchdog() is None):
+            raise AssertionError('the sampler or the watchdog did not start')
+        yield
+    finally:
+        timeseries.stop_sampler()
+        watchdog.stop_watchdog()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def parse_metrics(text):
+    """Prometheus text -> {series with its labels: value} (exemplar
+    suffixes dropped)."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith('#'):
+            series, value = line.split(' # ')[0].rsplit(' ', 1)
+            out[series] = float(value)
+    return out
+
+
+def counter_faults(deltas, want):
+    """The counter deltas that differ from `want` ({series: expected});
+    empty when every one is exact."""
+    return [f'{k}: delta {deltas.get(k)} != {v}' for k, v in want.items()
+            if deltas.get(k) != v]
+
+
+def span_tree_faults(doc):
+    """The limits one /internal/trace?trace_id= document breaks: its
+    tree must be one root, the request span, whose children hold the
+    admission wait, a prefill (batched or chunked) and at least one
+    decode, each inside the root's interval. An engine span that lost
+    its parent surfaces as a second root."""
+    roots = doc.get('tree') or []
+    if len(roots) != 1 or roots[0]['name'] != OBS_ROOT:
+        return [f'roots {[r["name"] for r in roots]}, want one {OBS_ROOT}']
+    root = roots[0]
+    names = {c['name'] for c in root['children']}
+    faults = [f'no {want}' for want in ('engine.admission_wait',
+                                        'engine.decode')
+              if want not in names]
+    if not names & {'engine.prefill', 'engine.prefill_chunk'}:
+        faults.append('no engine.prefill or engine.prefill_chunk')
+    faults += [f'{c["name"]} outside the request span'
+               for c in root['children']
+               if not root['start'] <= c['start'] <= c['end'] <= root['end']]
+    return faults
+
+
+def overhead_faults(r):
+    """The limit an overhead reading breaks; empty when it passes."""
+    frac = r['overhead_frac']
+    return [] if frac <= TOL_OBS_OVERHEAD else [
+        f'overhead_frac {frac} > {TOL_OBS_OVERHEAD}']
+
+
+def http_call(url, body=None, timeout=300):
+    """(status, headers, text) of one request."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, dict(resp.headers), resp.read().decode()
+
+
+def poll(fn, ok, timeout=10.0):
+    """fn() until ok(result) or `timeout` seconds; the last result.
+    (The middleware counts a request, and closes its span, after the
+    response reached the client.)"""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = fn()
+        if ok(got) or time.monotonic() > deadline:
+            return got
+        time.sleep(0.05)
+
+
+@contextlib.contextmanager
+def counted(obj, name, counts, key):
+    """Count the calls of `obj.name` in `counts[key]` for the block,
+    outside the books of the code that makes them."""
+    fn = getattr(obj, name)
+    own = name in vars(obj)
+
+    def wrapper(*args, **kwargs):
+        counts[key] += 1
+        return fn(*args, **kwargs)
+
+    setattr(obj, name, wrapper)
+    try:
+        yield counts
+    finally:
+        if own:
+            setattr(obj, name, fn)
+        else:
+            delattr(obj, name)
+
+
+@contextlib.contextmanager
+def engine_calls(engine):
+    """The host steps that decode (calls of the engine module's
+    `fused_decode_steps`) and the prefills that sample a first token
+    (calls of `engine._sample_host_params`, made once a prefill), counted
+    around the engine for the block."""
+    counts = {'decode_host_steps': 0, 'prefills': 0}
+    with counted(sys.modules[type(engine).__module__], 'fused_decode_steps',
+                 counts, 'decode_host_steps'), \
+            counted(engine, '_sample_host_params', counts, 'prefills'):
+        yield counts
+
+
+def observability_readings(base, calls, before, trace_ids, n_prompt,
+                           n_new, n_requests):
+    """The server phase's telemetry checks (see phase 7); `calls` is
+    what `engine_calls` counted over the requests. Raises on the first
+    limit broken."""
+    from skypilot_tpu_torch.observability import watchdog
+    post_200 = ('skytpu_http_requests_total{plane="inference",'
+                'method="POST",code="200"}')
+    want = {'skytpu_prompt_tokens_total': n_prompt,
+            'skytpu_generated_tokens_total': n_new,
+            'skytpu_requests_finished_total': n_requests,
+            post_200: n_requests,
+            'skytpu_decode_host_steps_total': calls['decode_host_steps'],
+            'skytpu_prefill_seconds_count': calls['prefills']}
+
+    def deltas():
+        after = parse_metrics(http_call(base + '/metrics')[2])
+        return {k: after.get(k, 0) - before.get(k, 0) for k in want}
+
+    got = poll(deltas, lambda d: d[post_200] >= n_requests)
+    out = {'deltas': got, 'want': want, 'traces': [], 'statuses': {}}
+    bad = counter_faults(got, want)
+    if bad:
+        raise AssertionError(f'/metrics deltas: {bad}')
+    for trace_id in trace_ids:
+        url = f'{base}/internal/trace?trace_id={trace_id}'
+        doc = poll(lambda: json.loads(http_call(url)[2]),
+                   lambda d: not span_tree_faults(d))
+        bad = span_tree_faults(doc)
+        if bad:
+            raise AssertionError(f'trace {trace_id}: {bad}')
+        root = doc['tree'][0]
+        out['traces'].append({
+            'trace_id': trace_id, 'spans': len(doc['spans']),
+            'root_ms': (root['end'] - root['start']) * 1e3,
+            'children': dict(collections.Counter(
+                c['name'] for c in root['children']))})
+    rate_url = (base + '/internal/timeseries?query=rate&metric='
+                'skytpu_generated_tokens_total&window=60')
+    rate = poll(lambda: json.loads(http_call(rate_url)[2]),
+                lambda d: (d['value'] or 0) > 0)
+    if not (rate['value'] or 0) > 0:
+        raise AssertionError(f'/internal/timeseries rate: {rate}')
+    alerts = json.loads(http_call(base + '/internal/alerts')[2])
+    rules = [r['name'] for r in alerts['rules']]
+    if rules != [r.name for r in watchdog.default_rules()]:
+        raise AssertionError(f'/internal/alerts rules {rules}')
+    out['generated_tokens_rate'] = rate['value']
+    out['alert_rules'] = rules
+    out['statuses'] = {path: http_call(base + path)[0] for path in (
+        '/metrics', '/internal/trace', '/internal/timeseries',
+        '/internal/alerts', '/health')}
+    return out
+
+
 def server_phase(torch, inference, fa, params, config):
+    """The port's server in this process over a llama3-8b engine
+    (SERVER_KW): /health before and after the load, then the
+    SERVER_REQUESTS at once, one streamed, every answer with its token
+    count; then the telemetry plane's checks (observability_readings),
+    with the plane on for the whole phase."""
     from skypilot_tpu_torch.inference import server as server_lib
-    engine = inference.InferenceEngine(
-        params, config, batch_size=4, max_seq_len=2048, prefill_chunk=512,
-        kv_page_size=64, device=DEV)
+    from skypilot_tpu_torch.observability import timeseries
+    engine = inference.InferenceEngine(params, config, device=DEV,
+                                       **SERVER_KW)
     holder = {'loop': None}
     srv = server_lib.create_server(holder, host='127.0.0.1', port=0)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     loop = None
     try:
-        base = f'http://127.0.0.1:{srv.server_address[1]}'
-        status = None
-        try:
-            http_json(base + '/health')
-        except urllib.error.HTTPError as e:
-            status = e.code
-        if status != 503:
-            raise AssertionError(f'/health before load: {status}')
-        loop = server_lib.EngineLoop(engine)
-        holder['loop'] = loop
-        status, body = http_json(base + '/health')
-        health = json.loads(body)
-        if status != 200 or health['status'] != 'ok':
-            raise AssertionError(f'/health: {status} {body}')
-        rng_lens = ((300, 8, False), (900, 12, False), (600, 16, True))
-        results = {}
-        fa.flash_attention.launches = 0
+        with telemetry('on'), engine_calls(engine) as calls:
+            base = f'http://127.0.0.1:{srv.server_address[1]}'
+            status = None
+            try:
+                http_json(base + '/health')
+            except urllib.error.HTTPError as e:
+                status = e.code
+            if status != 503:
+                raise AssertionError(f'/health before load: {status}')
+            loop = server_lib.EngineLoop(engine)
+            holder['loop'] = loop
+            status, body = http_json(base + '/health')
+            health = json.loads(body)
+            if status != 200 or health['status'] != 'ok':
+                raise AssertionError(f'/health: {status} {body}')
+            results, trace_ids = {}, {}
+            # A sampler pass before the requests, so the windowed rate
+            # read after them has its baseline (the first pass comes one
+            # interval after the sampler starts).
+            samples = timeseries.STORE.stats()['samples']
+            poll(lambda: timeseries.STORE.stats()['samples'],
+                 lambda n: n > samples)
+            before = parse_metrics(http_call(base + '/metrics')[2])
+            fa.flash_attention.launches = 0
+            calls.update(decode_host_steps=0, prefills=0)
 
-        def request(i, n_prompt, max_new, stream):
-            prompt = list(range(1, n_prompt + 1))
-            status, text = http_json(base + '/generate', {
-                'prompt_tokens': prompt, 'max_new_tokens': max_new,
-                'stream': stream})
-            if stream:
-                frames = [json.loads(line[len('data: '):])
-                          for line in text.splitlines()
-                          if line.startswith('data: ')]
-                toks = [f['token'] for f in frames if 'token' in f]
-                done = frames[-1]
-                if not done.get('done') or done['tokens'] != toks:
-                    raise AssertionError(f'bad stream frames {frames[-2:]}')
-            else:
-                toks = json.loads(text)['tokens']
-            results[i] = (status, len(toks), max_new)
+            def request(i, n_prompt, max_new, stream):
+                prompt = list(range(1, n_prompt + 1))
+                status, headers, text = http_call(base + '/generate', {
+                    'prompt_tokens': prompt, 'max_new_tokens': max_new,
+                    'stream': stream})
+                trace_ids[i] = headers.get('X-Trace-ID')
+                if stream:
+                    frames = [json.loads(line[len('data: '):])
+                              for line in text.splitlines()
+                              if line.startswith('data: ')]
+                    toks = [f['token'] for f in frames if 'token' in f]
+                    done = frames[-1]
+                    if not done.get('done') or done['tokens'] != toks:
+                        raise AssertionError(
+                            f'bad stream frames {frames[-2:]}')
+                else:
+                    toks = json.loads(text)['tokens']
+                results[i] = (status, len(toks), max_new)
 
-        threads = [threading.Thread(target=request, args=(i, *case))
-                   for i, case in enumerate(rng_lens)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
-        wall = time.perf_counter() - t0
-        if any(t.is_alive() for t in threads) or len(results) != 3:
-            raise AssertionError(f'server requests incomplete: {results}')
-        for i, (status, n, want) in results.items():
-            if status != 200 or n != want:
-                raise AssertionError(f'request {i}: {status}, {n} tokens, '
-                                     f'want {want}')
-        if fa.flash_attention.launches <= 0:
-            raise AssertionError('server path never launched the kernel')
-        return {'requests': len(results), 'streamed': 1, 'wall_s': wall,
+            threads = [threading.Thread(target=request, args=(i, *case))
+                       for i, case in enumerate(SERVER_REQUESTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            n = len(SERVER_REQUESTS)
+            if any(t.is_alive() for t in threads) or len(results) != n:
+                raise AssertionError(f'server requests incomplete: '
+                                     f'{results}')
+            for i, (status, got, want) in results.items():
+                if status != 200 or got != want:
+                    raise AssertionError(f'request {i}: {status}, {got} '
+                                         f'tokens, want {want}')
+            launches = fa.flash_attention.launches
+            if launches <= 0:
+                raise AssertionError('server path never launched the kernel')
+            if sorted(trace_ids) != list(range(n)) or \
+                    not all(trace_ids.values()):
+                raise AssertionError(f'X-Trace-ID missing: {trace_ids}')
+            obs = observability_readings(
+                base, calls, before, [trace_ids[i] for i in range(n)],
+                sum(p for p, _, _ in SERVER_REQUESTS),
+                sum(m for _, m, _ in SERVER_REQUESTS), n)
+        return {'requests': n, 'streamed': 1, 'wall_s': wall,
                 'token_counts': [results[i][1] for i in sorted(results)],
-                'kernel_launches': fa.flash_attention.launches}
+                'kernel_launches': launches, 'observability': obs}
     finally:
         srv.shutdown()
         srv.server_close()
         if loop is not None:
             loop.stop()
+
+
+def overhead_engines(inference, params, config,
+                     engines=OVERHEAD_ENGINES):
+    """{name: engine} for each (name, mode) of `engines`: an engine of the
+    main path's shape (ENGINE_KW, OVERHEAD_FUSE decode steps a host
+    step) that admitted the same 8 prompts of OVERHEAD_PROMPT tokens
+    under its telemetry mode, with room to decode to its capacity, and
+    is decoding every slot. The prompts come from a generator of their
+    own, so the later phases' draws stay as they were."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    prompts = [prompt_tokens(rng, OVERHEAD_PROMPT, config.vocab_size)
+               for _ in range(ENGINE_KW['batch_size'])]
+    sampling = inference.SamplingParams(
+        max_new_tokens=ENGINE_KW['max_seq_len'] - OVERHEAD_PROMPT - 1)
+    out = {}
+    for name, mode in engines:
+        engine = inference.InferenceEngine(
+            params, config, device=DEV, decode_fuse_steps=OVERHEAD_FUSE,
+            **ENGINE_KW)
+        with telemetry(mode):
+            for prompt in prompts:
+                engine.submit(prompt, sampling)
+            engine.step()
+            engine.step()
+        if not all(s is not None and s.pending is None
+                   for s in engine.state.slots):
+            raise AssertionError('overhead: slots not decoding after two '
+                                 'steps')
+        out[name] = engine
+    return out
+
+
+def overhead_phase(torch, inference, params, config):
+    """Decode host-step time (one fused `step()` of 8 full slots,
+    OVERHEAD_FUSE decode steps and their host sync) with the telemetry
+    plane off and on. The OVERHEAD_ENGINES admit the same 8 prompts:
+    'off' and 'off2' with tracing off (SKYTPU_TRACE_MAX_SPANS=0), 'on'
+    with every trace kept. Then the sampler and the watchdog start (the
+    'on' knobs) and run through OVERHEAD_ROUNDS rounds, each stepping
+    the three engines in an order that rotates by one every round; their
+    passes inside the rounds are counted, and the phase fails if either
+    made none. A step's time on the card's host drifts by 10-15% between
+    seconds, so the engines are read against each other within rounds:
+    `steps_frac`, the median over rounds of on / off - 1, is what a
+    traced request's phase spans and exemplars add to a step (the
+    instruments count in every engine); `aa_frac`, off2 / off, the
+    noise floor. The threads are process-wide, so they land on every
+    engine's steps alike: their share is their own host time at their
+    cadence (`telemetry_host_share`, from `host_ms`: one pass of the
+    process's sampler store and one watchdog tick over it).
+    `overhead_frac` = steps_frac + telemetry_host_share, held to
+    TOL_OBS_OVERHEAD."""
+    from skypilot_tpu_torch.observability import timeseries, watchdog
+    engines = overhead_engines(inference, params, config)
+    times = {name: [] for name in engines}
+    order = list(engines)
+    passes = {'samples': 0, 'ticks': 0}
+    with counted(timeseries.STORE, 'sample_now', passes, 'samples'), \
+            telemetry('on'), \
+            counted(watchdog.get_watchdog(), 'tick', passes, 'ticks'):
+        for r in range(OVERHEAD_ROUNDS):
+            k = r % len(order)
+            for name in order[k:] + order[:k]:
+                t0 = time.perf_counter()
+                engines[name].step()
+                times[name].append(time.perf_counter() - t0)
+    for engine in engines.values():
+        engine.abort_all()
+    del engines
+    if not passes['samples'] or not passes['ticks']:
+        raise AssertionError(f'overhead: the threads made no pass in the '
+                             f'rounds: {passes}')
+    # The host time of what the two threads do at each wake.
+    dog = watchdog.Watchdog(store=timeseries.STORE, dump_evidence=False)
+    host_ms = {}
+    for name, fn in (('sample_ms', timeseries.STORE.sample_now),
+                     ('tick_ms', dog.tick)):
+        runs = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        host_ms[name] = sorted(runs)[10]
+    period = {'sample_ms': float(OBS_ENV['on']['SKYTPU_TS_SAMPLE_SECONDS']),
+              'tick_ms': float(OBS_ENV['on']['SKYTPU_WATCHDOG_TICK_SECONDS'])}
+    share = sum(host_ms[k] / 1e3 / period[k] for k in host_ms)
+
+    def median_ratio(name, base='off'):
+        ratios = sorted(a / b for a, b in zip(times[name], times[base]))
+        return ratios[len(ratios) // 2] - 1
+
+    steps_frac = median_ratio('on')
+    return {'slots': ENGINE_KW['batch_size'],
+            'fused_steps': OVERHEAD_FUSE, 'rounds': OVERHEAD_ROUNDS,
+            'prompt': OVERHEAD_PROMPT, 'modes': OBS_ENV,
+            'p50_ms': {n: sorted(t)[len(t) // 2] * 1e3
+                       for n, t in times.items()},
+            'p90_ms': {n: sorted(t)[int(len(t) * 0.9)] * 1e3
+                       for n, t in times.items()},
+            'steps_frac': steps_frac, 'aa_frac': median_ratio('off2'),
+            'thread_passes': passes, 'host_ms': host_ms,
+            'telemetry_host_share': share,
+            'overhead_frac': steps_frac + share,
+            'tol_overhead': TOL_OBS_OVERHEAD, 'targets': OBS_TARGETS}
 
 
 def shape_entry(kernel, path):
@@ -1048,6 +1433,24 @@ def migration_phase(torch, inference, params, config, rng):
     while min(len(a.active_progress().get(r, ())) for r in rids) < 16:
         a.step()
     mid = [a.active_progress()[r] for r in rids]
+    # The chaos seam: armed once, the first snapshot is refused before
+    # any device read, and counted; the snapshots below then succeed.
+    from skypilot_tpu_torch.observability import instruments as obs
+    from skypilot_tpu_torch.resilience import faults
+    injected = obs.FAULTS_INJECTED.labels(point='engine.snapshot')
+    fired = injected.value()
+    faults.arm('engine.snapshot', times=1)
+    try:
+        a.snapshot_request(rids[0])
+        refused = False
+    except faults.FaultInjected:
+        refused = True
+    finally:
+        faults.reset()
+    fired = injected.value() - fired
+    if not refused or fired != 1:
+        raise AssertionError(f'armed engine.snapshot: refused {refused}, '
+                             f'FAULTS_INJECTED delta {fired}')
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     blobs = [a.snapshot_request(r) for r in rids]
@@ -1087,7 +1490,9 @@ def migration_phase(torch, inference, params, config, rng):
                                    'pack': pack_s * 1e3,
                                    'unpack': unpack_s * 1e3},
                'tokens_at_snapshot': [len(m) for m in mid],
-               'tokens': [len(g) for g in got], 'equal': True}
+               'tokens': [len(g) for g in got], 'equal': True,
+               'armed_snapshot': {'refused': refused,
+                                  'faults_injected_delta': fired}}
     del a, b, blobs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1679,8 +2084,27 @@ def checkpoint_phase(torch, inference, rng):
         out['write_s'] = time.perf_counter() - t0
         out['bytes'] = sum(os.path.getsize(os.path.join(tmp, f))
                            for f in out['files'])
+        from skypilot_tpu_torch.observability import instruments as obs
+        before = (obs.CKPT_IMPORT_BYTES.value(),
+                  obs.CKPT_IMPORT_TENSORS.value(),
+                  obs.CKPT_IMPORT_SECONDS.child_snapshot()[1:])
         loaded, detected, stats = checkpoints.load_params(tmp, device=DEV)
         out['import'] = dataclasses.asdict(stats)
+        seconds_sum, seconds_count = \
+            obs.CKPT_IMPORT_SECONDS.child_snapshot()[1:]
+        out['instruments'] = {
+            'bytes': obs.CKPT_IMPORT_BYTES.value() - before[0],
+            'tensors': obs.CKPT_IMPORT_TENSORS.value() - before[1],
+            'seconds_count': seconds_count - before[2][1],
+            'seconds_sum': seconds_sum - before[2][0]}
+        bad = counter_faults(out['instruments'], {
+            'bytes': stats.bytes_read, 'tensors': stats.tensors,
+            'seconds_count': 1})
+        if bad or not math.isclose(out['instruments']['seconds_sum'],
+                                   stats.seconds, rel_tol=1e-9,
+                                   abs_tol=1e-9):
+            raise AssertionError(f'CKPT_IMPORT_* against ImportStats: {bad}, '
+                                 f'{out["instruments"]} vs {stats}')
         if detected != dataclasses.replace(config, remat=True,
                                            attention_impl='dense'):
             raise AssertionError(f'detected config {detected} != {config}')
@@ -2044,6 +2468,7 @@ def train_phase(torch, fa, model='bench-8b', seq_len=4096,
     the launches of each window (`window_launches`) are those of the
     layers `layer_windows` gives that window."""
     from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.observability import instruments as obs
     from skypilot_tpu_torch.train import loop, trainer
     cfg = trainer.TrainerConfig(model=model, batch_size=1,
                                 seq_len=seq_len, max_steps=steps,
@@ -2062,10 +2487,31 @@ def train_phase(torch, fa, model='bench-8b', seq_len=4096,
     for c in counters:
         c.launches = 0
         c.window_launches = {}
+    before = (obs.TRAIN_TOKENS.value(),
+              obs.TRAIN_STEP_SECONDS.child_snapshot()[2],
+              obs.TRAIN_MFU.value())
     t0 = time.perf_counter()
     res = loop.fit(cfg, DEV, log_every=1, log_fn=logs.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # The TRAIN_* instruments against the loop's own steps and its last
+    # log window (log_every 1: the last step's loss and MFU).
+    last = res['history'][-1]
+    instruments = {
+        'TRAIN_STEP': obs.TRAIN_STEP.value(),
+        'TRAIN_TOKENS': obs.TRAIN_TOKENS.value() - before[0],
+        'TRAIN_STEP_SECONDS_count':
+            obs.TRAIN_STEP_SECONDS.child_snapshot()[2] - before[1],
+        'TRAIN_LOSS': obs.TRAIN_LOSS.value(),
+        'TRAIN_MFU': obs.TRAIN_MFU.value()}
+    bad = counter_faults(instruments, {
+        'TRAIN_STEP': steps,
+        'TRAIN_TOKENS': steps * cfg.batch_size * cfg.seq_len,
+        'TRAIN_STEP_SECONDS_count': steps, 'TRAIN_LOSS': last['loss'],
+        # No MFU without a PEAK_FLOPS entry: the gauge stays where it was.
+        'TRAIN_MFU': before[2] if last['mfu'] is None else last['mfu']})
+    if bad:
+        raise AssertionError(f'TRAIN_* instruments: {bad}')
     fwd, quant, dq, dkv = (c.launches for c in counters)
     by_window = {name: dict(c.window_launches) for name, c in zip(
         ('K1', 'K2', 'K3', 'K4'), counters)}
@@ -2121,7 +2567,8 @@ def train_phase(torch, fa, model='bench-8b', seq_len=4096,
                                trainer.PEAK_FLOPS['h100']),
             'peak_mem_gb': peak_mem, 'optimizer_ms': optimizer_ms,
             'launches': {'K1': fwd, 'K2': quant, 'K3': dq, 'K4': dkv},
-            'window_launches': by_window, 'step_profile': profile}
+            'window_launches': by_window, 'instruments': instruments,
+            'step_profile': profile}
 
 
 def main():
@@ -2317,9 +2764,19 @@ def main():
     del engine
     torch.cuda.empty_cache()
 
-    # 7. server
-    emit('server', **server_phase(torch, inference, fa, params,
-                                  config))
+    # 7. server, with the telemetry plane
+    out = server_phase(torch, inference, fa, params, config)
+    obs_line = out.pop('observability')
+    emit('server', **out)
+    emit('observability', **obs_line)
+    torch.cuda.empty_cache()
+
+    # 7b. the telemetry plane's cost on a decode host step
+    out = overhead_phase(torch, inference, params, config)
+    emit('overhead', **out)
+    if overhead_faults(out):
+        raise AssertionError(f'telemetry overhead: {overhead_faults(out)}')
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 12-14. prefix cache (bf16, then int8), then request migration

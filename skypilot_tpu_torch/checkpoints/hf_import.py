@@ -21,10 +21,11 @@ and `_to_hf` (:341-415), `_HostBudget`, `ImportStats`, `load_params`
    O(largest tensor) x SKYTPU_HF_IMPORT_CONCURRENCY, never O(model):
    `ImportStats.peak_host_bytes` counts it.
 
-Left out against the reference: the mesh argument and its sharding
-rules (one device here; the parallel slice), and the
-`obs.CKPT_IMPORT_SECONDS/BYTES/TENSORS` instruments (the observability
-slice); the stats carry the same numbers. Knobs: SKYTPU_HF_IMPORT_STRICT
+Each import reports `ImportStats` through the port's instruments, as
+the reference does (:594-596): `CKPT_IMPORT_SECONDS`, `_BYTES` and
+`_TENSORS`. Left out against the reference: the mesh argument and its
+sharding rules (one device here; the parallel slice). Knobs:
+SKYTPU_HF_IMPORT_STRICT
 (an unexpected tensor is an error, not a warning) and
 SKYTPU_HF_IMPORT_CONCURRENCY (read/transform threads running ahead of
 placement).
@@ -46,6 +47,7 @@ from skypilot_tpu_torch import device as device_lib
 from skypilot_tpu_torch import envs
 from skypilot_tpu_torch.checkpoints import safetensors_io
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import instruments as obs
 
 logger = logging.getLogger(__name__)
 
@@ -507,6 +509,9 @@ def load_params(
 
     stats.peak_host_bytes = budget.peak
     stats.seconds = time.perf_counter() - t0
+    obs.CKPT_IMPORT_SECONDS.observe(stats.seconds)
+    obs.CKPT_IMPORT_BYTES.inc(stats.bytes_read)
+    obs.CKPT_IMPORT_TENSORS.inc(stats.tensors)
     logger.info('hf import: %d tensors / %.1f MiB from %d shard(s) in '
                 '%.2fs (peak host %.1f MiB)', stats.tensors,
                 stats.bytes_read / 2**20, stats.shards, stats.seconds,

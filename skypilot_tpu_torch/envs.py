@@ -1,4 +1,5 @@
-"""The port's copy of the SKYTPU_* knobs its serving and import paths read.
+"""The port's copy of the SKYTPU_* knobs its serving, import and
+observability paths read.
 
 Same names, types and defaults as the declarations in
 `skypilot_tpu/envs.py` (the reference registry); a test pins them
@@ -125,3 +126,68 @@ SKYTPU_HF_IMPORT_CONCURRENCY = _declare(
     'Shard read/transform threads running ahead of device placement '
     'during HF checkpoint import. 1 is synchronous; N>1 keeps up to N '
     'transformed tensors on the host at once.')
+
+# --- the observability plane (spans, time series, watchdog) and chaos -------
+
+SKYTPU_FAULTS = _declare(
+    'SKYTPU_FAULTS', str, '',
+    'Comma-separated fault-injection specs '
+    '(point[:times|forever[:latency]]), re-read at inject time.')
+SKYTPU_TRACE_SAMPLE = _declare(
+    'SKYTPU_TRACE_SAMPLE', float, 0.01,
+    'Head-sampling rate for request span trees (0..1). Errored and slow '
+    'requests are kept regardless of the coin; 1.0 keeps every trace.')
+SKYTPU_TRACE_MAX_SPANS = _declare(
+    'SKYTPU_TRACE_MAX_SPANS', int, 20000,
+    'Process-wide cap on buffered spans (active + completed). Over the cap '
+    'the collector evicts the oldest completed trees, then drops new spans '
+    '(counted, never raised). 0 switches the engine\'s phase tracing off.')
+SKYTPU_TRACE_RECORDER_CAPACITY = _declare(
+    'SKYTPU_TRACE_RECORDER_CAPACITY', int, 32,
+    'Completed span trees kept in the per-process flight-recorder ring.')
+SKYTPU_TRACE_SLOW_SECONDS = _declare(
+    'SKYTPU_TRACE_SLOW_SECONDS', float, 5.0,
+    'Trace trees whose wall duration meets this threshold are kept even '
+    'when the head-sampling coin said drop.')
+SKYTPU_TRACE_DUMP_DIR = _declare(
+    'SKYTPU_TRACE_DUMP_DIR', str, None,
+    'When set, the watchdog dumps the flight-recorder ring plus the '
+    'offending metric window here (TRACE_<reason>_<pid>.json, '
+    'WATCHDOG_<rule>_<pid>.json) whenever a rule fires.')
+SKYTPU_TS_SAMPLE_SECONDS = _declare(
+    'SKYTPU_TS_SAMPLE_SECONDS', float, 5.0,
+    'Seconds between background samples of the whole skytpu_* registry '
+    'into the in-process time-series ring (/internal/timeseries). 0 '
+    'disables the sampler thread.')
+SKYTPU_TS_CAPACITY = _declare(
+    'SKYTPU_TS_CAPACITY', int, 240,
+    'Samples retained per series in the time-series ring.')
+SKYTPU_TS_MAX_SERIES = _declare(
+    'SKYTPU_TS_MAX_SERIES', int, 4096,
+    'Hard cap on distinct series the time-series store retains; past it '
+    'new series only displace stale ones.')
+SKYTPU_WATCHDOG_TICK_SECONDS = _declare(
+    'SKYTPU_WATCHDOG_TICK_SECONDS', float, 15.0,
+    'Seconds between live watchdog rule evaluations over the time-series '
+    'store. 0 disables the watchdog thread. (Distinct from '
+    'SKYTPU_WATCHDOG_INTERVAL, the server\'s parent-death watchdog.)')
+SKYTPU_WATCHDOG_RULES = _declare(
+    'SKYTPU_WATCHDOG_RULES', str, None,
+    'Semicolon-separated live SLO rules: pNN(metric) < x @ window, '
+    'ratio(num/den1+den2) >= x @ window, within(metric, lo, hi), '
+    'anomaly(metric). Unset means the built-in anomaly detectors only.')
+SKYTPU_WATCHDOG_WINDOW_SECONDS = _declare(
+    'SKYTPU_WATCHDOG_WINDOW_SECONDS', float, 60.0,
+    'Default query window (seconds) for watchdog rules without their own '
+    '@window suffix.')
+SKYTPU_WATCHDOG_BREACH_TICKS = _declare(
+    'SKYTPU_WATCHDOG_BREACH_TICKS', int, 2,
+    'Consecutive breached watchdog evaluations before a rule fires.')
+SKYTPU_WATCHDOG_CLEAR_TICKS = _declare(
+    'SKYTPU_WATCHDOG_CLEAR_TICKS', int, 3,
+    'Consecutive healthy watchdog evaluations before a firing rule '
+    'clears.')
+SKYTPU_WATCHDOG_ANOMALY_Z = _declare(
+    'SKYTPU_WATCHDOG_ANOMALY_Z', float, 8.0,
+    'Robust-z threshold of the EWMA anomaly detector over the decode-step '
+    'and prefill latency series. 0 disables the built-in anomaly rules.')

@@ -43,10 +43,19 @@ Differences by design, each stated where it happens:
 - H100 policy: `use_flash` defaults on for CUDA (off on the CPU, where
   True runs the kernels' plain versions); `kv_quant='auto'` resolves to
   'none'; `_flash_prefill_ok` accepts what the CUDA kernel serves.
-- The reference's `obs` instruments and `spans` phases are not ported
-  (host counters live in `InferenceEngine.stats`), nor its
-  `faults.inject` chaos seams (`engine.snapshot`,
-  `engine.handoff_lease`).
+- Observability as the reference's, through the port's own copy
+  (`skypilot_tpu_torch/observability`, `resilience/faults.py`): every
+  `obs.*` instrument at the reference's points, the phase spans
+  (`_trace_begin`/`_trace_phase`/`_trace_finish`/`_trace_exemplar`,
+  :2172-2225: admission_wait, page_pool_wait, prefix_match, prefill,
+  prefill_chunk, cow_copy, decode, spec_decode), the `engine.snapshot`
+  and `engine.restore` spans and the `engine.snapshot` and
+  `engine.handoff_lease` chaos seams. A phase that syncs ends at the
+  host read that syncs it (`.tolist()`); none adds a device sync.
+  The registry is process-global, so `InferenceEngine.stats` stays the
+  per-engine view of the same counts (one process may run many
+  engines). `_count` and `_observe_phase` write each count to both
+  at once.
 - The snapshot gathers only the request's pages, where the reference
   pads the gather to the table width so one XLA compile serves every
   request; nothing here compiles per shape.
@@ -71,7 +80,10 @@ from skypilot_tpu_torch import device as device_lib
 from skypilot_tpu_torch import envs
 from skypilot_tpu_torch.inference import prefix_cache as prefix_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.observability import instruments as obs
+from skypilot_tpu_torch.observability import spans
 from skypilot_tpu_torch.ops import flash_attention as fa_lib
+from skypilot_tpu_torch.resilience import faults
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -1065,6 +1077,16 @@ class InferenceEngine:
         if (prefix_cache and self.kv_page_size
                 and self._draft_params is None and self.prefill_chunk > 0):
             self._prefix = prefix_lib.RadixPrefixCache(self.kv_page_size)
+        # Per-request span parents (the server's request span, rebound
+        # across the engine-loop thread hop, or an engine-owned root),
+        # the submit and page-wait stamps, the head-sampling coin cached
+        # at submit (no collector lock per dispatch) and the phase spans,
+        # buffered as raw tuples until _trace_finish flushes them.
+        self._req_trace: Dict[int, spans.SpanContext] = {}
+        self._req_submit_t: Dict[int, float] = {}
+        self._req_wait_t: Dict[int, float] = {}
+        self._req_kept: Dict[int, bool] = {}
+        self._req_phases: Dict[int, List[tuple]] = {}
         self._queue: List[Tuple[int, List[int], SamplingParams]] = []
         # Planned handoff: requests admitted with the flag, the lease
         # deadline of each paused one, and those whose snapshot the
@@ -1077,11 +1099,12 @@ class InferenceEngine:
         self._last_logprobs: Dict[int, List[float]] = {}
         self._next_id = 0
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        # Host-side counters (the reference's prompt/generated token,
-        # prefix-cache, handoff and speculative counters and
-        # prefill/decode latency sums). Times cover work that ends in a
-        # host sync. `spec_accepted_per_round[n]` counts (slot, round)
-        # cells that accepted n drafted tokens.
+        # This engine's share of the process-global instruments (the
+        # reference's prompt/generated token, prefix-cache, handoff and
+        # speculative counters and prefill/decode latency sums and
+        # counts). Times cover work that ends in a host sync.
+        # `spec_accepted_per_round[n]` counts (slot, round) cells that
+        # accepted n drafted tokens.
         self.stats = {'prompt_tokens': 0, 'generated_tokens': 0,
                       'prefill_seconds': 0.0, 'decode_seconds': 0.0,
                       'decode_dispatches': 0, 'prefix_hits': 0,
@@ -1121,6 +1144,8 @@ class InferenceEngine:
                             sampling or SamplingParams()))
         if handoff and self._draft_params is None:
             self._handoff_requests.add(request_id)
+        obs.QUEUE_DEPTH.set(len(self._queue))
+        self._trace_begin(request_id)
         return request_id
 
     def finished(self) -> Dict[int, List[int]]:
@@ -1145,19 +1170,27 @@ class InferenceEngine:
         """Drop one queued or in-flight request: its pins on cached
         pages release and nothing is published. Unknown ids are a
         no-op."""
+        before = len(self._queue)
         self._queue = [(rid, t, s) for rid, t, s in self._queue
                        if rid != request_id]
         self._handoff_requests.discard(request_id)
+        aborted = before - len(self._queue)
         self._finished.pop(request_id, None)
         self._finished_logprobs.pop(request_id, None)
         self._last_logprobs.pop(request_id, None)
         for i, slot in enumerate(self.state.slots):
             if slot is not None and slot.request_id == request_id:
                 self._free_slot(i)
+                aborted += 1
+        if aborted:
+            obs.REQUESTS_ABORTED.inc(aborted)
+        self._trace_finish(request_id)
+        self._update_gauges()
 
     def abort_all(self) -> None:
         """Drop every queued and in-flight request, and the whole prefix
         cache (error recovery must not trust cached KV)."""
+        aborted = len(self._queue)
         self._queue.clear()
         self._handoff_requests.clear()
         self._handoff_deadline.clear()
@@ -1168,8 +1201,14 @@ class InferenceEngine:
         for i, slot in enumerate(self.state.slots):
             if slot is not None:
                 self._free_slot(i)
+                aborted += 1
         if self._prefix is not None:
             self._page_alloc.extend(self._prefix.clear())
+        if aborted:
+            obs.REQUESTS_ABORTED.inc(aborted)
+        for rid in list(self._req_trace):
+            self._trace_finish(rid)
+        self._update_gauges()
 
     @property
     def has_work(self) -> bool:
@@ -1235,7 +1274,9 @@ class InferenceEngine:
 
     def _maybe_pause_handoff(self, slot: _Slot) -> None:
         """Pause a handoff-flagged request now that its first token
-        exists, unless it is already done or a draft is attached."""
+        exists, unless it is already done or a draft is attached. An
+        armed `engine.handoff_lease` fault refuses the lease: the
+        request decodes here and no handoff frame is exported."""
         rid = slot.request_id
         if rid not in self._handoff_requests:
             return
@@ -1249,6 +1290,10 @@ class InferenceEngine:
                 or (slot.prompt_len + len(slot.generated)
                     >= self.state.max_seq_len - 1))
         if done:
+            return
+        try:
+            faults.inject('engine.handoff_lease')
+        except Exception:  # noqa: BLE001 — chaos seam, not a failure
             return
         slot.handoff_pause = True
         self._handoff_deadline[rid] = (
@@ -1267,7 +1312,7 @@ class InferenceEngine:
             if deadline is not None and now >= deadline:
                 slot.handoff_pause = False
                 self._handoff_deadline.pop(slot.request_id, None)
-                self.stats['handoff_fallbacks'] += 1
+                self._count('handoff_fallbacks', obs.HANDOFF_FALLBACKS)
 
     # -- request migration (snapshot / restore) ------------------------------
 
@@ -1280,7 +1325,14 @@ class InferenceEngine:
         repays on restore; no token was generated yet). KeyError for a
         request that is not here; SnapshotError over
         SKYTPU_MIGRATION_MAX_BYTES, or for a decoding request of a
-        speculative engine (its draft cache would desynchronise)."""
+        speculative engine (its draft cache would desynchronise). An
+        armed `engine.snapshot` fault raises before any device read."""
+        faults.inject('engine.snapshot')
+        with spans.span('engine.snapshot',
+                        attrs={'request_id': request_id}):
+            return self._snapshot_locked(request_id)
+
+    def _snapshot_locked(self, request_id: int) -> bytes:
         for rid, tokens, sampling in self._queue:
             if rid == request_id:
                 return self._pack_host_only(request_id, tokens, sampling)
@@ -1367,6 +1419,13 @@ class InferenceEngine:
         that cannot be trusted or does not fit this engine's geometry;
         RuntimeError when no slot or not enough pages are free."""
         header, arrays = _snapshot_unpack(blob)
+        with spans.span('engine.restore',
+                        attrs={'origin_request_id':
+                               header.get('request_id')}):
+            return self._restore_locked(header, arrays)
+
+    def _restore_locked(self, header: Dict[str, Any],
+                        arrays: Dict[str, torch.Tensor]) -> int:
         try:
             sampling = SamplingParams(**header['sampling'])
             prompt = [int(t) for t in header['prompt']]
@@ -1472,9 +1531,77 @@ class InferenceEngine:
         self.state.last_tokens[i] = generated[-1]
         request_id = self._next_id
         self._next_id += 1
+        self._trace_begin(request_id)
         self.state.slots[i] = _Slot(request_id, sampling, generated,
                                     logprobs, prompt_len, prompt=prompt)
+        self._update_gauges()
         return request_id
+
+    # -- span plumbing (host-side phase attribution) -------------------------
+
+    def _trace_begin(self, request_id: int) -> None:
+        """Capture the span parent of this request at submit: the
+        caller's context (the server's request span) or an engine-owned
+        root when nothing upstream traces. SKYTPU_TRACE_MAX_SPANS=0
+        switches phase tracing off."""
+        if envs.SKYTPU_TRACE_MAX_SPANS.get() <= 0:
+            return
+        ctx = spans.current_context()
+        if ctx is None:
+            ctx = spans.SpanContext(spans.new_trace_id(),
+                                    spans.new_span_id())
+        spans.COLLECTOR.start_trace(ctx.trace_id)
+        self._req_trace[request_id] = ctx
+        self._req_kept[request_id] = spans.COLLECTOR.is_kept(ctx.trace_id)
+        self._req_submit_t[request_id] = time.time()
+        self._req_phases[request_id] = []
+
+    def _trace_phase(self, request_id: int, name: str, start: float,
+                     end: float, **attrs) -> None:
+        buf = self._req_phases.get(request_id)
+        if buf is not None:
+            buf.append((name, start, end, attrs))
+
+    def _trace_finish(self, request_id: int) -> None:
+        """Completion or abort: flush the buffered phase spans and
+        release the parent. A server-owned trace finalises when the
+        request span closes; an engine-owned one finalises here."""
+        ctx = self._req_trace.pop(request_id, None)
+        phases = self._req_phases.pop(request_id, None)
+        self._req_kept.pop(request_id, None)
+        self._req_submit_t.pop(request_id, None)
+        self._req_wait_t.pop(request_id, None)
+        if ctx is None:
+            return
+        for name, start, end, attrs in phases or ():
+            spans.COLLECTOR.record_span(
+                f'engine.{name}', trace_id=ctx.trace_id,
+                parent_id=ctx.span_id, start=start, end=end, attrs=attrs)
+        spans.COLLECTOR.finish_trace(ctx.trace_id)
+
+    def _trace_exemplar(self, request_ids) -> Optional[str]:
+        """A kept trace id among `request_ids`, for the exemplar of a
+        batched observation (the first kept wins), from the coin cached
+        at submit."""
+        for rid in request_ids:
+            if self._req_kept.get(rid):
+                return self._req_trace[rid].trace_id
+        return None
+
+    def _count(self, key: str, counter, n=1) -> None:
+        """Add `n` to this engine's `stats[key]` and to the
+        process-wide `counter`: each count is written here once, so the
+        two cannot drift apart."""
+        self.stats[key] += n
+        counter.inc(n)
+
+    def _observe_phase(self, phase: str, hist, elapsed: float,
+                       request_ids) -> None:
+        """Add `elapsed` to `stats[phase + '_seconds']` and observe it
+        on `hist`, with a kept trace among `request_ids` as its
+        exemplar."""
+        self.stats[phase + '_seconds'] += elapsed
+        hist.observe(elapsed, trace_id=self._trace_exemplar(request_ids))
 
     # -- admission and pages -------------------------------------------------
 
@@ -1503,6 +1630,7 @@ class InferenceEngine:
         slot_ids: List[int] = []
         while free and self._queue:
             matched: Optional[prefix_lib.MatchResult] = None
+            t_match: Optional[Tuple[float, float]] = None
             pinned: List[int] = []
             try:
                 if self.kv_page_size:
@@ -1518,7 +1646,9 @@ class InferenceEngine:
                         # Matched full pages map COW into the table;
                         # acquire() BEFORE any reclaim below, so eviction
                         # never harvests the pages this request matched.
+                        t_match0 = time.time()
                         matched = self._prefix.match(peek_trunc)
+                        t_match = (t_match0, time.time())
                         if matched.pages:
                             self._prefix.acquire(matched.pages)
                             pinned = list(matched.pages)
@@ -1535,9 +1665,31 @@ class InferenceEngine:
                             if pinned:
                                 self._prefix.release(pinned)
                                 pinned = []
+                            # The head request's pool wait starts here
+                            # (once); its span records at admission.
+                            if _rid in self._req_trace:
+                                self._req_wait_t.setdefault(_rid,
+                                                            time.time())
                             break
                 slot = free.pop(0)
                 request_id, tokens, sampling = self._queue.pop(0)
+                if request_id in self._req_trace:
+                    now = time.time()
+                    submit_t = self._req_submit_t.pop(request_id, None)
+                    if submit_t is not None:
+                        self._trace_phase(request_id, 'admission_wait',
+                                          submit_t, now)
+                    wait_t = self._req_wait_t.pop(request_id, None)
+                    if wait_t is not None:
+                        self._trace_phase(request_id, 'page_pool_wait',
+                                          wait_t, now)
+                    if t_match is not None:
+                        n_pages = len(matched.pages) if matched else 0
+                        self._trace_phase(
+                            request_id, 'prefix_match', t_match[0],
+                            t_match[1], matched_pages=n_pages,
+                            matched_tokens=(matched.tokens
+                                            if n_pages else 0))
                 tokens = tokens[:self.state.max_seq_len - 1]
                 if self.kv_page_size:
                     fresh = self._page_alloc[:need_private]
@@ -1565,10 +1717,15 @@ class InferenceEngine:
                 if pinned and self._prefix is not None:
                     self._prefix.release(pinned)
                 raise
-            self.stats['prompt_tokens'] += len(tokens)
+            # Counted after truncation, at insert: the tokens the engine
+            # prefills.
+            self._count('prompt_tokens', obs.PROMPT_TOKENS, len(tokens))
             if self._prefix is not None:
                 hit = matched is not None and bool(matched.pages)
-                self.stats['prefix_hits' if hit else 'prefix_misses'] += 1
+                if hit:
+                    self._count('prefix_hits', obs.PREFIX_CACHE_HITS)
+                else:
+                    self._count('prefix_misses', obs.PREFIX_CACHE_MISSES)
             if matched is not None and matched.pages:
                 # Warm request: prefill resumes at the first unmatched
                 # token, one narrow chunk per step. A fully-cached
@@ -1578,7 +1735,8 @@ class InferenceEngine:
                 if start >= len(tokens):
                     start = len(tokens) - 1
                     self._cow_slot_page(slot, start // self.kv_page_size)
-                self.stats['prefix_reused_tokens'] += start
+                self._count('prefix_reused_tokens',
+                            obs.PREFIX_CACHE_REUSED_TOKENS, start)
                 # Until its first chunk runs, the slot sits out decode
                 # rounds whose masked write lands at cache['length']:
                 # at 0 that is the shared page 0, so park it at the
@@ -1619,6 +1777,7 @@ class InferenceEngine:
                                dtype=torch.int32, device=dev)
         slot_arr = torch.tensor(slot_ids, dtype=torch.int64, device=dev)
         t0 = time.perf_counter()
+        w_prefill = time.time()
         logits, _ = prefill_chunked(
             self.params, padded, lengths, self.state.cache, slot_arr,
             self.config, chunk, use_flash=self._use_flash)
@@ -1631,14 +1790,22 @@ class InferenceEngine:
         first, first_lp = self._sample_host_params(
             logits, [s for _, _, s in inserts])
         self.state.last_tokens[slot_arr] = first
-        # One host sync for the whole insert.
+        # One host sync for the whole insert; the observed latency ends
+        # there and so covers the whole batched prefill.
         first_host, lp_host = first.tolist(), first_lp.tolist()
-        self.stats['prefill_seconds'] += time.perf_counter() - t0
+        elapsed = time.perf_counter() - t0
+        self._observe_phase('prefill', obs.PREFILL_SECONDS, elapsed,
+                            (r for r, _, _ in inserts))
+        w_end = time.time()
+        for rid, t, _s in inserts:
+            self._trace_phase(rid, 'prefill', w_prefill, w_end,
+                              bucket=bucket, chunk=chunk,
+                              prompt_tokens=len(t))
         for i, slot in enumerate(slot_ids):
             self.state.slots[slot].generated.append(int(first_host[i]))
             self.state.slots[slot].logprobs.append(float(lp_host[i]))
             self._maybe_pause_handoff(self.state.slots[slot])
-        self.stats['generated_tokens'] += len(slot_ids)
+        self._count('generated_tokens', obs.GENERATED_TOKENS, len(slot_ids))
 
     def _sample_host_params(self, logits: torch.Tensor,
                             params: List[Optional[SamplingParams]]
@@ -1664,7 +1831,8 @@ class InferenceEngine:
         freed = self._prefix.evict_lru(n_pages)
         if freed:
             self._page_alloc.extend(freed)
-            self.stats['prefix_evictions'] += len(freed)
+            self._count('prefix_evictions', obs.PREFIX_CACHE_EVICTIONS,
+                        len(freed))
 
     def _enforce_cache_cap(self) -> None:
         """Hold the radix index at prefix_cache_max_pages after a
@@ -1689,9 +1857,16 @@ class InferenceEngine:
             # bookkeeping bug, not a load condition.
             raise RuntimeError('COW needs a free page but the pool is empty')
         dst = self._page_alloc.pop(0)
+        w_cow = time.time()
         _copy_pool_page(self.state.cache['k'], src, dst)
         _copy_pool_page(self.state.cache['v'], src, dst)
         self.stats['cow_copies'] += 1
+        cow_slot = self.state.slots[i]
+        if cow_slot is not None:
+            # Dispatch-only timing (a copy never syncs): the span marks
+            # that a copy happened, and of which page.
+            self._trace_phase(cow_slot.request_id, 'cow_copy', w_cow,
+                              time.time(), page=src)
         self._slot_pages[i][idx] = dst
         self._slot_shared[i].discard(idx)
         self._set_table_rows(i, self._slot_pages[i])
@@ -1750,24 +1925,34 @@ class InferenceEngine:
         visible = torch.tensor([min(len(slot.pending), start + len(toks))],
                                dtype=torch.int32, device=dev)
         t0 = time.perf_counter()
+        w_chunk = time.time()
         hidden, _ = prefill_chunk_at(
             self.params, arr, start, visible, self.state.cache,
             torch.tensor([i], dtype=torch.int64, device=dev), self.config,
             chunk, use_flash=self._use_flash)
         slot.pos = start + len(toks)
         if slot.pos < len(slot.pending):
-            return  # non-final chunks don't sync
+            # A non-final chunk does not sync: no latency observation,
+            # but its span records (dispatch only, final=False).
+            self._trace_phase(slot.request_id, 'prefill_chunk', w_chunk,
+                              time.time(), width=chunk, pos=start,
+                              final=False)
+            return
         last_idx = len(slot.pending) - 1 - start
         logits = _project_logits(hidden[:, last_idx], self.params,
                                  self.config)
         first, first_lp = self._sample_host_params(logits, [slot.params])
         self.state.last_tokens[i] = first[0]
         token, lp = int(first[0]), float(first_lp[0])
-        self.stats['prefill_seconds'] += time.perf_counter() - t0
+        elapsed = time.perf_counter() - t0
+        self._observe_phase('prefill', obs.PREFILL_SECONDS, elapsed,
+                            (slot.request_id,))
+        self._trace_phase(slot.request_id, 'prefill_chunk', w_chunk,
+                          time.time(), width=chunk, pos=start, final=True)
         slot.generated.append(token)
         slot.logprobs.append(lp)
         slot.pending = None
-        self.stats['generated_tokens'] += 1
+        self._count('generated_tokens', obs.GENERATED_TOKENS)
         self._maybe_pause_handoff(slot)
 
     # -- slots and decode ----------------------------------------------------
@@ -1852,6 +2037,7 @@ class InferenceEngine:
                               device=self.device)
         budgets, eos_arr, max_len = self._slot_bounds()
         t0 = time.perf_counter()
+        w_step = time.time()
         (toks, lps, emitted_dev, new_last, rounds, proposed_dev,
          accepted_dev, _, _) = fused_spec_rounds(
             self.params, self.state.cache, self._draft_params,
@@ -1863,24 +2049,46 @@ class InferenceEngine:
         toks_host, lps_host, emit_host, proposed, acc_host = (
             toks.tolist(), lps.tolist(), emitted_dev.tolist(),
             int(proposed_dev), accepted_dev.tolist())
-        self.stats['decode_seconds'] += time.perf_counter() - t0
-        self.stats['decode_dispatches'] += 1
+        w_end = time.time()
+        elapsed = time.perf_counter() - t0
+        self._observe_phase('decode', obs.DECODE_STEP_SECONDS, elapsed, (
+            s.request_id for s in slots
+            if s is not None and s.pending is None))
+        self._count('decode_dispatches', obs.DECODE_HOST_STEPS)
         self.stats['spec_dispatches'] += 1
-        self.stats['spec_rounds'] += rounds
-        self.stats['spec_proposed_tokens'] += proposed
-        per_round = self.stats['spec_accepted_per_round']
+        self._count('spec_rounds', obs.SPEC_ROUNDS, rounds)
+        self._count('spec_proposed_tokens', obs.SPEC_PROPOSED_TOKENS,
+                    proposed)
+        # -1 marks (slot, round) cells the slot sat out; the histogram
+        # drains one bulk observe per acceptance value.
+        counts = [0] * (self.spec_k + 1)
         for row in acc_host:
             for n in row:
                 if n >= 0:
-                    per_round[n] += 1
-                    self.stats['spec_accepted_tokens'] += n
+                    counts[n] += 1
+        per_round = self.stats['spec_accepted_per_round']
+        accepted = 0
+        for n, c in enumerate(counts):
+            if c:
+                per_round[n] += c
+                accepted += n * c
+                obs.SPEC_ACCEPTED_PER_ROUND.observe_count(float(n), c)
+        self._count('spec_accepted_tokens', obs.SPEC_ACCEPTED_TOKENS,
+                    accepted)
+        emitted = 0
         for i, slot in enumerate(slots):
             if slot is None or slot.pending is not None:
                 continue
             n = int(emit_host[i])
             slot.generated.extend(int(t) for t in toks_host[i][:n])
             slot.logprobs.extend(float(x) for x in lps_host[i][:n])
-            self.stats['generated_tokens'] += n
+            emitted += n
+            self._trace_phase(slot.request_id, 'spec_decode', w_step,
+                              w_end, tokens=n, rounds=rounds,
+                              proposed=proposed)
+        self._count('generated_tokens', obs.GENERATED_TOKENS, emitted)
+        if emitted:
+            obs.DECODE_TOKENS_PER_STEP.observe(emitted)
 
     def _evict_finished(self) -> None:
         for i, slot in enumerate(self.state.slots):
@@ -1895,6 +2103,32 @@ class InferenceEngine:
                 self._finished[slot.request_id] = slot.generated
                 self._finished_logprobs[slot.request_id] = slot.logprobs
                 self._free_slot(i, publish=True)
+                obs.REQUESTS_FINISHED.inc()
+                self._trace_finish(slot.request_id)
+
+    def _update_gauges(self) -> None:
+        """Refresh the continuous-batching gauges from host-side slot
+        state (no device sync; slot bookkeeping mirrors the cache
+        lengths)."""
+        slots = self.state.slots
+        active = sum(1 for s in slots if s is not None)
+        obs.BATCH_SLOTS_ACTIVE.set(active)
+        obs.BATCH_OCCUPANCY.set(active / max(1, len(slots)))
+        obs.QUEUE_DEPTH.set(len(self._queue))
+        used = sum((s.pos if s.pending is not None
+                    else s.prompt_len + len(s.generated))
+                   for s in slots if s is not None)
+        obs.KV_CACHE_UTILIZATION.set(
+            used / max(1, len(slots) * self.state.max_seq_len))
+        if self.kv_page_size:
+            # free + cached (radix tree) + private (slot-exclusive) =
+            # total.
+            obs.KV_PAGES_TOTAL.set(self._pages_total)
+            obs.KV_PAGES_FREE.set(len(self._page_alloc))
+            cached = self.pages_cached()
+            obs.PREFIX_CACHE_PAGES.set(cached)
+            obs.KV_PAGES_PRIVATE.set(
+                self._pages_total - len(self._page_alloc) - cached)
 
     def _slab_fits(self, i: int) -> bool:
         """Does slot i's next k-wide verify slab fit the cache? Read from
@@ -1914,6 +2148,7 @@ class InferenceEngine:
         active_mask = [s is not None and s.pending is None
                        and not s.handoff_pause for s in self.state.slots]
         if not any(active_mask):
+            self._update_gauges()
             return
         if self._prefix is not None:
             # A decode write aimed at a shared page COWs it first.
@@ -1935,6 +2170,7 @@ class InferenceEngine:
             # valid keys, so such a step runs plain fused decode.
             self._spec_round(active_mask)
             self._evict_finished()
+            self._update_gauges()
             return
         slots = self.state.slots
         dev = self.device
@@ -1948,6 +2184,7 @@ class InferenceEngine:
         active = torch.tensor(active_mask, dtype=torch.bool, device=dev)
         budgets, eos_arr, max_len = self._slot_bounds()
         t0 = time.perf_counter()
+        w_step = time.time()
         toks, lps, emitted_dev, new_last, _ = fused_decode_steps(
             self.params, self.state.cache, self.state.last_tokens, active,
             temps, topks, topps, eos_arr, budgets, max_len, self._gen,
@@ -1956,16 +2193,29 @@ class InferenceEngine:
         # One host sync for every output of the round.
         toks_host, lps_host, emit_host = (toks.tolist(), lps.tolist(),
                                           emitted_dev.tolist())
-        self.stats['decode_seconds'] += time.perf_counter() - t0
-        self.stats['decode_dispatches'] += 1
+        w_end = time.time()
+        elapsed = time.perf_counter() - t0
+        self._observe_phase('decode', obs.DECODE_STEP_SECONDS, elapsed, (
+            s.request_id for s in slots
+            if s is not None and s.pending is None))
+        self._count('decode_dispatches', obs.DECODE_HOST_STEPS)
+        emitted = 0
         for i, slot in enumerate(slots):
             if slot is None or slot.pending is not None:
                 continue
             n = int(emit_host[i])
             slot.generated.extend(int(t) for t in toks_host[i][:n])
             slot.logprobs.extend(float(x) for x in lps_host[i][:n])
-            self.stats['generated_tokens'] += n
+            emitted += n
+            self._trace_phase(slot.request_id, 'decode', w_step, w_end,
+                              tokens=n, fused_steps=self.decode_fuse_steps)
+        # Per-token accounting of a multi-token host step, observed once
+        # per step (never per slot per token).
+        self._count('generated_tokens', obs.GENERATED_TOKENS, emitted)
+        if emitted:
+            obs.DECODE_TOKENS_PER_STEP.observe(emitted)
         self._evict_finished()
+        self._update_gauges()
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:

@@ -21,17 +21,34 @@ so its load balancer drives a port replica unchanged):
   POST /internal/restore?sent=n&stream=1        splice a blob (:748)
 Streams carry `X-SkyTPU-Migration-Key`, a non-terminal `handoff` frame
 for requests sent with `X-SkyTPU-Handoff: 1`, and a terminal `migrate`
-frame when a drain snapshots them; /health adds the page pool's
-composition, the prefix-cache counters and the speculative-decode
-counters (:486-494). SIGTERM drains, then exits; the server also exits
-when its launcher dies (`_watch_parent`, :853), unless
-`--no-exit-with-parent`.
+frame when a drain snapshots them. SIGTERM drains, then exits; the
+server also exits when its launcher dies (`_watch_parent`, :853),
+unless `--no-exit-with-parent`.
+
+The telemetry plane, as the reference's (:833-841), through the port's
+`observability` package:
+  GET /metrics              Prometheus text of the process registry
+  GET /internal/trace       the flight recorder's index, or with
+                            ?trace_id= one trace's spans, tree and
+                            Chrome-trace events (:622-643)
+  GET /internal/timeseries  the time-series ring (raw dump, or one
+                            windowed answer with ?query=)
+  GET /internal/alerts      the watchdog's rules and events
+Every route runs inside `instruments.http_middleware('inference')`
+(request counter and latency histogram, X-Request-ID, an
+`inference.request` span grafted onto an inbound `traceparent`,
+`X-Trace-ID` out). /health's `engine` block is read from the
+instruments' gauges and counters, key for key as the reference's
+(:455-495). `main()` starts the sampler and watchdog threads; an
+embedded server (`create_server`) starts none.
 
 One engine-loop thread owns the engine (and the card); HTTP handler
 threads (`ThreadingHTTPServer`) enqueue requests and wait on their
 watcher's queue, so concurrent requests join the running decode batch.
-The OpenAI routes, load shedding and the telemetry plane wait for later
-slices.
+A request's id and span context are captured in the handler thread at
+submit and rebound in the engine thread around `engine.submit`
+(:111-133, :249-279), so the engine's phase spans join the request's
+trace. The OpenAI routes and load shedding wait for later slices.
 
   python -m skypilot_tpu_torch.inference.server --model llama3-8b \
       --port 8080 [--device cuda] [--draft-model llama3-1b --spec-k 4]
@@ -55,6 +72,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
 from skypilot_tpu_torch import envs
+from skypilot_tpu_torch.observability import instruments as obs
+from skypilot_tpu_torch.observability import metrics as metrics_lib
+from skypilot_tpu_torch.observability import spans
+from skypilot_tpu_torch.observability import timeseries as timeseries_lib
+from skypilot_tpu_torch.observability import tracing
+from skypilot_tpu_torch.observability import watchdog as watchdog_lib
 
 
 class EngineLoop:
@@ -90,8 +113,8 @@ class EngineLoop:
         self._watchers: Dict[int, EngineLoop.Watcher] = {}
         self._by_key: Dict[str, EngineLoop.Watcher] = {}
         self._stop = threading.Event()
-        self.gauges: Dict[str, Any] = {}
-        self._refresh_gauges()
+        # /health reads the gauges: this engine's from the start.
+        engine._update_gauges()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name='engine-loop')
         self._thread.start()
@@ -106,7 +129,11 @@ class EngineLoop:
         watcher = self.Watcher(stream)
         watcher.key = key
         watcher.handoff = bool(handoff and stream)
-        self._submit_q.put(('gen', prompt, sampling, watcher))
+        # Contextvars do not cross the queue into the engine thread:
+        # capture the request id and span context here.
+        self._submit_q.put(('gen', prompt, sampling, watcher,
+                            tracing.get_request_id(),
+                            spans.current_context()))
         return watcher
 
     def restore(self, blob: bytes, sent: int = 0, stream: bool = True,
@@ -117,7 +144,9 @@ class EngineLoop:
         watcher = self.Watcher(stream)
         watcher.key = key
         watcher.sent = max(0, int(sent))
-        self._submit_q.put(('restore', blob, None, watcher))
+        self._submit_q.put(('restore', blob, None, watcher,
+                            tracing.get_request_id(),
+                            spans.current_context()))
         return watcher
 
     def run_on_engine(self, fn) -> 'concurrent.futures.Future':
@@ -223,33 +252,15 @@ class EngineLoop:
 
     # -- the loop ------------------------------------------------------------
 
-    def _refresh_gauges(self) -> None:
-        e = self.engine
-        in_flight = sum(1 for s in e.state.slots if s is not None)
-        total, free = e.pages_total(), e.pages_free()
-        cached = e.pages_cached()
-        st = e.stats
-        self.gauges = {
-            'queue_depth': e.queue_depth(),
-            'in_flight': in_flight,
-            'batch_occupancy': in_flight / max(1, len(e.state.slots)),
-            'kv_pages': {'total': total, 'free': free, 'cached': cached,
-                         'private': total - free - cached},
-            'prefix_cache': {'hits': st['prefix_hits'],
-                             'misses': st['prefix_misses'],
-                             'reused_tokens': st['prefix_reused_tokens'],
-                             'evictions': st['prefix_evictions']},
-            # Zeros without a draft; acceptance over a window is the
-            # accepted/proposed counter-delta ratio.
-            'spec': {'rounds': st['spec_rounds'],
-                     'proposed_tokens': st['spec_proposed_tokens'],
-                     'accepted_tokens': st['spec_accepted_tokens']},
-        }
-
     def _process_submission(self, item) -> None:
-        kind, payload, sampling, watcher = item
+        kind, payload, sampling, watcher, req_id, span_ctx = item
         if watcher.aborted:
             return
+        # Rebind the handler's request context for engine.submit, which
+        # captures the span parent of the request's phases.
+        rid_token = tracing.bind(req_id) if req_id else None
+        ctx_token = (spans.bind_context(span_ctx)
+                     if span_ctx is not None else None)
         try:
             if kind == 'restore':
                 rid = self.engine.restore_request(payload)
@@ -264,6 +275,11 @@ class EngineLoop:
                    else str(e))
             watcher.push(('error', msg))
             return
+        finally:
+            if ctx_token is not None:
+                spans.unbind_context(ctx_token)
+            if rid_token is not None:
+                tracing.unbind(rid_token)
         watcher.rid = rid
         self._watchers[rid] = watcher
         if watcher.key:
@@ -315,7 +331,6 @@ class EngineLoop:
                 self._watchers.clear()
                 self._by_key.clear()
                 self.engine.abort_all()
-            self._refresh_gauges()
 
     def _tick(self) -> None:
         self._drain_commands()
@@ -364,9 +379,12 @@ class EngineLoop:
                 self.engine.resume_handoff(rid)
                 continue
             try:
-                blob = self.engine.snapshot_request(rid)
+                with spans.span('engine.handoff_snapshot',
+                                attrs={'request_id': rid}):
+                    blob = self.engine.snapshot_request(rid)
             except Exception:  # noqa: BLE001 — degrade, don't fail
-                # Unsnapshottable (size cap): decode co-located.
+                # Unsnapshottable (size cap, injected fault): decode
+                # co-located.
                 self.engine.resume_handoff(rid)
                 continue
             watcher.push(('handoff', {
@@ -389,11 +407,60 @@ def _sse(payload: Dict[str, Any]) -> bytes:
     return f'data: {json.dumps(payload)}\n\n'.encode()
 
 
+def _health_engine() -> Dict[str, Any]:
+    """/health's `engine` block, read from the instruments (reference
+    :455-495): liveness detail without a device sync."""
+    return {
+        'queue_depth': int(obs.QUEUE_DEPTH.value()),
+        'in_flight': int(obs.BATCH_SLOTS_ACTIVE.value()),
+        'batch_occupancy': obs.BATCH_OCCUPANCY.value(),
+        'kv_cache_utilization': obs.KV_CACHE_UTILIZATION.value(),
+        'kv_pages': {
+            'total': int(obs.KV_PAGES_TOTAL.value()),
+            'free': int(obs.KV_PAGES_FREE.value()),
+            'cached': int(obs.PREFIX_CACHE_PAGES.value()),
+            'private': int(obs.KV_PAGES_PRIVATE.value()),
+        },
+        'prefix_cache': {
+            'hits': int(obs.PREFIX_CACHE_HITS.value()),
+            'misses': int(obs.PREFIX_CACHE_MISSES.value()),
+            'reused_tokens': int(obs.PREFIX_CACHE_REUSED_TOKENS.value()),
+            'evictions': int(obs.PREFIX_CACHE_EVICTIONS.value()),
+        },
+        # Zeros without a draft; acceptance over a window is the
+        # accepted/proposed counter-delta ratio.
+        'spec': {
+            'rounds': int(obs.SPEC_ROUNDS.value()),
+            'proposed_tokens': int(obs.SPEC_PROPOSED_TOKENS.value()),
+            'accepted_tokens': int(obs.SPEC_ACCEPTED_TOKENS.value()),
+        },
+    }
+
+
+def _trace_doc(query: Dict[str, str]) -> Tuple[Dict[str, Any], int]:
+    """/internal/trace: the flight recorder's index, or one trace's
+    spans, tree and Chrome-trace events (reference :622-643)."""
+    trace_id = query.get('trace_id')
+    if not trace_id:
+        return {'traces': [
+            {'trace_id': t['trace_id'], 'error': t['error'],
+             'duration': t['duration'], 'spans': len(t['spans'])}
+            for t in spans.COLLECTOR.recent_trees()]}, 200
+    records = spans.COLLECTOR.spans_for(trace_id)
+    if not records:
+        return {'error': f'unknown trace_id {trace_id!r} (dropped by '
+                         'sampling, evicted, or never seen here)'}, 404
+    return {'trace_id': trace_id, 'spans': records,
+            'tree': spans.tree_view(records),
+            'traceEvents': spans.to_chrome_trace(records)['traceEvents']}, 200
+
+
 def make_handler(holder: Dict[str, Any]):
     """The request handler class, bound to `holder` ({'loop':
     EngineLoop or None while loading; 'draining': True once a drain
     started})."""
 
+    @obs.http_middleware('inference')
     class Handler(BaseHTTPRequestHandler):
         server_version = 'skypilot-tpu-torch'
 
@@ -426,7 +493,20 @@ def make_handler(holder: Dict[str, Any]):
                 if loop is None:
                     self._json({'status': 'loading'}, 503)
                     return
-                self._json({'status': 'ok', 'engine': dict(loop.gauges)})
+                self._json({'status': 'ok', 'engine': _health_engine()})
+            elif path == '/metrics':
+                body, content_type = metrics_lib.handler()
+                self.send_response(200)
+                self.send_header('Content-Type', content_type)
+                self.send_header('Content-Length', str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif path == '/internal/trace':
+                self._json(*_trace_doc(query))
+            elif path == '/internal/timeseries':
+                self._json(timeseries_lib.handler(query))
+            elif path == '/internal/alerts':
+                self._json(watchdog_lib.handler())
             elif path == '/internal/snapshot':
                 self._snapshot(loop, query)
             elif path == '/internal/resume':
@@ -486,6 +566,7 @@ def make_handler(holder: Dict[str, Any]):
                     self._wait(watcher, bool(body.get('logprobs', False)))
             except (BrokenPipeError, ConnectionResetError):
                 loop.abort(watcher)
+                raise  # the middleware counts it as 499
 
         def _wait(self, watcher, want_logprobs: bool,
                   first: Optional[Tuple[str, Any]] = None) -> None:
@@ -649,6 +730,7 @@ def make_handler(holder: Dict[str, Any]):
                     self._wait(watcher, False, (kind, payload))
             except (BrokenPipeError, ConnectionResetError):
                 loop.abort(watcher)
+                raise  # the middleware counts it as 499
 
     return Handler
 
@@ -656,7 +738,9 @@ def make_handler(holder: Dict[str, Any]):
 def create_server(holder: Dict[str, Any], host: str = '0.0.0.0',
                   port: int = 8080) -> ThreadingHTTPServer:
     """An HTTP server bound to (host, port); run it with
-    serve_forever() and stop it with shutdown() + server_close()."""
+    serve_forever() and stop it with shutdown() + server_close(). It
+    starts no sampler or watchdog thread (main() does), so embedded
+    servers stay thread-free."""
     server = ThreadingHTTPServer((host, port), make_handler(holder))
     server.daemon_threads = True
     return server
@@ -744,6 +828,10 @@ def main() -> None:
     args = parser.parse_args()
     if not args.no_exit_with_parent:
         _watch_parent()
+    # The live telemetry plane: the registry sampler and the SLO
+    # watchdog (each a no-op when its interval knob is 0).
+    timeseries_lib.start_sampler()
+    watchdog_lib.start_watchdog()
 
     holder: Dict[str, Any] = {'loop': None}
     server = create_server(holder, port=args.port)

@@ -7,10 +7,14 @@ Ports `skypilot_tpu/train/loop.py`: `fit` (:42-158) and `main`
 (:161-195), with the same flags plus `--device` (default CUDA; `--device
 cpu` runs the plain paths on the CPU). Each log window logs its loss,
 tokens/s and MFU through `log_fn` and records them in the result's
-`history`. Not ported yet, and refused rather than ignored:
-checkpoints (`--checkpoint-dir`, `--checkpoint`; ROADMAP.md's checkpoint
-slice), a mesh of more than one device (`--mesh`; the parallel slice),
-and the `obs.TRAIN_*` instruments (the observability slice).
+`history`. Every step reports through the port's instruments at the
+reference's points (:135-147): `TRAIN_STEP_SECONDS` (the step's wall
+time, asynchronous dispatch included: the loss read of a log window is
+the only sync), `TRAIN_TOKENS` and `TRAIN_STEP`; each log window sets
+`TRAIN_MFU` and `TRAIN_LOSS`. Not ported yet, and refused rather than
+ignored: checkpoints (`--checkpoint-dir`, `--checkpoint`; ROADMAP.md's
+checkpoint slice) and a mesh of more than one device (`--mesh`; the
+parallel slice).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import torch
 
 from skypilot_tpu_torch import device as device_lib
+from skypilot_tpu_torch.observability import instruments as obs
 from skypilot_tpu_torch.train import trainer as trainer_lib
 
 _CHECKPOINT_SLICE = ('checkpoints are not ported yet: they come with the '
@@ -59,8 +64,16 @@ def fit(cfg: trainer_lib.TrainerConfig,
     history = []
     metrics: Dict[str, Any] = {}
     t_last = time.perf_counter()
+    t_step = t_last
     for i in range(cfg.max_steps):
         state, metrics = step_fn(state, batch_fn(i))
+        # The serving planes' registry: per-step wall time (dispatch
+        # included; no sync is added for it), tokens and progress.
+        now = time.perf_counter()
+        obs.TRAIN_STEP_SECONDS.observe(now - t_step)
+        t_step = now
+        obs.TRAIN_TOKENS.inc(tokens_per_step)
+        obs.TRAIN_STEP.set(i + 1)
         if (i + 1) % log_every == 0:
             loss = float(metrics['loss'])
             dt = time.perf_counter() - t_last
@@ -68,6 +81,9 @@ def fit(cfg: trainer_lib.TrainerConfig,
             tps = tokens_per_step * log_every / dt
             mfu = (trainer_lib.mfu(tps, mcfg, cfg.seq_len, peak)
                    if peak else None)
+            if mfu is not None:
+                obs.TRAIN_MFU.set(mfu)
+            obs.TRAIN_LOSS.set(loss)
             history.append({'step': i + 1, 'loss': loss,
                             'step_s': dt / log_every,
                             'tokens_per_s': tps, 'mfu': mfu})

@@ -7,6 +7,7 @@ The readings themselves come from the card; here the verdict functions
 are held to their limits and every planted fault is held to apply
 exactly once to the kernel source.
 """
+import math
 import os
 import subprocess
 import sys
@@ -19,6 +20,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 import kernel_fault_check  # noqa: E402
+import obs_overhead_check  # noqa: E402
 import spec_fault_check  # noqa: E402
 
 SOUND = {'max_abs_err': 0.0078125, 'lse_max_abs_err': 2e-6,
@@ -736,3 +738,245 @@ def test_gemma_train_phases_rehearse_on_cpu(monkeypatch, one_torch_thread,
         'K3': {local: 4, 2 ** 30: 4}, 'K4': {local: 4, 2 ** 30: 4}}
     assert out['heads'] == [2, 1, 256] and out['remat']
     assert out['losses'][-1] < out['losses'][0]
+
+
+# -- the telemetry plane (server phase, overhead phase) -----------------------
+
+OBS_WANT = {'skytpu_prompt_tokens_total': 1800,
+            'skytpu_generated_tokens_total': 36,
+            'skytpu_requests_finished_total': 3,
+            'skytpu_http_requests_total{plane="inference",method="POST",'
+            'code="200"}': 3,
+            'skytpu_decode_host_steps_total': 5,
+            'skytpu_prefill_seconds_count': 2}
+
+
+def test_counter_delta_check_catches_a_missing_increment():
+    assert chip_smoke.counter_faults(dict(OBS_WANT), OBS_WANT) == []
+    short = {**OBS_WANT, 'skytpu_prompt_tokens_total': 1500}
+    faults = chip_smoke.counter_faults(short, OBS_WANT)
+    assert len(faults) == 1 and 'skytpu_prompt_tokens_total' in faults[0]
+    missing = {k: v for k, v in OBS_WANT.items()
+               if k != 'skytpu_prompt_tokens_total'}
+    assert len(chip_smoke.counter_faults(missing, OBS_WANT)) == 1
+
+
+def test_parse_metrics_reads_the_exposition():
+    from skypilot_tpu_torch.observability import metrics
+    reg = metrics.Registry()
+    c = metrics.Counter('skytpu_x_total', 'X.', labelnames=('code',),
+                        registry=reg)
+    h = metrics.Histogram('skytpu_x_seconds', 'X.', buckets=(0.1, 1.0),
+                          registry=reg)
+    c.labels(code='200').inc(3)
+    h.observe(0.05, trace_id='ab' * 16)
+    h.observe(0.5)
+    got = chip_smoke.parse_metrics(reg.generate_text())
+    assert got['skytpu_x_total{code="200"}'] == 3
+    assert got['skytpu_x_seconds_bucket{le="0.1"}'] == 1
+    assert got['skytpu_x_seconds_count'] == 2
+    assert got['skytpu_x_seconds_sum'] == pytest.approx(0.55)
+
+
+def _trace_doc(orphan=False, late=False):
+    """An /internal/trace document: a request span and its engine
+    phases (optionally one whose parent is lost, or one that ends after
+    the request span)."""
+    from skypilot_tpu_torch.observability import spans
+    root = {'name': 'inference.request', 'trace_id': 't' * 32,
+            'span_id': 'r' * 16, 'parent_id': None, 'start': 10.0,
+            'end': 12.0, 'attrs': {}, 'status': 'ok'}
+    recs = [root]
+    for k, name in enumerate(('engine.admission_wait', 'engine.prefill',
+                              'engine.decode', 'engine.decode')):
+        recs.append({**root, 'name': name, 'span_id': f'{k:016x}',
+                     'parent_id': root['span_id'], 'start': 10.1 + 0.3 * k,
+                     'end': 10.3 + 0.3 * k})
+    if orphan:
+        recs[-1] = {**recs[-1], 'parent_id': 'f' * 16}
+    if late:
+        recs[-1] = {**recs[-1], 'end': 12.5}
+    return {'trace_id': root['trace_id'], 'spans': recs,
+            'tree': spans.tree_view(recs)}
+
+
+def test_span_tree_check_catches_an_orphan_engine_span():
+    assert chip_smoke.span_tree_faults(_trace_doc()) == []
+    faults = chip_smoke.span_tree_faults(_trace_doc(orphan=True))
+    assert len(faults) == 1 and 'roots' in faults[0]
+    faults = chip_smoke.span_tree_faults(_trace_doc(late=True))
+    assert faults == ['engine.decode outside the request span']
+    doc = _trace_doc()
+    doc['tree'][0]['children'] = [c for c in doc['tree'][0]['children']
+                                  if c['name'] != 'engine.prefill']
+    assert chip_smoke.span_tree_faults(doc) == [
+        'no engine.prefill or engine.prefill_chunk']
+
+
+def test_overhead_limit():
+    assert chip_smoke.overhead_faults({'overhead_frac': 0.031}) == []
+    assert chip_smoke.overhead_faults({'overhead_frac': -0.02}) == []
+    faults = chip_smoke.overhead_faults({'overhead_frac': 0.2})
+    assert len(faults) == 1 and 'overhead_frac 0.2' in faults[0]
+    assert chip_smoke.overhead_faults({'overhead_frac': float('nan')})
+    assert chip_smoke.TOL_OBS_OVERHEAD == 0.10
+
+
+def test_telemetry_modes_restore_knobs_and_stop_threads(monkeypatch):
+    import threading
+
+    from skypilot_tpu_torch.observability import watchdog
+    monkeypatch.setenv('SKYTPU_TRACE_SAMPLE', '0.5')
+    monkeypatch.delenv('SKYTPU_TRACE_MAX_SPANS', raising=False)
+    with chip_smoke.telemetry('off'):
+        assert os.environ['SKYTPU_TRACE_MAX_SPANS'] == '0'
+        assert 'SKYTPU_TRACE_SAMPLE' not in os.environ
+        names = {t.name for t in threading.enumerate()}
+        assert not names & {'skytpu-ts-sampler', 'skytpu-watchdog'}
+    with chip_smoke.telemetry('threads'):
+        assert os.environ['SKYTPU_TRACE_MAX_SPANS'] == '0'
+        names = {t.name for t in threading.enumerate()}
+        assert {'skytpu-ts-sampler', 'skytpu-watchdog'} <= names
+    with chip_smoke.telemetry('on'):
+        assert os.environ['SKYTPU_TRACE_SAMPLE'] == '1.0'
+        names = {t.name for t in threading.enumerate()}
+        assert {'skytpu-ts-sampler', 'skytpu-watchdog'} <= names
+        assert watchdog.get_watchdog() is not None
+    names = {t.name for t in threading.enumerate()}
+    assert not names & {'skytpu-ts-sampler', 'skytpu-watchdog'}
+    assert os.environ['SKYTPU_TRACE_SAMPLE'] == '0.5'
+    assert 'SKYTPU_TRACE_MAX_SPANS' not in os.environ
+
+
+def test_server_and_overhead_phases_rehearse_on_cpu(monkeypatch,
+                                                    one_torch_thread):
+    """chip_smoke's server phase, its telemetry checks included, and the
+    overhead phase at the `tiny` size on the CPU, with the counting
+    stand-in for the kernel launch: the /metrics deltas equal the
+    prompts, the tokens and the engine's stats, each trace is a request
+    span over the engine's phases, and the four engines are timed."""
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch import models as models_lib
+    from skypilot_tpu_torch.ops import flash_attention as fa
+
+    def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
+               v_scale=None):
+        fa.flash_attention.launches += 1
+        return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
+                         k_scale=k_scale, v_scale=v_scale)
+
+    def flash_fwd(q, k, v, causal=True, block_q=512, block_k=512,
+                  window=None, softcap=None, q_offset=None, k_scale=None,
+                  v_scale=None):
+        return fa._launch(q, k, v, causal, window, softcap, q_offset,
+                          k_scale=k_scale, v_scale=v_scale)
+
+    monkeypatch.setattr(fa, '_launch', launch)
+    monkeypatch.setattr(fa, 'flash_fwd', flash_fwd)
+    monkeypatch.setattr(chip_smoke, 'DEV', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'SERVER_KW', dict(
+        batch_size=4, max_seq_len=128, prefill_chunk=32, kv_page_size=8,
+        use_flash=True))
+    monkeypatch.setattr(chip_smoke, 'SERVER_REQUESTS',
+                        ((30, 8, False), (90, 12, False), (60, 16, True)))
+    monkeypatch.setattr(chip_smoke, 'ENGINE_KW', dict(
+        batch_size=4, max_seq_len=128, prefill_chunk=32, kv_page_size=8))
+    monkeypatch.setattr(chip_smoke, 'OVERHEAD_PROMPT', 12)
+    _short_overhead_blocks(monkeypatch)
+    from skypilot_tpu_torch.observability import instruments as obs
+    # On the card earlier phases made the generated-tokens series; a
+    # fresh process has none until its first increment.
+    obs.GENERATED_TOKENS.inc(0)
+    family, config = models_lib.resolve('tiny')
+    params = family.init_params(config, torch.Generator().manual_seed(0),
+                                'cpu')
+    out = chip_smoke.server_phase(torch, inference, fa, params, config)
+    obs = out['observability']
+    assert obs['deltas'] == obs['want']
+    assert obs['want']['skytpu_prompt_tokens_total'] == 180
+    assert obs['want']['skytpu_generated_tokens_total'] == 36
+    assert len(obs['traces']) == 3 and obs['generated_tokens_rate'] > 0
+    for trace in obs['traces']:
+        assert trace['children']['engine.admission_wait'] == 1
+        assert trace['children']['engine.decode'] >= 1
+    assert set(obs['statuses'].values()) == {200}
+    assert obs['alert_rules'] == ['anomaly(decode_step)', 'anomaly(ttft)']
+    out = chip_smoke.overhead_phase(torch, inference, params, config)
+    _check_overhead_reading(out)
+
+
+def _short_overhead_blocks(monkeypatch):
+    """The overhead phase, obs_overhead_check's block reading and the
+    threads' intervals at the tiny engine's scale, with room in its
+    budget for every step."""
+    monkeypatch.setattr(chip_smoke, 'ENGINE_KW', dict(
+        batch_size=4, max_seq_len=512, prefill_chunk=32, kv_page_size=8))
+    monkeypatch.setattr(chip_smoke, 'OVERHEAD_ROUNDS', 12)
+    monkeypatch.setattr(obs_overhead_check, 'BLOCK_CYCLES', 2)
+    monkeypatch.setattr(obs_overhead_check, 'BLOCK_SECONDS', 0.15)
+    fast = {'SKYTPU_TS_SAMPLE_SECONDS': '0.01',
+            'SKYTPU_WATCHDOG_TICK_SECONDS': '0.02'}
+    monkeypatch.setitem(chip_smoke.OBS_ENV, 'on', {
+        'SKYTPU_TRACE_SAMPLE': '1.0', **fast})
+    monkeypatch.setitem(chip_smoke.OBS_ENV, 'threads', {
+        'SKYTPU_TRACE_MAX_SPANS': '0', **fast})
+
+
+def _check_overhead_reading(out):
+    assert set(out['p50_ms']) == {'off', 'off2', 'on'}
+    assert all(v > 0 for v in out['p50_ms'].values())
+    for key in ('steps_frac', 'aa_frac', 'overhead_frac'):
+        assert math.isfinite(out[key])
+    assert out['overhead_frac'] == \
+        out['steps_frac'] + out['telemetry_host_share']
+    # The threads ran inside the timed rounds.
+    assert out['thread_passes']['samples'] > 0
+    assert out['thread_passes']['ticks'] > 0
+    assert out['host_ms']['sample_ms'] > 0 and out['host_ms']['tick_ms'] > 0
+    assert out['telemetry_host_share'] > 0
+
+
+def test_overhead_phase_reads_a_planted_registry_walk(monkeypatch,
+                                                      one_torch_thread):
+    """obs_overhead_check's planted fault, a render of the registry per
+    generated token in the traced engine, reads above TOL_OBS_OVERHEAD in
+    the overhead phase at the tiny size; the plant is gone afterwards,
+    and the block reading of the threads runs."""
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch import models as models_lib
+    from skypilot_tpu_torch.inference.engine import InferenceEngine
+    monkeypatch.setattr(chip_smoke, 'DEV', 'cpu')
+    monkeypatch.setattr(chip_smoke, 'OVERHEAD_PROMPT', 12)
+    _short_overhead_blocks(monkeypatch)
+    family, config = models_lib.resolve('tiny')
+    params = family.init_params(config, torch.Generator().manual_seed(0),
+                                'cpu')
+    count = InferenceEngine._count
+    with obs_overhead_check.planted('registry_walk_per_token'):
+        out = chip_smoke.overhead_phase(torch, inference, params, config)
+    assert InferenceEngine._count is count
+    _check_overhead_reading(out)
+    assert out['steps_frac'] > chip_smoke.TOL_OBS_OVERHEAD
+    assert chip_smoke.overhead_faults(out)
+    reading = obs_overhead_check.reading(
+        chip_smoke, out, 'planted', 'registry_walk_per_token',
+        obs_overhead_check.walk_ms())
+    assert reading['renders_a_step'] == 4 * 2
+    assert reading['caught'] and reading['planted_cost_frac'] > 0.10
+    assert reading['right']
+    blocks = obs_overhead_check.threads_blocks(chip_smoke, inference,
+                                               params, config)
+    assert blocks['blocks'] == 5 and len(blocks['block_p50_ms']) == 5
+    assert blocks['thread_passes']['samples'] > 0
+    assert blocks['thread_passes']['ticks'] > 0
+    assert math.isfinite(blocks['threads_frac'])
+    assert math.isfinite(blocks['aa_frac'])
+
+
+def test_overhead_check_refuses_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip('CUDA present')
+    proc = subprocess.run([sys.executable, os.path.join(
+        REPO, 'obs_overhead_check.py')], capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 2 and proc.stdout == ''

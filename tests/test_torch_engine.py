@@ -419,7 +419,15 @@ def test_env_defaults_match_reference_registry():
         'SKYTPU_MIGRATION_MAX_BYTES', 'SKYTPU_HANDOFF_LEASE_SECONDS',
         'SKYTPU_SPEC_K', 'SKYTPU_SPEC_FUSE_ROUNDS',
         'SKYTPU_WATCHDOG_INTERVAL', 'SKYTPU_HF_IMPORT_STRICT',
-        'SKYTPU_HF_IMPORT_CONCURRENCY'}
+        'SKYTPU_HF_IMPORT_CONCURRENCY',
+        # the observability plane and the fault registry
+        'SKYTPU_FAULTS', 'SKYTPU_TRACE_SAMPLE', 'SKYTPU_TRACE_MAX_SPANS',
+        'SKYTPU_TRACE_RECORDER_CAPACITY', 'SKYTPU_TRACE_SLOW_SECONDS',
+        'SKYTPU_TRACE_DUMP_DIR', 'SKYTPU_TS_SAMPLE_SECONDS',
+        'SKYTPU_TS_CAPACITY', 'SKYTPU_TS_MAX_SERIES',
+        'SKYTPU_WATCHDOG_TICK_SECONDS', 'SKYTPU_WATCHDOG_RULES',
+        'SKYTPU_WATCHDOG_WINDOW_SECONDS', 'SKYTPU_WATCHDOG_BREACH_TICKS',
+        'SKYTPU_WATCHDOG_CLEAR_TICKS', 'SKYTPU_WATCHDOG_ANOMALY_Z'}
     for name, var in port_vars.items():
         assert (var.type, var.default) == (ref_vars[name].type,
                                            ref_vars[name].default), name

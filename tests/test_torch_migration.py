@@ -574,7 +574,7 @@ def test_restore_without_room_is_409(servers):
     for t in threads:
         t.start()
     for _ in range(200):
-        if two.holder['loop'].gauges['in_flight'] == 2:
+        if all(slot is not None for slot in two.engine.state.slots):
             break
         time.sleep(0.02)
     status, _, body = _call(two.base + '/internal/restore?stream=0',

@@ -2,7 +2,8 @@
 
 A subprocess blocks those packages in `sys.modules`, then imports every
 module of `skypilot_tpu_torch` and the root `chip_smoke.py`,
-`kernel_fault_check.py` and `spec_fault_check.py`; any
+`kernel_fault_check.py`, `spec_fault_check.py` and
+`obs_overhead_check.py`; any
 forbidden import fails it. Entry points raise without CUDA unless the
 caller names a device.
 """
@@ -31,6 +32,7 @@ for info in pkgutil.walk_packages(skypilot_tpu_torch.__path__,
     names.append(info.name)
 import chip_smoke
 import kernel_fault_check
+import obs_overhead_check
 import spec_fault_check
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in BLOCKED and sys.modules[m] is not None)
@@ -62,9 +64,18 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.device',
                    'skypilot_tpu_torch.train',
                    'skypilot_tpu_torch.train.trainer',
-                   'skypilot_tpu_torch.train.loop'):
+                   'skypilot_tpu_torch.train.loop',
+                   'skypilot_tpu_torch.observability.metrics',
+                   'skypilot_tpu_torch.observability.tracing',
+                   'skypilot_tpu_torch.observability.spans',
+                   'skypilot_tpu_torch.observability.instruments',
+                   'skypilot_tpu_torch.observability.timeseries',
+                   'skypilot_tpu_torch.observability.watchdog',
+                   'skypilot_tpu_torch.observability.top',
+                   'skypilot_tpu_torch.observability.trace_dump',
+                   'skypilot_tpu_torch.resilience.faults'):
         assert module in names.split()
-    assert int(count) >= 22
+    assert int(count) >= 33
 
 
 def test_entry_points_raise_without_cuda():
