@@ -127,6 +127,53 @@ Phases, each printing one JSON line:
                   with --checkpoint: greedy /generate token for token
                   equal; the import's CKPT_IMPORT_* deltas equal its
                   ImportStats. (12-18 run after phase 7.)
+ 21. openai     - (after 7) the OpenAI routes on the port's server in this
+                  process over phase 5's llama3-8b params (OPENAI_KW: 8
+                  slots, no prefix cache, no interleave): /v1/models
+                  gives the served name; a token-id /v1/completions
+                  equals /generate on the same prompt token for token and
+                  logprob for logprob (sent one at a time, so the batch
+                  holds the same rows); n=2 greedy gives two identical
+                  choices; a stream concatenates to the non-streamed
+                  tokens; a text prompt and a chat request through
+                  ToyTokenizer (a stdlib word-level tokenizer; the card
+                  has no transformers) equal /generate on the encoded
+                  prompt; a stop string truncates the text and, streamed,
+                  ends the stream and aborts the request; usage equals the
+                  counts; K1's launches around the /v1 requests equal
+                  expected_prefill_launches of the admissions read around
+                  the engine (`admissions`); the /metrics deltas equal the
+                  requests and tokens.
+ 22. shedding   - the same server with max_queue_depth SHED_LIMIT: 10
+                  streams, each admitted or queued before the next
+                  arrives, fill the 8 slots (long ones) and queue 2
+                  (short ones); then /generate
+                  and /v1/completions each get 503 with Retry-After: 1
+                  and REQUESTS_SHED rises by exactly 2; once the queue
+                  drains a request gets 200, nothing else was shed, and
+                  every stream finishes.
+ 23. batch      - (after 18) `python -m skypilot_tpu_torch.inference.batch`
+                  as a process: 16 JSONL prompts of 100-1500 tokens, 32
+                  new each, greedy, on llama3-8b (bf16, then int8 KV: K2)
+                  and on phase 18's HF checkpoint; each output equal, byte
+                  for byte, to run_batch in this process on an engine
+                  built from the same flags, whose K1 (K2) launches equal
+                  the admissions' expected count; the process's tok/s.
+ 24. roundtrip  - the fine-tune round trip at gemma2-2b width, 2 layers:
+                  fit from phase 18's HF checkpoint, 4 steps at 1 x 8192
+                  with a train checkpoint every 2 (K3 = K4 = 2 x 4, K1
+                  2 x 2 x 4); a second fit to step 6 resumes at step 4,
+                  its losses within TOL_RESUME_LOSS of an uninterrupted
+                  6-step run; the resumed params exported to HF
+                  (CKPT_EXPORT_* equal to ExportStats) load back bit for
+                  bit and serve (build_engine(checkpoint=)) token for
+                  token as an engine on the in-memory params; batch
+                  --checkpoint on the train checkpoint as a process; a
+                  step without its sentinel is not resumed; phase 18's
+                  imported params re-export byte for byte; the
+                  checkpoints CLI's inspect and verify as processes (rc 0
+                  clean, non-zero with a NaN planted and on a truncated
+                  shard). Save, restore and export seconds and GB/s.
   8. check_bwd  - K3 (flash_attention_dq) and K4 (flash_attention_dkv,
                   ops/csrc/flash_bwd.cu) against flash_attention_bwd_plain
                   on the same bf16 inputs: the training shape, rows with
@@ -170,13 +217,16 @@ Phases, each printing one JSON line:
                   instruments as in phase 11; step time,
                   tok/s, MFU, peak memory, the optimizer's ms and one step
                   under the profiler. (19-20 run after phase 11.)
-Then a `kernels` line and, last, {"ok": true, "device": {...}}.
+Then a `kernels` line (each kernel's `path_launches`: its launches on
+the openai, batch and roundtrip paths) and, last,
+{"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
 """
 import collections
 import contextlib
 import dataclasses
+import filecmp
 import gc
 import json
 import math
@@ -917,24 +967,34 @@ def poll(fn, ok, timeout=10.0):
 
 
 @contextlib.contextmanager
-def counted(obj, name, counts, key):
-    """Count the calls of `obj.name` in `counts[key]` for the block,
-    outside the books of the code that makes them."""
+def patched(obj, name, wrap):
+    """`obj.name` replaced by `wrap(obj.name)` for the block, then
+    restored (an attribute the object did not hold itself, such as a
+    method of its class, is deleted again)."""
     fn = getattr(obj, name)
     own = name in vars(obj)
-
-    def wrapper(*args, **kwargs):
-        counts[key] += 1
-        return fn(*args, **kwargs)
-
-    setattr(obj, name, wrapper)
+    setattr(obj, name, wrap(fn))
     try:
-        yield counts
+        yield
     finally:
         if own:
             setattr(obj, name, fn)
         else:
             delattr(obj, name)
+
+
+@contextlib.contextmanager
+def counted(obj, name, counts, key):
+    """Count the calls of `obj.name` in `counts[key]` for the block,
+    outside the books of the code that makes them."""
+    def wrap(fn):
+        def wrapper(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    with patched(obj, name, wrap):
+        yield counts
 
 
 @contextlib.contextmanager
@@ -1401,12 +1461,16 @@ def hit_shape_readings(torch, fa, quant, hit_shapes):
             for hit in hit_shapes]
 
 
-def sse_frames(resp):
-    """The SSE frames of an open HTTP response, one dict at a time."""
-    for line in resp:
+def sse_frames(lines):
+    """The SSE frames of an open HTTP response (or of a body's lines),
+    one dict at a time; an OpenAI stream's closing `[DONE]` as None."""
+    for line in lines:
         line = line.strip()
-        if line.startswith(b'data: '):
-            yield json.loads(line[len(b'data: '):])
+        if isinstance(line, bytes):
+            line = line.decode()
+        if line.startswith('data: '):
+            data = line[len('data: '):]
+            yield None if data == '[DONE]' else json.loads(data)
 
 
 def migration_phase(torch, inference, params, config, rng):
@@ -2015,6 +2079,17 @@ def hf_config_json(config):
         'query_pre_attn_scalar': config.head_dim}
 
 
+def hf_shard_bytes(params):
+    """The shard size that puts the embedding alone in the first of two
+    shards and every other tensor in the second."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    rest = nbytes(params['final_norm']) + sum(
+        nbytes(t) for t in params['layers'].values())
+    return max(nbytes(params['embed']), rest)
+
+
 def write_hf_checkpoint(params, config, out_dir):
     """`params` as an HF checkpoint in HF's tensor order (embeddings,
     layers, final norm) through the port's ShardedWriter, the embedding
@@ -2024,14 +2099,8 @@ def write_hf_checkpoint(params, config, out_dir):
     from skypilot_tpu_torch.checkpoints import safetensors_io
     specs = {spec.key: spec for spec in hf_import.param_specs(config)}
     embed = params['embed']
-
-    def nbytes(t):
-        return t.numel() * t.element_size()
-
-    rest = nbytes(params['final_norm']) + sum(
-        nbytes(t) for t in params['layers'].values())
     writer = safetensors_io.ShardedWriter(
-        out_dir, max_shard_bytes=max(nbytes(embed), rest),
+        out_dir, max_shard_bytes=hf_shard_bytes(params),
         metadata={'format': 'pt'})
     writer.add(specs['embed'].hf, hf_import._to_hf(specs['embed'], embed,
                                                    config))
@@ -2055,11 +2124,12 @@ def greedy_tokens(inference, engine, prompt, max_new):
     return tokens, engine.finished_logprobs()[rid]
 
 
-def checkpoint_phase(torch, inference, rng):
+def checkpoint_phase(torch, inference, rng, keep=None):
     """A synthetic HF gemma2 checkpoint (gemma2-2b widths, CKPT_LAYERS
     layers, random bf16 weights from seed 2) written by the port's writer
-    over two shards, imported by load_params (every tensor equal to the
-    one written; import seconds and peak host bytes), served by
+    over two shards (into `keep`, which outlives the phase for the batch
+    and roundtrip phases, else a temporary directory), imported by load_params (every tensor equal to the one written;
+    import seconds and peak host bytes), served by
     build_engine(checkpoint=) in this process and by the server started
     as a process with --checkpoint: greedy /generate must equal the
     in-process engine's tokens."""
@@ -2073,7 +2143,7 @@ def checkpoint_phase(torch, inference, rng):
     config = dataclasses.replace(preset, num_layers=CKPT_LAYERS)
     gen = torch.Generator(device=DEV).manual_seed(2)
     params = family.init_params(config, gen, DEV)
-    tmp = tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
+    tmp = keep or tempfile.mkdtemp(prefix='chip_smoke_ckpt_')
     out = {'model': CKPT_MODEL, 'layers': CKPT_LAYERS,
            'reduced': f'depth {preset.num_layers} -> {CKPT_LAYERS} layers',
            **CKPT_KW}
@@ -2165,7 +2235,8 @@ def checkpoint_phase(torch, inference, rng):
                 proc.wait()
         if log is not None:
             log.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(tmp, ignore_errors=True)
     out.update({'command': ' '.join(cmd[1:]), 'prompt_tokens': CKPT_PROMPT,
                 'tokens': len(served), 'in_process_tokens': in_process,
                 'server_tokens': served,
@@ -2180,6 +2251,863 @@ def checkpoint_phase(torch, inference, rng):
         raise AssertionError(f'--checkpoint server logprobs differ from the '
                              f'in-process engine\'s by '
                              f'{out["logprob_max_abs_diff"]}')
+    return out
+
+
+# -- the OpenAI API, load shedding, batch inference and the fine-tune
+# round trip (the eighth slice) ---------------------------------------------
+
+# The openai and shedding phases: phase 5's llama3-8b params behind the
+# port's server in this process, 8 slots, no prefix cache (a repeated
+# prompt prefills again, so /v1 and /generate run the same rows), no
+# interleave (each admission is one batched prefill) and 2 decode steps
+# a host step (a request waits for the host step in flight to be
+# admitted: ~100 ms, not ~400).
+OPENAI_KW = dict(batch_size=8, max_seq_len=2048, prefill_chunk=512,
+                 kv_page_size=64, prefill_interleave=0, prefix_cache=False,
+                 decode_fuse_steps=2)
+OPENAI_NAME = 'llama3-8b-chip-smoke'
+OPENAI_PROMPT = 300
+OPENAI_TEXT_WORDS = 40
+OPENAI_NEW = 16
+# Shedding: SHED_REQUESTS long streams fill the 8 slots and queue the
+# rest; with the limit at the queue depth that leaves, the next request
+# of each route is shed. A slot's stream outlasts the fill (10-20
+# tokens a second a slot at 8 slots); the queued ones are short.
+SHED_LIMIT = 2
+SHED_REQUESTS = 10
+SHED_PROMPT = 64
+SHED_NEW = 128
+SHED_QUEUED_NEW = 16
+# The batch phase: JSONL prompts (more than the 8 slots, so slots
+# recycle) through `python -m skypilot_tpu_torch.inference.batch`.
+BATCH_REQUESTS = 16
+BATCH_PROMPT_LENGTHS = (100, 1500)
+BATCH_NEW = 32
+BATCH_MODEL = 'llama3-8b'
+BATCH_FLAGS = ('--max-seq-len', '2048')
+# The round trip: gemma2-2b at full width, CKPT_LAYERS layers (one local,
+# one global), fine-tuned from phase 18's HF checkpoint at 1 x RT_SEQ.
+# The warmup outlasts both legs, so a 4-step and a 6-step run share
+# their schedule (decay_steps = max(max_steps, warmup + 1)).
+RT_SEQ = 8192
+RT_STEPS = 4
+RT_RESUME_STEPS = 6
+RT_EVERY = 2
+RT_LR = 1e-3
+RT_WARMUP = 8
+RT_BATCH_REQUESTS = 8
+RT_BATCH_NEW = 16
+# The resumed run's losses at steps 5-6 against an uninterrupted run's.
+# On the H100 a sound resume reads 0.0 (the restored state is bitwise the
+# saved one, and the step's kernels are deterministic); the planted
+# restore faults read 1.21 (optimizer state dropped: the count restarts
+# at 0, so the warmup's first lr is 0) and 3.98 (a stale step restored).
+TOL_RESUME_LOSS = 1e-3
+TOY_WORDS = ('[UNK]', '</s>', 'hello', 'world', 'foo', 'bar', 'stop', 'go')
+
+
+class ToyTokenizer:
+    """A word-level tokenizer on the standard library (the card has no
+    transformers and no tokenizer files): TOY_WORDS are ids 0-7 ([UNK],
+    the eos '</s>', ...), every other id n is the word 'w<n>'. It has
+    what the OpenAI routes call: encode, decode (skip_special_tokens
+    drops [UNK] and </s>), convert_ids_to_tokens, apply_chat_template and
+    eos_token_id."""
+    eos_token_id = 1
+    special = (0, 1)
+
+    def __init__(self, vocab_size):
+        self.vocab_size = vocab_size
+
+    def word(self, i):
+        return TOY_WORDS[i] if i < len(TOY_WORDS) else f'w{i}'
+
+    def _id(self, word):
+        if word in TOY_WORDS:
+            return TOY_WORDS.index(word)
+        if word[:1] == 'w' and word[1:].isdigit() and \
+                len(TOY_WORDS) <= int(word[1:]) < self.vocab_size:
+            return int(word[1:])
+        return 0
+
+    def encode(self, text):
+        return [self._id(w) for w in text.split()]
+
+    def decode(self, ids, skip_special_tokens=False):
+        return ' '.join(self.word(i) for i in ids
+                        if not (skip_special_tokens and i in self.special))
+
+    def convert_ids_to_tokens(self, ids):
+        return [self.word(i) for i in ids]
+
+    def apply_chat_template(self, messages, add_generation_prompt=True,
+                            tokenize=True):
+        text = ' '.join(m['content'] for m in messages)
+        return self.encode(text + (' go' if add_generation_prompt else ''))
+
+
+@contextlib.contextmanager
+def admissions(engine):
+    """The prompt lengths of every admission the engine made in the
+    block (one list a call of `_insert_from_queue` that admitted), read
+    off its queue around the call: outside the engine's books."""
+    record = []
+
+    def wrap(fn):
+        def wrapper():
+            before = list(engine._queue)
+            fn()
+            left = {id(item) for item in engine._queue}
+            lengths = [min(len(item[1]), engine.state.max_seq_len - 1)
+                       for item in before if id(item) not in left]
+            if lengths:
+                record.append(lengths)
+        return wrapper
+
+    with patched(engine, '_insert_from_queue', wrap):
+        yield record
+
+
+@contextlib.contextmanager
+def timed(obj, name, record):
+    """The wall seconds of every call of `obj.name` in the block."""
+    def wrap(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                record.append(time.perf_counter() - t0)
+        return wrapper
+
+    with patched(obj, name, wrap):
+        yield record
+
+
+@contextlib.contextmanager
+def depth_cut(model, layers):
+    """`model` cut to `layers` layers at full width, registered for the
+    block as its family's preset '<model>-<layers>l'; yields the name."""
+    from skypilot_tpu_torch import models as models_lib
+    family, preset = models_lib.resolve(model)
+    name = f'{model}-{layers}l'
+    family.CONFIGS[name] = dataclasses.replace(preset, num_layers=layers)
+    try:
+        yield name
+    finally:
+        del family.CONFIGS[name]
+
+
+def openai_phase(torch, fa, params, config, rng):
+    """The OpenAI routes (phase 7b') and load shedding (7c) on an
+    in-process server over `params` (OPENAI_KW), and what they read.
+    Raises on the first check missed."""
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch.inference import server as server_lib
+    from skypilot_tpu_torch.observability import instruments as obs
+    engine = inference.InferenceEngine(params, config, device=DEV,
+                                       **OPENAI_KW)
+    holder = {'loop': server_lib.EngineLoop(engine), 'tokenizer': None,
+              'model_name': OPENAI_NAME, 'max_queue_depth': None}
+    srv = server_lib.create_server(holder, host='127.0.0.1', port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f'http://127.0.0.1:{srv.server_address[1]}'
+    try:
+        with admissions(engine) as admitted:
+            out = openai_checks(torch, fa, engine, holder, base, admitted,
+                                rng, obs)
+        shedding = shedding_checks(holder, base)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        holder['loop'].stop()
+    return out, shedding
+
+
+def openai_checks(torch, fa, engine, holder, base, admitted, rng, obs):
+    v1 = {'launches': 0, 'expected': 0, 'requests': 0}
+    tally = {'prompt': 0, 'generated': 0, 'requests': 0, 'posts': 0}
+
+    def post(path, body, engine_requests=()):
+        """One POST; K1's launches and the admissions' expected count
+        for /v1 requests; the tally of (prompt, tokens) engine requests
+        in the /metrics window."""
+        fa.flash_attention.launches = 0
+        admitted.clear()
+        status, _, text = http_call(base + path, body)
+        if status != 200:
+            raise AssertionError(f'{path}: {status} {text[:300]}')
+        if path.startswith('/v1/'):
+            v1['launches'] += fa.flash_attention.launches
+            v1['expected'] += sum(expected_prefill_launches(engine, lens)
+                                  for lens in admitted)
+            v1['requests'] += 1
+        tally['posts'] += 1
+        return text
+
+    def stream_post(body):
+        """The frames of a streamed /v1/completions, and whether the
+        stream closed with [DONE]."""
+        frames = list(sse_frames(post('/v1/completions',
+                                      body).splitlines()))
+        return [f for f in frames if f is not None], frames[-1:] == [None]
+
+    def count(n_prompt, tokens):
+        tally['prompt'] += n_prompt
+        tally['generated'] += len(tokens)
+        tally['requests'] += 1
+
+    checks = {}
+    vocab = engine.config.vocab_size
+    status, _, text = http_call(base + '/v1/models')
+    checks['models'] = json.loads(text)['data'][0]['id'] == OPENAI_NAME
+    before = parse_metrics(http_call(base + '/metrics')[2])
+    prompt = prompt_tokens(rng, OPENAI_PROMPT, vocab)
+    gen = json.loads(post('/generate', {
+        'prompt_tokens': prompt, 'max_new_tokens': OPENAI_NEW,
+        'logprobs': True}))
+    count(len(prompt), gen['tokens'])
+    doc = json.loads(post('/v1/completions', {
+        'prompt': prompt, 'max_tokens': OPENAI_NEW, 'temperature': 0,
+        'logprobs': 0}))
+    choice = doc['choices'][0]
+    count(len(prompt), choice['tokens'])
+    lps = choice['logprobs']['token_logprobs']
+    checks['tokens_equal_generate'] = choice['tokens'] == gen['tokens']
+    checks['logprob_max_abs_diff'] = max(
+        abs(a - b) for a, b in zip(lps, gen['logprobs']))
+    checks['logprobs_equal_generate'] = lps == gen['logprobs']
+    checks['usage'] = doc['usage'] == {
+        'prompt_tokens': len(prompt), 'completion_tokens': OPENAI_NEW,
+        'total_tokens': len(prompt) + OPENAI_NEW}
+    checks['finish_length'] = choice['finish_reason'] == 'length'
+    checks['model_name'] = doc['model'] == OPENAI_NAME
+    doc = json.loads(post('/v1/completions', {
+        'prompt': prompt, 'max_tokens': OPENAI_NEW, 'temperature': 0,
+        'n': 2}))
+    pair = [c['tokens'] for c in doc['choices']]
+    for tokens in pair:
+        count(len(prompt), tokens)
+    checks['n2_identical'] = (len(pair) == 2 and pair[0] == pair[1]
+                              and [c['index'] for c in doc['choices']]
+                              == [0, 1])
+    checks['n2_usage'] = doc['usage']['prompt_tokens'] == len(prompt) and \
+        doc['usage']['completion_tokens'] == 2 * OPENAI_NEW
+    frames, done = stream_post({
+        'prompt': prompt, 'max_tokens': OPENAI_NEW, 'temperature': 0,
+        'stream': True})
+    streamed = [t for f in frames for t in f['choices'][0].get('tokens', [])]
+    count(len(prompt), streamed)
+    checks['stream_equals_nonstream'] = (
+        done and streamed == choice['tokens']
+        and frames[-1]['choices'][0]['finish_reason'] == 'length')
+
+    tok = ToyTokenizer(vocab)
+    holder['tokenizer'] = tok
+    words = ['hello', 'world', 'foo', 'bar'] + [
+        tok.word(int(t)) for t in rng.integers(len(TOY_WORDS), vocab,
+                                               OPENAI_TEXT_WORDS)]
+    text_prompt = ' '.join(words)
+    ids = tok.encode(text_prompt)
+    want = json.loads(post('/generate', {
+        'prompt_tokens': ids, 'max_new_tokens': OPENAI_NEW,
+        'eos_token_id': tok.eos_token_id}))['tokens']
+    count(len(ids), want)
+    want_text = tok.decode(want, skip_special_tokens=True)
+    doc = json.loads(post('/v1/completions', {
+        'prompt': text_prompt, 'max_tokens': OPENAI_NEW,
+        'temperature': 0}))
+    count(len(ids), want)
+    checks['text_equal_generate'] = doc['choices'][0]['text'] == want_text
+    checks['text_usage'] = doc['usage'] == {
+        'prompt_tokens': len(ids), 'completion_tokens': len(want),
+        'total_tokens': len(ids) + len(want)}
+    messages = [{'role': 'system', 'content': 'go foo'},
+                {'role': 'user', 'content': text_prompt}]
+    chat_ids = tok.apply_chat_template(messages)
+    chat_want = json.loads(post('/generate', {
+        'prompt_tokens': chat_ids, 'max_new_tokens': OPENAI_NEW,
+        'eos_token_id': tok.eos_token_id}))['tokens']
+    count(len(chat_ids), chat_want)
+    doc = json.loads(post('/v1/chat/completions', {
+        'messages': messages, 'max_tokens': OPENAI_NEW, 'temperature': 0}))
+    count(len(chat_ids), chat_want)
+    checks['chat_equal_generate'] = (
+        doc['choices'][0]['message']['content']
+        == tok.decode(chat_want, skip_special_tokens=True)
+        and doc['object'] == 'chat.completion'
+        and doc['usage']['completion_tokens'] == len(chat_want))
+    # A stop string: the first generated word not seen before it, past
+    # the first; the text is cut where the server's rule cuts it.
+    gen_words = want_text.split()
+    stop = next((w for j, w in enumerate(gen_words)
+                 if j and w not in gen_words[:j]), None)
+    if stop is None:
+        raise AssertionError(f'no stop word in {want_text!r}')
+    cut = want_text[:want_text.find(stop)]
+    doc = json.loads(post('/v1/completions', {
+        'prompt': text_prompt, 'max_tokens': OPENAI_NEW, 'temperature': 0,
+        'stop': stop}))
+    count(len(ids), want)
+    checks['stop_truncates'] = (doc['choices'][0]['text'] == cut
+                                and doc['choices'][0]['finish_reason']
+                                == 'stop')
+    # The /metrics window ends here: the aborted stream below generated
+    # tokens the client never saw.
+    want_deltas = {
+        'skytpu_prompt_tokens_total': tally['prompt'],
+        'skytpu_generated_tokens_total': tally['generated'],
+        'skytpu_requests_finished_total': tally['requests'],
+        'skytpu_http_requests_total{plane="inference",method="POST",'
+        'code="200"}': tally['posts']}
+
+    def deltas():
+        after = parse_metrics(http_call(base + '/metrics')[2])
+        return {k: after.get(k, 0) - before.get(k, 0) for k in want_deltas}
+    post_key = list(want_deltas)[-1]
+    got_deltas = poll(deltas, lambda d: d[post_key] >= tally['posts'])
+    # Streamed, the stop ends the stream and aborts the request, which
+    # could decode 3 x OPENAI_NEW tokens past the stop's.
+    aborted = obs.REQUESTS_ABORTED.value()
+    frames, done = stream_post({
+        'prompt': text_prompt, 'max_tokens': 4 * OPENAI_NEW,
+        'temperature': 0, 'stream': True, 'stop': stop})
+    streamed = ''.join(f['choices'][0]['text'] for f in frames)
+    aborted = poll(lambda: obs.REQUESTS_ABORTED.value() - aborted,
+                   lambda n: n >= 1)
+    checks['stream_stop'] = (done and streamed == cut
+                             and frames[-1]['choices'][0]['finish_reason']
+                             == 'stop' and aborted == 1)
+    holder['tokenizer'] = None
+    out = {'model': 'llama3-8b', **OPENAI_KW, 'served_name': OPENAI_NAME,
+           'prompt_tokens': OPENAI_PROMPT, 'max_tokens': OPENAI_NEW,
+           'stop': stop, 'checks': checks,
+           # A 2-row prefill may sum in another order than a 1-row one.
+           'n2_equal_generate': pair[0] == gen['tokens'],
+           'metrics_deltas': got_deltas,
+           'metrics_want': want_deltas, 'v1_requests': v1['requests'],
+           'kernel_launches': v1['launches'],
+           'expected_launches': v1['expected']}
+    failed = [k for k, v in checks.items()
+              if v is False or (k == 'logprob_max_abs_diff' and v != 0.0)]
+    if v1['launches'] != v1['expected'] or v1['launches'] <= 0:
+        failed.append(f'K1 launched {v1["launches"]} times around the /v1 '
+                      f'requests, expected {v1["expected"]}')
+    bad = counter_faults(got_deltas, want_deltas)
+    if failed or bad:
+        raise AssertionError(f'openai: {failed} {bad} {out}')
+    return out
+
+
+def shedding_checks(holder, base):
+    """SHED_REQUESTS long streams fill the slots and queue SHED_LIMIT;
+    the next /generate and /v1/completions are shed (503, Retry-After:
+    1, REQUESTS_SHED + 2); once the queue drains a request passes and
+    the streams all finish."""
+    shed_key = 'skytpu_requests_shed_total'
+    depth_key = 'skytpu_queue_depth'
+    slots_key = 'skytpu_batch_slots_active'
+
+    def metric(key):
+        return parse_metrics(http_call(base + '/metrics')[2]).get(key, 0)
+
+    holder['max_queue_depth'] = SHED_LIMIT
+    shed0 = metric(shed_key)
+    results = {}
+    slots = len(holder['loop'].engine.state.slots)
+    new = [SHED_NEW if i < slots else SHED_QUEUED_NEW
+           for i in range(SHED_REQUESTS)]
+
+    def stream(i, started):
+        req = urllib.request.Request(base + '/generate', data=json.dumps({
+            'prompt_tokens': list(range(10 + i, 10 + i + SHED_PROMPT)),
+            'max_new_tokens': new[i], 'stream': True}).encode(),
+            headers={'Content-Type': 'application/json'})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                started.set()
+                frames = list(sse_frames(resp))
+                results[i] = (resp.status, frames[-1])
+        except urllib.error.HTTPError as e:
+            results[i] = (e.code, None)
+            started.set()
+
+    threads = []
+    try:
+        t0 = time.perf_counter()
+        # One at a time, each admitted (or queued) before the next
+        # arrives: no request below the limit can read a passing depth.
+        for i in range(SHED_REQUESTS):
+            started = threading.Event()
+            t = threading.Thread(target=stream, args=(i, started),
+                                 daemon=True)
+            t.start()
+            threads.append(t)
+            if not started.wait(120):
+                raise AssertionError(f'stream {i} never started')
+            key, want = ((slots_key, i + 1) if i < slots
+                         else (depth_key, i + 1 - slots))
+            got = poll(lambda: metric(key), lambda v: v == want, timeout=60)
+            if got != want:
+                raise AssertionError(f'stream {i}: {key} {got}, want {want}')
+        depth = metric(depth_key)
+        if depth != SHED_LIMIT:
+            raise AssertionError(f'queue depth {depth}, want {SHED_LIMIT}')
+        fill_s = time.perf_counter() - t0
+        msg = {'error': f'overloaded: queue depth >= {SHED_LIMIT}'}
+        shed = {}
+        for path, body in (('/generate', {'prompt_tokens': [1, 2, 3],
+                                          'max_new_tokens': 4}),
+                           ('/v1/completions', {'prompt': [1, 2, 3],
+                                                'max_tokens': 4})):
+            try:
+                status, headers, text = http_call(base + path, body)
+            except urllib.error.HTTPError as e:
+                status, headers, text = e.code, dict(e.headers), e.read()
+            doc = json.loads(text)
+            shed[path] = {'status': status,
+                          'retry_after': headers.get('Retry-After'),
+                          'body': doc}
+            if (status, headers.get('Retry-After'), doc) != (503, '1', msg):
+                raise AssertionError(f'{path} not shed: {shed[path]}')
+        shed_delta = metric(shed_key) - shed0
+        drained = poll(lambda: metric(depth_key), lambda d: d == 0,
+                       timeout=120)
+        if drained != 0:
+            raise AssertionError(f'queue never drained: depth {drained}')
+        status, _, text = http_call(base + '/generate', {
+            'prompt_tokens': [1, 2, 3], 'max_new_tokens': 4})
+        after = json.loads(text)['tokens']
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+    finally:
+        holder['max_queue_depth'] = None
+    final_delta = metric(shed_key) - shed0
+    streams_ok = (sorted(results) == list(range(SHED_REQUESTS)) and all(
+        s == 200 and last.get('done') and len(last['tokens']) == new[i]
+        for i, (s, last) in results.items()))
+    out = {'limit': SHED_LIMIT, 'streams': SHED_REQUESTS,
+           'stream_prompt': SHED_PROMPT, 'stream_new': new,
+           'queue_depth_seen': depth, 'shed': shed,
+           'shed_delta': shed_delta, 'shed_delta_final': final_delta,
+           'after_drain_status': status, 'after_drain_tokens': len(after),
+           'streams_ok': streams_ok, 'fill_s': fill_s, 'wall_s': wall}
+    if shed_delta != 2 or final_delta != 2 or status != 200 or \
+            not streams_ok or any(t.is_alive() for t in threads):
+        raise AssertionError(f'shedding: {out}')
+    return out
+
+
+def batch_request_file(rng, path, n, lengths, vocab):
+    reqs = [{'prompt_tokens': prompt_tokens(rng, int(m), vocab)}
+            for m in rng.integers(lengths[0], lengths[1] + 1, size=n)]
+    with open(path, 'w') as f:
+        for req in reqs:
+            f.write(json.dumps(req) + '\n')
+    return reqs
+
+
+def batch_run(torch, inference, fa, reqs, inp, argv,
+              command=('-m', 'skypilot_tpu_torch.inference.batch')):
+    """`python -m skypilot_tpu_torch.inference.batch` (or `command`) on
+    `argv` as a process, then `run_batch` in this process on an engine
+    built from the same flags, with K1's (K2's) launches and the
+    admissions' expected count around it; the two outputs must be equal,
+    byte for byte."""
+    from skypilot_tpu_torch.inference import batch as batch_lib
+    outp = inp + '.out'
+    argv = ['--input', inp, '--output', outp, '--device', DEV, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, *command, *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    process_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f'batch {argv}: rc {proc.returncode}\n'
+                             f'{proc.stderr[-3000:]}')
+    line = [ln for ln in proc.stderr.splitlines()
+            if ln.startswith('[batch]')][-1]
+    with open(outp) as f:
+        written = f.read()
+    args = batch_lib.build_parser().parse_args(argv)
+    engine = inference.build_engine(args.model, **batch_lib.engine_kwargs(args))
+    counter = (fa.flash_attention_quant if engine.kv_quant == 'int8'
+               else fa.flash_attention)
+    counter.launches = 0
+    with admissions(engine) as admitted:
+        records = batch_lib.run_batch(engine, reqs, inference.SamplingParams(
+            temperature=args.temperature, top_k=args.top_k,
+            max_new_tokens=args.max_new_tokens))
+    launches = counter.launches
+    expected = sum(expected_prefill_launches(engine, lens)
+                   for lens in admitted)
+    in_process = ''.join(json.dumps(r) + '\n' for r in records)
+    out = {'argv': ' '.join(argv[6:]), 'kv_quant': engine.kv_quant,
+           'layers': engine.config.num_layers,
+           'requests': len(reqs), 'process_s': process_s,
+           'process_line': line,
+           'process_tok_s': float(line.rsplit('(', 1)[1].split()[0]),
+           'tokens': sum(r['num_tokens'] for r in records),
+           'admissions': [len(a) for a in admitted],
+           'kernel': 'K2' if engine.kv_quant == 'int8' else 'K1',
+           'kernel_launches': launches, 'expected_launches': expected,
+           'outputs_equal': written == in_process,
+           'output_bytes': len(written)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not out['outputs_equal'] or launches != expected or launches <= 0:
+        raise AssertionError(f'batch: {out}')
+    return out
+
+
+def batch_phase(torch, inference, fa, rng, hf_dir, tmp):
+    """Batch inference as a process (BATCH_REQUESTS prompts of
+    BATCH_PROMPT_LENGTHS tokens, BATCH_NEW new each, greedy, 8 slots):
+    llama3-8b on bf16 then int8 KV, then phase 18's HF checkpoint; each
+    output equal, byte for byte, to run_batch in this process."""
+    from skypilot_tpu_torch import models as models_lib
+    vocab = models_lib.resolve(BATCH_MODEL)[1].vocab_size
+    inp = os.path.join(tmp, 'batch.jsonl')
+    reqs = batch_request_file(rng, inp, BATCH_REQUESTS, BATCH_PROMPT_LENGTHS,
+                              vocab)
+    common = ['--max-new-tokens', str(BATCH_NEW), *BATCH_FLAGS]
+    out = {'requests': BATCH_REQUESTS, 'lengths': BATCH_PROMPT_LENGTHS,
+           'max_new_tokens': BATCH_NEW}
+    for name, flags in (
+            ('bf16', ['--model', BATCH_MODEL, '--kv-quant', 'none']),
+            ('int8', ['--model', BATCH_MODEL, '--kv-quant', 'int8']),
+            ('checkpoint', ['--model', CKPT_MODEL, '--checkpoint', hf_dir])):
+        out[name] = batch_run(torch, inference, fa, reqs, inp,
+                              common + flags)
+    return out
+
+
+def _tree_equal(torch, a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(torch, a[k], b[k])
+                                            for k in a)
+    return a.dtype == b.dtype and torch.equal(a.detach(), b.detach())
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, fn))
+               for root, _dirs, files in os.walk(path) for fn in files)
+
+
+def roundtrip_phase(torch, inference, fa, rng, hf_dir, tmp):
+    """`roundtrip_legs` on CKPT_MODEL cut to CKPT_LAYERS layers."""
+    with depth_cut(CKPT_MODEL, CKPT_LAYERS) as model:
+        return roundtrip_legs(torch, inference, fa, rng, hf_dir, tmp, model)
+
+
+def roundtrip_legs(torch, inference, fa, rng, hf_dir, tmp, model):
+    """The fine-tune round trip at gemma2-2b width, CKPT_LAYERS layers:
+    fine-tune phase 18's HF checkpoint (fit, RT_STEPS steps at 1 x
+    RT_SEQ, a train checkpoint every RT_EVERY), resume to
+    RT_RESUME_STEPS against an uninterrupted run, a torn step skipped,
+    the resumed params exported to HF and loaded back bit for bit, served
+    by build_engine(checkpoint=) against the in-memory params and by
+    batch --checkpoint on the train checkpoint, phase 18's imported
+    params re-exported byte for byte, and the checkpoints CLI's inspect
+    and verify as processes on clean and damaged copies."""
+    import shutil
+
+    from skypilot_tpu_torch import checkpoints as ckpt_lib
+    from skypilot_tpu_torch.observability import instruments as obs
+    from skypilot_tpu_torch.train import checkpoints as train_ckpts
+    from skypilot_tpu_torch.train import loop, trainer
+    run_dir = os.path.join(tmp, 'train')
+    counters = (fa.flash_attention, fa.flash_attention_quant,
+                fa.flash_attention_dq, fa.flash_attention_dkv)
+
+    def cfg(steps):
+        return trainer.TrainerConfig(
+            model=model, batch_size=1, seq_len=RT_SEQ, max_steps=steps,
+            learning_rate=RT_LR, warmup_steps=RT_WARMUP)
+
+    def fit(steps, **kw):
+        for c in counters:
+            c.launches = 0
+        logs = []
+        res = loop.fit(cfg(steps), DEV, init_checkpoint=hf_dir, log_every=1,
+                       log_fn=logs.append, **kw)
+        torch.cuda.synchronize()
+        return res, logs, {k: c.launches for k, c in zip(
+            ('K1', 'K2', 'K3', 'K4'), counters)}
+
+    out = {'model': CKPT_MODEL, 'layers': CKPT_LAYERS, 'seq_len': RT_SEQ,
+           'steps': RT_STEPS, 'resume_to': RT_RESUME_STEPS,
+           'checkpoint_every': RT_EVERY, 'learning_rate': RT_LR,
+           'warmup_steps': RT_WARMUP}
+    saves, restores = [], []
+    t0 = time.perf_counter()
+    with timed(train_ckpts, 'save_train_state', saves):
+        first, _logs, launches = fit(RT_STEPS, checkpoint_dir=run_dir,
+                                     checkpoint_every=RT_EVERY)
+    out['fine_tune_s'] = time.perf_counter() - t0
+    out['fine_tune_launches'] = launches
+    want = {'K1': 2 * CKPT_LAYERS * RT_STEPS, 'K2': 0,
+            'K3': CKPT_LAYERS * RT_STEPS, 'K4': CKPT_LAYERS * RT_STEPS}
+    if launches != want:
+        raise AssertionError(f'fine-tune launches {launches}, want {want}')
+    steps_saved = sorted(int(s) for s in os.listdir(run_dir))
+    if steps_saved != list(range(RT_EVERY, RT_STEPS + 1, RT_EVERY)):
+        raise AssertionError(f'saved steps {steps_saved}')
+    step_bytes = _dir_bytes(os.path.join(run_dir, str(RT_STEPS)))
+    # What the resume limit catches: the resume run with a fault planted
+    # in the restore, saving nothing (run_dir keeps steps 2 and 4).
+    restore = train_ckpts.restore_train_state
+
+    def moments_dropped(ckpt_dir, state, step=None):
+        restore(ckpt_dir, state, step)
+        for t in trainer.tree_leaves(state['opt_state']['mu']) + \
+                trainer.tree_leaves(state['opt_state']['nu']):
+            t.zero_()
+        state['opt_state']['count'] = 0
+        return state
+
+    def stale_step(ckpt_dir, state, step=None):
+        return restore(ckpt_dir, state, RT_EVERY)
+
+    planted = {}
+    for name, fault in (('moments_dropped', moments_dropped),
+                        ('stale_step', stale_step)):
+        with patched(train_ckpts, 'restore_train_state',
+                     lambda _fn: fault), \
+                patched(loop, '_save_with_retries',
+                        lambda _fn: lambda *a, **k: None):
+            res, _logs, _launches = fit(RT_RESUME_STEPS,
+                                        checkpoint_dir=run_dir,
+                                        checkpoint_every=RT_EVERY)
+        planted[name] = [h['loss'] for h in res['history']]
+        del res
+    with timed(train_ckpts, 'save_train_state', saves), \
+            timed(train_ckpts, 'restore_train_state', restores):
+        resumed, logs, launches = fit(RT_RESUME_STEPS,
+                                      checkpoint_dir=run_dir,
+                                      checkpoint_every=RT_EVERY)
+    out['resume_launches'] = launches
+    resumed_steps = RT_RESUME_STEPS - RT_STEPS
+    want = {'K1': 2 * CKPT_LAYERS * resumed_steps, 'K2': 0,
+            'K3': CKPT_LAYERS * resumed_steps,
+            'K4': CKPT_LAYERS * resumed_steps}
+    if logs[0] != f'[fit] resumed from step {RT_STEPS}' or launches != want:
+        raise AssertionError(f'resume: {logs[:1]}, launches {launches}, '
+                             f'want {want}')
+    whole, _logs, _launches = fit(RT_RESUME_STEPS)
+    losses = {'fine_tune': [h['loss'] for h in first['history']],
+              'resumed': [h['loss'] for h in resumed['history']],
+              'uninterrupted': [h['loss'] for h in whole['history']]}
+    diffs = [abs(a - b) for a, b in zip(
+        losses['resumed'], losses['uninterrupted'][RT_STEPS:])]
+    param_diff = max(
+        float((a.detach().float() - b.detach().float()).abs().max())
+        for a, b in zip(trainer.tree_leaves(resumed['state']['params']),
+                        trainer.tree_leaves(whole['state']['params'])))
+    caught = {name: max(abs(a - b) for a, b in zip(
+        got, losses['uninterrupted'][RT_STEPS:]))
+        for name, got in planted.items()}
+    out.update({'losses': losses, 'resume_loss_abs_diff': diffs,
+                'resume_param_max_abs_diff': param_diff,
+                'tol_resume_loss': TOL_RESUME_LOSS,
+                'planted_resume_losses': planted,
+                'planted_loss_abs_diff': caught,
+                'first_leg_equal': losses['fine_tune'] ==
+                losses['uninterrupted'][:RT_STEPS]})
+    # The restored state is the saved one, bit for bit, so the resumed
+    # params must equal the uninterrupted run's exactly.
+    if not all(math.isfinite(x) for v in losses.values() for x in v) or \
+            len(diffs) != resumed_steps or not max(diffs) < TOL_RESUME_LOSS \
+            or param_diff != 0.0:
+        raise AssertionError(f'resumed losses or params: {out}')
+    if not all(d >= TOL_RESUME_LOSS for d in caught.values()):
+        raise AssertionError(f'a planted resume fault passes the limit: '
+                             f'{caught}')
+    del whole
+    out['save_s'] = saves
+    out['save_bytes'] = step_bytes
+    out['save_gb_s'] = step_bytes / 1e9 / (sum(saves) / len(saves))
+    out['restore_s'] = restores
+    out['restore_gb_s'] = step_bytes / 1e9 / restores[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The resumed params exported to HF and loaded back, bit for bit.
+    config = cfg(RT_RESUME_STEPS).model_config()
+    params = resumed['state']['params']
+    del resumed
+    export_dir = os.path.join(tmp, 'export')
+    before = (obs.CKPT_EXPORT_BYTES.value(),
+              obs.CKPT_EXPORT_SECONDS.child_snapshot()[1:])
+    stats = ckpt_lib.export_params(params, config, export_dir,
+                                   max_shard_bytes=hf_shard_bytes(params))
+    seconds_sum, seconds_count = obs.CKPT_EXPORT_SECONDS.child_snapshot()[1:]
+    instruments = {
+        'bytes': obs.CKPT_EXPORT_BYTES.value() - before[0],
+        'seconds_count': seconds_count - before[1][1],
+        'seconds_sum': seconds_sum - before[1][0]}
+    out['export'] = {**dataclasses.asdict(stats),
+                     'gb_s': stats.bytes_written / 1e9 / stats.seconds,
+                     'instruments': instruments}
+    bad = counter_faults(instruments, {'bytes': stats.bytes_written,
+                                       'seconds_count': 1})
+    if bad or not math.isclose(instruments['seconds_sum'], stats.seconds,
+                               rel_tol=1e-9, abs_tol=1e-9):
+        raise AssertionError(f'CKPT_EXPORT_* against ExportStats: {bad}, '
+                             f'{instruments} vs {stats}')
+    loaded, _detected, _stats = ckpt_lib.load_params(export_dir, device=DEV)
+    out['export_loads_equal'] = _tree_equal(torch, loaded, params)
+    del loaded
+    if not out['export_loads_equal']:
+        raise AssertionError('the exported params load back unequal')
+
+    # Served: the export through build_engine(checkpoint=) against an
+    # engine on the in-memory params; the train checkpoint through
+    # batch --checkpoint against build_engine(checkpoint=) in process.
+    prompt = prompt_tokens(rng, CKPT_PROMPT, config.vocab_size)
+    served = inference.build_engine(CKPT_MODEL, device=DEV,
+                                    checkpoint=export_dir, **CKPT_KW)
+    tokens, lps = greedy_tokens(inference, served, prompt, CKPT_NEW)
+    del served
+    direct = inference.InferenceEngine(
+        trainer.tree_map(lambda t: t.detach(), params), config, device=DEV,
+        **CKPT_KW)
+    want_tokens, want_lps = greedy_tokens(inference, direct, prompt,
+                                          CKPT_NEW)
+    del direct, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out['serve'] = {'tokens_equal': tokens == want_tokens,
+                    'logprob_max_abs_diff': max(
+                        abs(a - b) for a, b in zip(lps, want_lps)),
+                    'tokens': len(tokens)}
+    if tokens != want_tokens or \
+            not out['serve']['logprob_max_abs_diff'] < TOL_CKPT_LOGPROB:
+        raise AssertionError(f'serving the export: {out["serve"]}')
+    inp = os.path.join(tmp, 'roundtrip.jsonl')
+    reqs = batch_request_file(rng, inp, RT_BATCH_REQUESTS,
+                              BATCH_PROMPT_LENGTHS, config.vocab_size)
+    # The process registers the same depth-cut preset before batch's
+    # main: a train checkpoint is read with --model's geometry.
+    out['batch'] = batch_run(torch, inference, fa, reqs, inp, [
+        '--model', model, '--checkpoint', run_dir, '--max-new-tokens',
+        str(RT_BATCH_NEW), *BATCH_FLAGS], command=(
+            '-c', 'import chip_smoke\n'
+            'from skypilot_tpu_torch.inference import batch\n'
+            f'with chip_smoke.depth_cut({CKPT_MODEL!r}, {CKPT_LAYERS}):\n'
+            '    batch.main()\n'))
+
+    # A torn step (sentinel gone) is never the resume candidate.
+    os.remove(os.path.join(run_dir, str(RT_RESUME_STEPS),
+                           train_ckpts.COMPLETE_SENTINEL))
+    torn_latest = train_ckpts.latest_step(run_dir)
+    state = trainer.make_train_state(cfg(RT_RESUME_STEPS), DEV)
+    train_ckpts.restore_train_state(run_dir, state)
+    out['torn'] = {'latest_step': torn_latest, 'restored_step': state['step']}
+    del state
+    if torn_latest != RT_STEPS or out['torn']['restored_step'] != RT_STEPS:
+        raise AssertionError(f'torn checkpoint: {out["torn"]}')
+
+    # Phase 18's imported params export byte for byte as phase 18 wrote.
+    imported, _config, _stats = ckpt_lib.load_params(hf_dir, device=DEV)
+    again = os.path.join(tmp, 'reexport')
+    ckpt_lib.export_params(imported, _config, again,
+                           max_shard_bytes=hf_shard_bytes(imported))
+    del imported
+    shards = sorted(fn for fn in os.listdir(hf_dir)
+                    if fn.endswith('.safetensors')
+                    or fn == 'model.safetensors.index.json')
+    same = [fn for fn in shards if filecmp.cmp(
+        os.path.join(hf_dir, fn), os.path.join(again, fn), shallow=False)]
+    out['reexport'] = {'files': shards, 'identical': same}
+    if same != shards:
+        raise AssertionError(f're-export differs: {out["reexport"]}')
+    shutil.rmtree(again)
+
+    # The CLI as processes: rc 0 on the clean export, non-zero on a copy
+    # with a NaN planted and on one with a shard cut short.
+    out['cli'] = cli_checks(export_dir, tmp)
+    return out
+
+
+def cli_checks(export_dir, tmp):
+    """`python -m skypilot_tpu_torch.checkpoints inspect` and `verify` on
+    the export, and `verify` on two damaged copies (the last shard
+    copied, the rest hard-linked)."""
+    from skypilot_tpu_torch.checkpoints import safetensors_io
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(*argv):
+        """Start the CLI as a process; the four run side by side (none
+        touches the card)."""
+        return subprocess.Popen(
+            [sys.executable, '-m', 'skypilot_tpu_torch.checkpoints', *argv],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    shard = sorted(fn for fn in os.listdir(export_dir)
+                   if fn.endswith('.safetensors'))[-1]
+    import numpy as np
+    with safetensors_io.CheckpointReader(export_dir) as reader:
+        name = [n for n, t in reader.tensors.items() if t.shard == shard][0]
+        tensor = reader.tensor(name)
+        offset = tensor._start
+        # One NaN element of the tensor's dtype (BF16: the top half of an
+        # f32 NaN).
+        nan = np.array([np.nan], np.float32)
+        nan = ((nan.view(np.uint32) >> 16).astype(np.uint16) if
+               tensor.tag == 'BF16' else nan.astype(tensor.dtype)).tobytes()
+    copies = {}
+    for kind in ('nan', 'truncated'):
+        d = os.path.join(tmp, f'cli_{kind}')
+        os.makedirs(d)
+        for fn in os.listdir(export_dir):
+            src, dst = os.path.join(export_dir, fn), os.path.join(d, fn)
+            if fn == shard:
+                with open(src, 'rb') as f, open(dst, 'wb') as g:
+                    g.write(f.read())
+            else:
+                os.link(src, dst)
+        copies[kind] = d
+    with open(os.path.join(copies['nan'], shard), 'r+b') as f:
+        f.seek(offset)
+        f.write(nan)
+    path = os.path.join(copies['truncated'], shard)
+    os.truncate(path, os.path.getsize(path) - 6)
+    t0 = time.perf_counter()
+    procs = {'inspect': cli('inspect', export_dir)}
+    for kind, d in (('clean', export_dir), ('nan', copies['nan']),
+                    ('truncated', copies['truncated'])):
+        procs[f'verify_{kind}'] = cli('verify', d)
+    texts = {}
+    for name, proc in procs.items():
+        try:
+            texts[name] = proc.communicate(timeout=300)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {'wall_s': time.perf_counter() - t0}
+    rc = procs['inspect'].returncode
+    doc = json.loads(texts['inspect']) if rc == 0 else {}
+    out.update({'inspect_rc': rc, 'inspect': {
+        k: doc.get(k) for k in ('family', 'shards', 'tensors', 'total_bytes',
+                                'params')}})
+    for kind in ('clean', 'nan', 'truncated'):
+        text = texts[f'verify_{kind}']
+        out[f'verify_{kind}'] = {
+            'rc': procs[f'verify_{kind}'].returncode,
+            'first_line': text.splitlines()[0] if text else ''}
+    if out['inspect_rc'] != 0 or doc.get('family') != 'gemma2' or \
+            out['verify_clean']['rc'] != 0 or \
+            out['verify_nan']['rc'] == 0 or \
+            out['verify_truncated']['rc'] == 0:
+        raise AssertionError(f'checkpoints CLI: {out}')
     return out
 
 
@@ -2771,6 +3699,21 @@ def main():
     emit('observability', **obs_line)
     torch.cuda.empty_cache()
 
+    # 21-22. the OpenAI routes, then load shedding, on an in-process
+    # server over the same llama3-8b params. The eighth slice's phases
+    # draw from a generator of their own, so every earlier phase reads
+    # the prompts it always read.
+    new_rng = np.random.default_rng(8)
+    t0 = time.perf_counter()
+    out, shedding = openai_phase(torch, fa, params, config, new_rng)
+    path_launches = {name: {} for name in kernels}
+    path_launches['flash_attention']['openai'] = out['kernel_launches']
+    emit('openai', phase_s=time.perf_counter() - t0 - shedding['wall_s'],
+         **out)
+    emit('shedding', **shedding)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 7b. the telemetry plane's cost on a decode host step
     out = overhead_phase(torch, inference, params, config)
     emit('overhead', **out)
@@ -2859,9 +3802,45 @@ def main():
     torch.cuda.empty_cache()
 
     # 18. an HF checkpoint through build_engine and the server's --checkpoint
-    t0 = time.perf_counter()
-    out = checkpoint_phase(torch, inference, rng)
-    emit('checkpoint', phase_s=time.perf_counter() - t0, **out)
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_roundtrip_')
+    try:
+        hf_dir = os.path.join(tmp, 'hf')
+        t0 = time.perf_counter()
+        out = checkpoint_phase(torch, inference, rng, keep=hf_dir)
+        emit('checkpoint', phase_s=time.perf_counter() - t0, **out)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 23. batch inference as a process: llama3-8b bf16 and int8 KV,
+        # then phase 18's checkpoint
+        t0 = time.perf_counter()
+        out = batch_phase(torch, inference, fa, new_rng, hf_dir, tmp)
+        emit('batch', phase_s=time.perf_counter() - t0, **out)
+        path_launches['flash_attention']['batch'] = out['bf16'][
+            'kernel_launches']
+        path_launches['flash_attention_quant']['batch'] = out['int8'][
+            'kernel_launches']
+        path_launches['flash_attention_d256']['batch_checkpoint'] = out[
+            'checkpoint']['kernel_launches']
+
+        # 24. the fine-tune round trip at gemma2-2b width
+        t0 = time.perf_counter()
+        out = roundtrip_phase(torch, inference, fa, new_rng, hf_dir, tmp)
+        emit('roundtrip', phase_s=time.perf_counter() - t0, **out)
+        for leg in ('fine_tune', 'resume'):
+            got = out[f'{leg}_launches']
+            path_launches['flash_attention_d256'][f'roundtrip_{leg}'] = \
+                got['K1']
+            path_launches['flash_attention_dq_d256'][
+                f'roundtrip_{leg}'] = got['K3']
+            path_launches['flash_attention_dkv_d256'][
+                f'roundtrip_{leg}'] = got['K4']
+        path_launches['flash_attention_d256']['roundtrip_batch'] = out[
+            'batch']['kernel_launches']
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2914,6 +3893,10 @@ def main():
                 shape['window'], 0)
     emit('train_gemma', **train)
 
+    # The eighth slice's paths, each read with the counts set to 0 just
+    # before and read just after (launches beside the main path's).
+    for name, paths in path_launches.items():
+        kernels[name]['path_launches'] = paths
     emit('done', seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({'kernels': list(kernels.values())}), flush=True)

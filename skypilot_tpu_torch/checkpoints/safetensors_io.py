@@ -1,8 +1,8 @@
 """The port's safetensors reader and writer (mmap'd lazy views).
 
 Ports `skypilot_tpu/checkpoints/safetensors_io.py` (`dtype_tag`,
-`LazyTensor`, `SafeTensorsFile`, `CheckpointReader`, `_nearest`,
-`write_safetensors`, `ShardedWriter`) without `ml_dtypes`
+`is_float_dtype`, `LazyTensor`, `SafeTensorsFile`, `CheckpointReader`,
+`_nearest`, `write_safetensors`, `ShardedWriter`) without `ml_dtypes`
 and without the `safetensors` package. The format:
 
     [8 bytes LE u64: header length N][N bytes JSON header][payload]
@@ -80,6 +80,23 @@ def dtype_tag(dtype: Any) -> str:
             f'dtype {dtype} has no safetensors encoding; supported: '
             f'{sorted(_DTYPES)}')
     return tag
+
+
+_FLOAT_TAGS = frozenset(('F64', 'F32', 'F16', 'BF16'))
+
+
+def is_float_dtype(tag: str) -> bool:
+    """Is this safetensors dtype tag a float (BF16 included, whose bits
+    are read as uint16 here)?"""
+    return tag in _FLOAT_TAGS
+
+
+def to_float32(arr: np.ndarray, tag: str) -> np.ndarray:
+    """A float array of `tag`'s storage dtype widened to f32 (BF16: its
+    uint16 bits shifted into the high half of an f32)."""
+    if tag == 'BF16':
+        return (arr.astype(np.uint32) << 16).view(np.float32)
+    return arr.astype(np.float32)
 
 
 def to_torch(arr: np.ndarray, tag: str) -> torch.Tensor:
@@ -315,6 +332,10 @@ class CheckpointReader:
                 f'{_nearest(name, self.tensors)}') from None
 
     @property
+    def total_bytes(self) -> int:
+        return sum(t.nbytes for t in self.tensors.values())
+
+    @property
     def num_shards(self) -> int:
         return len(self._files)
 
@@ -343,27 +364,39 @@ def _nearest(name: str, names: Iterable[str], k: int = 3) -> List[str]:
     return sorted(names, key=lambda other: -shared(name, other))[:k]
 
 
+def _layout(x: Any) -> Tuple[str, List[int], int]:
+    """(tag, shape, bytes) of a numpy array or a torch tensor on any
+    device, without copying it."""
+    if isinstance(x, torch.Tensor):
+        return (dtype_tag(x.dtype), list(x.shape),
+                x.numel() * x.element_size())
+    arr = np.asarray(x)
+    return dtype_tag(arr.dtype), list(arr.shape), arr.nbytes
+
+
 def write_safetensors(path: str, tensors: Dict[str, Any],
                       metadata: Optional[Dict[str, str]] = None) -> int:
-    """Write one shard of numpy arrays or torch tensors, in insertion
-    order (so offsets are deterministic); returns payload bytes."""
+    """Write one shard of numpy arrays or torch tensors (on any device),
+    in insertion order (so offsets are deterministic); returns payload
+    bytes. The header comes from the tensors' shapes and dtypes, and
+    each tensor's bytes are copied to the host only as it is written,
+    so the host holds one tensor at a time."""
     header: Dict[str, Any] = {}
     if metadata:
         header['__metadata__'] = dict(metadata)
     cursor = 0
-    arrays: List[np.ndarray] = []
     for name, x in tensors.items():
-        tag, arr = _host_array(x)
-        arrays.append(arr)
-        header[name] = {'dtype': tag, 'shape': list(arr.shape),
-                        'data_offsets': [cursor, cursor + arr.nbytes]}
-        cursor += arr.nbytes
+        tag, shape, nbytes = _layout(x)
+        header[name] = {'dtype': tag, 'shape': shape,
+                        'data_offsets': [cursor, cursor + nbytes]}
+        cursor += nbytes
     raw = json.dumps(header, separators=(',', ':')).encode('utf-8')
     tmp = path + '.tmp'
     with open(tmp, 'wb') as f:
         f.write(struct.pack('<Q', len(raw)))
         f.write(raw)
-        for arr in arrays:
+        for x in tensors.values():
+            _tag, arr = _host_array(x)
             arr.tofile(f)  # straight from the buffer, no bytes copy
     os.replace(tmp, path)  # no torn shard if the write dies
     return cursor

@@ -22,3 +22,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "GPU by default. Pass device='cpu' explicitly to run the "
             'plain PyTorch paths on the CPU.')
     return dev
+
+
+def check_one_device_mesh(spec: str) -> None:
+    """Accept only a mesh spec (comma-separated axis=size, as the
+    reference's `--mesh`) that resolves to one device: every axis of
+    size 1 or -1 (fill). Anything larger raises NotImplementedError."""
+    sizes = {}
+    for part in spec.split(','):
+        axis, _, size = part.partition('=')
+        sizes[axis.strip()] = int(size)
+    if any(s not in (1, -1) for s in sizes.values()):
+        raise NotImplementedError(
+            f'--mesh {spec!r} spans more than one device; the port runs '
+            'on one device until the parallel slice (ROADMAP.md, Queue 1)')

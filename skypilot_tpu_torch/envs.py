@@ -127,6 +127,16 @@ SKYTPU_HF_IMPORT_CONCURRENCY = _declare(
     'during HF checkpoint import. 1 is synchronous; N>1 keeps up to N '
     'transformed tensors on the host at once.')
 
+# --- load shedding and training checkpoints ---------------------------------
+
+SKYTPU_MAX_QUEUE_DEPTH = _declare(
+    'SKYTPU_MAX_QUEUE_DEPTH', int, 0,
+    'Inference-server load shedding: queue depth beyond which requests '
+    'get a fast 503 + Retry-After. 0/unset disables.')
+SKYTPU_CKPT_RETRY_GAP = _declare(
+    'SKYTPU_CKPT_RETRY_GAP', float, 2.0,
+    'Base backoff between checkpoint-save retries.')
+
 # --- the observability plane (spans, time series, watchdog) and chaos -------
 
 SKYTPU_FAULTS = _declare(

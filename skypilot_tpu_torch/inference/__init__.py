@@ -3,7 +3,9 @@
 Ports `skypilot_tpu/inference/__init__.py`; `build_engine` (:21) is the
 one engine-construction path for every entry point. Weights come from an
 HF safetensors checkpoint (`checkpoint=`, through
-`skypilot_tpu_torch.checkpoints`) or are drawn from a seed on the device.
+`skypilot_tpu_torch.checkpoints`) or a port train checkpoint
+(`skypilot_tpu_torch.train.checkpoints`), or are drawn from a seed on
+the device.
 """
 from typing import Optional, Union
 
@@ -34,21 +36,22 @@ def draw_params(model: str, seed: int, device: torch.device):
     return family.init_params(config, gen, device), config
 
 
-def restore_params(checkpoint: str, device: torch.device):
-    """(params, config) of a checkpoint directory. An HF safetensors
-    checkpoint streams in with the geometry its config.json declares,
-    which wins over any preset name, as in the reference. Anything else
-    would be an Orbax train checkpoint there, which the port cannot read
-    yet: it raises rather than being ignored."""
+def restore_params(checkpoint: str, device: torch.device, config):
+    """(params, config) of a checkpoint directory, layout auto-detected
+    as in the reference (:59-69). An HF safetensors checkpoint streams in
+    with the geometry its config.json declares, which wins over
+    `config`. A port train checkpoint (`train/checkpoints.py`) gives its
+    latest complete step's params with `config`, the named model's, as
+    the reference gives an Orbax checkpoint's; params that do not fit it
+    raise ValueError. An Orbax checkpoint of the JAX package raises
+    NotImplementedError."""
     from skypilot_tpu_torch import checkpoints as ckpt_lib
-    if not ckpt_lib.is_hf_checkpoint(checkpoint):
-        raise NotImplementedError(
-            f'{checkpoint!r} is not an HF safetensors checkpoint '
-            '(config.json + *.safetensors). Train checkpoints are not '
-            'ported yet (ROADMAP.md, Queue 1 item 6).')
-    params, config, _stats = ckpt_lib.load_params(checkpoint,
-                                                  device=device)
-    return params, config
+    from skypilot_tpu_torch.train import checkpoints as train_ckpts
+    if ckpt_lib.is_hf_checkpoint(checkpoint):
+        params, config, _stats = ckpt_lib.load_params(checkpoint,
+                                                      device=device)
+        return params, config
+    return train_ckpts.restore_params(checkpoint, config, device), config
 
 
 def build_engine(model: str, *,
@@ -70,8 +73,9 @@ def build_engine(model: str, *,
                  spec_fuse_rounds: Optional[int] = None) -> InferenceEngine:
     """Resolve `model` and build its engine on `device` (cuda unless
     named; raises without CUDA). The weights come from `checkpoint`, an
-    HF safetensors directory whose config.json geometry wins over
-    `model` (`restore_params`), or are drawn from `seed`.
+    HF safetensors directory (its geometry wins over `model`) or a port
+    train checkpoint of `model` (`restore_params`), or are drawn from
+    `seed`.
     `prefix_cache=None` follows SKYTPU_PREFIX_CACHE (on), as the
     reference's build_engine does. `draft_model` attaches a same-vocab
     draft for speculative decode: from `draft_checkpoint`, or drawn from
@@ -82,13 +86,15 @@ def build_engine(model: str, *,
 
     dev = device_lib.resolve_device(device)
     if checkpoint:
-        models_lib.resolve(model)  # an unknown name fails as without one
-        params, config = restore_params(checkpoint, dev)
+        params, config = restore_params(checkpoint, dev,
+                                        models_lib.resolve(model)[1])
     else:
         params, config = draw_params(model, seed, dev)
     draft = None
     if draft_model:
-        draft = (restore_params(draft_checkpoint, dev) if draft_checkpoint
+        draft = (restore_params(draft_checkpoint, dev,
+                                models_lib.resolve(draft_model)[1])
+                 if draft_checkpoint
                  else draw_params(draft_model, seed + 1, dev))
     return InferenceEngine(params, config, batch_size=batch_size,
                            max_seq_len=max_seq_len, seed=seed,

@@ -48,11 +48,20 @@ watcher's queue, so concurrent requests join the running decode batch.
 A request's id and span context are captured in the handler thread at
 submit and rebound in the engine thread around `engine.submit`
 (:111-133, :249-279), so the engine's phase spans join the request's
-trace. The OpenAI routes and load shedding wait for later slices.
+trace.
+
+The OpenAI-compatible routes (`/v1/models`, `/v1/completions`,
+`/v1/chat/completions`; `openai_api.py`, reference :848-849) are
+mounted beside these; `--tokenizer` gives them text prompts, chat and
+stop strings, `--served-model-name` the id /v1/models reports. Load
+shedding (`shed_limit`, reference :423-440): past `--max-queue-depth`
+(or SKYTPU_MAX_QUEUE_DEPTH) queued requests, /generate and the /v1
+routes answer 503 with Retry-After and count in REQUESTS_SHED.
 
   python -m skypilot_tpu_torch.inference.server --model llama3-8b \
       --port 8080 [--device cuda] [--draft-model llama3-1b --spec-k 4]
-      [--checkpoint HF_DIR] [--draft-checkpoint HF_DIR]
+      [--checkpoint HF_OR_TRAIN_DIR] [--draft-checkpoint DIR]
+      [--max-queue-depth N] [--tokenizer DIR] [--served-model-name ID]
 """
 from __future__ import annotations
 
@@ -72,6 +81,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
 from skypilot_tpu_torch import envs
+from skypilot_tpu_torch.inference import openai_api
 from skypilot_tpu_torch.observability import instruments as obs
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import spans
@@ -87,9 +97,12 @@ class EngineLoop:
     between ticks (`run_on_engine`)."""
 
     class Watcher:
-        def __init__(self, stream: bool) -> None:
+        def __init__(self, stream: bool, sink=None) -> None:
             self.stream = stream
             self.q: 'queue.Queue' = queue.Queue()
+            # Where push() delivers (default: the watcher's own queue);
+            # the OpenAI routes merge a request's choices into one.
+            self._sink = sink or self.q.put
             self.sent = 0
             self.aborted = False
             # Migration identity: the opaque key a load balancer quotes
@@ -103,7 +116,7 @@ class EngineLoop:
             self.logprobs: Optional[List[float]] = None
 
         def push(self, item) -> None:
-            self.q.put(item)
+            self._sink(item)
 
     def __init__(self, engine) -> None:
         self.engine = engine
@@ -120,13 +133,14 @@ class EngineLoop:
         self._thread.start()
 
     def submit(self, prompt: List[int], sampling, stream: bool = False,
-               key: Optional[str] = None,
-               handoff: bool = False) -> 'EngineLoop.Watcher':
+               key: Optional[str] = None, handoff: bool = False,
+               sink=None) -> 'EngineLoop.Watcher':
         """Returns the watcher whose queue yields ('token', t)* then
         ('done', tokens), ('migrate', {...}) or ('error', message);
         with `handoff` (stream requests only) also one non-terminal
-        ('handoff', {...})."""
-        watcher = self.Watcher(stream)
+        ('handoff', {...}). With `sink`, the events go to `sink(event)`
+        instead of the watcher's queue."""
+        watcher = self.Watcher(stream, sink)
         watcher.key = key
         watcher.handoff = bool(handoff and stream)
         # Contextvars do not cross the queue into the engine thread:
@@ -392,6 +406,24 @@ class EngineLoop:
                 'sent': watcher.sent}))
 
 
+def shed_limit(holder: Dict[str, Any]) -> Optional[int]:
+    """Load shedding (reference :423-440): the queue-depth limit if the
+    engine is at or over it right now, else None. Past the limit a
+    request would only age in the queue past any client timeout; a fast
+    503 + Retry-After lets the load balancer or the client try another
+    replica. The limit: holder['max_queue_depth'] (--max-queue-depth),
+    else SKYTPU_MAX_QUEUE_DEPTH; 0 or unset disables. Each shed request
+    counts in REQUESTS_SHED."""
+    limit = holder.get('max_queue_depth')
+    if limit is None:
+        # A malformed env value reads as the declared default (0: off).
+        limit = envs.SKYTPU_MAX_QUEUE_DEPTH.get()
+    if limit and obs.QUEUE_DEPTH.value() >= limit:
+        obs.REQUESTS_SHED.inc()
+        return int(limit)
+    return None
+
+
 def _parse_sampling(body: Dict[str, Any]):
     from skypilot_tpu_torch.inference.engine import SamplingParams
     eos = body.get('eos_token_id')
@@ -511,6 +543,8 @@ def make_handler(holder: Dict[str, Any]):
                 self._snapshot(loop, query)
             elif path == '/internal/resume':
                 self._resume(loop, query)
+            elif ('GET', path) in openai_api.ROUTES:
+                openai_api.ROUTES['GET', path](self, holder)
             else:
                 self._json({'error': 'not found'}, 404)
 
@@ -525,6 +559,8 @@ def make_handler(holder: Dict[str, Any]):
                 self._resume(loop, query)
             elif path == '/internal/restore':
                 self._restore(loop, query)
+            elif ('POST', path) in openai_api.ROUTES:
+                openai_api.ROUTES['POST', path](self, holder)
             else:
                 self._json({'error': 'not found'}, 404)
 
@@ -536,6 +572,11 @@ def make_handler(holder: Dict[str, Any]):
                 # No new admissions once a drain started.
                 self._json({'error': 'replica draining'}, 503,
                            {'Retry-After': '1'})
+                return
+            limit = shed_limit(holder)
+            if limit is not None:
+                self._json({'error': f'overloaded: queue depth >= {limit}'},
+                           503, {'Retry-After': '1'})
                 return
             try:
                 body = json.loads(self._body() or b'{}')
@@ -783,12 +824,27 @@ def main() -> None:
     parser.add_argument('--seed', type=int, default=0,
                         help='Seed of the random weights.')
     parser.add_argument('--checkpoint', default=None,
-                        help='HF safetensors checkpoint dir (config.json + '
-                             '*.safetensors; its geometry wins over '
-                             '--model, streamed import). Without it the '
-                             'weights are random from --seed.')
+                        help='Checkpoint dir with model params: an HF '
+                             'safetensors dir (config.json + '
+                             '*.safetensors, streamed import) or a port '
+                             'train checkpoint of --model, layout '
+                             'auto-detected; an HF dir\'s geometry wins '
+                             'over --model. Without it the weights are '
+                             'random from --seed.')
     parser.add_argument('--batch-size', type=int, default=8)
     parser.add_argument('--max-seq-len', type=int, default=None)
+    parser.add_argument('--max-queue-depth', type=int, default=None,
+                        help='Shed load (503 + Retry-After) once this many '
+                             'requests are queued ahead of the decode batch '
+                             '(default: SKYTPU_MAX_QUEUE_DEPTH; 0 disables).')
+    parser.add_argument('--tokenizer', default=None,
+                        help='HF tokenizer dir/name (needs transformers). '
+                             'Enables text prompts, chat templates and stop '
+                             'strings on the /v1 OpenAI endpoints; without '
+                             'it the server takes token ids.')
+    parser.add_argument('--served-model-name', default=None,
+                        help='Model id reported by /v1/models (default: '
+                             '--model).')
     parser.add_argument('--prefill-chunk', type=int, default=1024)
     parser.add_argument('--prefill-interleave', type=int, default=None)
     parser.add_argument('--draft-model', default=None,
@@ -833,7 +889,10 @@ def main() -> None:
     timeseries_lib.start_sampler()
     watchdog_lib.start_watchdog()
 
-    holder: Dict[str, Any] = {'loop': None}
+    holder: Dict[str, Any] = {
+        'loop': None, 'tokenizer': None,
+        'model_name': args.served_model_name or args.model,
+        'max_queue_depth': args.max_queue_depth}
     server = create_server(holder, port=args.port)
     load_errors: List[BaseException] = []
 
@@ -842,6 +901,9 @@ def main() -> None:
         # the server instead of leaving it loading forever.
         from skypilot_tpu_torch import inference
         try:
+            if args.tokenizer:
+                holder['tokenizer'] = openai_api.load_tokenizer(
+                    args.tokenizer)
             engine = inference.build_engine(
                 args.model, device=args.device, seed=args.seed,
                 checkpoint=args.checkpoint,

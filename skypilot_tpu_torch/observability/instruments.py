@@ -13,10 +13,9 @@ stdlib `BaseHTTPRequestHandler` instead of an aiohttp app.
 Left out, because the port has no such plane: the load balancer's
 (`LB_*`), the serve controller's and autoscaler's (`SERVE_REPLICAS`,
 `AUTOSCALER_*`, `POOL_*`), fleetsim's (`FLEETSIM_*`), the skylet
-heartbeats (`HEARTBEAT*`), the circuit breakers (`CIRCUIT_*`),
-load shedding (`REQUESTS_SHED`), the LB-side migration and handoff
-counters (`MIGRATION_*`, `HANDOFF_ATTEMPTS/SUCCESSES/TRANSFER_SECONDS`)
-and checkpoint export (`CKPT_EXPORT_*`).
+heartbeats (`HEARTBEAT*`), the circuit breakers (`CIRCUIT_*`) and the
+LB-side migration and handoff counters (`MIGRATION_*`,
+`HANDOFF_ATTEMPTS/SUCCESSES/TRANSFER_SECONDS`).
 
 All land in metrics.REGISTRY, so the server's /metrics exposes
 whatever its process touched.
@@ -187,6 +186,11 @@ HANDOFF_FALLBACKS = metrics.Counter(
     'expired first. A fallback is a degraded success, never an '
     'error — the client stream just continues.')
 
+REQUESTS_SHED = metrics.Counter(
+    'skytpu_requests_shed_total',
+    'Requests rejected with 503 + Retry-After because engine queue '
+    'depth crossed the load-shedding threshold.')
+
 # -- HTTP planes ------------------------------------------------------
 
 HTTP_REQUESTS = metrics.Counter(
@@ -237,7 +241,7 @@ TRAIN_STEP = metrics.Gauge(
     'skytpu_train_step',
     'Last completed training step.')
 
-# -- checkpoint plane (HF safetensors import) -------------------------
+# -- checkpoint plane (HF safetensors import/export) ------------------
 
 CKPT_IMPORT_SECONDS = metrics.Histogram(
     'skytpu_ckpt_import_seconds',
@@ -256,6 +260,18 @@ CKPT_IMPORT_TENSORS = metrics.Counter(
     'skytpu_ckpt_import_tensors_total',
     'Tensors imported from HF checkpoints (per-layer tensors count '
     'individually — the streaming unit).')
+
+CKPT_EXPORT_SECONDS = metrics.Histogram(
+    'skytpu_ckpt_export_seconds',
+    'Wall time of one HF checkpoint export (device pull + shard '
+    'write + index/config emit).',
+    buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 120.0, 300.0, 600.0,
+             1800.0))
+
+CKPT_EXPORT_BYTES = metrics.Counter(
+    'skytpu_ckpt_export_bytes_total',
+    'Checkpoint bytes written to safetensors shards by the HF '
+    'exporter.')
 
 
 # Endpoints whose requests are not worth a span tree of their own

@@ -12,8 +12,8 @@ counts in `skytpu_faults_injected_total{point}`.
 The catalog holds the points the port reaches, with the reference's
 names, so one `SKYTPU_FAULTS` drill arms either package:
 `engine.snapshot` and `engine.handoff_lease` (the engine's migration
-seams) and `checkpoint.save` (declared for the train-checkpoint
-slice, which has no save path in the port yet).
+seams) and `checkpoint.save` (`train/checkpoints.save_train_state`,
+before a byte is written).
 
     faults.arm('engine.snapshot', times=1)
     ...

@@ -1,20 +1,25 @@
-"""fit(): the training loop on one device, and its command line.
+"""fit(): the training loop on one device, with checkpoint and resume.
 
-    python -m skypilot_tpu_torch.train.loop --model bench-8b \
-        --batch-size 1 --seq-len 4096 --max-steps 20
+    python -m skypilot_tpu_torch.train.loop --model gemma2-2b \
+        --batch-size 1 --seq-len 8192 --max-steps 100 \
+        --checkpoint-dir /ckpts/run1 [--checkpoint HF_OR_TRAIN_DIR]
 
-Ports `skypilot_tpu/train/loop.py`: `fit` (:42-158) and `main`
-(:161-195), with the same flags plus `--device` (default CUDA; `--device
-cpu` runs the plain paths on the CPU). Each log window logs its loss,
-tokens/s and MFU through `log_fn` and records them in the result's
-`history`. Every step reports through the port's instruments at the
-reference's points (:135-147): `TRAIN_STEP_SECONDS` (the step's wall
-time, asynchronous dispatch included: the loss read of a log window is
-the only sync), `TRAIN_TOKENS` and `TRAIN_STEP`; each log window sets
-`TRAIN_MFU` and `TRAIN_LOSS`. Not ported yet, and refused rather than
-ignored: checkpoints (`--checkpoint-dir`, `--checkpoint`; ROADMAP.md's
-checkpoint slice) and a mesh of more than one device (`--mesh`; the
-parallel slice).
+Ports `skypilot_tpu/train/loop.py`: `_save_with_retries` (:26-39), `fit`
+(:44-156) and `main` (:161-195), with the same flags plus `--device`
+(default CUDA; `--device cpu` runs the plain paths on the CPU). A run
+resumes from the latest complete step in `--checkpoint-dir` (a managed
+job's relaunch after a preemption), saves every `--checkpoint-every`
+steps and at the end, and with `--checkpoint` starts a fine-tune from
+an HF safetensors directory or a port train checkpoint (resume wins
+over it). Saves go through `train/checkpoints.py` under the shared
+retry policy. Each log window logs its loss, tokens/s and MFU through
+`log_fn` and records them in the result's `history`. Every step reports
+through the port's instruments at the reference's points (:135-147):
+`TRAIN_STEP_SECONDS` (the step's wall time, asynchronous dispatch
+included: the loss read of a log window is the only sync),
+`TRAIN_TOKENS` and `TRAIN_STEP`; each log window sets `TRAIN_MFU` and
+`TRAIN_LOSS`. A mesh of more than one device (`--mesh`) is refused
+until the parallel slice (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -25,11 +30,48 @@ from typing import Any, Callable, Dict, Optional, Union
 import torch
 
 from skypilot_tpu_torch import device as device_lib
+from skypilot_tpu_torch import envs
 from skypilot_tpu_torch.observability import instruments as obs
+from skypilot_tpu_torch.resilience import retries
+from skypilot_tpu_torch.train import checkpoints
 from skypilot_tpu_torch.train import trainer as trainer_lib
 
-_CHECKPOINT_SLICE = ('checkpoints are not ported yet: they come with the '
-                     'checkpoint slice (ROADMAP.md, Queue 1)')
+
+def _save_with_retries(checkpoint_dir: str, state: Dict[str, Any],
+                       step: int) -> None:
+    """A transient save failure (a storage blip) must not kill a long
+    run: retry under the shared policy; give up only after the budget
+    and let the caller's exception surface."""
+    retries.call(
+        lambda: checkpoints.save_train_state(checkpoint_dir, state,
+                                             step=step),
+        policy=retries.RetryPolicy(
+            max_attempts=3,
+            base_delay=envs.SKYTPU_CKPT_RETRY_GAP.get(),
+            max_delay=30.0),
+        retry_on=(Exception,),
+        describe=f'checkpoint save step {step}')
+
+
+def _adopt(params: Dict[str, Any], loaded: Dict[str, Any]) -> None:
+    """Copy `loaded` into the train state's `params`, leaf for leaf, in
+    place and in the state's dtype; a structure or shape mismatch raises
+    ValueError."""
+    if sorted(params) != sorted(loaded):
+        raise ValueError(f'tree structure: model leaves {sorted(params)} '
+                         f'vs checkpoint {sorted(loaded)}')
+    for key, cur in params.items():
+        new = loaded[key]
+        if isinstance(cur, dict):
+            _adopt(cur, new)
+            continue
+        if cur.shape != new.shape:
+            raise ValueError(
+                f'--checkpoint geometry mismatch: leaf shape '
+                f'{tuple(new.shape)} vs model {tuple(cur.shape)} — does '
+                f'--model match the checkpoint?')
+        with torch.no_grad():
+            cur.copy_(new.to(cur.dtype))
 
 
 def fit(cfg: trainer_lib.TrainerConfig,
@@ -40,32 +82,55 @@ def fit(cfg: trainer_lib.TrainerConfig,
         log_every: int = 10,
         init_checkpoint: Optional[str] = None,
         log_fn=print) -> Dict[str, Any]:
-    """Train to cfg.max_steps on one device from random params.
+    """Train to cfg.max_steps on one device; resume from checkpoint_dir
+    if it holds a complete step.
 
-    Without `batch_fn` every step trains on one fixed synthetic batch.
-    The loss is read (a host sync) once per log window, as in the
-    reference. Returns {'state', 'metrics', 'final_step', 'history'},
-    where `history` holds one dict per log window: step, loss, the
-    window's wall seconds per step, tokens/s and MFU (None where
-    `PEAK_FLOPS` has no entry for the device)."""
-    del checkpoint_every
-    if checkpoint_dir is not None or init_checkpoint is not None:
-        raise NotImplementedError(_CHECKPOINT_SLICE)
+    `init_checkpoint` seeds the starting params (the fine-tune case): an
+    HF safetensors dir streams in through the importer, a port train
+    checkpoint restores its params; a resume checkpoint in
+    `checkpoint_dir` wins over it. Without `batch_fn` every step trains
+    on one fixed synthetic batch. The loss is read (a host sync) once
+    per log window, as in the reference. Returns {'state', 'metrics',
+    'final_step', 'history'}, where `history` holds one dict per log
+    window: step, loss, the window's wall seconds per step, tokens/s and
+    MFU (None where `PEAK_FLOPS` has no entry for the device)."""
     dev = device_lib.resolve_device(device)
+    mcfg = cfg.model_config()
     state = trainer_lib.make_train_state(cfg, dev)
+    start_step = 0
+    if checkpoint_dir is not None:
+        step = checkpoints.latest_step(checkpoint_dir)
+        if step is not None:
+            checkpoints.restore_train_state(checkpoint_dir, state, step=step)
+            start_step = step
+            log_fn(f'[fit] resumed from step {step}')
+
+    if init_checkpoint is not None and start_step == 0:
+        loaded = checkpoints.restore_params(init_checkpoint, device=dev)
+        try:
+            _adopt(state['params'], loaded)
+        except ValueError as e:
+            # Lead with what the operator must fix.
+            raise ValueError(
+                f'--checkpoint geometry mismatch: {init_checkpoint!r} '
+                f'does not hold params for model {cfg.model!r} '
+                '(different family knobs — tied embeddings, biases, '
+                f'post-norms — or sizes): {str(e)[:500]}') from None
+        del loaded
+        log_fn(f'[fit] initialized params from {init_checkpoint}')
+
     step_fn = trainer_lib.make_train_step(cfg, dev)
     if batch_fn is None:
         fixed = trainer_lib.synthetic_batch(cfg, dev)
         batch_fn = lambda i: fixed  # noqa: E731
 
-    mcfg = cfg.model_config()
     peak = trainer_lib.PEAK_FLOPS.get(trainer_lib.detect_chip(dev))
     tokens_per_step = cfg.batch_size * cfg.seq_len
     history = []
     metrics: Dict[str, Any] = {}
     t_last = time.perf_counter()
     t_step = t_last
-    for i in range(cfg.max_steps):
+    for i in range(start_step, cfg.max_steps):
         state, metrics = step_fn(state, batch_fn(i))
         # The serving planes' registry: per-step wall time (dispatch
         # included; no sync is added for it), tokens and progress.
@@ -90,21 +155,14 @@ def fit(cfg: trainer_lib.TrainerConfig,
             mfu_text = f'{mfu:.2%}' if mfu is not None else 'n/a'
             log_fn(f'[fit] step {i + 1}/{cfg.max_steps} '
                    f'loss={loss:.4f} tokens/s={tps:.0f} mfu={mfu_text}')
+        if checkpoint_dir is not None and \
+                (i + 1) % checkpoint_every == 0:
+            _save_with_retries(checkpoint_dir, state, step=i + 1)
+    if checkpoint_dir is not None and \
+            checkpoints.latest_step(checkpoint_dir) != cfg.max_steps:
+        _save_with_retries(checkpoint_dir, state, step=cfg.max_steps)
     return {'state': state, 'metrics': metrics,
             'final_step': cfg.max_steps, 'history': history}
-
-
-def _one_device_mesh(spec: str) -> None:
-    """Accept only a mesh spec that resolves to one device: every axis
-    of size 1 or -1 (fill)."""
-    sizes = {}
-    for part in spec.split(','):
-        axis, _, size = part.partition('=')
-        sizes[axis.strip()] = int(size)
-    if any(s not in (1, -1) for s in sizes.values()):
-        raise NotImplementedError(
-            f'--mesh {spec!r} spans more than one device; the port trains '
-            'on one device until the parallel slice (ROADMAP.md, Queue 1)')
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -115,10 +173,16 @@ def main(argv=None) -> Dict[str, Any]:
     parser.add_argument('--max-steps', type=int, default=100)
     parser.add_argument('--learning-rate', type=float, default=3e-4)
     parser.add_argument('--checkpoint-dir', default=None,
-                        help='Not ported yet (raises).')
+                        help='Train checkpoints go here (the port\'s '
+                             'format); a relaunch resumes from its latest '
+                             'complete step.')
     parser.add_argument('--checkpoint-every', type=int, default=100)
     parser.add_argument('--checkpoint', default=None,
-                        help='Not ported yet (raises).')
+                        help='Initial weights for a fine-tune: an HF '
+                             'safetensors dir (streamed import) or a port '
+                             'train checkpoint, layout auto-detected. A '
+                             'resume checkpoint in --checkpoint-dir takes '
+                             'precedence.')
     parser.add_argument('--mesh', default='fsdp=-1',
                         help='Comma-separated axis=size; only a one-device '
                         'mesh is accepted.')
@@ -128,16 +192,16 @@ def main(argv=None) -> Dict[str, Any]:
     parser.add_argument('--device', default=None,
                         help="Default CUDA; 'cpu' runs the plain paths.")
     args = parser.parse_args(argv)
-    if args.checkpoint_dir is not None or args.checkpoint is not None:
-        raise NotImplementedError(_CHECKPOINT_SLICE)
-    _one_device_mesh(args.mesh)
+    device_lib.check_one_device_mesh(args.mesh)
     cfg = trainer_lib.TrainerConfig(
         model=args.model, batch_size=args.batch_size,
         seq_len=args.seq_len, max_steps=args.max_steps,
         learning_rate=args.learning_rate,
         attention_impl=args.attention)
-    return fit(cfg, args.device,
-               log_every=max(1, min(10, args.max_steps)))
+    return fit(cfg, args.device, checkpoint_dir=args.checkpoint_dir,
+               checkpoint_every=args.checkpoint_every,
+               log_every=max(1, min(10, args.max_steps)),
+               init_checkpoint=args.checkpoint)
 
 
 if __name__ == '__main__':

@@ -372,3 +372,170 @@ def test_server_checkpoint_flag_serves_the_checkpoint(gemma_checkpoint,
         proc.kill()
         proc.wait()
         log.close()
+
+
+# -- the port's export and the checkpoints CLI -------------------------------
+
+def _files(d):
+    return {fn: (d / fn).read_bytes() for fn in sorted(os.listdir(d))}
+
+
+@pytest.mark.parametrize('name,bf16', [
+    ('tiny', False), ('tiny-gemma', False), ('tiny-mistral', False),
+    ('tiny-qwen', False), ('tiny-gemma', True)])
+def test_port_export_is_byte_identical_to_the_reference(tmp_path, name,
+                                                        bf16):
+    """Shards, index and config.json, byte for byte, over several shards;
+    ExportStats and hf_config_dict equal too."""
+    from skypilot_tpu.observability import instruments as ref_obs  # noqa: F401
+    from skypilot_tpu_torch.observability import instruments as obs
+    ref_config = _ref_config(name, bf16)
+    params, out = _export(tmp_path, ref_config)
+    config = _port_config(ref_config)
+    port_params = weights.from_jax_params(params, config)
+    before = (obs.CKPT_EXPORT_BYTES.value(),
+              obs.CKPT_EXPORT_SECONDS.child_snapshot()[2])
+    stats = ckpt.export_params(port_params, config, str(tmp_path / 'port'),
+                               max_shard_bytes=40_000)
+    ref_stats = ref_ckpt.export_params(params, ref_config,
+                                       str(tmp_path / 'again'),
+                                       max_shard_bytes=40_000)
+    assert _files(tmp_path / 'port') == _files(tmp_path / 'hf')
+    assert (stats.bytes_written, stats.tensors, stats.shards) == (
+        ref_stats.bytes_written, ref_stats.tensors, ref_stats.shards)
+    assert stats.shards > 1
+    assert ckpt.hf_config_dict(config) == ref_ckpt.hf_config_dict(ref_config)
+    assert (obs.CKPT_EXPORT_BYTES.value() - before[0],
+            obs.CKPT_EXPORT_SECONDS.child_snapshot()[2] - before[1]) == (
+                stats.bytes_written, 1)
+
+
+def _cli(main, argv, capsys):
+    rc = main(argv)
+    out = capsys.readouterr().out
+    return rc, out
+
+
+@pytest.fixture(scope='module')
+def cli_checkpoints(tmp_path_factory):
+    """A clean bf16 tiny-gemma export and three damaged copies: one value
+    changed, a NaN planted, a shard cut short."""
+    import shutil
+    tmp = tmp_path_factory.mktemp('cli')
+    ref_config = _ref_config('tiny-gemma', bf16=True)
+    _, clean = _export(tmp, ref_config, seed=4)
+    dirs = {'clean': clean}
+    for kind in ('changed', 'nan', 'truncated'):
+        d = str(tmp / kind)
+        shutil.copytree(clean, d)
+        dirs[kind] = d
+    shard = sorted(fn for fn in os.listdir(clean)
+                   if fn.endswith('.safetensors'))[1]
+    with st.CheckpointReader(clean) as reader:
+        name = [n for n, t in reader.tensors.items() if t.shard == shard][0]
+        offset = reader.tensor(name)._start
+    for kind, raw in (('changed', b'\x12\x3c'), ('nan', b'\xc0\x7f')):
+        with open(os.path.join(dirs[kind], shard), 'r+b') as f:
+            f.seek(offset)
+            f.write(raw)   # one bf16 element: 0.0112 / NaN
+    path = os.path.join(dirs['truncated'], shard)
+    os.truncate(path, os.path.getsize(path) - 6)
+    return dirs
+
+
+@pytest.mark.parametrize('kind', ['clean', 'changed', 'nan', 'truncated'])
+def test_cli_verify_and_inspect_match_the_reference(cli_checkpoints, kind,
+                                                    capsys):
+    from skypilot_tpu.checkpoints import __main__ as ref_cli
+    from skypilot_tpu_torch.checkpoints import __main__ as cli
+    d, clean = cli_checkpoints[kind], cli_checkpoints['clean']
+    for argv in (['verify', d], ['verify', d, '--against', clean],
+                 ['inspect', d, '--tensors']):
+        want = _cli(ref_cli.main, argv, capsys)
+        got = _cli(cli.main, argv, capsys)
+        if kind == 'truncated':
+            # The format error's wording is each reader's own.
+            assert got[0] == want[0] == 1, argv
+            assert got[1].split(':')[0] == want[1].split(':')[0], argv
+        else:
+            assert got == want, argv
+    # A changed value passes the structural and finite checks and only
+    # the diff against the clean copy finds it.
+    plain = cli.main(['verify', d])
+    against = cli.main(['verify', d, '--against', clean])
+    capsys.readouterr()
+    assert plain == (1 if kind in ('nan', 'truncated') else 0)
+    assert against == (0 if kind == 'clean' else 1)
+
+
+def test_cli_import_and_export_round_trip(tmp_path, capsys):
+    """`import --device cpu` reports what the reference's import does;
+    `export --orbax` turns a port train checkpoint into an HF directory
+    the reference's load_params reads equal to the trained params."""
+    from skypilot_tpu.checkpoints import __main__ as ref_cli
+    from skypilot_tpu_torch.checkpoints import __main__ as cli
+    from skypilot_tpu_torch.train import checkpoints as train_ckpts
+    from skypilot_tpu_torch.train import trainer
+    ref_config = _ref_config('tiny')
+    params, out = _export(tmp_path, ref_config)
+    keys = ('family', 'num_layers', 'bytes_read', 'tensors', 'shards',
+            'largest_tensor_bytes')
+    rc, text = _cli(cli.main, ['import', out, '--device', 'cpu'], capsys)
+    ref_rc, ref_text = _cli(ref_cli.main, ['import', out], capsys)
+    got, want = json.loads(text), json.loads(ref_text)
+    assert rc == ref_rc == 0
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+
+    cfg = trainer.TrainerConfig(model='tiny')
+    state = trainer.make_train_state(
+        cfg, 'cpu', params=weights.from_jax_params(params))
+    train_ckpts.save_train_state(str(tmp_path / 'train'), state, step=7)
+    rc, text = _cli(cli.main, ['export', '--orbax', str(tmp_path / 'train'),
+                               '--model', 'tiny', '--out',
+                               str(tmp_path / 'exported'), '--device',
+                               'cpu'], capsys)
+    assert rc == 0 and json.loads(text)['tensors'] == 21
+    loaded, _config, _stats = ref_ckpt.load_params(str(tmp_path /
+                                                       'exported'))
+    flat = jax.tree_util.tree_leaves(jax.tree.map(np.asarray, loaded))
+    for a, b in zip(flat, jax.tree_util.tree_leaves(params)):
+        np.testing.assert_array_equal(a, b)
+    assert cli.main(['export', '--orbax', str(tmp_path / 'absent'),
+                     '--model', 'tiny', '--out', str(tmp_path / 'x'),
+                     '--device', 'cpu']) == 1
+
+
+@pytest.fixture(scope='module')
+def tiny_train_checkpoints(tmp_path_factory):
+    """The same tiny params as a reference Orbax train checkpoint and as
+    a port train checkpoint."""
+    from skypilot_tpu.train import checkpoints as ref_train_ckpts
+    from skypilot_tpu_torch.train import checkpoints as train_ckpts
+    from skypilot_tpu_torch.train import trainer
+    tmp = tmp_path_factory.mktemp('train')
+    params = ref_llama.init_params(_ref_config('tiny'), jax.random.key(3))
+    ref_dir, port_dir = str(tmp / 'orbax'), str(tmp / 'port')
+    ref_train_ckpts.save_train_state(ref_dir, {'params': params}, step=1)
+    state = trainer.make_train_state(
+        trainer.TrainerConfig(model='tiny'), 'cpu',
+        params=weights.from_jax_params(jax.tree.map(np.asarray, params)))
+    train_ckpts.save_train_state(port_dir, state, step=1)
+    return ref_dir, port_dir
+
+
+@pytest.mark.parametrize('model', ['tiny-gemma', 'llama3-8b'])
+def test_cli_export_refuses_a_model_the_params_do_not_fit(
+        tiny_train_checkpoints, tmp_path, model):
+    """`export --model` names the export geometry in both CLIs: a tiny
+    train checkpoint exported as another model raises in each (a `python
+    -m` run exits 1), and the port names what does not fit."""
+    from skypilot_tpu.checkpoints import __main__ as ref_cli
+    from skypilot_tpu_torch.checkpoints import __main__ as cli
+    ref_dir, port_dir = tiny_train_checkpoints
+    with pytest.raises((KeyError, ValueError)):
+        ref_cli.main(['export', '--orbax', ref_dir, '--model', model,
+                      '--out', str(tmp_path / 'ref_out')])
+    with pytest.raises(ValueError, match='params do not fit the config'):
+        cli.main(['export', '--orbax', port_dir, '--model', model,
+                  '--out', str(tmp_path / 'out'), '--device', 'cpu'])
+    assert not os.path.exists(tmp_path / 'out')

@@ -427,7 +427,9 @@ def test_env_defaults_match_reference_registry():
         'SKYTPU_TS_CAPACITY', 'SKYTPU_TS_MAX_SERIES',
         'SKYTPU_WATCHDOG_TICK_SECONDS', 'SKYTPU_WATCHDOG_RULES',
         'SKYTPU_WATCHDOG_WINDOW_SECONDS', 'SKYTPU_WATCHDOG_BREACH_TICKS',
-        'SKYTPU_WATCHDOG_CLEAR_TICKS', 'SKYTPU_WATCHDOG_ANOMALY_Z'}
+        'SKYTPU_WATCHDOG_CLEAR_TICKS', 'SKYTPU_WATCHDOG_ANOMALY_Z',
+        # load shedding and the train checkpoints' save retries
+        'SKYTPU_MAX_QUEUE_DEPTH', 'SKYTPU_CKPT_RETRY_GAP'}
     for name, var in port_vars.items():
         assert (var.type, var.default) == (ref_vars[name].type,
                                            ref_vars[name].default), name

@@ -183,7 +183,8 @@ REFERENCE_CALLS = (
     'HTTP_REQUEST_SECONDS', 'WATCHDOG_ALERTS', 'FAULTS_INJECTED',
     'TRAIN_STEP_SECONDS', 'TRAIN_TOKENS', 'TRAIN_STEP', 'TRAIN_MFU',
     'TRAIN_LOSS', 'CKPT_IMPORT_SECONDS', 'CKPT_IMPORT_BYTES',
-    'CKPT_IMPORT_TENSORS')
+    'CKPT_IMPORT_TENSORS', 'REQUESTS_SHED', 'CKPT_EXPORT_SECONDS',
+    'CKPT_EXPORT_BYTES')
 
 
 def test_reference_call_sites_are_declared_in_the_port():
@@ -195,7 +196,8 @@ def test_reference_call_sites_are_declared_in_the_port():
     root = skypilot_tpu_torch.__path__[0]
     used = set()
     for rel in ('inference/engine.py', 'inference/server.py',
-                'train/loop.py', 'checkpoints/hf_import.py',
+                'inference/openai_api.py', 'train/loop.py',
+                'checkpoints/hf_import.py', 'checkpoints/hf_export.py',
                 'resilience/faults.py', 'observability/watchdog.py'):
         used |= set(re.findall(r'\bobs\.([A-Z][A-Z_]+)\b',
                                open(f'{root}/{rel}').read()))

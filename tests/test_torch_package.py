@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, no ml_dtypes, no aiohttp, no skypilot_tpu.
+"""The port stands alone: no JAX, no ml_dtypes, no aiohttp, no transformers,
+no skypilot_tpu.
 
 A subprocess blocks those packages in `sys.modules`, then imports every
 module of `skypilot_tpu_torch` and the root `chip_smoke.py`,
@@ -20,7 +21,8 @@ _PROBE = r'''
 import pkgutil
 import sys
 
-BLOCKED = ('jax', 'jaxlib', 'ml_dtypes', 'aiohttp', 'skypilot_tpu')
+BLOCKED = ('jax', 'jaxlib', 'ml_dtypes', 'aiohttp', 'transformers',
+           'skypilot_tpu')
 for name in BLOCKED:
     sys.modules[name] = None  # any import of it now raises ImportError
 
@@ -37,6 +39,14 @@ import spec_fault_check
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in BLOCKED and sys.modules[m] is not None)
 assert not leaked, leaked
+# As on the card: a tokenizer needs transformers, and says so.
+from skypilot_tpu_torch.inference import openai_api
+try:
+    openai_api.load_tokenizer('/nonexistent')
+except ImportError as e:
+    assert 'transformers' in str(e), e
+else:
+    raise AssertionError('load_tokenizer without transformers')
 print(len(names), ' '.join(sorted(names)))
 '''
 
@@ -73,9 +83,15 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.observability.watchdog',
                    'skypilot_tpu_torch.observability.top',
                    'skypilot_tpu_torch.observability.trace_dump',
-                   'skypilot_tpu_torch.resilience.faults'):
+                   'skypilot_tpu_torch.resilience.faults',
+                   'skypilot_tpu_torch.resilience.retries',
+                   'skypilot_tpu_torch.inference.openai_api',
+                   'skypilot_tpu_torch.inference.batch',
+                   'skypilot_tpu_torch.checkpoints.hf_export',
+                   'skypilot_tpu_torch.checkpoints.__main__',
+                   'skypilot_tpu_torch.train.checkpoints'):
         assert module in names.split()
-    assert int(count) >= 33
+    assert int(count) >= 39
 
 
 def test_entry_points_raise_without_cuda():

@@ -4,9 +4,10 @@
 logprobs) and streaming, bad bodies, and concurrent requests: every
 answer carries exactly the tokens the engine emits greedily for the
 same prompt. The server as a process (`python -m`): it exits once its
-launcher dies, unless `--no-exit-with-parent`, and with
+launcher dies, unless `--no-exit-with-parent`; with
 `--draft-model` it serves speculative decode with the draft-free
-server's greedy tokens.
+server's greedy tokens; and it takes the OpenAI routes' flags
+(`--served-model-name`, `--tokenizer`, `--max-queue-depth`).
 """
 import json
 import os
@@ -275,3 +276,51 @@ def test_draft_model_server_matches_draft_free_server(orphan_spec_server,
     assert set(plain_before) == {'rounds', 'proposed_tokens',
                                  'accepted_tokens'}
     assert _get(plain_base + '/health')[1]['engine']['spec'] == plain_before
+
+
+def _toy_tokenizer_dir(path):
+    """tests/unit/test_openai_api.py's toy tokenizer (WordLevel over
+    tiny's 256 ids, '</s>' the eos), saved as an HF tokenizer dir."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+    from transformers import PreTrainedTokenizerFast
+    words = ['[UNK]', '</s>', 'hello', 'world', 'foo', 'bar', 'stop', 'go']
+    words += [f'w{i}' for i in range(len(words), 256)]
+    tok = Tokenizer(WordLevel({w: i for i, w in enumerate(words)},
+                              unk_token='[UNK]'))
+    tok.pre_tokenizer = Whitespace()
+    PreTrainedTokenizerFast(tokenizer_object=tok, unk_token='[UNK]',
+                            eos_token='</s>').save_pretrained(str(path))
+    return str(path)
+
+
+def test_openai_flags_in_a_process(tmp_path):
+    """--served-model-name names the model /v1 reports, --tokenizer
+    gives /v1/completions text prompts, and --max-queue-depth is taken
+    (the shedding itself: tests/test_torch_openai_api.py)."""
+    pid, port = _launch_orphan(
+        tmp_path, '--no-exit-with-parent', '--served-model-name',
+        'my-model', '--tokenizer', _toy_tokenizer_dir(tmp_path / 'tok'),
+        '--max-queue-depth', '4', '--batch-size', '2', '--max-seq-len',
+        '64', '--prefill-chunk', '16', '--kv-page-size', '8')
+    base = f'http://127.0.0.1:{port}'
+    try:
+        deadline = time.time() + 90
+        while True:
+            try:
+                if _get(base + '/health', timeout=5)[0] == 200:
+                    break
+            except urllib.error.HTTPError:
+                pass
+            assert time.time() < deadline and _alive(pid)
+            time.sleep(0.1)
+        assert _get(base + '/v1/models')[1]['data'][0]['id'] == 'my-model'
+        status, text = _post(base + '/v1/completions', {
+            'prompt': 'hello world', 'max_tokens': 3, 'temperature': 0})
+        doc = json.loads(text)
+        assert status == 200 and doc['model'] == 'my-model'
+        assert isinstance(doc['choices'][0]['text'], str)
+        assert doc['usage']['prompt_tokens'] == 2
+    finally:
+        _kill(pid)

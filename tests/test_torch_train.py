@@ -11,6 +11,7 @@ sides, only the summation order differs); train-step params and moments
 into the update almost unchanged); the schedule and the clip 1e-6.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -209,16 +210,23 @@ def test_fit_on_cpu_loss_falls():
     assert res['history'][0]['mfu'] is not None   # PEAK_FLOPS['cpu']
 
 
-def test_fit_and_main_refuse_what_is_not_ported():
-    cfg = trainer.TrainerConfig(model='tiny', max_steps=1)
-    with pytest.raises(NotImplementedError, match='checkpoint slice'):
-        loop.fit(cfg, 'cpu', checkpoint_dir='/nonexistent')
-    with pytest.raises(NotImplementedError, match='checkpoint slice'):
-        loop.fit(cfg, 'cpu', init_checkpoint='/nonexistent')
-    with pytest.raises(NotImplementedError, match='checkpoint slice'):
-        loop.main(['--device', 'cpu', '--checkpoint-dir', '/nonexistent'])
-    with pytest.raises(NotImplementedError, match='checkpoint slice'):
-        loop.main(['--device', 'cpu', '--checkpoint', '/nonexistent'])
+def test_fit_and_main_refuse_what_is_not_ported(tmp_path):
+    """Checkpoints are ported: a missing `--checkpoint` raises the
+    reference's FileNotFoundError, an empty `--checkpoint-dir` starts
+    from scratch and saves at the end. A mesh of more than one device
+    and ring attention are still refused."""
+    cfg = trainer.TrainerConfig(model='tiny', max_steps=1, batch_size=1,
+                                seq_len=8)
+    with pytest.raises(FileNotFoundError, match='No checkpoint'):
+        loop.fit(cfg, 'cpu', init_checkpoint=str(tmp_path / 'absent'))
+    with pytest.raises(FileNotFoundError, match='No checkpoint'):
+        loop.main(['--device', 'cpu', '--checkpoint',
+                   str(tmp_path / 'absent')])
+    res = loop.main(['--device', 'cpu', '--max-steps', '1',
+                     '--batch-size', '1', '--seq-len', '8',
+                     '--checkpoint-dir', str(tmp_path / 'run')])
+    assert res['final_step'] == 1
+    assert os.listdir(tmp_path / 'run') == ['1']
     with pytest.raises(NotImplementedError, match='parallel slice'):
         loop.main(['--device', 'cpu', '--mesh', 'data=2,fsdp=-1'])
     with pytest.raises(NotImplementedError, match='parallel slice'):
