@@ -217,8 +217,34 @@ Phases, each printing one JSON line:
                   instruments as in phase 11; step time,
                   tok/s, MFU, peak memory, the optimizer's ms and one step
                   under the profiler. (19-20 run after phase 11.)
+ 25. moe_serve  - mixtral-8x7b at its published widths, depth cut to 16
+                  of 32 layers (46 GB of weights), random weights from
+                  seed 0, the llama3-8b engine phase's traffic without
+                  interleave or prefix cache; bf16, then int8 KV:
+                  prefill logits through K1 (K2) against the plain
+                  version and the dense path (use_flash=False) within
+                  TOL_LOGITS_REL; on bf16, throughput, the expert MLP
+                  (`_moe_mlp`) against its one-hot form
+                  (`_moe_mlp_dense`) on a 4096-token chunk within
+                  TOL_MOE_REL, three planted faults against the same
+                  output (the second top-k slot dropped, a swapped pair
+                  of experts, the combine weights left in f32), each of
+                  which must break it, and the ms of routing, dispatch,
+                  expert GEMMs and combine of each form; the main path
+                  (9 greedy requests, 32 new) with K1 (K2) launches held
+                  to the admissions' expected count, run twice on bf16
+                  with the tokens equal; one fused decode dispatch with
+                  torch.cuda.set_sync_debug_mode 'error' inside every MoE
+                  layer and one sync a step (the loop's own) around them.
+ 26. moe_train  - train_parity at mixtral-8x7b's widths, 2 layers, seq
+                  4096, then fit through TrainerConfig.attention_impl
+                  'flash' (the preset is dense) on the same cut, 1 x 4096,
+                  10 steps: K3 = K4 = 2 x 10, K1 2 x 2 x 10, K2 never;
+                  the loss must fall and the router aux loss on the
+                  trained params be finite and > 0; step time, tok/s, MFU
+                  over the active params, peak memory.
 Then a `kernels` line (each kernel's `path_launches`: its launches on
-the openai, batch and roundtrip paths) and, last,
+the openai, batch, roundtrip and MoE paths) and, last,
 {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
@@ -675,39 +701,46 @@ def batch_inputs(torch, eng, engine, prompts, padded_len):
     return tokens, lengths, torch.arange(n, device=dev), cache
 
 
+def prefill_logits(torch, eng, engine, prompts, use_flash=True):
+    """Last-token logits of one batched chunked prefill of `prompts`
+    into a fresh paged cache of the engine's layout."""
+    chunk = engine.prefill_chunk
+    padded_len = -(-max(map(len, prompts)) // chunk) * chunk
+    tokens, lengths, slots, cache = batch_inputs(torch, eng, engine, prompts,
+                                                 padded_len)
+    logits, _ = eng.prefill_chunked(engine.params, tokens, lengths, cache,
+                                    slots, engine.config, chunk,
+                                    use_flash=use_flash)
+    torch.cuda.synchronize()
+    return logits
+
+
+@contextlib.contextmanager
+def plain_kernels(fa):
+    """K1 and K2 swapped for their plain version for the block."""
+    def wrap(launch):
+        def plain_launch(q, k, v, causal, window, softcap, q_offset,
+                         k_scale=None, v_scale=None):
+            return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
+                             k_scale=k_scale, v_scale=v_scale)
+        return plain_launch
+
+    with patched(fa, '_launch', wrap):
+        yield
+
+
 def prefill_paths(torch, eng, fa, engine, prompts):
     """Last-token prefill logits of `prompts` through the kernel and
     through the plain version (the kernel swapped out), each into a
     fresh paged cache. Returns (kernel, plain)."""
-    chunk = engine.prefill_chunk
-    padded_len = -(-max(map(len, prompts)) // chunk) * chunk
-
-    def run():
-        tokens, lengths, slots, cache = batch_inputs(
-            torch, eng, engine, prompts, padded_len)
-        logits, _ = eng.prefill_chunked(engine.params, tokens, lengths,
-                                        cache, slots, engine.config, chunk,
-                                        use_flash=True)
-        torch.cuda.synchronize()
-        return logits
-
-    kernel_logits = run()
-    launch = fa._launch
-
-    def plain_launch(q, k, v, causal, window, softcap, q_offset,
-                     k_scale=None, v_scale=None):
-        return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
-                         k_scale=k_scale, v_scale=v_scale)
-
-    fa._launch = plain_launch
-    try:
-        plain_logits = run()
-    finally:
-        fa._launch = launch
+    kernel_logits = prefill_logits(torch, eng, engine, prompts)
+    with plain_kernels(fa):
+        plain_logits = prefill_logits(torch, eng, engine, prompts)
     return kernel_logits, plain_logits
 
 
 def rel_err(torch, a, b):
+    a, b = a.float(), b.float()
     return float((a - b).abs().max() / b.abs().max())
 
 
@@ -825,7 +858,8 @@ def logits_faults(r):
     """The limits a logits reading breaks; empty when it passes."""
     faults = [] if r['prefill_logits_finite'] else ['non-finite logits']
     for key in ('prefill_logits_rel_err_vs_plain',
-                'prefill_logits_rel_err_vs_dense_forward'):
+                'prefill_logits_rel_err_vs_dense_forward',
+                'prefill_logits_rel_err_vs_dense_path'):
         if key in r and not r[key] < TOL_LOGITS_REL:
             faults.append(f'{key} {r[key]} >= {TOL_LOGITS_REL}')
     return faults
@@ -3313,9 +3347,69 @@ PARITY_BENCH = ('bench-8b', 2, 2048)
 PARITY_GEMMA = ('gemma2-2b', 2, 8192)
 
 
+@contextlib.contextmanager
+def replayed_routes(torch, moe):
+    """`moe._route` patched for a flash-against-dense comparison: while
+    `record` is set, each call's expert choices are kept in order, per
+    layer (keyed by its router tensor); after, each call takes its
+    layer's next recorded choices (from the first again once `cursor`
+    is cleared), with the gates renormalised from its own probabilities
+    and its own aux loss, so two passes that route in
+    the same order (the chunks of a prefill, a forward and its remat
+    recompute) differ by their attention alone, and not by a bf16 step
+    that moves a token across a near-tie of the router. Of the (token,
+    slot) choices the later calls route (`routed`; a cached engine's
+    real tokens only, `_moe_mlp`'s `valid`), `flips` counts those they
+    would have made otherwise."""
+    state = {'record': True, 'choices': collections.defaultdict(list),
+             'cursor': collections.Counter(), 'flips': 0, 'routed': 0,
+             'valid': None}
+
+    def wrap_mlp(fn):
+        def mlp(h, layer_params, config, mode='auto', valid=None):
+            state['valid'] = valid
+            try:
+                return fn(h, layer_params, config, mode=mode, valid=valid)
+            finally:
+                state['valid'] = None
+        return mlp
+
+    def wrap(fn):
+        def route(h, router, config):
+            key = router.data_ptr()
+            own = fn(h, router, config)
+            if state['record']:
+                state['choices'][key].append(own.experts)
+                return own
+            forced = state['choices'][key][state['cursor'][key]]
+            state['cursor'][key] += 1
+            probs = torch.softmax(h.float() @ router.float(), dim=-1)
+            k = forced.shape[1]
+            rank = 2.0 * torch.arange(k, 0, -1, device=probs.device)
+            bonus = torch.zeros_like(probs).scatter(
+                1, forced, rank.expand(forced.shape).contiguous())
+            r = moe._assign(probs.detach() + bonus, config)
+            gates = torch.gather(probs, 1, forced)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+            counted = torch.ones_like(forced, dtype=torch.bool)
+            if state['valid'] is not None:
+                counted = counted & state['valid'].reshape(-1, 1)
+            state['flips'] += int(((own.experts != forced) & counted).sum())
+            state['routed'] += int(counted.sum())
+            return r._replace(gates=gates, aux_loss=own.aux_loss)
+        return route
+
+    with patched(moe, '_route', wrap), patched(moe, '_moe_mlp', wrap_mlp):
+        yield state
+
+
 def train_parity(torch, model, layers, seq_len):
     """One loss_fn + backward at `model`'s widths, depth cut to `layers`,
-    through flash and dense attention on the same params and tokens."""
+    through flash and dense attention on the same params and tokens. An
+    MoE model's dense pass takes the flash pass's expert choices
+    (`replayed_routes`), and `routing_flips` counts those it would have
+    changed."""
     import skypilot_tpu_torch.models as models
     from skypilot_tpu_torch.train import trainer
     family, config = models.resolve(model)
@@ -3328,12 +3422,20 @@ def train_parity(torch, model, layers, seq_len):
                                      generator=gen, device=DEV)}
     out = {}
     grads = {}
-    for impl in ('flash', 'dense'):
-        config = dataclasses.replace(base, attention_impl=impl)
-        loss = family.loss_fn(params, batch, config)
-        grads[impl] = torch.autograd.grad(loss, leaves)
-        out[f'{impl}_loss'] = float(loss.detach())
-        out[f'{impl}_grad_norm'] = _global_norm(torch, grads[impl])
+    moe = hasattr(family, '_route')
+    with (replayed_routes(torch, family) if moe
+          else contextlib.nullcontext()) as replay:
+        for impl in ('flash', 'dense'):
+            config = dataclasses.replace(base, attention_impl=impl)
+            loss = family.loss_fn(params, batch, config)
+            grads[impl] = torch.autograd.grad(loss, leaves)
+            out[f'{impl}_loss'] = float(loss.detach())
+            out[f'{impl}_grad_norm'] = _global_norm(torch, grads[impl])
+            if moe:
+                replay['record'] = False
+    if moe:
+        out['routing_flips'] = replay['flips']
+        out['routed_choices'] = replay['routed']
     out['loss_abs_diff'] = abs(out['flash_loss'] - out['dense_loss'])
     out['grad_norm_rel_diff'] = (abs(out['flash_grad_norm']
                                      - out['dense_grad_norm'])
@@ -3388,20 +3490,23 @@ GEMMA_TRAIN_STEPS = 10
 
 
 def train_phase(torch, fa, model='bench-8b', seq_len=4096,
-                steps=TRAIN_STEPS):
+                steps=TRAIN_STEPS, attention_impl=None):
     """A training main path: fit() on `model` at batch 1 x `seq_len` for
-    `steps` steps, with the launch counts of K1, K2, K3 and K4 set to 0
-    just before and read just after. Each step launches K3 and K4 once a
-    layer and K1 twice (the forward and the remat recompute), K2 never;
-    the launches of each window (`window_launches`) are those of the
-    layers `layer_windows` gives that window."""
+    `steps` steps (`attention_impl` overrides the preset's, as the
+    loop's --attention), with the launch counts of K1, K2, K3 and K4 set
+    to 0 just before and read just after. Each step launches K3 and K4
+    once a layer and K1 twice (the forward and the remat recompute), K2
+    never; the launches of each window (`window_launches`) are those of
+    the layers `layer_windows` gives that window. An MoE model's router
+    aux loss on the trained params is read after (`aux_loss`)."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.observability import instruments as obs
     from skypilot_tpu_torch.train import loop, trainer
     cfg = trainer.TrainerConfig(model=model, batch_size=1,
                                 seq_len=seq_len, max_steps=steps,
                                 learning_rate=TRAIN_LR,
-                                warmup_steps=TRAIN_WARMUP)
+                                warmup_steps=TRAIN_WARMUP,
+                                attention_impl=attention_impl)
     mcfg = cfg.model_config()
     counters = (fa.flash_attention, fa.flash_attention_quant,
                 fa.flash_attention_dq, fa.flash_attention_dkv)
@@ -3471,6 +3576,11 @@ def train_phase(torch, fa, model='bench-8b', seq_len=4096,
     step_fn = trainer.make_train_step(cfg, DEV)
     batch = trainer.synthetic_batch(cfg, DEV)
     state = res['state']
+    aux = {}
+    if hasattr(mcfg, 'num_experts'):
+        with torch.no_grad():
+            aux['aux_loss'] = float(cfg.model_family().forward(
+                state['params'], batch['tokens'], mcfg)[1])
     profile = profile_breakdown(torch, lambda: step_fn(state, batch),
                                 top=10, shares=TRAIN_SHARES)
     # The optimizer alone (zero grads: weight decay only; the state is
@@ -3485,6 +3595,7 @@ def train_phase(torch, fa, model='bench-8b', seq_len=4096,
             'intermediate': mcfg.intermediate_size,
             'heads': [mcfg.num_heads, mcfg.num_kv_heads, mcfg.head_dim],
             'vocab': mcfg.vocab_size, 'params': mcfg.num_params(),
+            'attention_impl': mcfg.attention_impl,
             'batch': cfg.batch_size, 'seq_len': cfg.seq_len,
             'steps': steps, 'learning_rate': TRAIN_LR,
             'warmup_steps': TRAIN_WARMUP, 'remat': mcfg.remat,
@@ -3496,7 +3607,365 @@ def train_phase(torch, fa, model='bench-8b', seq_len=4096,
             'peak_mem_gb': peak_mem, 'optimizer_ms': optimizer_ms,
             'launches': {'K1': fwd, 'K2': quant, 'K3': dq, 'K4': dkv},
             'window_launches': by_window, 'instruments': instruments,
-            'step_profile': profile}
+            'step_profile': profile, **aux}
+
+
+# The MoE phases: mixtral-8x7b at its published widths (hidden 4096,
+# intermediate 14336, 32/8 heads, d 128, 8 experts top-2, vocab 32000),
+# depth cut to fit one card (16 of 32 layers serve: 46 GB of bf16
+# weights; 2 layers train: params, grads and AdamW moments ~25 GB).
+# Serving takes the llama3-8b engine phase's traffic (8 slots, 2048
+# positions, chunk 512, page 64; 8 greedy prompts of 100-1500 tokens and
+# one of 1900, 32 new) without interleave and without the prefix cache,
+# so every admission's launches are known and two runs take one path.
+MOE_MODEL = 'mixtral-8x7b'
+MOE_SERVE_LAYERS = 16
+MOE_KW = dict(batch_size=8, max_seq_len=2048, prefill_chunk=512,
+              kv_page_size=64, prefix_cache=False)
+MOE_PROMPT_LENGTHS = (100, 1500)
+MOE_LONG = 1900
+MOE_NEW = 32
+MOE_DECODE_STEPS = 4
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_SEQ = 4096
+MOE_TRAIN_STEPS = 10
+# `_moe_mlp` (the expert rows gathered per expert) against
+# `_moe_mlp_dense` (the reference's one-hot form) on one 4096-token
+# chunk of layer 0 at serving capacity, max|a-b| / max|b| of the bf16
+# outputs. Sound readings on the H100 (700 W): 0.0, grouped and static
+# (the per-expert and the batched GEMMs round each row alike). The
+# planted faults (`moe_mlp_faults`) read: the combine weights left in
+# f32 0.0054 (half a bf16 step of a gate weight), the second top-k slot
+# dropped 0.54, two experts swapped 1.21. The limit sits under the
+# smallest, a bf16 step at the largest element (2^-8) above it.
+TOL_MOE_REL = 0.002
+
+
+def moe_mlp_readings(torch, moe, llama, params, config):
+    """Layer 0's expert MLP on a 4096-token chunk (8 slots x 512) of
+    normalised random hidden states, at the engine's capacity: the
+    index path (`_moe_mlp`, auto and static) against `_moe_mlp_dense`,
+    three planted faults against the same dense output, and the ms of
+    routing, dispatch, the expert GEMMs and the combine of each form."""
+    lp = llama.layer_params_at(params, 0)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    e = config.hidden_size
+    x = torch.randn((8, 512, e), generator=gen, device=DEV).to(config.dtype)
+    h = llama._rms_norm(x, lp['mlp_norm'], config.rms_norm_eps)
+    k = config.num_experts_per_tok
+    with torch.inference_mode():
+        dense, _ = moe._moe_mlp_dense(h, lp, config)
+        out = {'tokens': h.shape[0] * h.shape[1],
+               'capacity_factor': config.capacity_factor,
+               'rel_err': rel_err(torch, moe._moe_mlp(h, lp, config)[0],
+                                  dense),
+               'rel_err_static': rel_err(torch, moe._moe_mlp(
+                   h, lp, config, mode='static')[0], dense)}
+
+        def second_slot_dropped(fn):
+            def assign(probs, cfg):
+                r = fn(probs, cfg)
+                first = torch.arange(k, device=probs.device) == 0
+                return r._replace(keep=r.keep & first)
+            return assign
+
+        def combine_f32(fn):
+            def combine(outputs, route, cfg):
+                w = route.gates * route.keep
+                return (outputs.float() * w[..., None]).sum(1).to(cfg.dtype)
+            return combine
+
+        faults = {}
+        with patched(moe, '_assign', second_slot_dropped):
+            faults['second_slot_dropped'] = rel_err(
+                torch, moe._moe_mlp(h, lp, config)[0], dense)
+        with patched(moe, '_combine', combine_f32):
+            faults['combine_f32'] = rel_err(
+                torch, moe._moe_mlp(h, lp, config)[0], dense)
+        perm = torch.arange(config.num_experts, device=DEV)
+        perm[:2] = perm[:2].flip(0)
+        swapped = {**lp, **{w: lp[w][perm] for w in ('w_gate', 'w_up',
+                                                     'w_down')}}
+        faults['swapped_experts'] = rel_err(
+            torch, moe._moe_mlp(h, swapped, config)[0], dense)
+        out['faults'] = faults
+        out.update(moe_split_ms(torch, moe, h, lp, config))
+    return out
+
+
+def moe_mlp_faults(r):
+    """The limits a `moe_mlp_readings` reading breaks: the sound index
+    paths must pass and every planted fault must not."""
+    bad = [f'{key} {r[key]} >= {TOL_MOE_REL}'
+           for key in ('rel_err', 'rel_err_static')
+           if not r[key] < TOL_MOE_REL]
+    bad += [f'planted {key} read {value} < {TOL_MOE_REL}'
+            for key, value in r['faults'].items()
+            if not value >= TOL_MOE_REL]
+    return bad
+
+
+def moe_split_ms(torch, moe, h, lp, config):
+    """Device ms of each stage of one layer's expert MLP on `h`, for the
+    index path (grouped: the sort and the counts' host read, the
+    per-expert GEMMs, the scatter back and weighted sum) and the dense
+    one-hot form."""
+    flat = h.reshape(-1, h.shape[-1])
+    g, x_n = flat.shape[0], config.num_experts
+    route = moe._route(flat, lp['router'], config)
+    rows, cells, counts = moe._grouped_dispatch(flat, route, config)
+    y = moe._grouped_experts(rows, counts, lp, config)
+    dispatch, combine = moe.dispatch_combine(route, x_n)
+    expert_in = torch.einsum('gxc,ge->xce', dispatch.to(config.dtype), flat)
+    y_dense = moe._expert(expert_in, lp['w_gate'], lp['w_up'],
+                          lp['w_down'], config)
+    routing = time_ms(torch, lambda: moe._route(flat, lp['router'], config))
+
+    def dense_dispatch():
+        d, _ = moe.dispatch_combine(route, x_n)
+        return torch.einsum('gxc,ge->xce', d.to(config.dtype), flat)
+
+    return {
+        'rows_per_expert': counts,
+        'index_ms': {
+            'routing': routing,
+            'dispatch': time_ms(torch, lambda: moe._grouped_dispatch(
+                flat, route, config)),
+            'expert_gemms': time_ms(torch, lambda: moe._grouped_experts(
+                rows, counts, lp, config)),
+            'combine': time_ms(torch, lambda: moe._combine(
+                moe._grouped_undispatch(y, cells, g, config), route,
+                config)),
+            'total': time_ms(torch, lambda: moe._moe_mlp(h, lp, config))},
+        'dense_ms': {
+            'routing': routing,
+            'dispatch': time_ms(torch, dense_dispatch),
+            'expert_gemms': time_ms(torch, lambda: moe._expert(
+                expert_in, lp['w_gate'], lp['w_up'], lp['w_down'], config)),
+            'combine': time_ms(torch, lambda: torch.einsum(
+                'gxc,xce->ge', combine.to(config.dtype), y_dense)),
+            'total': time_ms(torch, lambda: moe._moe_mlp_dense(
+                h, lp, config))}}
+
+
+def moe_main_path(torch, inference, fa, engine, prompts, quant):
+    """`prompts` through submit() and step() on `engine` (greedy,
+    MOE_NEW new tokens), K1 (K2 on an int8 cache) counted around the run
+    and held to the admissions' expected launches. Returns (the tokens
+    in prompt order, the reading)."""
+    counter = fa.flash_attention_quant if quant else fa.flash_attention
+    other = fa.flash_attention if quant else fa.flash_attention_quant
+    vocab = engine.config.vocab_size
+    sampling = inference.SamplingParams(max_new_tokens=MOE_NEW)
+    before = {key: engine.stats[key] for key in (
+        'prompt_tokens', 'generated_tokens', 'prefill_seconds',
+        'decode_seconds')}
+    with admissions(engine) as admitted:
+        rids = [engine.submit(p, sampling) for p in prompts]
+        counter.launches = other.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, other_launches = counter.launches, other.launches
+    expected = sum(expected_prefill_launches(engine, lens)
+                   for lens in admitted)
+    if sorted(results) != sorted(rids) or any(
+            len(results[r]) != MOE_NEW
+            or not all(0 <= x < vocab for x in results[r]) for r in rids):
+        raise AssertionError(f'moe requests incomplete: '
+                             f'{ {r: len(t) for r, t in results.items()} }')
+    if launches != expected or other_launches:
+        raise AssertionError(f'moe main path launched {launches} '
+                             f'(other kernel {other_launches}), expected '
+                             f'{expected} over admissions {admitted}')
+    st = {key: engine.stats[key] - before[key] for key in before}
+    return [results[r] for r in rids], {
+        'e2e_wall_s': wall, 'kernel_launches': launches,
+        'expected_launches': expected,
+        'admissions': [len(lens) for lens in admitted],
+        'engine_prefill_tok_s': st['prompt_tokens'] / st['prefill_seconds'],
+        'engine_decode_tok_s': ((st['generated_tokens'] - len(rids))
+                                / max(st['decode_seconds'], 1e-9))}
+
+
+def moe_decode_syncs(torch, eng, moe, engine, rng):
+    """One fused decode dispatch (MOE_DECODE_STEPS steps, 8 slots)
+    under torch.cuda.set_sync_debug_mode: 'error' inside every MoE layer
+    (a host sync there raises), 'warn' around the rest, whose syncs are
+    counted and held to the loop's own check, one a step."""
+    import warnings
+    n = engine.state.cache['length'].shape[0]
+    prompts = [prompt_tokens(rng, 64, engine.config.vocab_size)
+               for _ in range(n)]
+    tokens, lengths, slots, cache = batch_inputs(
+        torch, eng, engine, prompts, engine.prefill_chunk)
+    logits, _ = eng.prefill_chunked(engine.params, tokens, lengths, cache,
+                                    slots, engine.config,
+                                    engine.prefill_chunk, use_flash=True)
+    dev = engine.device
+    args = dict(temperature=torch.zeros(n, device=dev),
+                top_k=torch.zeros(n, dtype=torch.int32, device=dev),
+                top_p=torch.ones(n, device=dev),
+                eos_ids=torch.full((n,), -1, dtype=torch.int32, device=dev),
+                budgets=torch.full((n,), 10 ** 6, dtype=torch.int32,
+                                   device=dev),
+                max_len=engine.state.max_seq_len - 2, generator=None,
+                config=engine.config)
+    last = torch.argmax(logits, dim=-1).to(torch.int32)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    eng.fused_decode_steps(engine.params, cache, last, active, n_steps=1,
+                           **args)
+    torch.cuda.synchronize()
+    layers = [0]
+
+    def strict(fn):
+        def wrapper(*a, **kw):
+            layers[0] += 1
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode('warn')
+        return wrapper
+
+    with warnings.catch_warnings(record=True) as caught, \
+            patched(moe, '_moe_mlp', strict):
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            _, _, emitted, _, _ = eng.fused_decode_steps(
+                engine.params, cache, last, active,
+                n_steps=MOE_DECODE_STEPS, **args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = [f'{os.path.basename(w.filename)}:{w.lineno}' for w in caught
+             if 'called a synchronizing CUDA operation' in str(w.message)]
+    syncs = len(sites)
+    out = {'steps': MOE_DECODE_STEPS, 'moe_layers_run': layers[0],
+           'syncs_in_moe_layers': 0, 'syncs_in_dispatch': syncs,
+           'sync_sites': dict(collections.Counter(sites)),
+           'emitted': emitted.tolist()}
+    if layers[0] != MOE_DECODE_STEPS * engine.config.num_layers or \
+            syncs != MOE_DECODE_STEPS or \
+            out['emitted'] != [MOE_DECODE_STEPS] * n:
+        raise AssertionError(f'moe fused decode syncs: {out}')
+    return out
+
+
+def moe_serve_phase(torch, inference, eng, fa, rng):
+    """mixtral-8x7b, MOE_SERVE_LAYERS layers, on bf16 then int8 KV: the
+    engine's prefill logits through the kernel against the plain
+    version and the dense path (use_flash=False); on bf16 throughput,
+    the expert MLP against its one-hot form with planted faults, the
+    main path twice (tokens equal) and a fused decode dispatch held to
+    no sync in its MoE layers; on int8 the main path once. Returns
+    (reading, {'bf16': K1 launches, 'int8': K2 launches})."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import moe
+    lo, hi = MOE_PROMPT_LENGTHS
+    vocab = moe.CONFIGS[MOE_MODEL].vocab_size
+    lengths = [int(x) for x in rng.integers(lo, hi + 1, size=8)]
+    prompts = [prompt_tokens(rng, MOE_LONG, vocab)] + [
+        prompt_tokens(rng, m, vocab) for m in lengths]
+    check = [prompt_tokens(rng, m, vocab) for m in (700, 1300)]
+    out, launches = {'layers': MOE_SERVE_LAYERS, **MOE_KW,
+                     'prompt_lengths': [MOE_LONG] + lengths,
+                     'max_new_tokens': MOE_NEW}, {}
+    params = config = None
+    for quant in (False, True):
+        key = 'int8' if quant else 'bf16'
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if quant:
+            engine = inference.InferenceEngine(params, config,
+                                               kv_quant='int8', device=DEV,
+                                               **MOE_KW)
+        else:
+            with depth_cut(MOE_MODEL, MOE_SERVE_LAYERS) as name:
+                engine = inference.build_engine(name, device=DEV, seed=0,
+                                                kv_quant='none', **MOE_KW)
+            params, config = engine.params, engine.config
+        torch.cuda.synchronize()
+        r = {'init_s': time.perf_counter() - t0,
+             'capacity_factor': engine.config.capacity_factor}
+        # The kernel against its plain version and against the dense path,
+        # both on the kernel path's expert choices: the attentions round
+        # differently, and a token near a tie of the router would take
+        # other experts (the dense path on its own choices is read, not
+        # gated, as `..._own_routes`; the flips are counted).
+        with replayed_routes(torch, moe) as replay:
+            k_logits = prefill_logits(torch, eng, engine, check)
+            replay['record'] = False
+            with plain_kernels(fa):
+                p_logits = prefill_logits(torch, eng, engine, check)
+            plain = (replay['flips'], replay['routed'])
+            replay['cursor'].clear()
+            d_logits = prefill_logits(torch, eng, engine, check,
+                                      use_flash=False)
+        own = prefill_logits(torch, eng, engine, check, use_flash=False)
+        r.update({
+            'prefill_logits_finite': bool(torch.isfinite(k_logits).all()),
+            'prefill_logits_rel_err_vs_plain': rel_err(torch, k_logits,
+                                                       p_logits),
+            'prefill_logits_rel_err_vs_dense_path': rel_err(
+                torch, k_logits, d_logits),
+            'plain_routing_flips': plain[0],
+            'dense_path_routing_flips': replay['flips'] - plain[0],
+            'routed_choices': plain[1],
+            'prefill_logits_rel_err_vs_dense_path_own_routes': rel_err(
+                torch, k_logits, own),
+            'argmax_agree_vs_dense_path': int(
+                (k_logits.argmax(-1) == d_logits.argmax(-1)).sum())})
+        if logits_faults(r):
+            raise AssertionError(f'moe prefill logits ({key}): '
+                                 f'{logits_faults(r)}')
+        if not quant:
+            r['throughput'] = throughput(torch, eng, engine, rng)
+            torch.cuda.empty_cache()
+            r['moe_mlp'] = moe_mlp_readings(torch, moe, llama, params,
+                                            config)
+            if moe_mlp_faults(r['moe_mlp']):
+                raise AssertionError(f'moe mlp: '
+                                     f'{moe_mlp_faults(r["moe_mlp"])}')
+            torch.cuda.empty_cache()
+        tokens, r['main_path'] = moe_main_path(torch, inference, fa, engine,
+                                               prompts, quant)
+        launches[key] = r['main_path']['kernel_launches']
+        if not quant:
+            again, _ = moe_main_path(torch, inference, fa, engine, prompts,
+                                     quant)
+            r['greedy_tokens_equal_across_runs'] = again == tokens
+            if again != tokens:
+                raise AssertionError('moe greedy tokens differ between two '
+                                     'identical runs')
+            r['decode_syncs'] = moe_decode_syncs(torch, eng, moe, engine,
+                                                 rng)
+        r['peak_mem_gb'] = torch.cuda.max_memory_allocated() / 1e9
+        out[key] = r
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def moe_train_phase(torch, fa):
+    """mixtral-8x7b at full width, MOE_TRAIN_LAYERS layers, flash
+    attention through TrainerConfig.attention_impl (the preset is
+    dense): train_parity (flash against dense), then fit for
+    MOE_TRAIN_STEPS steps at 1 x MOE_TRAIN_SEQ through K1/K3/K4."""
+    parity = train_parity(torch, MOE_MODEL, MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ)
+    if train_faults(parity):
+        raise AssertionError(f'moe train parity: {train_faults(parity)}')
+    gc.collect()
+    torch.cuda.empty_cache()
+    with depth_cut(MOE_MODEL, MOE_TRAIN_LAYERS) as name:
+        train = train_phase(torch, fa, name, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS,
+                            attention_impl='flash')
+    if not (math.isfinite(train['aux_loss']) and train['aux_loss'] > 0):
+        raise AssertionError(f'moe aux loss {train["aux_loss"]}')
+    return parity, train
 
 
 def main():
@@ -3892,8 +4361,35 @@ def main():
             shape['launches'] = train['window_launches'][counter].get(
                 shape['window'], 0)
     emit('train_gemma', **train)
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # The eighth slice's paths, each read with the counts set to 0 just
+    # 25. mixtral-8x7b served (16 layers) through K1, then K2. The ninth
+    # slice's phases draw from a generator of their own.
+    t0 = time.perf_counter()
+    out, launches = moe_serve_phase(torch, inference, eng, fa,
+                                    np.random.default_rng(9))
+    emit('moe_serve', model=MOE_MODEL, phase_s=time.perf_counter() - t0,
+         **out)
+    path_launches['flash_attention']['moe_serve'] = launches['bf16']
+    path_launches['flash_attention_quant']['moe_serve'] = launches['int8']
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 26. mixtral-8x7b trained (2 layers, flash) through K1/K3/K4
+    t0 = time.perf_counter()
+    parity, train = moe_train_phase(torch, fa)
+    emit('moe_train', phase_s=time.perf_counter() - t0,
+         tol_loss=TOL_TRAIN_LOSS, tol_grad_rel=TOL_TRAIN_GRAD_REL,
+         tol_proj_rel=TOL_TRAIN_PROJ_REL, parity=parity, **train)
+    for name, counter in (('flash_attention', 'K1'),
+                          ('flash_attention_dq', 'K3'),
+                          ('flash_attention_dkv', 'K4')):
+        path_launches[name]['moe_train'] = train['launches'][counter]
+
+    # The later slices' paths, each read with the counts set to 0 just
     # before and read just after (launches beside the main path's).
     for name, paths in path_launches.items():
         kernels[name]['path_launches'] = paths

@@ -31,6 +31,7 @@ import torch
 from skypilot_tpu_torch.checkpoints import hf_import
 from skypilot_tpu_torch.checkpoints import safetensors_io
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.observability import instruments as obs
 
 logger = logging.getLogger(__name__)
@@ -106,7 +107,14 @@ def export_params(params: Dict[str, Any],
     HF checkpoint dir. Tensor order is HF's: embeddings, then layers in
     order (so a shard holds consecutive layers and the importer's
     layer-major pass reads each shard once), then the final norm and
-    lm_head."""
+    lm_head. An MoE config raises NotImplementedError: the HF layout
+    covers the llama-core families only (`hf_import.SUPPORTED_FAMILIES`),
+    as in the reference."""
+    if isinstance(config, moe.MoeConfig):
+        raise NotImplementedError(
+            'HF export of an MoE model is not supported: the HF layout '
+            f'covers {list(hf_import.SUPPORTED_FAMILIES)}. Keep the train '
+            'checkpoint; the server and batch read it with --checkpoint.')
     t0 = time.perf_counter()
     c = config
     out_dir = os.path.abspath(os.path.expanduser(out_dir))

@@ -5,6 +5,7 @@ Ports the serving path of `skypilot_tpu/inference/engine.py`.
 Device math: `quantize_kv` (:92), `init_cache` (:344, unsharded only),
 `_paged_read`/`_paged_write` (:138, :168), `_flash_prefill_ok` (:471),
 `_cached_attention` (:488), `_attn_with_cache`, `_layer_with_cache`,
+`_moe_layer_with_cache`, `_moe_hidden_with_cache` (:698-749),
 `_hidden_with_cache`, `_project_logits` (:581-830), `prefill_chunked`
 (:852), `prefill_chunk_at` (:941), `_sample` (:997), `decode_step`
 (:1041), `fused_decode_steps` (:1067) and `fused_spec_rounds` (:1144),
@@ -59,9 +60,13 @@ Differences by design, each stated where it happens:
 - The snapshot gathers only the request's pages, where the reference
   pads the gather to the table width so one XLA compile serves every
   request; nothing here compiles per shape.
+- The MoE family (`models/moe.py`) serves at the reference's drop-free
+  capacity (`InferenceEngine.__init__`). Its expert MLP adds no host
+  sync where the routed rows are few (decode: `moe._moe_mlp`'s static
+  path) and one per layer on a prefill chunk (its grouped path).
 
-Not ported yet (later slices): MoE and sharded meshes. Asking for a
-mesh raises NotImplementedError.
+Not ported yet (a later slice): sharded meshes. Asking for a mesh
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -80,6 +85,7 @@ from skypilot_tpu_torch import device as device_lib
 from skypilot_tpu_torch import envs
 from skypilot_tpu_torch.inference import prefix_cache as prefix_lib
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.observability import instruments as obs
 from skypilot_tpu_torch.observability import spans
 from skypilot_tpu_torch.ops import flash_attention as fa_lib
@@ -480,16 +486,20 @@ def _attn_with_cache(x: torch.Tensor, layer_params: Params, k_cache: KV,
                      table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention block over T new tokens [B,T,E] at `positions` [B,T];
     writes their K/V into the layer's cache in place at write_at[b]
-    (through `table` when the cache is paged) and returns x + attn."""
+    (through `table` when the cache is paged) and returns x + attn.
+    Shared by the llama-core and MoE layers: the getattr defaults cover
+    a config (MoeConfig) that carries no family knob, as in the
+    reference (:606-627)."""
     c = config
-    plus_one = c.norm_plus_one
+    plus_one = getattr(c, 'norm_plus_one', False)
     h = llama._rms_norm(x, layer_params['attn_norm'], c.rms_norm_eps,
                         plus_one)
     q, k, v = llama._qkv(h, layer_params, c)
     q = llama._rope(q, positions, c)
     k = llama._rope(k, positions, c)
-    if c.query_pre_attn_scalar is not None:
-        q = q * math.sqrt(c.head_dim / c.query_pre_attn_scalar)
+    qpa = getattr(c, 'query_pre_attn_scalar', None)
+    if qpa is not None:
+        q = q * math.sqrt(c.head_dim / qpa)
     if table is not None:
         _paged_write(k_cache, k, table, write_at)
         _paged_write(v_cache, v, table, write_at)
@@ -500,11 +510,12 @@ def _attn_with_cache(x: torch.Tensor, layer_params: Params, k_cache: KV,
         _dense_write(v_cache, v, write_at)
         k_read, v_read = k_cache, v_cache
     attn = _cached_attention(q, k_read, v_read, positions, lengths,
-                             window=window, softcap=c.attn_logit_softcap,
+                             window=window,
+                             softcap=getattr(c, 'attn_logit_softcap', None),
                              q_offset=q_offset)
     attn_out = torch.einsum('bshd,hde->bse', attn.to(c.dtype),
                             layer_params['wo']).to(c.dtype)
-    if c.post_norms:
+    if getattr(c, 'post_norms', False):
         attn_out = llama._rms_norm(attn_out, layer_params['post_attn_norm'],
                                    c.rms_norm_eps, plus_one)
     return x + attn_out
@@ -532,6 +543,50 @@ def _layer_with_cache(x: torch.Tensor, layer_params: Params, k_cache: KV,
     return x + down
 
 
+def _moe_layer_with_cache(x: torch.Tensor, layer_params: Params,
+                          k_cache: KV, v_cache: KV, positions: torch.Tensor,
+                          lengths: torch.Tensor, write_at: torch.Tensor,
+                          config: moe_lib.MoeConfig,
+                          q_offset: Optional[int] = None,
+                          table: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """One MoE layer (llama attention + routed expert MLP) with cache.
+    Routing is per-token feedforward and needs no cache of its own; the
+    aux loss only regularises training and is dropped. Only the real
+    tokens (positions < lengths) are routed: at the engine's drop-free
+    capacity that changes no real token's output (the reference routes
+    the padding too), and a padded chunk's padding, which attends
+    whatever its pages hold, cannot change the expert row counts the
+    real tokens' products run at."""
+    c = config
+    x = _attn_with_cache(x, layer_params, k_cache, v_cache, positions,
+                         lengths, write_at, c, q_offset=q_offset,
+                         table=table)
+    h = llama._rms_norm(x, layer_params['mlp_norm'], c.rms_norm_eps)
+    out, _aux = moe_lib._moe_mlp(h, layer_params, c,
+                                 valid=positions < lengths[:, None])
+    return x + out
+
+
+def _moe_hidden_with_cache(params: Params, tokens: torch.Tensor,
+                           cache: Cache, positions: torch.Tensor,
+                           write_at: torch.Tensor, new_lengths: torch.Tensor,
+                           config: moe_lib.MoeConfig,
+                           q_offset: Optional[int] = None) -> torch.Tensor:
+    """MoE variant of `_hidden_with_cache` (plain norms, no windows or
+    softcaps, as `moe.forward`)."""
+    c = config
+    table = cache.get('table')
+    x = moe_lib.embed(params, tokens, c)
+    for i in range(c.num_layers):
+        x = _moe_layer_with_cache(
+            x, llama.layer_params_at(params, i),
+            _map_kv(lambda a: a[i], cache['k']),
+            _map_kv(lambda a: a[i], cache['v']), positions, new_lengths,
+            write_at, c, q_offset=q_offset, table=table)
+    return llama._rms_norm(x, params['final_norm'], c.rms_norm_eps)
+
+
 def _hidden_with_cache(params: Params, tokens: torch.Tensor, cache: Cache,
                        positions: torch.Tensor, write_at: torch.Tensor,
                        new_lengths: torch.Tensor,
@@ -540,6 +595,10 @@ def _hidden_with_cache(params: Params, tokens: torch.Tensor, cache: Cache,
     """tokens [B,T] at `positions` -> final-norm hidden states [B,T,E];
     the cache's k/v leaves are updated in place (`new_lengths` masks
     the attention; cache['length'] is left to the caller)."""
+    if isinstance(config, moe_lib.MoeConfig):
+        return _moe_hidden_with_cache(params, tokens, cache, positions,
+                                      write_at, new_lengths, config,
+                                      q_offset=q_offset)
     c = config
     table = cache.get('table')
     x = llama.embed(params, tokens, c)
@@ -556,6 +615,8 @@ def _hidden_with_cache(params: Params, tokens: torch.Tensor, cache: Cache,
 def _project_logits(x: torch.Tensor, params: Params,
                     config: llama.LlamaConfig) -> torch.Tensor:
     """Final-norm hidden states -> f32 logits."""
+    if isinstance(config, moe_lib.MoeConfig):
+        return moe_lib.project_logits(x, params, config)
     return llama.project_logits(x, params, config)
 
 
@@ -974,10 +1035,20 @@ class InferenceEngine:
                  prefix_cache: Optional[bool] = None,
                  prefix_cache_max_pages: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if not isinstance(config, llama.LlamaConfig):
+        if not isinstance(config, (llama.LlamaConfig, moe_lib.MoeConfig)):
             raise NotImplementedError(
-                'the PyTorch engine serves the llama family only so far; '
-                f'got {type(config).__name__}')
+                'InferenceEngine serves llama-core families '
+                '(llama/gemma/mistral/qwen) and MoE; got '
+                f'{type(config).__name__}.')
+        if isinstance(config, moe_lib.MoeConfig):
+            # Serving must be deterministic: capacity drops depend on the
+            # padded chunk's shape. A token's top-k experts are distinct,
+            # so capacity_factor = X/k (cap = tokens) drops none
+            # (reference :1444-1454).
+            exact_cf = config.num_experts / config.num_experts_per_tok
+            if config.capacity_factor < exact_cf:
+                config = dataclasses.replace(config,
+                                             capacity_factor=exact_cf)
         if mesh is not None:
             raise NotImplementedError(
                 'sharded serving (mesh) is not ported yet; serve on one '

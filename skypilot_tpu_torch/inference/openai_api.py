@@ -54,6 +54,7 @@ from __future__ import annotations
 import json
 import logging
 import queue
+import re
 import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
@@ -224,7 +225,15 @@ def _logprobs_doc(tokens: List[int], logprobs: Optional[List[float]],
     `text_len`: length of the returned completion text (after stop
     truncation and special stripping): entries cover exactly the
     emitted text, so tokens whose text starts at or after that boundary
-    are dropped. None = token-id mode, keep everything."""
+    are dropped. None = token-id mode, keep everything.
+
+    A chat entry's `bytes` is the token's own UTF-8 bytes
+    (`_token_bytes`), so the kept entries' bytes join to the content's
+    even where a multi-byte character is split across tokens (the
+    reference gives the bytes of the vocabulary glyph, `Ġhello`; ROADMAP
+    Queue 3). The token that completes a split character adds no
+    character to the decoded text, so it is kept for its bytes, where
+    the reference stops there."""
     lps = list(logprobs or [])
     if tokenizer is None:
         return {'tokens': list(tokens), 'token_logprobs': lps,
@@ -233,13 +242,15 @@ def _logprobs_doc(tokens: List[int], logprobs: Optional[List[float]],
     # [prefix_lens[j], prefix_lens[j+1]) of the decoded completion.
     prefix_lens = [len(_decode(tokenizer, tokens[:j]))
                    for j in range(len(tokens) + 1)]
+    tok_bytes = _token_bytes(tokenizer, tokens)
     keep = len(tokens)
     if text_len is not None:
         # The longest prefix of tokens whose non-empty spans fit in the
         # returned text (a prefix, so the arrays never misalign).
         keep = 0
         for j in range(len(tokens)):
-            if prefix_lens[j] < prefix_lens[j + 1] <= text_len:
+            grows = prefix_lens[j] < prefix_lens[j + 1] or tok_bytes[j]
+            if grows and prefix_lens[j + 1] <= text_len:
                 keep = j + 1
             else:
                 break
@@ -249,11 +260,64 @@ def _logprobs_doc(tokens: List[int], logprobs: Optional[List[float]],
         return {'content': [
             # top_logprobs/bytes are schema-required on every entry.
             {'token': t, 'logprob': lp, 'top_logprobs': [],
-             'bytes': list(str(t).encode('utf-8'))}
-            for t, lp in zip(tok_strs, lps)]}
+             'bytes': list(b)}
+            for t, lp, b in zip(tok_strs, lps, tok_bytes)]}
     return {'tokens': tok_strs, 'token_logprobs': lps,
             'top_logprobs': None,
             'text_offset': prefix_lens[:keep]}
+
+
+def _byte_decoder() -> Dict[str, int]:
+    """GPT-2's byte-level alphabet reversed: glyph char -> byte. Bytes
+    that print as themselves keep their code point; the rest map to 256
+    upwards in byte order."""
+    printable = (list(range(ord('!'), ord('~') + 1))
+                 + list(range(ord('\xa1'), ord('\xac') + 1))
+                 + list(range(ord('\xae'), ord('\xff') + 1)))
+    chars, extra = {}, 0
+    for b in range(256):
+        if b in printable:
+            chars[chr(b)] = b
+        else:
+            chars[chr(256 + extra)] = b
+            extra += 1
+    return chars
+
+
+_BYTE_DECODER = _byte_decoder()
+_BYTE_TOKEN = re.compile(r'<0x([0-9A-Fa-f]{2})>')
+
+
+def _is_byte_level(tokenizer) -> bool:
+    """Does `tokenizer` spell tokens in the byte-level alphabet (GPT-2,
+    Llama 3, Qwen)? A fast tokenizer says so by its decoder, a slow one
+    by its `byte_decoder`."""
+    backend = getattr(tokenizer, 'backend_tokenizer', None)
+    if backend is not None and backend.decoder is not None:
+        return type(backend.decoder).__name__ == 'ByteLevel'
+    return hasattr(tokenizer, 'byte_decoder')
+
+
+def _token_bytes(tokenizer, tokens: List[int]) -> List[bytes]:
+    """Each token's own UTF-8 bytes. Byte-level glyphs map back through
+    the byte decoder; otherwise a sentencepiece `▁` is a space and a
+    `<0xNN>` piece that byte. A special token decodes to nothing (the
+    text skips it), so its bytes are empty."""
+    special = set(getattr(tokenizer, 'all_special_ids', ()))
+    glyphs = tokenizer.convert_ids_to_tokens(tokens)
+    byte_level = _is_byte_level(tokenizer)
+    out = []
+    for tid, glyph in zip(tokens, glyphs):
+        glyph = str(glyph)
+        if tid in special:
+            out.append(b'')
+        elif byte_level and all(ch in _BYTE_DECODER for ch in glyph):
+            out.append(bytes(_BYTE_DECODER[ch] for ch in glyph))
+        else:
+            byte = _BYTE_TOKEN.fullmatch(glyph)
+            out.append(bytes([int(byte.group(1), 16)]) if byte
+                       else glyph.replace('\u2581', ' ').encode('utf-8'))
+    return out
 
 
 def _decode(tokenizer, tokens: List[int]) -> str:

@@ -216,7 +216,7 @@ def layer_windows(config: LlamaConfig) -> List[Optional[int]]:
     `sliding_window`, every `sliding_window_pattern`-th layer is global
     (sentinel 2**30). All None when the model has no window. The
     forward and the cached decode path share this schedule."""
-    if config.sliding_window is None:
+    if getattr(config, 'sliding_window', None) is None:    # MoeConfig
         return [None] * config.num_layers
     out = []
     for i in range(config.num_layers):
@@ -301,7 +301,7 @@ def _qkv(h: torch.Tensor, layer_params: Params, config):
     q = torch.einsum('bse,ehd->bshd', h, layer_params['wq']).to(c.dtype)
     k = torch.einsum('bse,ehd->bshd', h, layer_params['wk']).to(c.dtype)
     v = torch.einsum('bse,ehd->bshd', h, layer_params['wv']).to(c.dtype)
-    if c.attn_qkv_bias:
+    if getattr(c, 'attn_qkv_bias', False):    # MoeConfig has no biases
         q = q + layer_params['bq']
         k = k + layer_params['bk']
         v = v + layer_params['bv']

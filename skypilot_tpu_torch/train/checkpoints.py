@@ -49,6 +49,7 @@ import torch
 from skypilot_tpu_torch import device as device_lib
 from skypilot_tpu_torch.checkpoints import safetensors_io
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.resilience import faults
 
 # Completeness sentinel: written only after every byte of the step is
@@ -303,8 +304,8 @@ def restore_train_state(ckpt_dir: str, state: Dict[str, Any],
 
 
 def _read_params(path: str, device: torch.device) -> Dict[str, Any]:
-    """The params group of a step directory as the `llama.init_params`
-    tree on `device`, layer slices restacked."""
+    """The params group of a step directory as the family's
+    `init_params` tree on `device`, layer slices restacked."""
     out: Dict[str, Any] = {}
     layers: Dict[str, Dict[int, safetensors_io.LazyTensor]] = {}
     with safetensors_io.CheckpointReader(path) as reader:
@@ -336,18 +337,21 @@ def _read_params(path: str, device: torch.device) -> Dict[str, Any]:
     return out
 
 
-def check_geometry(params: Dict[str, Any],
-                   config: llama.LlamaConfig) -> None:
+def check_geometry(params: Dict[str, Any], config: Any) -> None:
     """Raise ValueError unless `params` has exactly the leaves and
-    shapes `llama.init_params(config)` gives."""
+    shapes the family's `init_params(config)` gives (the llama core's
+    from `hf_import.param_specs`, MoE's from `moe.param_shapes`)."""
     from skypilot_tpu_torch.checkpoints import hf_import
-    want = {}
-    for spec in hf_import.param_specs(config):
-        shape = hf_import._engine_shape(spec, config)
-        if spec.stacked:
-            want[('layers', spec.key)] = (config.num_layers,) + shape
-        else:
-            want[(spec.key,)] = shape
+    if isinstance(config, moe.MoeConfig):
+        want = moe.param_shapes(config)
+    else:
+        want = {}
+        for spec in hf_import.param_specs(config):
+            shape = hf_import._engine_shape(spec, config)
+            if spec.stacked:
+                want[('layers', spec.key)] = (config.num_layers,) + shape
+            else:
+                want[(spec.key,)] = shape
     have = {}
     for key, value in params.items():
         if isinstance(value, dict):

@@ -35,7 +35,10 @@ loss is the flash kernels K1/K3/K4 when the model's `attention_impl` is
 its sliding window and attention softcap inside K1/K3/K4. On CUDA a
 flash config at a head_dim K3/K4 are not built for is refused before
 any step (`check_kernels`); the CPU trains it through the plain
-versions.
+versions. The MoE family trains through its own `loss_fn` (cross-entropy
+plus the router aux loss), its router kept in f32 in a bf16 model
+(`weights.cast_params`); its MFU counts the active params
+(`MoeConfig.flops_per_token`).
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from skypilot_tpu_torch import device as device_lib
+from skypilot_tpu_torch import weights
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.ops import flash_attention as fa
 
@@ -189,8 +193,9 @@ def make_train_state(cfg: TrainerConfig,
                      device: Optional[Union[str, torch.device]] = None,
                      seed: int = 0, params: Optional[Any] = None
                      ) -> Dict[str, Any]:
-    """Params (random from `seed`, or the given tree moved to `device`
-    and the config dtype), the optimizer state and the step count."""
+    """Params (random from `seed`, or a copy of the given tree on
+    `device` in the config's dtypes, `weights.cast_params`), the
+    optimizer state and the step count."""
     dev = device_lib.resolve_device(device)
     mcfg = cfg.model_config()
     check_kernels(mcfg, dev)
@@ -198,8 +203,10 @@ def make_train_state(cfg: TrainerConfig,
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = cfg.model_family().init_params(mcfg, gen, dev)
     else:
-        params = tree_map(lambda p: p.to(device=dev, dtype=mcfg.dtype)
-                          .clone(), params)
+        # In the config's dtypes: the MoE router stays f32 in a bf16
+        # model, as the reference keeps it.
+        params = tree_map(torch.Tensor.clone,
+                          weights.cast_params(params, mcfg, dev))
     params = tree_map(lambda p: p.requires_grad_(True), params)
     return {'params': params,
             'opt_state': make_optimizer(cfg).init(params), 'step': 0}

@@ -33,9 +33,8 @@ def counted_kernels(monkeypatch):
 
     def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
                v_scale=None):
-        counter = fa.flash_attention if k_scale is None else \
-            fa.flash_attention_quant
-        counter.launches += 1
+        fa._count(fa.flash_attention if k_scale is None
+                  else fa.flash_attention_quant, window)
         return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
                          k_scale=k_scale, v_scale=v_scale)
 
@@ -154,3 +153,110 @@ def test_batch_and_roundtrip_phases_rehearse_on_cpu(monkeypatch, tmp_path,
     assert rt['cli']['verify_nan']['rc'] == 1
     assert rt['cli']['verify_truncated']['first_line'].startswith(
         'VERIFY FAILED (structural)')
+
+
+@pytest.fixture
+def host_syncs(monkeypatch):
+    """torch.cuda.set_sync_debug_mode as the card applies it, on the
+    CPU: in 'warn' mode a host read of a tensor (`item`, `tolist`,
+    `bool`, `int`, `float`) warns 'called a synchronizing CUDA
+    operation', in 'error' mode it raises."""
+    import warnings
+    mode = {'now': 0}
+
+    def set_mode(m):
+        mode['now'] = m
+
+    def checked(fn):
+        def wrapper(self, *args, **kwargs):
+            if mode['now'] == 'error':
+                raise RuntimeError('called a synchronizing CUDA operation')
+            if mode['now'] == 'warn':
+                warnings.warn('called a synchronizing CUDA operation')
+            return fn(self, *args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(torch.cuda, 'set_sync_debug_mode', set_mode)
+    for name in ('item', 'tolist', '__bool__', '__int__', '__float__'):
+        monkeypatch.setattr(torch.Tensor, name,
+                            checked(getattr(torch.Tensor, name)))
+    return mode
+
+
+def test_moe_phases_rehearse_on_cpu(monkeypatch, counted_kernels,
+                                    host_syncs):
+    """moe_serve (bf16, as on the card) and moe_train (f32) on tiny-moe
+    with remat: launches held to the admissions' and the layers' counts, the
+    expert MLP against its one-hot form with its planted faults caught,
+    tokens equal across two runs, the fused decode dispatch's MoE layers
+    free of host reads and one read a step around them."""
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.models import moe
+    monkeypatch.setitem(moe.CONFIGS, 'tiny-moe', dataclasses.replace(
+        moe.CONFIGS['tiny-moe'], dtype=torch.bfloat16, remat=True))
+    monkeypatch.setattr(chip_smoke, 'MOE_MODEL', 'tiny-moe')
+    monkeypatch.setattr(chip_smoke, 'MOE_SERVE_LAYERS', 2)
+    monkeypatch.setattr(chip_smoke, 'MOE_KW', dict(
+        batch_size=4, max_seq_len=128, prefill_chunk=32, kv_page_size=8,
+        prefix_cache=False))
+    monkeypatch.setattr(chip_smoke, 'MOE_PROMPT_LENGTHS', (5, 60))
+    monkeypatch.setattr(chip_smoke, 'MOE_LONG', 100)
+    monkeypatch.setattr(chip_smoke, 'MOE_NEW', 6)
+    monkeypatch.setattr(chip_smoke, 'MOE_TRAIN_SEQ', 64)
+    monkeypatch.setattr(chip_smoke, 'MOE_TRAIN_STEPS', 4)
+    monkeypatch.setattr(chip_smoke, 'TRAIN_LR', 1e-2)
+    monkeypatch.setattr(chip_smoke, 'TRAIN_WARMUP', 1)
+    # The card-only readings: device time, profiles, throughput at 2048
+    # positions and peak memory.
+    monkeypatch.setattr(chip_smoke, 'time_ms', lambda torch, fn, **kw: 0.0)
+    monkeypatch.setattr(chip_smoke, 'profile_breakdown',
+                        lambda torch, fn, **kw: {})
+    monkeypatch.setattr(chip_smoke, 'throughput', lambda *a, **kw: {})
+    monkeypatch.setattr(torch.cuda, 'reset_peak_memory_stats',
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, 'max_memory_allocated', lambda *a: 0)
+    fa = counted_kernels
+    out, launches = chip_smoke.moe_serve_phase(torch, inference_module(),
+                                               eng, fa,
+                                               np.random.default_rng(9))
+    bf16, int8 = out['bf16'], out['int8']
+    assert bf16['capacity_factor'] == 2.0
+    for run, key in ((bf16, 'bf16'), (int8, 'int8')):
+        path = run['main_path']
+        assert path['kernel_launches'] == path['expected_launches'] == \
+            launches[key] > 0
+        assert len(path['admissions']) >= 2      # 9 requests, 4 slots
+    assert bf16['greedy_tokens_equal_across_runs']
+    mlp = bf16['moe_mlp']
+    assert mlp['rel_err'] < chip_smoke.TOL_MOE_REL
+    assert min(mlp['faults'][key] for key in (
+        'second_slot_dropped', 'swapped_experts')) >= chip_smoke.TOL_MOE_REL
+    assert sum(mlp['rows_per_expert']) == 2 * mlp['tokens']
+    syncs = bf16['decode_syncs']
+    assert syncs['syncs_in_dispatch'] == syncs['steps']
+    assert syncs['moe_layers_run'] == syncs['steps'] * 2
+    # The grouped path reads its counts to the host: forced into the
+    # decode dispatch, it raises there.
+    monkeypatch.setattr(moe, 'STATIC_ROWS', 0)
+    with pytest.raises((AssertionError, RuntimeError)):
+        chip_smoke.moe_serve_phase(torch, inference_module(), eng, fa,
+                                   np.random.default_rng(9))
+    monkeypatch.setattr(moe, 'STATIC_ROWS', 2048)
+
+    # Training in f32: at tiny-moe's width a bf16 rounding step moves
+    # router logits across near-ties, so flash and dense would route
+    # some tokens to other experts (the card reads the full width).
+    monkeypatch.setitem(moe.CONFIGS, 'tiny-moe', dataclasses.replace(
+        moe.CONFIGS['tiny-moe'], dtype=torch.float32))
+    parity, train = chip_smoke.moe_train_phase(torch, fa)
+    assert not chip_smoke.train_faults(parity)
+    assert parity['routing_flips'] == 0          # f32: no near-tie moves
+    layers, steps = chip_smoke.MOE_TRAIN_LAYERS, 4
+    assert train['launches'] == {'K1': 2 * layers * steps, 'K2': 0,
+                                 'K3': layers * steps, 'K4': layers * steps}
+    assert train['attention_impl'] == 'flash' and train['aux_loss'] > 0
+
+
+def inference_module():
+    from skypilot_tpu_torch import inference
+    return inference

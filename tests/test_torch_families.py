@@ -2,7 +2,7 @@
 
 - Every preset of `skypilot_tpu/models/{gemma,mistral,qwen}.py` equals
   the port's, field for field (dtype mapped), and `models.resolve`
-  returns it; the MoE presets still raise.
+  returns it; the MoE presets resolve to the port's moe family.
 - tiny-gemma, tiny-mistral and tiny-qwen forward logits against the JAX
   forward in f32 on the same weights, with prompts longer than their
   16-token windows: max|a-b|/max|b| < 1e-4.
@@ -69,9 +69,14 @@ def test_presets_equal_the_reference_and_resolve(ref_family, family):
 
 
 def test_moe_presets_still_raise():
+    """Since the MoE slice the presets no longer raise: each resolves to
+    the port's moe family (tests/test_torch_moe.py holds them to the
+    reference field for field)."""
+    from skypilot_tpu_torch.models import moe
     for name in ('mixtral-8x7b', 'dbrx-moe', 'tiny-moe'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            port_models.resolve(name)
+        family, config = port_models.resolve(name)
+        assert family is moe and config is moe.CONFIGS[name]
+        assert isinstance(config, moe.MoeConfig)
     assert 'deepseek-r1-distill-qwen-7b' in qwen.CONFIGS
     assert qwen.CONFIGS['deepseek-r1-distill-qwen-7b'].rope_theta == 1e4
 

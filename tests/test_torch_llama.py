@@ -123,11 +123,13 @@ def test_presets_and_resolve():
     family, config = port_models.resolve('llama3-8b')
     assert family is port and config.num_kv_heads == 8
     # The gemma, mistral and qwen families resolve since they were
-    # ported (tests/test_torch_families.py); MoE still raises.
+    # ported (tests/test_torch_families.py), and the MoE presets to the
+    # moe family (tests/test_torch_moe.py).
     for name in ('gemma2-2b', 'mistral-7b', 'qwen2-7b'):
         assert port_models.resolve(name)[1].vocab_size > 0
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        port_models.resolve('mixtral-8x7b')
+    from skypilot_tpu_torch.models import moe
+    assert port_models.resolve('mixtral-8x7b') == (
+        moe, moe.CONFIGS['mixtral-8x7b'])
     with pytest.raises(ValueError):
         port_models.resolve('no-such-model')
 

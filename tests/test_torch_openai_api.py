@@ -164,7 +164,10 @@ def _strip(doc):
 
 
 def _split_logprobs(doc):
-    """(body with every logprob value taken out, the values in order)."""
+    """(body with every logprob value taken out, the values in order).
+    A chat entry's `bytes` is taken out too (marked 'bytes'): the port
+    gives the token's own UTF-8 bytes, the reference the glyph's (ROADMAP
+    Queue 3), so test_chat_matches checks them on their own."""
     values = []
 
     def walk(x, key=None):
@@ -174,6 +177,8 @@ def _split_logprobs(doc):
             if key == 'token_logprobs':
                 values.extend(x)
                 return len(x)
+            if key == 'bytes':
+                return 'bytes'
             return [walk(v) for v in x]
         if key == 'logprob':
             values.append(x)
@@ -301,6 +306,14 @@ def test_chat_matches(servers):
             status, _, doc = _both(servers, 'POST', '/v1/chat/completions',
                                    body)
             assert status == 200 and doc['object'] == 'chat.completion'
+            for choice in doc['choices']:
+                entries = (choice.get('logprobs') or {}).get('content', [])
+                # A word-level token's own bytes are its word's.
+                for entry in entries:
+                    assert bytes(entry['bytes']) == \
+                        entry['token'].encode('utf-8')
+                if 'logprobs' in body:
+                    assert entries
     finally:
         _set(servers, tokenizer=None)
 
@@ -554,3 +567,69 @@ def test_client_gone_mid_stream_frees_the_slot(servers):
         assert time.time() < deadline, 'the slot was never freed'
         time.sleep(0.02)
     assert port_obs.REQUESTS_ABORTED.value() == aborted + 1
+
+
+# -- chat logprobs' bytes (ROADMAP Queue 3, closed) ------------------------------
+
+
+def _byte_level_bpe():
+    """A byte-level BPE tokenizer trained here (no download) on text
+    whose accented and euro characters stay split across tokens."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+    from tokenizers import trainers
+    from transformers import PreTrainedTokenizerFast
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    trainer = trainers.BpeTrainer(
+        vocab_size=300, special_tokens=['</s>'],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet())
+    tok.train_from_iterator(['hello world there ' * 5] * 20, trainer)
+    return PreTrainedTokenizerFast(tokenizer_object=tok, eos_token='</s>')
+
+
+def test_chat_bytes_are_the_tokens_own_utf8():
+    """Joined over the kept entries, the bytes are the content's UTF-8,
+    with 'ï' split over two tokens and '€' over three; the entries past
+    a split character are kept (the reference stops at its second half);
+    the trailing eos is not an entry."""
+    from skypilot_tpu_torch.inference import openai_api
+    tok = _byte_level_bpe()
+    text = 'hello naïve € world'
+    ids = tok.encode(text)
+    glyphs = tok.convert_ids_to_tokens(ids)
+    assert 'Ã' in glyphs and '¯' in glyphs       # 'ï' = c3 af, split
+    ids = ids + [tok.eos_token_id]
+    content = openai_api._decode(tok, ids)
+    assert content == text
+    doc = openai_api._logprobs_doc(ids, [-0.5] * len(ids), tok, True,
+                                   len(content))
+    entries = doc['content']
+    assert len(entries) == len(ids) - 1
+    assert b''.join(bytes(e['bytes']) for e in entries) == \
+        content.encode('utf-8')
+    assert [e['token'] for e in entries] == glyphs
+    assert bytes(entries[0]['bytes']) == b'hello'
+    assert bytes(entries[1]['bytes']) == b' '          # the glyph 'Ġ'
+    # The completions endpoint keeps its glyph tokens and offsets.
+    doc = openai_api._logprobs_doc(ids, [-0.5] * len(ids), tok, False,
+                                   len(content))
+    assert doc['tokens'] == glyphs and len(doc['text_offset']) == len(glyphs)
+
+
+def test_sentencepiece_pieces_give_their_bytes():
+    """Outside the byte-level alphabet: '▁' is a space and a '<0xNN>'
+    piece that byte; a special token decodes to nothing."""
+    from skypilot_tpu_torch.inference import openai_api
+
+    class Pieces:
+        all_special_ids = [2]
+        pieces = {0: '▁hello', 1: 'ing', 2: '</s>', 3: '<0xE2>',
+                  4: '<0x82>', 5: '<0xAC>', 6: '▁naïve'}
+
+        def convert_ids_to_tokens(self, ids):
+            return [self.pieces[i] for i in ids]
+
+    got = openai_api._token_bytes(Pieces(), [0, 1, 3, 4, 5, 6, 2])
+    assert got == [b' hello', b'ing', b'\xe2', b'\x82', b'\xac',
+                   ' naïve'.encode('utf-8'), b'']

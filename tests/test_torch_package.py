@@ -66,6 +66,7 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.models.gemma',
                    'skypilot_tpu_torch.models.mistral',
                    'skypilot_tpu_torch.models.qwen',
+                   'skypilot_tpu_torch.models.moe',
                    'skypilot_tpu_torch.checkpoints',
                    'skypilot_tpu_torch.checkpoints.hf_import',
                    'skypilot_tpu_torch.checkpoints.safetensors_io',
@@ -91,7 +92,7 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.checkpoints.__main__',
                    'skypilot_tpu_torch.train.checkpoints'):
         assert module in names.split()
-    assert int(count) >= 39
+    assert int(count) >= 40
 
 
 def test_entry_points_raise_without_cuda():
