@@ -243,8 +243,32 @@ Phases, each printing one JSON line:
                   the loss must fall and the router aux loss on the
                   trained params be finite and > 0; step time, tok/s, MFU
                   over the active params, peak memory.
+ 27. tp_serve   - llama3-8b at full width and depth over a tensor=2 mesh
+                  (TP_KW: 8 slots, max_seq_len 2048, chunk 512, page 64):
+                  two rank processes share the card over gloo (NCCL
+                  refuses two ranks on one GPU), each built by
+                  build_engine(mesh_arg=) from the gang variables with its
+                  half of the seed-0 weights (16 q / 4 kv heads, half the
+                  MLP and vocab). 8 greedy prompts of 100-1500 tokens, 32
+                  new each, on bf16 then int8 KV: first-token logits
+                  within TOL_LOGITS_REL of the unsharded engine (built
+                  here first and freed before the ranks start), tokens
+                  equal to its tokens up to near-ties (TOL_SPEC_GAP) and
+                  equal across the ranks, K1 (K2) launches on each rank
+                  equal to expected_prefill_launches; prefill and decode
+                  tok/s, the collectives' time in the run and their
+                  share of the prefill and of decode, peak memory per
+                  rank. Two ranks
+                  asking for NCCL on the one card exit with the mesh's
+                  error. Then the server as two processes (--mesh
+                  tensor=2): /health, three /generate (one streamed) and
+                  one /v1/completions, token for token the engine leg's
+                  answers to the same requests; SIGTERM to rank 0, and
+                  rank 1 exits within TP_FOLLOWER_EXIT_S. K1 and K2
+                  checked (check_bf16/check_int8 `tp2_engine_chunk`) and
+                  timed at a rank's heaviest chunk (TP_TIMING_SHAPE).
 Then a `kernels` line (each kernel's `path_launches`: its launches on
-the openai, batch, roundtrip and MoE paths) and, last,
+the openai, batch, roundtrip, MoE and tp_serve paths) and, last,
 {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
@@ -257,6 +281,7 @@ import gc
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -561,6 +586,9 @@ CHECK_CASES = (
     ('qwen_gqa6', 2, 512, 4096, 12, 2, 128, 2048, None, None),
     # mistral-7b: every layer local (window 4096), past the window.
     ('mistral_window', 2, 512, 8192, 32, 8, 128, 6144, 4096, None),
+    # One rank's heads of llama3-8b at tensor 2 (16 q / 4 kv, the GQA
+    # group of 4) at the main path's heaviest chunk (the tp_serve phase).
+    ('tp2_engine_chunk', 8, 512, 2048, 16, 4, 128, 1536, None, None),
 )
 # The main path's heaviest prefill chunk: batch 8, chunk 512 at cache
 # position 1536 of a 2048-position paged view (llama3-8b heads).
@@ -3968,6 +3996,564 @@ def moe_train_phase(torch, fa):
     return parity, train
 
 
+# The tp_serve phase: llama3-8b at full width and depth served by two
+# ranks of a `tensor=2` mesh sharing the one card over gloo (NCCL refuses
+# two ranks on one GPU), each holding half the heads (16 q / 4 kv), half
+# the MLP and half the vocab, and running K1 (K2) on its own heads.
+TP_MODEL = 'llama3-8b'
+TP_MESH = 'tensor=2'
+TP_RANKS = 2
+TP_KW = dict(batch_size=8, max_seq_len=2048, prefill_chunk=512,
+             kv_page_size=64)
+TP_PROMPT_LENGTHS = (100, 1500)      # 8 prompts drawn in this range
+TP_NEW = 32
+# The server leg's requests (prompt tokens, new tokens, streamed), sent
+# one at a time; then /v1/completions on the first.
+TP_SERVER_REQUESTS = ((300, 8, False), (900, 8, False), (600, 8, True))
+TP_FOLLOWER_EXIT_S = 30
+# clock_overhead's collectives a round, rounds, and the product's size.
+TP_CLOCK_PROBE = (100, 3, 2048)
+# Each rank's K1/K2 shape on the main path's heaviest chunk.
+TP_TIMING_SHAPE = (8, 512, 2048, 16, 4, 128, 1536)
+# A `module:function` each rank process calls first (a CPU rehearsal's
+# counting stand-in for the kernels), with the directory it lives in.
+TP_RANK_SETUP = None
+
+
+@contextlib.contextmanager
+def collective_clock(torch, dist, eng):
+    """Time every all_reduce and all_gather for the block, split by
+    whether a fused decode dispatch made it (`decode_s`, `decode_calls`)
+    or the prefill (`prefill_s`, `prefill_calls`). A gloo collective on a
+    CUDA tensor holds the host until its copy to the host (which waits
+    for the work before it) and the exchange are done, and queues the
+    copy back; so each call is timed from a synchronize, which moves no
+    work, to its return: the copy out and the exchange, not the copy
+    back."""
+    clock = {'prefill_s': 0.0, 'prefill_calls': 0, 'decode_s': 0.0,
+             'decode_calls': 0}
+    where = ['prefill']
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            clock[where[0] + '_s'] += time.perf_counter() - t0
+            clock[where[0] + '_calls'] += 1
+            return result
+        return wrapper
+
+    def in_decode(fn):
+        def wrapper(*args, **kwargs):
+            where[0] = 'decode'
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                where[0] = 'prefill'
+        return wrapper
+
+    with patched(dist, 'all_reduce', timed), \
+            patched(dist, 'all_gather', timed), \
+            patched(eng, 'fused_decode_steps', in_decode):
+        yield clock
+
+
+def clock_overhead(torch, dist, mesh, width, probe):
+    """What `collective_clock`'s synchronize adds to a collective: on
+    every rank together, `calls` f32 all-reduces of a decode step's
+    [8, width] each behind a queued [n, n] product (a layer's work before
+    its reduce), without and with a synchronize before each, `rounds`
+    times each (`probe`: TP_CLOCK_PROBE); the fastest round of each.
+    Returns the milliseconds a call of each and their difference."""
+    calls, rounds, n = probe
+    x = torch.zeros(8, width, device=mesh.device)
+    a = torch.randn(n, n, device=mesh.device)
+
+    def run(sync):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            a @ a
+            if sync:
+                torch.cuda.synchronize()
+            dist.all_reduce(x, group=mesh.tensor_group)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls
+
+    run(False)
+    plain = min(run(False) for _ in range(rounds))
+    synced = min(run(True) for _ in range(rounds))
+    return {'calls': calls, 'plain_ms': plain * 1e3,
+            'synced_ms': synced * 1e3, 'added_ms': (synced - plain) * 1e3}
+
+
+def tp_rank_main(spec_path):
+    """One rank of the tp_serve engine leg, run as its own process with
+    the gang variables set: build_engine(mesh_arg=TP_MESH) (its slice of
+    the seed-0 weights), then on bf16 KV the 8 prompts (rank 0 submits,
+    the other rank follows) with K1's launches, the collectives' time
+    (`collective_clock`) and the replicated scheduler's own host time
+    (the plan hash on every rank, rank 0's publish) read around them;
+    the server leg's requests one at a time on a fresh engine; what the
+    clock's synchronizes cost (`clock_overhead`); then the 8 prompts on
+    int8 KV (K2). Writes its readings as JSON (rank 0's first-token
+    logits beside them); any failure raises (non-zero exit)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ['SKYTPU_PROCESS_ID'])
+    if spec['setup']:
+        import importlib
+        sys.path.insert(0, spec['setup_path'])
+        module, fn = spec['setup'].split(':')
+        getattr(importlib.import_module(module), fn)()
+    import torch
+    import torch.distributed as dist
+
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    dev = spec['device']
+    kw = spec['engine_kw']
+    prompts = spec['prompts']
+    t0 = time.perf_counter()
+    engine = inference.build_engine(spec['model'], device=dev, seed=0,
+                                    mesh_arg=spec['mesh'], kv_quant='none',
+                                    **kw)
+    torch.cuda.synchronize()
+    params, config, mesh = engine.params, engine.config, engine.mesh
+    out = {'rank': rank, 'init_s': time.perf_counter() - t0,
+           'backend': mesh.backend, 'device': str(mesh.device),
+           'local_heads': int(params['layers']['wq'].shape[2]),
+           'local_kv_heads': int(params['layers']['wk'].shape[2]),
+           'local_mlp': int(params['layers']['w_up'].shape[-1]),
+           'local_vocab': int(params['embed'].shape[0])}
+
+    def follow_or_lead(engine, lead):
+        """Rank 0 runs `lead(engine)`, then stops the followers; the
+        others follow. Returns (lead's result or None, every finished
+        request's tokens by id on this rank)."""
+        seen = {}
+        finished = engine.finished
+
+        def recording():
+            got = finished()
+            seen.update(got)
+            return got
+
+        engine.finished = recording
+        if rank == 0:
+            result = lead(engine)
+            engine.stop_followers()
+            return result, seen
+        engine.follow()
+        return None, seen
+
+    for key in ('bf16', 'int8'):
+        if key == 'int8':
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = inference.InferenceEngine(params, config, mesh=mesh,
+                                               kv_quant='int8', **kw)
+        counter = fa.flash_attention_quant if key == 'int8' \
+            else fa.flash_attention
+        counter.launches = 0
+        logits = capture_first_logits(engine)
+        plan_s, publish_s = [], []
+        with collective_clock(torch, dist, eng) as clock, \
+                timed(engine, '_plan', plan_s), \
+                timed(engine._channel, 'publish', publish_s):
+            run, seen = follow_or_lead(engine, lambda e: run_greedy(
+                torch, inference, e, prompts, spec['new'])[1])
+        r = {'launches': counter.launches,
+             'tokens': [seen.get(i) for i in range(len(prompts))],
+             'expected_launches': expected_prefill_launches(
+                 engine, [len(p) for p in prompts]),
+             'collectives': clock,
+             'scheduler': {'plan_calls': len(plan_s),
+                           'plan_s': sum(plan_s),
+                           'plan_max_s': max(plan_s, default=0.0),
+                           'publish_calls': len(publish_s),
+                           'publish_s': sum(publish_s)}}
+        if rank == 0:
+            prompt_total = sum(len(p) for p in prompts)
+            r.update(run, prefill_s=engine.stats['prefill_seconds'],
+                     prefill_tok_s=prompt_total / max(
+                         engine.stats['prefill_seconds'], 1e-9))
+            torch.save(torch.cat(logits).float().cpu(),
+                       os.path.join(spec['dir'], f'logits_{key}.pt'))
+        out[key] = r
+        if key == 'bf16':
+            # The server leg's requests, one at a time on a fresh engine
+            # of the server's flags: what the server must answer.
+            del engine
+            gc.collect()
+            engine = inference.InferenceEngine(params, config, mesh=mesh,
+                                               kv_quant='none', **kw)
+
+            def serve(e):
+                return [greedy_tokens(inference, e, p, n)[0]
+                        for p, n in spec['server_requests']]
+
+            _, seen = follow_or_lead(engine, serve)
+            out['server_requests'] = [seen.get(i) for i in range(
+                len(spec['server_requests']))]
+            out['clock_overhead'] = clock_overhead(
+                torch, dist, mesh, config.hidden_size,
+                spec['clock_probe'])
+    out['peak_mem_gb'] = (torch.cuda.max_memory_allocated(mesh.device) / 1e9
+                          if mesh.device.type == 'cuda' else None)
+    with open(os.path.join(spec['dir'], f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+def tp_gang_env(port, rank, backend='gloo'):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('SKYTPU_')}
+    return {**env, 'PYTHONPATH': here,
+            'SKYTPU_COORDINATOR_ADDR': f'127.0.0.1:{port}',
+            'SKYTPU_NUM_PROCESSES': str(TP_RANKS),
+            'SKYTPU_PROCESS_ID': str(rank),
+            'SKYTPU_TORCH_DIST_BACKEND': backend}
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(argv_of, env_of, log_dir, name, timeout):
+    """Start TP_RANKS processes (`argv_of(rank)`, `env_of(rank)`), their
+    output to log_dir/{name}{rank}.log. Returns wait(): (return codes,
+    logs' tails, seconds) once all have ended; a rank past `timeout` is
+    killed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(log_dir, f'{name}{r}.log'), 'w+')
+            for r in range(TP_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv_of(r), cwd=here, env=env_of(r),
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(TP_RANKS)]
+
+    def wait():
+        rcs = []
+        try:
+            for p in procs:
+                left = max(1.0, timeout - (time.perf_counter() - t0))
+                try:
+                    rcs.append(p.wait(left))
+                except subprocess.TimeoutExpired:
+                    rcs.append(None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            tails = []
+            for f in logs:
+                f.seek(0)
+                tails.append(f.read()[-3000:])
+                f.close()
+        return rcs, tails, time.perf_counter() - t0
+
+    return wait
+
+
+def tp_nccl_refusal(tmp):
+    """Start two ranks on the one device asking for NCCL; returns the
+    check to call later: both must have exited with the mesh's clear
+    error, well before any NCCL collective."""
+    code = ('from skypilot_tpu_torch.parallel import mesh; '
+            f'mesh.mesh_from_env(mesh.MeshSpec.parse({TP_MESH!r}), '
+            f'{DEV!r})')
+    port = free_port()
+    wait = start_ranks(lambda r: [sys.executable, '-c', code],
+                       lambda r: tp_gang_env(port, r, backend='nccl'),
+                       tmp, 'nccl', timeout=120)
+
+    def check():
+        rcs, tails, seconds = wait()
+        refused = [rc not in (0, None) and 'NCCL cannot run two ranks on '
+                   'one device' in tail for rc, tail in zip(rcs, tails)]
+        if not all(refused):
+            raise AssertionError(f'nccl with two ranks on one device: rcs '
+                                 f'{rcs}, {tails}')
+        return {'rcs': rcs, 'seconds': seconds}
+
+    return check
+
+
+def tp_server_leg(torch, requests, want, tmp):
+    """The port's server as TP_RANKS processes of --mesh TP_MESH through
+    the normal entry point: /health, each of `requests` through /generate
+    (one streamed) one at a time, then /v1/completions on the first, every
+    answer token for token `want`; then SIGTERM to rank 0, after which
+    rank 1 must exit within TP_FOLLOWER_EXIT_S."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    http, gang = free_port(), free_port()
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
+           '--model', TP_MODEL, '--mesh', TP_MESH, '--device', DEV,
+           '--port', str(http), '--seed', '0',
+           '--batch-size', str(TP_KW['batch_size']),
+           '--max-seq-len', str(TP_KW['max_seq_len']),
+           '--prefill-chunk', str(TP_KW['prefill_chunk']),
+           '--kv-page-size', str(TP_KW['kv_page_size'])]
+    logs = [open(os.path.join(tmp, f'server{r}.log'), 'w+')
+            for r in range(TP_RANKS)]
+    procs = [subprocess.Popen(cmd, cwd=here, env=tp_gang_env(gang, r),
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(TP_RANKS)]
+    base = f'http://127.0.0.1:{http}'
+
+    def tail(r):
+        logs[r].seek(0)
+        return logs[r].read()[-3000:]
+
+    try:
+        t0 = time.perf_counter()
+        while True:
+            for r, p in enumerate(procs):
+                if p.poll() is not None:
+                    raise AssertionError(f'tp server rank {r} exited: '
+                                         + tail(r))
+            try:
+                if http_json(base + '/health', timeout=10)[0] == 200:
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError('tp server never loaded: ' + tail(0))
+            time.sleep(0.2)
+        load_s = time.perf_counter() - t0
+        got, request_s = [], []
+        for prompt, new, stream in requests:
+            t0 = time.perf_counter()
+            body = {'prompt_tokens': prompt, 'max_new_tokens': new}
+            if stream:
+                text = http_json(base + '/generate', {**body,
+                                                      'stream': True})[1]
+                frames = list(sse_frames(text.splitlines()))
+                streamed = [f['token'] for f in frames if 'token' in f]
+                tokens = frames[-1]['tokens']
+                if streamed != tokens:
+                    raise AssertionError(f'stream {streamed} != {tokens}')
+            else:
+                tokens = json.loads(http_json(base + '/generate',
+                                              body)[1])['tokens']
+            request_s.append(time.perf_counter() - t0)
+            got.append(tokens)
+        v1 = json.loads(http_json(base + '/v1/completions', {
+            'prompt': requests[0][0], 'max_tokens': requests[0][1],
+            'temperature': 0})[1])['choices'][0]['tokens']
+        procs[0].send_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        try:
+            follower_rc = procs[1].wait(TP_FOLLOWER_EXIT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f'tp server rank 1 still runs '
+                                 f'{TP_FOLLOWER_EXIT_S} s after rank 0 '
+                                 'was stopped') from None
+        follower_exit_s = time.perf_counter() - t0
+        leader_rc = procs[0].wait(60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tails = [tail(r) for r in range(TP_RANKS)]
+        for f in logs:
+            f.close()
+    faults = []
+    if got != want:
+        faults.append(f'server tokens {got} != engine leg {want}')
+    if v1 != want[0]:
+        faults.append(f'/v1 tokens {v1} != engine leg {want[0]}')
+    if (leader_rc, follower_rc) != (0, 0):
+        faults.append(f'exit codes {leader_rc}, {follower_rc}: {tails}')
+    return {'command': ' '.join(cmd[1:]), 'load_s': load_s,
+            'request_s': request_s, 'tokens_equal': got == want,
+            'v1_equal': v1 == want[0], 'follower_exit_s': follower_exit_s,
+            'exit_codes': [leader_rc, follower_rc], 'faults': faults}
+
+
+def tp_serve_phase(torch, inference, fa, rng):
+    """llama3-8b served over a TP_MESH mesh (see tp_rank_main): the ranks'
+    first-token logits within TOL_LOGITS_REL of the unsharded engine's
+    on the same seed (built here and freed before the ranks start), their
+    greedy tokens equal to its tokens up to near-ties (the divergence
+    rule, TOL_SPEC_GAP) and to each other's, K1 (K2) launches on each
+    rank equal to expected_prefill_launches; NCCL with two ranks on one
+    device refused; then the server leg (tp_server_leg). Returns
+    (reading, {'bf16': K1 launches, 'int8': K2 launches} per rank)."""
+    import shutil
+    import tempfile
+
+    from skypilot_tpu_torch import models as models_lib
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.models import llama
+    vocab = models_lib.resolve(TP_MODEL)[1].vocab_size
+    lo, hi = TP_PROMPT_LENGTHS
+    lengths = [int(x) for x in rng.integers(lo, hi + 1, size=8)]
+    prompts = [prompt_tokens(rng, m, vocab) for m in lengths]
+    requests = [(prompt_tokens(rng, n, vocab), new, stream)
+                for n, new, stream in TP_SERVER_REQUESTS]
+    out = {'model': TP_MODEL, 'mesh': TP_MESH, 'ranks': TP_RANKS,
+           'backend': 'gloo', **TP_KW, 'prompt_lengths': lengths,
+           'max_new_tokens': TP_NEW}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_tp_')
+    try:
+        launches = tp_serve_legs(torch, inference, eng, llama, prompts,
+                                 requests, out, tmp, tp_nccl_refusal(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches
+
+
+def tp_serve_legs(torch, inference, eng, llama, prompts, requests, out, tmp,
+                  nccl_check):
+    """tp_serve_phase's legs in `tmp`, filling `out` (with `faults`); the
+    NCCL refusal's ranks (`nccl_check`) run beside the unsharded engine.
+    Returns the K1/K2 launches per rank."""
+    # The unsharded engine on the same seed: the reference.
+    ref = {}
+    t0 = time.perf_counter()
+    engine = inference.build_engine(TP_MODEL, device=DEV, seed=0,
+                                    kv_quant='none', **TP_KW)
+    params, config = engine.params, engine.config
+    for key in ('bf16', 'int8'):
+        if key == 'int8':
+            engine = inference.InferenceEngine(params, config,
+                                               kv_quant='int8', device=DEV,
+                                               **TP_KW)
+        seen = capture_first_logits(engine)
+        tokens, run = run_greedy(torch, inference, engine, prompts, TP_NEW)
+        ref[key] = {'tokens': tokens, 'logits': torch.cat(seen).float(),
+                    'decode_tok_s': run['decode_tok_s']}
+        del engine
+    out['unsharded_s'] = time.perf_counter() - t0
+    out['nccl_refusal'] = nccl_check()
+    # The dense forward of the near-tie rule needs the params again
+    # after the ranks: they wait on the host.
+    host_params = eng._to_device(params, torch.device('cpu'))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {'model': TP_MODEL, 'mesh': TP_MESH, 'device': DEV,
+            'engine_kw': TP_KW, 'prompts': prompts, 'new': TP_NEW,
+            'server_requests': [(p, n) for p, n, _ in requests],
+            'clock_probe': TP_CLOCK_PROBE,
+            'dir': tmp, 'setup': TP_RANK_SETUP and TP_RANK_SETUP[0],
+            'setup_path': TP_RANK_SETUP and TP_RANK_SETUP[1]}
+    spec_path = os.path.join(tmp, 'spec.json')
+    with open(spec_path, 'w') as f:
+        json.dump(spec, f)
+    code = ('import sys, chip_smoke; '
+            'sys.exit(chip_smoke.tp_rank_main(sys.argv[1]))')
+    port = free_port()
+    rcs, tails, ranks_s = start_ranks(
+        lambda r: [sys.executable, '-c', code, spec_path],
+        lambda r: tp_gang_env(port, r), tmp, 'rank', timeout=900)()
+    if rcs != [0] * TP_RANKS:
+        raise AssertionError(f'tp ranks failed: rcs {rcs}: {tails}')
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(tmp, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    out['ranks_s'] = ranks_s
+    faults, launches = [], {}
+    for key in ('bf16', 'int8'):
+        got = torch.load(os.path.join(tmp, f'logits_{key}.pt')).to(
+            ref[key]['logits'].device)
+        r0 = ranks[0][key]
+        reading = {
+            'logits_rel_err': rel_err(torch, got, ref[key]['logits']),
+            'launches_per_rank': [r[key]['launches'] for r in ranks],
+            'expected_launches': r0['expected_launches'],
+            'ranks_tokens_equal': all(r[key]['tokens'] == r0['tokens']
+                                      for r in ranks),
+            'tokens_equal_unsharded': r0['tokens'] == ref[key]['tokens'],
+            **{k: r0[k] for k in ('prefill_s', 'prefill_tok_s',
+                                  'decode_s', 'decode_tok_s',
+                                  'decode_dispatches',
+                                  'ms_per_dispatch', 'wall_s')},
+            'unsharded_decode_tok_s': ref[key]['decode_tok_s']}
+        if not reading['logits_rel_err'] < TOL_LOGITS_REL:
+            faults.append(f'{key} logits rel err '
+                          f'{reading["logits_rel_err"]}')
+        if any(n != r0['expected_launches']
+               for n in reading['launches_per_rank']):
+            faults.append(f'{key} launches {reading["launches_per_rank"]}'
+                          f' != {r0["expected_launches"]} per rank')
+        if not reading['ranks_tokens_equal']:
+            faults.append(f'{key}: the ranks\' tokens differ')
+        launches[key] = reading['launches_per_rank']
+        out[key] = reading
+    # Near-ties: a divergence from the unsharded tokens passes only
+    # where both tokens lie within TOL_SPEC_GAP of the top logit.
+    diverged = [(key, i) for key in ('bf16', 'int8') for i in range(
+        len(prompts)) if ranks[0][key]['tokens'][i]
+        != ref[key]['tokens'][i]]
+    if diverged:
+        params = eng._to_device(host_params, torch.device(DEV))
+        for key in ('bf16', 'int8'):
+            out[key]['divergences'] = [divergence_reading(
+                torch, llama, params, config, prompts[i],
+                ref[key]['tokens'][i], ranks[0][key]['tokens'][i])
+                for k, i in diverged if k == key]
+            faults += [f'{key}: {f}' for f in divergence_faults(
+                out[key]['divergences'])]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    del host_params
+    # The collectives' share of the prefill and of decode, read in the
+    # run (rank 0's clock against its engine's own seconds), and the
+    # replicated scheduler's host time (each rank's plan hashes, rank 0's
+    # publishes) against the run's wall time.
+    for key in ('bf16', 'int8'):
+        clock = ranks[0][key]['collectives']
+        out[key]['collectives'] = {
+            **clock, 'share_of_prefill': clock['prefill_s']
+            / out[key]['prefill_s'], 'share_of_decode': clock[
+                'decode_s'] / out[key]['decode_s']}
+        sched = [r[key]['scheduler'] for r in ranks]
+        out[key]['scheduler'] = {
+            'per_rank': sched,
+            'share_of_wall': (sched[0]['plan_s'] + sched[0]['publish_s'])
+            / out[key]['wall_s']}
+    # The clock's synchronizes: what one adds to a collective, times the
+    # collectives each run made, against its wall time.
+    over = ranks[0]['clock_overhead']
+    out['clock_overhead'] = {**over, **{
+        f'share_of_{key}_wall': over['added_ms'] * 1e-3 * (
+            out[key]['collectives']['prefill_calls']
+            + out[key]['collectives']['decode_calls']) / out[key]['wall_s']
+        for key in ('bf16', 'int8')}}
+    out['per_rank'] = [{k: r[k] for k in (
+        'rank', 'backend', 'device', 'init_s', 'local_heads',
+        'local_kv_heads', 'local_mlp', 'local_vocab', 'peak_mem_gb')}
+        for r in ranks]
+    if ranks[0]['local_heads'] * TP_RANKS != config.num_heads:
+        faults.append(f'rank heads {out["per_rank"]}')
+    out['server_requests_ranks_equal'] = all(
+        r['server_requests'] == ranks[0]['server_requests']
+        for r in ranks)
+    if not out['server_requests_ranks_equal']:
+        faults.append('the ranks\' server-leg tokens differ')
+    t0 = time.perf_counter()
+    out['server'] = tp_server_leg(torch, requests,
+                                  ranks[0]['server_requests'], tmp)
+    out['server']['leg_s'] = time.perf_counter() - t0
+    faults += [f'server: {f}' for f in out['server'].pop('faults')]
+    out['faults'] = faults
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4388,6 +4974,32 @@ def main():
                           ('flash_attention_dq', 'K3'),
                           ('flash_attention_dkv', 'K4')):
         path_launches[name]['moe_train'] = train['launches'][counter]
+    del parity, train
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 27. llama3-8b over a tensor=2 mesh: two ranks on the card over gloo,
+    # K1 (K2) on each rank's 16 q / 4 kv heads, then the server as two
+    # processes. Its own generator, as the later slices' phases.
+    t0 = time.perf_counter()
+    out, launches = tp_serve_phase(torch, inference, fa,
+                                   np.random.default_rng(10))
+    emit('tp_serve', phase_s=time.perf_counter() - t0, **out)
+    if out['faults']:
+        raise AssertionError(f'tp_serve: {out["faults"]}')
+    for quant, name in ((False, 'flash_attention'),
+                        (True, 'flash_attention_quant')):
+        key = 'int8' if quant else 'bf16'
+        # Rank 0's launches (each rank's equal the expected count).
+        path_launches[name]['tp_serve'] = launches[key][0]
+        tm = kernel_timing(torch, fa, quant, TP_TIMING_SHAPE)
+        emit('timing', kernel=name, path='tp_serve', **tm)
+        kernels[name]['shapes'].append({
+            'path': 'tp_serve', 'shape': tm['shape'],
+            'q_offset': tm['q_offset'], 'launches': launches[key][0],
+            'launches_per_rank': launches[key],
+            **{k: tm[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                  'library_ms')}})
 
     # The later slices' paths, each read with the counts set to 0 just
     # before and read just after (launches beside the main path's).

@@ -6,7 +6,9 @@ Ports `skypilot_tpu/checkpoints/hf_import.py`: `is_hf_checkpoint` (:66),
 `TensorSpec` and `param_specs` (:247-318), `is_ignorable` (:321),
 `expected_hf_names` (:330), `_engine_shape`, `_hf_shape`, `_to_engine`
 and `_to_hf` (:341-415), `_HostBudget`, `ImportStats`, `load_params`
-(:473) and `_check_names` (:605).
+(:473) with `_place_layer` (:448-548; the reference's `_alloc_stacked`
+is a `torch.empty` of this rank's shape here), and `_check_names`
+(:605).
 
 1. `detect_config()`: `config.json` -> the port's `LlamaConfig` (llama,
    llama3 rope scaling, gemma, gemma2, mistral, qwen2), the knob set
@@ -23,8 +25,9 @@ and `_to_hf` (:341-415), `_HostBudget`, `ImportStats`, `load_params`
 
 Each import reports `ImportStats` through the port's instruments, as
 the reference does (:594-596): `CKPT_IMPORT_SECONDS`, `_BYTES` and
-`_TENSORS`. Left out against the reference: the mesh argument and its
-sharding rules (one device here; the parallel slice). Knobs:
+`_TENSORS`. Under a tensor-parallel `mesh` each rank places only its
+slice of each tensor (`llama.param_logical_axes` under
+`parallel.sharding`), cut on the host before the copy. Knobs:
 SKYTPU_HF_IMPORT_STRICT
 (an unexpected tensor is an error, not a warning) and
 SKYTPU_HF_IMPORT_CONCURRENCY (read/transform threads running ahead of
@@ -48,6 +51,7 @@ from skypilot_tpu_torch import envs
 from skypilot_tpu_torch.checkpoints import safetensors_io
 from skypilot_tpu_torch.models import llama
 from skypilot_tpu_torch.observability import instruments as obs
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
 
 logger = logging.getLogger(__name__)
 
@@ -417,16 +421,27 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _place_layer(stacked: torch.Tensor, host: torch.Tensor, i: int,
+                 shard: sharding_lib.Shard) -> None:
+    """Layer i of a host tensor, cut to this rank's slice (`shard` of the
+    stacked leaf, its dim one past the layer's), into `stacked`. A copy
+    from pageable host memory returns once the host buffer is read."""
+    stacked[i].copy_(shard.per_layer()(host))
+
+
 def load_params(
         ckpt_dir: str,
         config: Optional[llama.LlamaConfig] = None,
         device: Optional[Union[str, torch.device]] = None,
         strict: Optional[bool] = None,
         concurrency: Optional[int] = None,
+        mesh: Optional[Any] = None,
 ) -> Tuple[Dict[str, Any], llama.LlamaConfig, ImportStats]:
     """Import an HF safetensors checkpoint onto `device` (CUDA unless
-    named). Returns (params in `llama.init_params`' layout, the config
-    served, detected from config.json unless given, and the stats)."""
+    named; a mesh's own device under `mesh`). Returns (params in
+    `llama.init_params`' layout, this rank's slices under a
+    tensor-parallel mesh, the config served, detected from config.json
+    unless given, and the stats)."""
     t0 = time.perf_counter()
     if config is None:
         _family, config = detect_config(ckpt_dir)
@@ -435,9 +450,18 @@ def load_params(
     if concurrency is None:
         concurrency = envs.SKYTPU_HF_IMPORT_CONCURRENCY.get()
     concurrency = max(1, int(concurrency))
-    dev = device_lib.resolve_device(device)
+    dev = mesh.device if mesh is not None else device_lib.resolve_device(
+        device)
     c = config
     specs = param_specs(c)
+    shardings = sharding_lib.tree_shardings(
+        mesh, llama.param_logical_axes(c)) if mesh is not None else None
+
+    def shard_of(spec: TensorSpec) -> sharding_lib.Shard:
+        if shardings is None:
+            return sharding_lib.Shard()
+        return (shardings['layers'][spec.key] if spec.stacked
+                else shardings[spec.key])
     budget = _HostBudget()
     stats = ImportStats()
 
@@ -468,14 +492,13 @@ def load_params(
 
         stacked_specs = [s for s in specs if s.stacked]
         bufs: Dict[str, torch.Tensor] = {
-            s.key: torch.empty((c.num_layers,) + _engine_shape(s, c),
-                               dtype=c.dtype, device=dev)
+            s.key: torch.empty(shard_of(s).local_shape(
+                (c.num_layers,) + _engine_shape(s, c)), dtype=c.dtype,
+                device=dev)
             for s in stacked_specs}
 
         def place_one(spec: TensorSpec, host: torch.Tensor, i: int) -> None:
-            # A copy from pageable host memory returns once the host
-            # buffer is read, so it can be dropped right after.
-            bufs[spec.key][i].copy_(host)
+            _place_layer(bufs[spec.key], host, i, shard_of(spec))
             budget.sub(_nbytes(host))
 
         # Layer-major, the order HF checkpoints ship (a shard holds
@@ -502,7 +525,7 @@ def load_params(
         for spec in specs:
             if not spec.stacked:
                 host = fetch(spec, spec.hf)
-                out[spec.key] = host.to(dev)
+                out[spec.key] = shard_of(spec)(host).clone().to(dev)
                 budget.sub(_nbytes(host))
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)

@@ -27,12 +27,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def check_one_device_mesh(spec: str) -> None:
     """Accept only a mesh spec (comma-separated axis=size, as the
     reference's `--mesh`) that resolves to one device: every axis of
-    size 1 or -1 (fill). Anything larger raises NotImplementedError."""
+    size 1 or -1 (fill). Anything larger raises NotImplementedError:
+    the trainer and the checkpoints CLI run on one device until the
+    next parallel slice (serving takes `--mesh tensor=N`)."""
     sizes = {}
     for part in spec.split(','):
         axis, _, size = part.partition('=')
         sizes[axis.strip()] = int(size)
     if any(s not in (1, -1) for s in sizes.values()):
         raise NotImplementedError(
-            f'--mesh {spec!r} spans more than one device; the port runs '
-            'on one device until the parallel slice (ROADMAP.md, Queue 1)')
+            f'--mesh {spec!r} spans more than one device; training and '
+            'the checkpoints CLI run on one device until the next '
+            'parallel slice (ROADMAP.md, Queue 1)')

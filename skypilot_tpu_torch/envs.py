@@ -3,8 +3,10 @@ observability paths read.
 
 Same names, types and defaults as the declarations in
 `skypilot_tpu/envs.py` (the reference registry); a test pins them
-against it. Values are read at call time, never at import time, and a
-malformed value falls back to the default, as in the reference.
+against it. One knob is the port's own, SKYTPU_TORCH_DIST_BACKEND (the
+collectives' backend; the reference's mesh needs none). Values are read
+at call time, never at import time, and a malformed value falls back to
+the default, as in the reference (`strict` reads raise instead).
 """
 from __future__ import annotations
 
@@ -23,19 +25,30 @@ class EnvVar:
     default: Any
     doc: str
 
-    def get(self, default: Any = _UNSET) -> Any:
+    def get(self, default: Any = _UNSET, strict: bool = False) -> Any:
         """The parsed value; unset, empty or malformed reads give the
         declared default, or `default` where the caller's plane has its
-        own (as the reference's per-call override)."""
+        own (as the reference's per-call override). `strict=True`
+        raises on an empty or malformed value instead, as the
+        reference's does for the gang identity (two processes silently
+        at process id 0 would hang the rendezvous)."""
         fallback = self.default if default is _UNSET else default
         value = os.environ.get(self.name)
-        if value is None or value == '':
+        if value is None:
+            return fallback
+        if value == '':
+            if strict:
+                raise ValueError(f'{self.name} is set but empty; expected '
+                                 f'a {self.type.__name__}')
             return fallback
         if self.type is bool:
             return value.strip().lower() not in _FALSEY
         try:
             return self.type(value)
         except (TypeError, ValueError):
+            if strict:
+                raise ValueError(f'{self.name}={value!r} is not a valid '
+                                 f'{self.type.__name__}') from None
             return fallback
 
 
@@ -201,3 +214,29 @@ SKYTPU_WATCHDOG_ANOMALY_Z = _declare(
     'SKYTPU_WATCHDOG_ANOMALY_Z', float, 8.0,
     'Robust-z threshold of the EWMA anomaly detector over the decode-step '
     'and prefill latency series. 0 disables the built-in anomaly rules.')
+
+# --- the parallel layer: gang coordinates, the sharded pool, the backend ----
+
+SKYTPU_KV_PAGES_SHARDED = _declare(
+    'SKYTPU_KV_PAGES_SHARDED', bool, True,
+    'Whether engines on a tensor-sharded mesh default to the PAGED KV '
+    'layout (the page pool holds each rank\'s KV heads; block tables '
+    'stay replicated). 0 keeps sharded engines dense by default; an '
+    'explicit kv_page_size always wins.')
+SKYTPU_NUM_PROCESSES = _declare(
+    'SKYTPU_NUM_PROCESSES', int, 1,
+    'Injected into job processes: total processes in the gang (one per '
+    'device in the port).')
+SKYTPU_PROCESS_ID = _declare(
+    'SKYTPU_PROCESS_ID', int, 0,
+    'Injected into job processes: global index of this process (its '
+    'rank).')
+SKYTPU_COORDINATOR_ADDR = _declare(
+    'SKYTPU_COORDINATOR_ADDR', str, None,
+    'Injected into job processes: ip:port of process 0 for '
+    'torch.distributed\'s rendezvous.')
+SKYTPU_TORCH_DIST_BACKEND = _declare(
+    'SKYTPU_TORCH_DIST_BACKEND', str, None,
+    'Port-only: the backend of the mesh\'s tensor collectives (nccl | '
+    'gloo). Unset: nccl on CUDA, gloo on the CPU. gloo serves several '
+    'ranks on one GPU, which NCCL refuses.')

@@ -5,7 +5,9 @@ one engine-construction path for every entry point. Weights come from an
 HF safetensors checkpoint (`checkpoint=`, through
 `skypilot_tpu_torch.checkpoints`) or a port train checkpoint
 (`skypilot_tpu_torch.train.checkpoints`), or are drawn from a seed on
-the device.
+the device. Under `mesh_arg` ('tensor=2') each process is one rank of
+the mesh (`parallel.mesh_from_env`, from the SKYTPU_* gang variables)
+and holds only its slice of the weights.
 """
 from typing import Optional, Union
 
@@ -27,36 +29,58 @@ __all__ = ['DecodeState', 'InferenceEngine', 'SamplingParams',
            'prefill_chunked', 'restore_params']
 
 
-def draw_params(model: str, seed: int, device: torch.device):
+def _shardings(mesh, config):
+    """The `Shard` tree of a llama-core config on this rank of `mesh`
+    (None without one)."""
+    if mesh is None or mesh.tensor_size == 1:
+        return None
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import sharding
+    return sharding.tree_shardings(mesh, llama.param_logical_axes(config))
+
+
+def draw_params(model: str, seed: int, device: torch.device, mesh=None):
     """(params, config) of `model` with random weights drawn from a
-    generator seeded `seed` on `device`: what build_engine serves."""
+    generator seeded `seed` on `device`: what build_engine serves. With
+    a tensor-parallel `mesh` the draws are the same and each leaf keeps
+    this rank's slice, so a rank's peak is one full leaf above its
+    shard."""
     from skypilot_tpu_torch import models as models_lib
     family, config = models_lib.resolve(model)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return family.init_params(config, gen, device), config
+    shardings = _shardings(mesh, config)
+    if shardings is None:
+        return family.init_params(config, gen, device), config
+    return family.init_params(config, gen, device, shardings), config
 
 
-def restore_params(checkpoint: str, device: torch.device, config):
+def restore_params(checkpoint: str, device: torch.device, config,
+                   mesh=None):
     """(params, config) of a checkpoint directory, layout auto-detected
     as in the reference (:59-69). An HF safetensors checkpoint streams in
     with the geometry its config.json declares, which wins over
-    `config`. A port train checkpoint (`train/checkpoints.py`) gives its
-    latest complete step's params with `config`, the named model's, as
-    the reference gives an Orbax checkpoint's; params that do not fit it
+    `config`; under a tensor-parallel `mesh` each rank places its own
+    slice of each tensor. A port train checkpoint (`train/checkpoints.py`)
+    gives its latest complete step's params with `config`, the named
+    model's, as the reference gives an Orbax checkpoint's (whole, on the
+    host, under a mesh: the engine cuts them); params that do not fit it
     raise ValueError. An Orbax checkpoint of the JAX package raises
     NotImplementedError."""
     from skypilot_tpu_torch import checkpoints as ckpt_lib
     from skypilot_tpu_torch.train import checkpoints as train_ckpts
     if ckpt_lib.is_hf_checkpoint(checkpoint):
         params, config, _stats = ckpt_lib.load_params(checkpoint,
-                                                      device=device)
+                                                      device=device,
+                                                      mesh=mesh)
         return params, config
-    return train_ckpts.restore_params(checkpoint, config, device), config
+    where = 'cpu' if _shardings(mesh, config) is not None else device
+    return train_ckpts.restore_params(checkpoint, config, where), config
 
 
 def build_engine(model: str, *,
                  device: Optional[Union[str, torch.device]] = None,
                  checkpoint: Optional[str] = None,
+                 mesh_arg: Optional[str] = None,
                  seed: int = 0, batch_size: int = 8,
                  max_seq_len: Optional[int] = None,
                  prefill_chunk: int = 1024, kv_quant: str = 'auto',
@@ -80,16 +104,33 @@ def build_engine(model: str, *,
     reference's build_engine does. `draft_model` attaches a same-vocab
     draft for speculative decode: from `draft_checkpoint`, or drawn from
     its own generator seeded `seed + 1` (the reference draws the target
-    from key 0 and the draft from key 1)."""
+    from key 0 and the draft from key 1).
+    `mesh_arg` ('tensor=2', as the reference's :52-56) builds the mesh
+    from the gang variables (`parallel.mesh_from_env`): this process is
+    one rank, on its own device, with its slice of the same weights;
+    rank 0 takes the requests and the others run `engine.follow()`.
+    What the mesh cannot serve raises before any weight is drawn
+    (`engine.check_mesh`)."""
     from skypilot_tpu_torch import device as device_lib
     from skypilot_tpu_torch import models as models_lib
+    from skypilot_tpu_torch.inference import engine as engine_lib
 
-    dev = device_lib.resolve_device(device)
+    mesh = None
+    if mesh_arg:
+        from skypilot_tpu_torch.parallel import mesh as mesh_lib
+        mesh = mesh_lib.mesh_from_env(mesh_lib.MeshSpec.parse(mesh_arg),
+                                      device)
+        dev = mesh.device
+    else:
+        dev = device_lib.resolve_device(device)
+    if mesh is not None and not checkpoint:
+        engine_lib.check_mesh(mesh, models_lib.resolve(model)[1],
+                              bool(draft_model))
     if checkpoint:
         params, config = restore_params(checkpoint, dev,
-                                        models_lib.resolve(model)[1])
+                                        models_lib.resolve(model)[1], mesh)
     else:
-        params, config = draw_params(model, seed, dev)
+        params, config = draw_params(model, seed, dev, mesh)
     draft = None
     if draft_model:
         draft = (restore_params(draft_checkpoint, dev,
@@ -107,4 +148,4 @@ def build_engine(model: str, *,
                            kv_page_size=kv_page_size, kv_pages=kv_pages,
                            prefix_cache=prefix_cache,
                            prefix_cache_max_pages=prefix_cache_max_pages,
-                           device=dev)
+                           mesh=mesh, device=dev)

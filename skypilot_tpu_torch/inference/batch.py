@@ -16,8 +16,11 @@ every free slot at once.
 
 `--checkpoint` takes an HF safetensors dir or a port train checkpoint
 (`train/checkpoints.py`), layout auto-detected; an HF dir's geometry
-wins over `--model`, a train checkpoint must fit it. `--mesh` of more
-than one device raises until the parallel slice (ROADMAP.md, Queue 1).
+wins over `--model`, a train checkpoint must fit it. `--mesh tensor=N`
+runs one process per rank, each started with the same flags and the
+gang variables (SKYTPU_COORDINATOR_ADDR, SKYTPU_NUM_PROCESSES,
+SKYTPU_PROCESS_ID), as the server's: rank 0 reads the input and writes
+the output, the others follow its engine until it is done.
 
 Input lines: {"prompt_tokens": [...]} (+ optional per-line
 "max_new_tokens", "temperature", "top_k", "eos_token_id", "id"). Output
@@ -99,8 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--temperature', type=float, default=0.0)
     parser.add_argument('--top-k', type=int, default=0)
     parser.add_argument('--mesh', default=None,
-                        help='Shard over a device mesh: only a one-device '
-                             'mesh until the parallel slice.')
+                        help='Shard over a device mesh, e.g. tensor=2: one '
+                             'process per rank (see inference.server '
+                             '--help); rank 0 reads --input and writes '
+                             '--output.')
     parser.add_argument('--draft-model', default=None,
                         help='Speculative decoding: a small same-vocab '
                              'draft model proposes spec-k tokens per '
@@ -144,7 +149,7 @@ def engine_kwargs(args) -> Dict[str, Any]:
     a caller can build the same engine in its own process."""
     from skypilot_tpu_torch.inference import server
     return dict(
-        device=args.device, checkpoint=args.checkpoint,
+        device=args.device, checkpoint=args.checkpoint, mesh_arg=args.mesh,
         batch_size=args.batch_size, max_seq_len=args.max_seq_len,
         kv_quant=args.kv_quant, draft_model=args.draft_model,
         draft_checkpoint=args.draft_checkpoint, spec_k=args.spec_k,
@@ -161,11 +166,12 @@ def engine_kwargs(args) -> Dict[str, Any]:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    from skypilot_tpu_torch import device as device_lib
+    from skypilot_tpu_torch import envs
     from skypilot_tpu_torch import inference as inf
 
-    if args.mesh:
-        device_lib.check_one_device_mesh(args.mesh)
+    if args.mesh and envs.SKYTPU_PROCESS_ID.get(strict=True) > 0:
+        inf.build_engine(args.model, **engine_kwargs(args)).follow()
+        return
     with open(args.input, encoding='utf-8') as f:
         requests = [json.loads(line) for line in f if line.strip()]
     if not requests:
@@ -175,7 +181,10 @@ def main(argv=None) -> None:
     default_sampling = inf.SamplingParams(
         temperature=args.temperature, top_k=args.top_k,
         max_new_tokens=args.max_new_tokens)
-    results = run_batch(engine, requests, default_sampling)
+    try:
+        results = run_batch(engine, requests, default_sampling)
+    finally:
+        engine.stop_followers()
     with open(args.output, 'w', encoding='utf-8') as f:
         for rec in results:
             f.write(json.dumps(rec) + '\n')

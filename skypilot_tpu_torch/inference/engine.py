@@ -65,11 +65,22 @@ Differences by design, each stated where it happens:
   sync where the routed rows are few (decode: `moe._moe_mlp`'s static
   path) and one per layer on a prefill chunk (its grouped path).
 
-Not ported yet (a later slice): sharded meshes. Asking for a mesh
-raises NotImplementedError.
+- Tensor-parallel serving (`mesh=`, reference :1455-1514) runs one
+  process per device. Each rank holds its slice of the params
+  (`llama.param_logical_axes` under `parallel.sharding.DEFAULT_RULES`)
+  and of the KV heads in its pool (`init_cache(mesh=)`), and runs the
+  forward under `parallel.use_mesh`, whose `tensor` group carries the
+  reductions `models/llama.py` writes out; the flash kernels run per
+  rank on its own heads (the reference turns its Pallas kernel off
+  under a mesh). The host side runs on every rank, replicated: rank 0
+  publishes its host events once per step and the others follow
+  (`parallel/control.py`, `follow`). Only the `tensor` axis may exceed
+  1; a draft model, an MoE config and snapshot/restore/handoff under a
+  mesh raise NotImplementedError (the next slice).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -89,6 +100,9 @@ from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.observability import instruments as obs
 from skypilot_tpu_torch.observability import spans
 from skypilot_tpu_torch.ops import flash_attention as fa_lib
+from skypilot_tpu_torch.parallel import control as control_lib
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
 from skypilot_tpu_torch.resilience import faults
 
 Params = Dict[str, Any]
@@ -153,13 +167,19 @@ def init_cache(config: llama.LlamaConfig, batch_size: int,
                max_seq_len: Optional[int] = None, pad_to: int = 1,
                kv_quant: str = 'none', page_size: int = 0,
                num_pages: int = 0,
-               device: Optional[Union[str, torch.device]] = None) -> Cache:
-    """Zeroed KV cache + per-slot lengths (unsharded) on `device` (cuda
-    unless named). Dense leaves are [L,B,S,KV,D]; paged leaves are a
-    pool [L,P,page,KV,D] whose page 0 is the scratch page every empty
-    table entry points at, plus a [B,W] block table. int8 leaves are
-    {'q': int8, 's': f32 [..]}."""
+               device: Optional[Union[str, torch.device]] = None,
+               mesh: Optional[mesh_lib.Mesh] = None) -> Cache:
+    """Zeroed KV cache + per-slot lengths on `device` (cuda unless
+    named). Dense leaves are [L,B,S,KV,D]; paged leaves are a pool
+    [L,P,page,KV,D] whose page 0 is the scratch page every empty table
+    entry points at, plus a [B,W] block table. int8 leaves are
+    {'q': int8, 's': f32 [..]}. With a mesh, KV is this rank's KV heads
+    (`sharding.kv_page_axes`: the heads axis alone splits over
+    'tensor'); tables and lengths are whole on every rank."""
     c = config
+    # Dense and paged leaves alike are [L, B or P, S or page, KV, D].
+    heads = sharding_lib.Shard() if mesh is None else sharding_lib.leaf_shard(
+        mesh, sharding_lib.kv_page_axes(5, stacked=True))
     device = device_lib.resolve_device(device)
     s = max_seq_len or c.max_seq_len
     multiple = max(1, pad_to)
@@ -180,12 +200,14 @@ def init_cache(config: llama.LlamaConfig, batch_size: int,
         s = -(-s // step) * step
         w = s // page_size
         p = (num_pages + 1) if num_pages > 0 else (batch_size * w + 1)
-        shape = (c.num_layers, p, page_size, c.num_kv_heads, c.head_dim)
+        shape = heads.local_shape(
+            (c.num_layers, p, page_size, c.num_kv_heads, c.head_dim))
         return {'k': kv_zeros(shape), 'v': kv_zeros(shape),
                 'length': length,
                 'table': torch.zeros((batch_size, w), dtype=torch.int32,
                                      device=device)}
-    shape = (c.num_layers, batch_size, s, c.num_kv_heads, c.head_dim)
+    shape = heads.local_shape(
+        (c.num_layers, batch_size, s, c.num_kv_heads, c.head_dim))
     return {'k': kv_zeros(shape), 'v': kv_zeros(shape), 'length': length}
 
 
@@ -513,8 +535,8 @@ def _attn_with_cache(x: torch.Tensor, layer_params: Params, k_cache: KV,
                              window=window,
                              softcap=getattr(c, 'attn_logit_softcap', None),
                              q_offset=q_offset)
-    attn_out = torch.einsum('bshd,hde->bse', attn.to(c.dtype),
-                            layer_params['wo']).to(c.dtype)
+    attn_out = llama._row_parallel(attn.to(c.dtype), layer_params['wo'],
+                                   'bshd,hde->bse', c)
     if getattr(c, 'post_norms', False):
         attn_out = llama._rms_norm(attn_out, layer_params['post_attn_norm'],
                                    c.rms_norm_eps, plus_one)
@@ -966,7 +988,8 @@ class _Slot:
 
 class DecodeState:
     """Host-side view of the device cache + slots, on `device` (cuda
-    unless named, like every entry point). With `draft_config`,
+    unless named, like every entry point), holding this rank's KV heads
+    under a mesh. With `draft_config`,
     `draft_cache` mirrors the cache for speculative decode: never
     quantised, and paged with the main cache's geometry (the same table
     width and pool size, read from the main pool's int8 leaf when the
@@ -978,7 +1001,8 @@ class DecodeState:
                  prefill_chunk: int = 0, kv_quant: str = 'none',
                  page_size: int = 0, num_pages: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
-                 draft_config: Optional[llama.LlamaConfig] = None):
+                 draft_config: Optional[llama.LlamaConfig] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         device = device_lib.resolve_device(device)
         self.max_seq_len = max_seq_len or config.max_seq_len
         pad_to = (prefill_chunk
@@ -986,7 +1010,7 @@ class DecodeState:
         self.cache = init_cache(config, batch_size, self.max_seq_len,
                                 pad_to=pad_to, kv_quant=kv_quant,
                                 page_size=page_size, num_pages=num_pages,
-                                device=device)
+                                device=device, mesh=mesh)
         self.draft_cache: Optional[Cache] = None
         if draft_config is not None:
             draft_pages = num_pages
@@ -1015,6 +1039,17 @@ class InferenceEngine:
     between engines (of either package). Defaults come from the port's
     env registry (envs.py); explicit arguments win. Runs on CUDA unless
     `device` says otherwise.
+
+    With a `mesh` (`parallel.mesh_from_env`; only its `tensor` axis may
+    exceed 1, see `check_mesh`) this process is one rank of a
+    tensor-parallel replica: `params` are the full tree or this rank's
+    slices of it, the pool holds this rank's KV heads, and on a mesh of
+    several processes rank 0 takes the requests (submit, abort, step)
+    while every other rank runs `follow()`. Rank 0 calls `heartbeat()`
+    while idle and `stop_followers()` when done. The paged layout stays
+    the default unless SKYTPU_KV_PAGES_SHARDED says otherwise, and
+    `use_flash` stays on for CUDA: the kernels run per rank on its own
+    heads.
     """
 
     def __init__(self, params: Params, config: llama.LlamaConfig,
@@ -1050,9 +1085,14 @@ class InferenceEngine:
                 config = dataclasses.replace(config,
                                              capacity_factor=exact_cf)
         if mesh is not None:
-            raise NotImplementedError(
-                'sharded serving (mesh) is not ported yet; serve on one '
-                'device')
+            check_mesh(mesh, config, draft is not None)
+            if (device is not None
+                    and torch.device(device).type != mesh.device.type):
+                raise ValueError(f'device {device} is not this rank\'s '
+                                 f'mesh device {mesh.device}')
+            device = mesh.device
+        self.mesh = mesh
+        self._sharded = mesh is not None and mesh.tensor_size > 1
         self.device = device_lib.resolve_device(device)
         if use_flash is None:
             use_flash = default_use_flash(self.device)
@@ -1061,12 +1101,17 @@ class InferenceEngine:
         if decode_fuse_steps is None:
             decode_fuse_steps = envs.SKYTPU_DECODE_FUSE_STEPS.get()
         self.decode_fuse_steps = max(1, int(decode_fuse_steps))
+        explicit_paged = kv_page_size is not None
         if kv_page_size is None:
             kv_page_size = envs.SKYTPU_KV_PAGE_SIZE.get()
+        if (mesh is not None and not explicit_paged
+                and not envs.SKYTPU_KV_PAGES_SHARDED.get()):
+            kv_page_size = 0
         self.kv_page_size = max(0, int(kv_page_size))
         if kv_pages is None:
             kv_pages = envs.SKYTPU_KV_PAGES.get()
-        self.params = _to_device(params, self.device)
+        self.params = (_place_params(params, config, mesh, self.device)
+                       if self._sharded else _to_device(params, self.device))
         self.config = config
         self.prefill_chunk = prefill_chunk
         explicit_interleave = prefill_interleave is not None
@@ -1122,7 +1167,8 @@ class InferenceEngine:
                                  page_size=self.kv_page_size,
                                  num_pages=max(0, int(kv_pages)),
                                  device=self.device,
-                                 draft_config=self._draft_config)
+                                 draft_config=self._draft_config,
+                                 mesh=mesh)
         self._capacity = cache_capacity(self.state.cache)
         # Host-side page allocator: pages 1..P-1 are allocatable; page 0
         # is the scratch page every empty table entry points at.
@@ -1186,6 +1232,13 @@ class InferenceEngine:
                       'spec_accepted_tokens': 0,
                       'spec_accepted_per_round': [0] * (
                           max(0, self.spec_k) + 1)}
+        # The replicated scheduler: rank 0's host events since its last
+        # publish, and the channel the ranks meet on (the last step of
+        # construction: every rank enters it together).
+        self._events: List[tuple] = []
+        self._channel: Optional[control_lib.Channel] = (
+            control_lib.Channel(mesh)
+            if mesh is not None and mesh.world_size > 1 else None)
 
     # -- public --------------------------------------------------------------
 
@@ -1196,13 +1249,28 @@ class InferenceEngine:
         boundary (first token emitted, slot held under a lease) so a
         load balancer can restore it elsewhere; on lease expiry or
         resume_handoff it decodes here as if never flagged. Ignored on
-        a speculative engine (its snapshots are refused anyway)."""
+        a speculative engine (its snapshots are refused anyway). Under
+        a mesh only rank 0 submits, and `handoff` raises."""
+        self._check_leader('submit')
+        if handoff and self._sharded:
+            raise NotImplementedError(_NEXT_SLICE.format(
+                what='a planned handoff'))
+        sampling = sampling or SamplingParams()
+        request_id = self._submit(prompt_tokens, sampling, handoff)
+        if self._channel is not None:
+            self._events.append(('submit', request_id,
+                                 [int(t) for t in prompt_tokens],
+                                 dataclasses.asdict(sampling)))
+        return request_id
+
+    def _submit(self, prompt_tokens: List[int], sampling: SamplingParams,
+                handoff: bool = False) -> int:
         if not prompt_tokens:
             raise ValueError('prompt_tokens must be non-empty')
         if self.kv_page_size:
             need = self._pages_needed(
                 len(prompt_tokens[:self.state.max_seq_len - 1]),
-                (sampling or SamplingParams()).max_new_tokens)
+                sampling.max_new_tokens)
             if need > self._pages_total:
                 raise ValueError(
                     f'request needs {need} KV pages (prompt + '
@@ -1211,8 +1279,7 @@ class InferenceEngine:
                     'raise kv_pages.')
         request_id = self._next_id
         self._next_id += 1
-        self._queue.append((request_id, list(prompt_tokens),
-                            sampling or SamplingParams()))
+        self._queue.append((request_id, list(prompt_tokens), sampling))
         if handoff and self._draft_params is None:
             self._handoff_requests.add(request_id)
         obs.QUEUE_DEPTH.set(len(self._queue))
@@ -1241,6 +1308,12 @@ class InferenceEngine:
         """Drop one queued or in-flight request: its pins on cached
         pages release and nothing is published. Unknown ids are a
         no-op."""
+        self._check_leader('abort')
+        self._abort(request_id)
+        if self._channel is not None:
+            self._events.append(('abort', request_id))
+
+    def _abort(self, request_id: int) -> None:
         before = len(self._queue)
         self._queue = [(rid, t, s) for rid, t, s in self._queue
                        if rid != request_id]
@@ -1261,6 +1334,12 @@ class InferenceEngine:
     def abort_all(self) -> None:
         """Drop every queued and in-flight request, and the whole prefix
         cache (error recovery must not trust cached KV)."""
+        self._check_leader('abort_all')
+        self._abort_all()
+        if self._channel is not None:
+            self._events.append(('abort_all',))
+
+    def _abort_all(self) -> None:
         aborted = len(self._queue)
         self._queue.clear()
         self._handoff_requests.clear()
@@ -1397,7 +1476,11 @@ class InferenceEngine:
         request that is not here; SnapshotError over
         SKYTPU_MIGRATION_MAX_BYTES, or for a decoding request of a
         speculative engine (its draft cache would desynchronise). An
-        armed `engine.snapshot` fault raises before any device read."""
+        armed `engine.snapshot` fault raises before any device read.
+        Under a sharded mesh it raises NotImplementedError."""
+        if self._sharded:
+            raise NotImplementedError(_NEXT_SLICE.format(
+                what='a request snapshot'))
         faults.inject('engine.snapshot')
         with spans.span('engine.snapshot',
                         attrs={'request_id': request_id}):
@@ -1488,7 +1571,11 @@ class InferenceEngine:
         decodes the next token, so greedy output continues token for
         token. Returns the NEW request id. SnapshotError for a blob
         that cannot be trusted or does not fit this engine's geometry;
-        RuntimeError when no slot or not enough pages are free."""
+        RuntimeError when no slot or not enough pages are free. Under a
+        sharded mesh it raises NotImplementedError."""
+        if self._sharded:
+            raise NotImplementedError(_NEXT_SLICE.format(
+                what='a request restore'))
         header, arrays = _snapshot_unpack(blob)
         with spans.span('engine.restore',
                         attrs={'origin_request_id':
@@ -2209,7 +2296,106 @@ class InferenceEngine:
         return (s.prompt_len + len(s.generated) - 1
                 + self.spec_k) <= self._capacity
 
+    # -- the replicated scheduler (several ranks) ----------------------------
+
+    def _check_leader(self, what: str) -> None:
+        if self._channel is not None and not self._channel.leader:
+            raise RuntimeError(
+                f'{what} runs on rank 0 of the mesh; rank '
+                f'{self.mesh.rank} follows it (follow())')
+
+    def _mesh_ctx(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return mesh_lib.use_mesh(self.mesh)
+
+    def _plan(self) -> int:
+        """A hash of the host state every rank must hold alike: ids,
+        queue, slots (with their last token) and page books."""
+        slots = tuple(
+            None if s is None else (s.request_id, s.prompt_len,
+                                    len(s.generated), s.generated[-1:],
+                                    s.pending is None, s.pos)
+            for s in self.state.slots)
+        return zlib.crc32(repr((
+            self._next_id, [rid for rid, _, _ in self._queue], slots,
+            self._page_alloc, self._slot_pages,
+            [sorted(shared) for shared in self._slot_shared],
+            self.pages_cached())).encode())
+
+    def _publish(self, step: bool = False, stop: bool = False) -> None:
+        events, self._events = self._events, []
+        self._channel.publish(events, self._plan(), step=step, stop=stop)
+
+    def _apply(self, event: tuple) -> None:
+        """One of rank 0's host events, replayed on a follower."""
+        kind = event[0]
+        if kind == 'submit':
+            _, request_id, prompt, sampling = event
+            got = self._submit(prompt, SamplingParams(**sampling))
+            if got != request_id:
+                raise RuntimeError(f'rank {self.mesh.rank} admitted request '
+                                   f'{request_id} as {got}')
+        elif kind == 'abort':
+            self._abort(event[1])
+        elif kind == 'abort_all':
+            self._abort_all()
+        else:
+            raise ValueError(f'unknown host event {event!r}')
+
+    def heartbeat(self) -> None:
+        """On rank 0 of a mesh of several processes: publish (the events
+        so far, no step) when the followers have heard nothing for a
+        heartbeat. A no-op elsewhere."""
+        ch = self._channel
+        if ch is not None and ch.leader and not ch.closed and ch.due():
+            self._publish()
+
+    def stop_followers(self) -> None:
+        """On rank 0: end every follower's `follow()` (once; a no-op
+        without followers)."""
+        ch = self._channel
+        if ch is not None and ch.leader and not ch.closed:
+            self._publish(stop=True)
+
+    def follow(self) -> None:
+        """On every rank but 0: apply rank 0's host events and step with
+        it until it stops the followers. Raises when rank 0 is gone or
+        silent past `control.TIMEOUT_SECONDS`, or when this rank's host
+        plan differs from rank 0's."""
+        ch = self._channel
+        if ch is None or ch.leader:
+            raise RuntimeError('follow() runs on the ranks after rank 0 of '
+                               'a mesh of several processes')
+        while True:
+            msg = ch.receive()
+            for event in msg['events']:
+                self._apply(event)
+            plan = self._plan()
+            if plan != msg['plan']:
+                raise RuntimeError(
+                    f'rank {self.mesh.rank}\'s host plan ({plan}) left rank '
+                    f'0\'s ({msg["plan"]}): the replicas diverged')
+            if msg['stop']:
+                return
+            if msg['step']:
+                with self._mesh_ctx():
+                    self._step()
+                # Rank 0 reports the results; a follower drops its copy.
+                self.finished()
+                self.finished_logprobs()
+
     def step(self) -> None:
+        """Admit, prefill and run one decode round. On rank 0 of a mesh
+        of several processes the host events since the last step go to
+        the followers first, which step with it."""
+        if self._channel is not None:
+            self._check_leader('step')
+            self._publish(step=True)
+        with self._mesh_ctx():
+            self._step()
+
+    def _step(self) -> None:
         self._evict_finished()
         self._expire_handoff_leases()
         self._insert_from_queue()
@@ -2287,6 +2473,56 @@ class InferenceEngine:
             obs.DECODE_TOKENS_PER_STEP.observe(emitted)
         self._evict_finished()
         self._update_gauges()
+
+
+_NEXT_SLICE = ('{what} under a tensor-parallel mesh is not ported yet (the '
+               'next slice of the parallel layer, ROADMAP.md Queue 1)')
+
+
+def check_mesh(mesh: mesh_lib.Mesh, config: Any, draft: bool = False
+               ) -> None:
+    """What a mesh serves in this slice: only its `tensor` axis may
+    exceed 1, for a llama-core config without a draft, whose head, KV
+    head, MLP and vocab counts split over the tensor degree (KV heads
+    may instead replicate, when the degree is a multiple of them).
+    Raises NotImplementedError (the next slice) or ValueError."""
+    if draft:
+        raise NotImplementedError(_NEXT_SLICE.format(
+            what='speculative decode (a draft model)'))
+    if isinstance(config, moe_lib.MoeConfig):
+        raise NotImplementedError(_NEXT_SLICE.format(what='an MoE model'))
+    others = {axis: n for axis, n in mesh.shape.items()
+              if axis != 'tensor' and n > 1}
+    if others:
+        raise NotImplementedError(_NEXT_SLICE.format(
+            what=f'serving over mesh axes {others}') + '; only the '
+            "'tensor' axis shards serving")
+    sizes = llama.axis_sizes(config)
+    for name in ('heads', 'kv_heads', 'mlp', 'vocab'):
+        sharding_lib.cut(sizes[name], mesh.tensor_size, 0, name)
+
+
+def _place_params(params: Params, config: Any, mesh: mesh_lib.Mesh,
+                  device: torch.device) -> Params:
+    """This rank's slice of every leaf on `device`: a full leaf is cut
+    (`sharding.tree_shardings`), one already cut to this rank's shape is
+    kept; any other shape raises."""
+    sizes = llama.axis_sizes(config)
+
+    def place(leaf, shard, axes):
+        full = tuple(sizes[a] for a in axes)
+        local = shard.local_shape(full)
+        if tuple(leaf.shape) == full:
+            leaf = shard(leaf).clone()   # a view would keep the leaf alive
+        elif tuple(leaf.shape) != local:
+            raise ValueError(f'a param of axes {axes} has shape '
+                             f'{tuple(leaf.shape)}: neither the full {full} '
+                             f'nor this rank\'s slice {local}')
+        return leaf.contiguous().to(device)
+
+    logical = llama.param_logical_axes(config)
+    return sharding_lib.tree_map(
+        place, params, sharding_lib.tree_shardings(mesh, logical), logical)
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:

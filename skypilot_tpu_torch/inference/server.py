@@ -58,10 +58,21 @@ shedding (`shed_limit`, reference :423-440): past `--max-queue-depth`
 (or SKYTPU_MAX_QUEUE_DEPTH) queued requests, /generate and the /v1
 routes answer 503 with Retry-After and count in REQUESTS_SHED.
 
+Tensor-parallel serving (`--mesh tensor=N`, reference :897-898) runs
+one process per rank, each started with the same flags and the gang
+variables SKYTPU_COORDINATOR_ADDR (host:port of rank 0's rendezvous),
+SKYTPU_NUM_PROCESSES=N and SKYTPU_PROCESS_ID. Rank 0 serves every route;
+the other ranks bind no port and follow its engine
+(`InferenceEngine.follow`), exiting 0 when rank 0 stops them (SIGTERM
+on rank 0) and non-zero when rank 0 is gone. The engine loop keeps an
+idle rank 0's followers posted (`heartbeat`), and a failed step ends
+every rank of a replica: its followers may be mid-collective.
+
   python -m skypilot_tpu_torch.inference.server --model llama3-8b \
       --port 8080 [--device cuda] [--draft-model llama3-1b --spec-k 4]
       [--checkpoint HF_OR_TRAIN_DIR] [--draft-checkpoint DIR]
       [--max-queue-depth N] [--tokenizer DIR] [--served-model-name ID]
+      [--mesh tensor=N]
 """
 from __future__ import annotations
 
@@ -75,6 +86,7 @@ import signal
 import sys
 import threading
 import time
+import traceback
 import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -344,6 +356,12 @@ class EngineLoop:
                     watcher.push(('error', f'{type(e).__name__}: {e}'))
                 self._watchers.clear()
                 self._by_key.clear()
+                mesh = self.engine.mesh
+                if mesh is not None and mesh.world_size > 1:
+                    # Its followers may be mid-collective, or their host
+                    # plans apart from this one: the replica ends.
+                    traceback.print_exc()
+                    os._exit(1)  # noqa: SLF001 — the HTTP threads never join
                 self.engine.abort_all()
 
     def _tick(self) -> None:
@@ -351,6 +369,7 @@ class EngineLoop:
         self._drain_submissions()
         self._drain_aborts()
         if not self.engine.has_work:
+            self.engine.heartbeat()
             try:
                 item = self._submit_q.get(timeout=0.2)
             except queue.Empty:
@@ -793,6 +812,23 @@ def prefix_cache_arg(flag: str) -> Optional[bool]:
     return None if flag == 'auto' else flag == 'on'
 
 
+def engine_kwargs(args) -> Dict[str, Any]:
+    """build_engine's arguments for the parsed flags (every rank of a
+    mesh builds the same engine)."""
+    return dict(
+        device=args.device, seed=args.seed, checkpoint=args.checkpoint,
+        mesh_arg=args.mesh, draft_checkpoint=args.draft_checkpoint,
+        batch_size=args.batch_size, max_seq_len=args.max_seq_len,
+        prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant,
+        prefill_interleave=args.prefill_interleave,
+        draft_model=args.draft_model, spec_k=args.spec_k,
+        spec_fuse_rounds=args.spec_fuse_rounds,
+        decode_fuse_steps=args.decode_fuse_steps,
+        kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
+        prefix_cache=prefix_cache_arg(args.prefix_cache),
+        prefix_cache_max_pages=args.prefix_cache_max_pages)
+
+
 def _watch_parent() -> None:
     """Exit when the launching process dies (the server is reparented):
     a replica dies with its launcher and never lingers holding the card.
@@ -878,12 +914,24 @@ def main() -> None:
                         help='Cap on KV pages the prefix cache keeps '
                              '(default: SKYTPU_PREFIX_CACHE_MAX_PAGES, '
                              '0 = bounded by the pool only).')
+    parser.add_argument('--mesh', default=None,
+                        help='Shard serving over a device mesh, e.g. '
+                             'tensor=2: one process per rank, each started '
+                             'with the same flags and SKYTPU_COORDINATOR_'
+                             'ADDR, SKYTPU_NUM_PROCESSES and '
+                             'SKYTPU_PROCESS_ID; rank 0 serves.')
     parser.add_argument('--no-exit-with-parent', action='store_true',
                         help='Keep serving after the launcher exits '
                              '(deliberate daemonization only).')
     args = parser.parse_args()
     if not args.no_exit_with_parent:
         _watch_parent()
+    if args.mesh and envs.SKYTPU_PROCESS_ID.get(strict=True) > 0:
+        # A follower rank: no port, no telemetry threads; it steps with
+        # rank 0 until rank 0 stops it.
+        from skypilot_tpu_torch import inference
+        inference.build_engine(args.model, **engine_kwargs(args)).follow()
+        return
     # The live telemetry plane: the registry sampler and the SLO
     # watchdog (each a no-op when its interval knob is 0).
     timeseries_lib.start_sampler()
@@ -904,19 +952,8 @@ def main() -> None:
             if args.tokenizer:
                 holder['tokenizer'] = openai_api.load_tokenizer(
                     args.tokenizer)
-            engine = inference.build_engine(
-                args.model, device=args.device, seed=args.seed,
-                checkpoint=args.checkpoint,
-                draft_checkpoint=args.draft_checkpoint,
-                batch_size=args.batch_size, max_seq_len=args.max_seq_len,
-                prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant,
-                prefill_interleave=args.prefill_interleave,
-                draft_model=args.draft_model, spec_k=args.spec_k,
-                spec_fuse_rounds=args.spec_fuse_rounds,
-                decode_fuse_steps=args.decode_fuse_steps,
-                kv_page_size=args.kv_page_size, kv_pages=args.kv_pages,
-                prefix_cache=prefix_cache_arg(args.prefix_cache),
-                prefix_cache_max_pages=args.prefix_cache_max_pages)
+            engine = inference.build_engine(args.model,
+                                            **engine_kwargs(args))
         except Exception as e:  # noqa: BLE001 — reported by main()
             load_errors.append(e)
             server.shutdown()
@@ -935,9 +972,12 @@ def main() -> None:
             try:
                 loop.drain(envs.SKYTPU_DRAIN_DEADLINE_SECONDS.get(),
                            flush_s=1.0, timeout=30)
+                # Under a mesh the followers exit 0 with this rank.
+                loop.run_on_engine(loop.engine.stop_followers).result(
+                    timeout=30)
             except Exception as e:  # noqa: BLE001 — exit regardless
-                print(f'drain snapshot on SIGTERM failed: {e}',
-                      file=sys.stderr, flush=True)
+                print(f'drain on SIGTERM failed: {e}', file=sys.stderr,
+                      flush=True)
         os._exit(0)  # noqa: SLF001 — the engine thread never joins
 
     # Never block in a signal handler: the drain sleeps.

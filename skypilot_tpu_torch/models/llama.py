@@ -24,6 +24,19 @@ policy-driven checkpoint in eager mode, so both policies map to the
 whole-layer recompute here: more FLOPs (one more forward per layer),
 less memory.
 
+Tensor parallelism (serving only, under `parallel.use_mesh` with a
+`tensor` axis larger than 1): each rank holds the slices
+`param_logical_axes` gives it under `parallel.sharding.DEFAULT_RULES`
+(heads, KV heads, MLP and vocab over `tensor`), computes its local heads
+and MLP columns, and the products that contract a split axis (`wo`,
+`w_down`) run in f32 per rank, are all-reduced in f32 and cast once, so
+the result rounds once as the unsharded product does. The embedding is
+vocab-parallel (a masked lookup on the local rows, then an all-reduce;
+this covers a tied head too) and the logits are all-gathered over vocab
+before the final softcap. Where the reference lets GSPMD place these
+collectives, the port writes them out (`_row_parallel`, `embed`,
+`project_logits`). Training under a mesh is the next slice.
+
 Products follow the reference's casts: q/k/v/o and the MLP output are
 cast to the config dtype, the MLP gate/up and the logits are f32. In f32
 (the CPU tests) every product is f32 end to end. In bf16 on the card the
@@ -38,10 +51,12 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from skypilot_tpu_torch.ops import attention as attention_ops
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 Params = Dict[str, Any]
 
@@ -158,26 +173,86 @@ CONFIGS: Dict[str, LlamaConfig] = {
 }
 
 
+def param_logical_axes(config: LlamaConfig) -> Params:
+    """Logical axes of every param leaf (a tree mirroring init_params),
+    the reference's (:190-216)."""
+    layers = {
+        'attn_norm': ('layers', 'embed'),
+        'wq': ('layers', 'embed', 'heads', 'head_dim'),
+        'wk': ('layers', 'embed', 'kv_heads', 'head_dim'),
+        'wv': ('layers', 'embed', 'kv_heads', 'head_dim'),
+        'wo': ('layers', 'heads', 'head_dim', 'embed'),
+        'mlp_norm': ('layers', 'embed'),
+        'w_gate': ('layers', 'embed', 'mlp'),
+        'w_up': ('layers', 'embed', 'mlp'),
+        'w_down': ('layers', 'mlp', 'embed'),
+    }
+    if config.post_norms:
+        layers['post_attn_norm'] = ('layers', 'embed')
+        layers['post_mlp_norm'] = ('layers', 'embed')
+    if config.attn_qkv_bias:
+        layers['bq'] = ('layers', 'heads', 'head_dim')
+        layers['bk'] = ('layers', 'kv_heads', 'head_dim')
+        layers['bv'] = ('layers', 'kv_heads', 'head_dim')
+    out = {
+        'embed': ('vocab', 'embed'),
+        'layers': layers,
+        'final_norm': ('embed',),
+    }
+    if not config.tied_embeddings:
+        out['lm_head'] = ('embed', 'vocab')
+    return out
+
+
+def axis_sizes(config: LlamaConfig) -> Dict[str, int]:
+    """The size of each logical axis under `config`."""
+    c = config
+    return {'layers': c.num_layers, 'embed': c.hidden_size,
+            'heads': c.num_heads, 'kv_heads': c.num_kv_heads,
+            'head_dim': c.head_dim, 'mlp': c.intermediate_size,
+            'vocab': c.vocab_size}
+
+
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                device: torch.device) -> Params:
+                device: torch.device, shardings: Optional[Params] = None
+                ) -> Params:
     """Scaled-normal init, stacked over layers (reference layout and
     scales; the numbers differ from jax.random's). Normals are drawn in
     f32 one layer at a time on `generator`'s device, scaled, cast to
-    the config dtype and placed on `device`."""
+    the config dtype and placed on `device`. With `shardings` (a tree
+    of `parallel.sharding.Shard`, from `tree_shardings`) each leaf keeps
+    only this rank's slice: the draws are the unsharded ones, in the
+    same order, cut one full leaf (or layer) at a time."""
     c = config
     dt = c.dtype
     gen_dev = generator.device
+    cuts = shardings or {}
+    layer_cuts = cuts.get('layers', {})
 
-    def normal(shape, fan_in):
+    def normal(shape, fan_in, shard=None):
         scale = 1.0 / math.sqrt(fan_in)
-        return (torch.randn(shape, generator=generator, device=gen_dev,
-                            dtype=torch.float32) * scale).to(dt).to(device)
+        full = (torch.randn(shape, generator=generator, device=gen_dev,
+                            dtype=torch.float32) * scale).to(dt)
+        if shard is not None and shard.dim is not None:
+            # A cut is cloned: a view would keep the whole leaf alive.
+            full = shard(full).clone()
+        return full.to(device)
 
-    def stacked(shape, fan_in):
-        out = torch.empty((c.num_layers,) + shape, dtype=dt, device=device)
+    def stacked(name, shape, fan_in):
+        per_layer = layer_cuts[name].per_layer() if name in layer_cuts \
+            else None
+        shape_out = per_layer.local_shape(shape) if per_layer else shape
+        out = torch.empty((c.num_layers,) + shape_out, dtype=dt,
+                          device=device)
         for i in range(c.num_layers):
-            out[i] = normal(shape, fan_in)
+            out[i] = normal(shape, fan_in, per_layer)
         return out
+
+    def zeros(name, shape):
+        shard = layer_cuts.get(name)
+        if shard is not None:
+            shape = shard.local_shape(shape)
+        return torch.zeros(shape, dtype=dt, device=device)
 
     e, m = c.hidden_size, c.intermediate_size
     h, kv, d = c.num_heads, c.num_kv_heads, c.head_dim
@@ -185,29 +260,29 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     norm_init = torch.zeros if c.norm_plus_one else torch.ones
     layers = {
         'attn_norm': norm_init((L, e), dtype=dt, device=device),
-        'wq': stacked((e, h, d), e),
-        'wk': stacked((e, kv, d), e),
-        'wv': stacked((e, kv, d), e),
-        'wo': stacked((h, d, e), h * d),
+        'wq': stacked('wq', (e, h, d), e),
+        'wk': stacked('wk', (e, kv, d), e),
+        'wv': stacked('wv', (e, kv, d), e),
+        'wo': stacked('wo', (h, d, e), h * d),
         'mlp_norm': norm_init((L, e), dtype=dt, device=device),
-        'w_gate': stacked((e, m), e),
-        'w_up': stacked((e, m), e),
-        'w_down': stacked((m, e), m),
+        'w_gate': stacked('w_gate', (e, m), e),
+        'w_up': stacked('w_up', (e, m), e),
+        'w_down': stacked('w_down', (m, e), m),
     }
     if c.post_norms:
         layers['post_attn_norm'] = norm_init((L, e), dtype=dt, device=device)
         layers['post_mlp_norm'] = norm_init((L, e), dtype=dt, device=device)
     if c.attn_qkv_bias:
-        layers['bq'] = torch.zeros((L, h, d), dtype=dt, device=device)
-        layers['bk'] = torch.zeros((L, kv, d), dtype=dt, device=device)
-        layers['bv'] = torch.zeros((L, kv, d), dtype=dt, device=device)
+        layers['bq'] = zeros('bq', (L, h, d))
+        layers['bk'] = zeros('bk', (L, kv, d))
+        layers['bv'] = zeros('bv', (L, kv, d))
     out = {
-        'embed': normal((c.vocab_size, e), e),
+        'embed': normal((c.vocab_size, e), e, cuts.get('embed')),
         'layers': layers,
         'final_norm': norm_init((e,), dtype=dt, device=device),
     }
     if not c.tied_embeddings:
-        out['lm_head'] = normal((e, c.vocab_size), e)
+        out['lm_head'] = normal((e, c.vocab_size), e, cuts.get('lm_head'))
     return out
 
 
@@ -292,8 +367,34 @@ def _mlp(h: torch.Tensor, layer_params: Params, config) -> torch.Tensor:
     gate = torch.einsum('bse,em->bsm', h, layer_params['w_gate']).float()
     up = torch.einsum('bse,em->bsm', h, layer_params['w_up']).float()
     act = (_act(gate, c) * up).to(c.dtype)
-    return torch.einsum('bsm,me->bse', act,
-                        layer_params['w_down']).to(c.dtype)
+    return _row_parallel(act, layer_params['w_down'], 'bsm,me->bse', c)
+
+
+def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [N, K] @ w [K, M] with an f32 result: the inputs' own dtype
+    multiplies with f32 accumulation, and the sum is not rounded to it
+    (on CUDA `torch.mm(out_dtype=)`; elsewhere the f32 product)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, equation: str,
+                  config) -> torch.Tensor:
+    """A product that contracts `w`'s leading axes (`wo` over heads,
+    `w_down` over MLP columns), cast to the config dtype. Under tensor
+    parallelism each rank holds a partial sum over its slice of those
+    axes: computed in f32, all-reduced in f32 and cast once."""
+    tp = mesh_lib.tensor_parallel()
+    if tp is None:
+        return torch.einsum(equation, x, w).to(config.dtype)
+    k = math.prod(w.shape[:-1])
+    part = _f32_product(x.reshape(-1, k), w.reshape(k, w.shape[-1]))
+    dist.all_reduce(part, group=tp.tensor_group)
+    lead = x.shape[:x.dim() - (w.dim() - 1)]
+    return part.reshape(lead + (w.shape[-1],)).to(config.dtype)
 
 
 def _qkv(h: torch.Tensor, layer_params: Params, config):
@@ -324,8 +425,7 @@ def _layer(x: torch.Tensor, layer_params: Params, config: LlamaConfig,
                                    block_size=c.attention_block_size,
                                    window=window,
                                    softcap=c.attn_logit_softcap)
-    attn_out = torch.einsum('bshd,hde->bse', attn,
-                            layer_params['wo']).to(c.dtype)
+    attn_out = _row_parallel(attn, layer_params['wo'], 'bshd,hde->bse', c)
     if c.post_norms:
         attn_out = _rms_norm(attn_out, layer_params['post_attn_norm'],
                              c.rms_norm_eps, plus_one)
@@ -344,8 +444,23 @@ def layer_params_at(params: Params, i: int) -> Params:
 
 
 def embed(params: Params, tokens: torch.Tensor, config) -> torch.Tensor:
+    """Token embeddings [.., E]. Under tensor parallelism the table holds
+    this rank's vocab rows: a lookup masked to them, all-reduced (one
+    rank holds each row, so the f32 sum is exact)."""
     c = config
-    x = params['embed'].to(c.dtype)[tokens]
+    table = params['embed'].to(c.dtype)
+    tp = mesh_lib.tensor_parallel()
+    if tp is None:
+        x = table[tokens]
+    else:
+        rows = table.shape[0]
+        local = tokens - tp.tensor_rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=c.dtype, device=table.device))
+        x = x.float()
+        dist.all_reduce(x, group=tp.tensor_group)
+        x = x.to(c.dtype)
     if c.embed_scale:
         x = x * torch.tensor(math.sqrt(c.hidden_size), dtype=c.dtype,
                              device=x.device)
@@ -354,11 +469,19 @@ def embed(params: Params, tokens: torch.Tensor, config) -> torch.Tensor:
 
 def project_logits(x: torch.Tensor, params: Params, config) -> torch.Tensor:
     """Final-norm hidden states -> f32 logits (tied embeddings and the
-    final softcap live here)."""
+    final softcap live here), over the whole vocab under tensor
+    parallelism too."""
     c = config
     lm_head = (params['embed'].to(c.dtype).T if c.tied_embeddings
                else params['lm_head'])
     logits = torch.einsum('...e,ev->...v', x, lm_head).float()
+    tp = mesh_lib.tensor_parallel()
+    if tp is not None:
+        # Each rank's columns are its vocab rows; every rank samples
+        # from the same gathered logits.
+        parts = [torch.empty_like(logits) for _ in range(tp.tensor_size)]
+        dist.all_gather(parts, logits.contiguous(), group=tp.tensor_group)
+        logits = torch.cat(parts, dim=-1)
     if c.final_logit_softcap is not None:
         cap = c.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

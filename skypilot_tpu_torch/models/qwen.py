@@ -15,6 +15,7 @@ from skypilot_tpu_torch.models import llama
 
 LlamaConfig = llama.LlamaConfig
 init_params = llama.init_params
+param_logical_axes = llama.param_logical_axes
 forward = llama.forward
 loss_fn = llama.loss_fn
 

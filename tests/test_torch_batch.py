@@ -7,12 +7,15 @@
 - `main` as a process with `--device cpu`, reading an HF checkpoint and
   a port train checkpoint: its JSONL equals `run_batch` in this process
   on an engine built from the same flags (`engine_kwargs`).
-- Requests that never finish raise; an empty input exits; a mesh of
-  more than one device raises.
+- `main --mesh tensor=2` as two processes (the gang variables set on
+  each, rank 0 reading and writing), from an HF checkpoint each rank
+  imports its slice of: its JSONL equals the unsharded `run_batch`.
+- Requests that never finish raise; an empty input exits.
 """
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 
@@ -142,6 +145,33 @@ def test_main_reads_hf_and_train_checkpoints(tiny, tmp_path):
     assert outs['hf'] == ''.join(json.dumps(r) + '\n' for r in direct)
 
 
+def test_main_runs_tensor2_as_two_processes(tiny, tmp_path):
+    _config, _params, port_config, port_params = tiny
+    reqs = _requests()
+    hf = tmp_path / 'hf'
+    checkpoints.export_params(port_params, port_config, str(hf))
+    inp, out = tmp_path / 'in.jsonl', tmp_path / 'out.jsonl'
+    inp.write_text(''.join(json.dumps(r) + '\n' for r in reqs))
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith('SKYTPU_')}
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'skypilot_tpu_torch.inference.batch',
+         '--device', 'cpu', '--input', str(inp), '--output', str(out),
+         '--checkpoint', str(hf), '--mesh', 'tensor=2', *FLAGS],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**env, 'PYTHONPATH': REPO, 'OMP_NUM_THREADS': '1',
+             'SKYTPU_COORDINATOR_ADDR': f'127.0.0.1:{port}',
+             'SKYTPU_NUM_PROCESSES': '2', 'SKYTPU_PROCESS_ID': str(rank)})
+        for rank in range(2)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], errs
+    assert '[batch] 6 requests' in errs[0] and '[batch]' not in errs[1]
+    assert out.read_text() == _in_process(reqs, '--checkpoint', str(hf))
+
+
 class _LosingEngine:
     """Finishes every request but the second."""
 
@@ -169,6 +199,3 @@ def test_missing_requests_raise_and_empty_input_exits(tmp_path):
     with pytest.raises(SystemExit, match='No requests in'):
         batch.main(['--device', 'cpu', '--input', str(empty), '--output',
                     str(tmp_path / 'out.jsonl')])
-    with pytest.raises(NotImplementedError, match='more than one device'):
-        batch.main(['--device', 'cpu', '--input', str(empty), '--output',
-                    str(tmp_path / 'out.jsonl'), '--mesh', 'tensor=2'])

@@ -260,3 +260,88 @@ def test_moe_phases_rehearse_on_cpu(monkeypatch, counted_kernels,
 def inference_module():
     from skypilot_tpu_torch import inference
     return inference
+
+
+def stub_rank_kernels():
+    """In a tp_serve rank process (chip_smoke.TP_RANK_SETUP): what
+    `counted_kernels` does in this one, each K1/K2 launch counted with
+    the plain version computing, CUDA-only calls no-ops, one thread."""
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.ops import flash_attention as fa
+
+    def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
+               v_scale=None):
+        fa._count(fa.flash_attention if k_scale is None
+                  else fa.flash_attention_quant, window)
+        return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
+                         k_scale=k_scale, v_scale=v_scale)
+
+    def flash_fwd(q, k, v, causal=True, block_q=512, block_k=512,
+                  window=None, softcap=None, q_offset=None, k_scale=None,
+                  v_scale=None):
+        return fa._launch(q, k, v, causal, window, softcap, q_offset,
+                          k_scale=k_scale, v_scale=v_scale)
+
+    fa._launch = launch
+    fa.flash_fwd = flash_fwd
+    eng.default_use_flash = lambda device: True
+    for name in ('synchronize', 'empty_cache'):
+        setattr(torch.cuda, name, lambda *a: None)
+    torch.set_num_threads(1)
+
+
+def test_tp_serve_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
+    """tp_serve on tiny (f32) at tensor 2: two rank processes over gloo
+    against the unsharded engine here (logits, tokens, launches on each
+    rank), the NCCL refusal, then the server as two processes token for
+    token and its follower's exit after SIGTERM to rank 0."""
+    monkeypatch.setattr(chip_smoke, 'TP_MODEL', 'tiny')
+    monkeypatch.setattr(chip_smoke, 'TP_KW', dict(
+        batch_size=8, max_seq_len=128, prefill_chunk=16, kv_page_size=8))
+    monkeypatch.setattr(chip_smoke, 'TP_PROMPT_LENGTHS', (5, 60))
+    monkeypatch.setattr(chip_smoke, 'TP_NEW', 6)
+    monkeypatch.setattr(chip_smoke, 'TP_SERVER_REQUESTS', (
+        (20, 4, False), (40, 5, False), (30, 6, True)))
+    monkeypatch.setattr(chip_smoke, 'TP_CLOCK_PROBE', (10, 2, 32))
+    monkeypatch.setattr(chip_smoke, 'TP_RANK_SETUP', (
+        'test_torch_chip_phases:stub_rank_kernels',
+        os.path.dirname(os.path.abspath(__file__))))
+    out, launches = chip_smoke.tp_serve_phase(
+        torch, inference_module(), counted_kernels,
+        np.random.default_rng(10))
+    assert out['faults'] == []
+    for key in ('bf16', 'int8'):
+        run = out[key]
+        assert run['launches_per_rank'] == [run['expected_launches']] * 2
+        assert launches[key] == run['launches_per_rank']
+        assert run['expected_launches'] > 0 and run['ranks_tokens_equal']
+        assert run['tokens_equal_unsharded']
+        assert run['logits_rel_err'] < 1e-5
+    assert [r['local_heads'] for r in out['per_rank']] == [2, 2]
+    assert [r['local_vocab'] for r in out['per_rank']] == [128, 128]
+    server = out['server']
+    assert server['tokens_equal'] and server['v1_equal']
+    assert server['exit_codes'] == [0, 0]
+    assert server['follower_exit_s'] < chip_smoke.TP_FOLLOWER_EXIT_S
+    assert out['nccl_refusal']['rcs'][0] not in (0, None)
+    layers = 2
+    for key in ('bf16', 'int8'):
+        clock = out[key]['collectives']
+        # The embedding and two reductions a layer, and the logits'
+        # gather, per prefill chunk (4 at the 60-token bucket) and per
+        # decode step (5 after the first token).
+        assert clock['prefill_calls'] == 4 * (2 * layers + 1) + 1
+        assert clock['decode_calls'] == 5 * (2 * layers + 2)
+        assert 0 < clock['share_of_prefill'] < 1
+        assert 0 < clock['share_of_decode'] < 1
+        # One plan hash a message on each rank: rank 0's publishes, the
+        # follower's receipts.
+        lead, follow = out[key]['scheduler']['per_rank']
+        assert lead['plan_calls'] == lead['publish_calls'] == \
+            follow['plan_calls'] > 0 and follow['publish_calls'] == 0
+        assert 0 < out[key]['scheduler']['share_of_wall'] < 1
+    over = out['clock_overhead']
+    assert over['plain_ms'] > 0 and over['synced_ms'] > 0
+    assert over['added_ms'] == pytest.approx(over['synced_ms']
+                                             - over['plain_ms'])
+    assert {'share_of_bf16_wall', 'share_of_int8_wall'} <= set(over)

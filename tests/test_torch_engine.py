@@ -398,9 +398,26 @@ def test_h100_policy_defaults(tiny, monkeypatch):
     assert port_inference.InferenceEngine(tparams, config,
                                           device='cpu')._prefix is None
     monkeypatch.delenv('SKYTPU_PREFIX_CACHE')
-    with pytest.raises(NotImplementedError):
-        port_inference.InferenceEngine(tparams, config, device='cpu',
-                                       mesh=object())
+    # A mesh keeps the flash kernels (the reference refuses use_flash
+    # under one: pallas_call has no partitioning rules) and the paged
+    # pool, unless SKYTPU_KV_PAGES_SHARDED says dense; an explicit page
+    # size wins. Only the tensor axis may exceed 1.
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(), 'cpu')
+    engine = port_inference.InferenceEngine(tparams, config, mesh=mesh,
+                                            use_flash=True)
+    assert engine._use_flash is True and engine.kv_page_size == 64
+    assert engine.device == torch.device('cpu') and engine.mesh is mesh
+    monkeypatch.setenv('SKYTPU_KV_PAGES_SHARDED', '0')
+    assert port_inference.InferenceEngine(
+        tparams, config, mesh=mesh).kv_page_size == 0
+    assert port_inference.InferenceEngine(
+        tparams, config, mesh=mesh, kv_page_size=8).kv_page_size == 8
+    monkeypatch.delenv('SKYTPU_KV_PAGES_SHARDED')
+    with pytest.raises(NotImplementedError, match="only the 'tensor'"):
+        port_inference.InferenceEngine(
+            tparams, config, mesh=dataclasses.replace(
+                mesh, spec=mesh_lib.MeshSpec(fsdp=1, data=2)))
     # Speculative decode is ported: a draft builds (and turns the prefix
     # cache off, as the reference does).
     engine = port_inference.InferenceEngine(tparams, config, device='cpu',
@@ -429,8 +446,18 @@ def test_env_defaults_match_reference_registry():
         'SKYTPU_WATCHDOG_WINDOW_SECONDS', 'SKYTPU_WATCHDOG_BREACH_TICKS',
         'SKYTPU_WATCHDOG_CLEAR_TICKS', 'SKYTPU_WATCHDOG_ANOMALY_Z',
         # load shedding and the train checkpoints' save retries
-        'SKYTPU_MAX_QUEUE_DEPTH', 'SKYTPU_CKPT_RETRY_GAP'}
+        'SKYTPU_MAX_QUEUE_DEPTH', 'SKYTPU_CKPT_RETRY_GAP',
+        # the parallel layer: the sharded pool and the gang coordinates
+        'SKYTPU_KV_PAGES_SHARDED', 'SKYTPU_COORDINATOR_ADDR',
+        'SKYTPU_NUM_PROCESSES', 'SKYTPU_PROCESS_ID',
+        # port-only: the collectives' backend
+        'SKYTPU_TORCH_DIST_BACKEND'}
+    port_only = {'SKYTPU_TORCH_DIST_BACKEND'}
+    assert not port_only & set(ref_vars)
+    assert port_vars['SKYTPU_TORCH_DIST_BACKEND'].default is None
     for name, var in port_vars.items():
+        if name in port_only:
+            continue
         assert (var.type, var.default) == (ref_vars[name].type,
                                            ref_vars[name].default), name
 
@@ -448,6 +475,17 @@ def test_env_knobs_are_read_at_call_time(monkeypatch):
         assert var.get() == 30.0 and var.get(default=5.0) == 5.0
     monkeypatch.setenv('SKYTPU_WATCHDOG_INTERVAL', '0.3')
     assert port_envs.SKYTPU_WATCHDOG_INTERVAL.get(default=5.0) == 0.3
+    # The gang identity parses strictly, as the reference's: a malformed
+    # or empty value raises instead of falling back to process 0.
+    for value in ('x', ''):
+        monkeypatch.setenv('SKYTPU_PROCESS_ID', value)
+        for var in (port_envs.SKYTPU_PROCESS_ID,
+                    ref_envs.SKYTPU_PROCESS_ID):
+            assert var.get() == 0
+            with pytest.raises(ValueError, match='SKYTPU_PROCESS_ID'):
+                var.get(strict=True)
+    monkeypatch.setenv('SKYTPU_PROCESS_ID', '3')
+    assert port_envs.SKYTPU_PROCESS_ID.get(strict=True) == 3
 
 
 def _fifo_admission(tiny, prefix_cache):

@@ -90,7 +90,11 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.inference.batch',
                    'skypilot_tpu_torch.checkpoints.hf_export',
                    'skypilot_tpu_torch.checkpoints.__main__',
-                   'skypilot_tpu_torch.train.checkpoints'):
+                   'skypilot_tpu_torch.train.checkpoints',
+                   'skypilot_tpu_torch.parallel',
+                   'skypilot_tpu_torch.parallel.mesh',
+                   'skypilot_tpu_torch.parallel.sharding',
+                   'skypilot_tpu_torch.parallel.control'):
         assert module in names.split()
     assert int(count) >= 40
 
