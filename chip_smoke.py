@@ -267,8 +267,34 @@ Phases, each printing one JSON line:
                   rank 1 exits within TP_FOLLOWER_EXIT_S. K1 and K2
                   checked (check_bf16/check_int8 `tp2_engine_chunk`) and
                   timed at a rank's heaviest chunk (TP_TIMING_SHAPE).
+ 28. mesh_train - bench-8b at full width (2 of 5 layers, bf16, global
+                  batch 2 x 4096, MT_STEPS steps a leg) trained by two
+                  rank processes sharing the card over gloo, one gang,
+                  each leg through `train.loop.main`: --mesh fsdp=-1
+                  (from the seed weights as an HF --checkpoint, each
+                  rank importing its cut; saving its last step), tensor=2
+                  (16 / 4 heads a rank) and its resume of the fsdp
+                  checkpoint for one more step, context=2 --attention
+                  ring (2048 local tokens, K1/K3/K4 per hop). Against
+                  the unsharded flash steps on the same seed weights and
+                  batch (computed here while the ranks start): each
+                  step's loss and grad norm within TOL_MT_LOSS_REL /
+                  TOL_MT_NORM_REL, the boundary probe within
+                  TOL_MT_PROBE, the ranks agreeing, replicated leaves
+                  bit-equal across ranks, K1/K3/K4 launches per rank and
+                  causal flag (the wrappers' `causal_launches`) equal to
+                  `mt_expected_launches`; step s per leg, the
+                  collectives' time and share, the set-up's seconds,
+                  bytes staged through the host, peak memory per rank,
+                  checkpoint save and restore GB/s. Then K1, K3 and K4
+                  checked against their plain versions and timed at the
+                  ring's per-hop shapes (`mesh_train_ring_kernels`),
+                  with the ring leg's launches at each.
+                  `mesh_fault_check.py` plants the four faults the
+                  limits must catch.
 Then a `kernels` line (each kernel's `path_launches`: its launches on
-the openai, batch, roundtrip, MoE and tp_serve paths) and, last,
+the openai, batch, roundtrip, MoE, tp_serve and mesh_train paths) and,
+last,
 {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
 before printing any result.
@@ -277,6 +303,7 @@ import collections
 import contextlib
 import dataclasses
 import filecmp
+import functools
 import gc
 import json
 import math
@@ -347,6 +374,8 @@ TRAIN_STEPS = 20
 TRAIN_LR = 1e-3
 TRAIN_WARMUP = 3
 DEV = 'cuda'
+# The bytecode cache's directory in the checkout (`bytecode_cache`).
+PYCACHE = '_pycache'
 # About 20 ms of device spin at the H100's 1.98 GHz boost clock: far
 # longer than the host takes to queue ten timed calls.
 QUEUE_AHEAD_CYCLES = 40_000_000
@@ -501,18 +530,18 @@ def bound_ms(b, t, s, h, kv, d, off, window, quant):
 
 
 def kernel_reading(torch, fa, gen, quant, b, t, s, h, kv, d, off, window,
-                   softcap):
+                   softcap, causal=True):
     """K1 (K2 with `quant`) vs plain version on the same inputs, as
-    `fwd_compare` reads them."""
+    `fwd_compare` reads them (`causal` False: no mask, `off` None)."""
     q, k, v, ks, vs = attn_inputs(torch, gen, b, t, s, h, kv, d, quant)
-    kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
     o_k, lse_k = fa.flash_fwd(q, k, v, k_scale=ks, v_scale=vs, **kw)
     if quant:
         o_p, lse_p = fa.flash_attention_quant_plain(q, k, ks, v, vs, **kw)
     else:
         o_p, lse_p = fa.flash_attention_plain(q, k, v, **kw)
     return {'shape': [b, t, s, h, kv, d], 'q_offset': off,
-            'window': window, 'softcap': softcap,
+            'window': window, 'softcap': softcap, 'causal': causal,
             **fwd_compare(torch, o_k, lse_k, o_p, lse_p)}
 
 
@@ -615,9 +644,10 @@ def kernel_readings(torch, fa, quant):
 
 
 def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE, window=None,
-                  softcap=None):
+                  softcap=None, causal=True):
     """K1 (K2 with `quant`) at `shape` (B, T, S, H, KV, D, q_offset; causal
-    from q_offset, with `window` and `softcap`): kernel ms, plain ms, one
+    from q_offset, with `window` and `softcap`; with `causal` False no
+    mask, the offset None): kernel ms, plain ms, one
     SDPA call over the same (dequantised) inputs and mask, and the bound,
     each on a queue the host has filled ahead; and the kernel's ms when
     the host paces the calls (`host_paced_ms`: the larger of the kernel's
@@ -628,7 +658,7 @@ def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE, window=None,
     b, t, s, h, kv, d, off = shape
     gen = torch.Generator(device=DEV).manual_seed(7)
     q, k, v, ks, vs = attn_inputs(torch, gen, b, t, s, h, kv, d, quant)
-    kw = dict(causal=True, q_offset=off, window=window, softcap=softcap)
+    kw = dict(causal=causal, q_offset=off, window=window, softcap=softcap)
     ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v, k_scale=ks,
                                              v_scale=vs, **kw),
                  queue_ahead=True)
@@ -644,7 +674,9 @@ def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE, window=None,
             q, k, v, **kw), iters=3, warmup=1, queue_ahead=True)
         kd, vd = k, v
     qt, kt, vt = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
-    if off == 0 and t == s and window is None:
+    if not causal:
+        sdpa_kw = {}
+    elif off == 0 and t == s and window is None:
         sdpa_kw = dict(is_causal=True)
     else:
         q_pos = off + torch.arange(t, device=DEV)[:, None]
@@ -658,9 +690,13 @@ def kernel_timing(torch, fa, quant, shape=TIMING_SHAPE, window=None,
             qt, kt, vt, enable_gqa=True, **sdpa_kw), queue_ahead=True)
     except TypeError:  # a torch without enable_gqa: no one-call yardstick
         library_ms = None
-    bms, bound_by, flops = bound_ms(b, t, s, h, kv, d, off, window, quant)
+    # Without a mask every query sees every key: the causal count at an
+    # offset past the block.
+    bms, bound_by, flops = bound_ms(b, t, s, h, kv, d,
+                                    off if causal else s, window, quant)
     out = {'shape': [b, t, s, h, kv, d], 'q_offset': off, 'window': window,
-           'softcap': softcap, 'ms': ms, 'host_paced_ms': host_paced_ms,
+           'softcap': softcap, 'causal': causal, 'ms': ms,
+           'host_paced_ms': host_paced_ms,
            'plain_ms': plain_ms, 'library_ms': library_ms,
            'bound_ms': bms, 'bound_by': bound_by,
            'tflops': flops / (ms * 1e-3) / 1e12}
@@ -2925,16 +2961,16 @@ def roundtrip_legs(torch, inference, fa, rng, hf_dir, tmp, model):
     # in the restore, saving nothing (run_dir keeps steps 2 and 4).
     restore = train_ckpts.restore_train_state
 
-    def moments_dropped(ckpt_dir, state, step=None):
-        restore(ckpt_dir, state, step)
+    def moments_dropped(ckpt_dir, state, step=None, shardings=None):
+        restore(ckpt_dir, state, step, shardings)
         for t in trainer.tree_leaves(state['opt_state']['mu']) + \
                 trainer.tree_leaves(state['opt_state']['nu']):
             t.zero_()
         state['opt_state']['count'] = 0
         return state
 
-    def stale_step(ckpt_dir, state, step=None):
-        return restore(ckpt_dir, state, RT_EVERY)
+    def stale_step(ckpt_dir, state, step=None, shardings=None):
+        return restore(ckpt_dir, state, RT_EVERY, shardings)
 
     planted = {}
     for name, fault in (('moments_dropped', moments_dropped),
@@ -3348,7 +3384,9 @@ def bwd_timing(torch, fa, case=BWD_TIMING_CASE):
             out, (qt, kt, vt), go, retain_graph=True))
     except TypeError:  # a torch without enable_gqa: no one-call yardstick
         library_ms = None
-    bounds = bwd_bounds(b, sq, skv, h, kv, d, off, window)
+    # Without a mask every query sees every key: the causal count at an
+    # offset past the block.
+    bounds = bwd_bounds(b, sq, skv, h, kv, d, off if causal else skv, window)
     out = {}
     for name in ('dq', 'dkv'):
         out[name] = {'shape': [b, sq, skv, h, kv, d], 'causal': causal,
@@ -4554,12 +4592,658 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, out, tmp,
     return launches
 
 
+# The mesh_train phase: bench-8b at full width (4096 / 14336, 32 / 8
+# heads, d 128, vocab 32768), depth cut to MT_LAYERS of its 5 layers,
+# trained by two ranks sharing the card over gloo (NCCL refuses two
+# ranks on one GPU), one gang for every leg, each leg through
+# `train.loop.main` with its own --mesh (each rank rebuilds the mesh):
+# fsdp=-1 (saving its last step), tensor=2 (16 / 4 heads a rank) and
+# its resume of the fsdp leg's checkpoint for one more step, then
+# context=2 --attention ring (2048 local tokens, K1/K3/K4 per hop).
+# Global batch MT_BATCH x MT_SEQ, bf16, MT_STEPS steps a leg (3 read the
+# phase at 104 s against the ~90 aimed at) at MT_LR with a warmup of
+# MT_WARMUP steps; the batch is `synthetic_batch`'s (seed 1) and the
+# params the seed-0 draw, which the parent also trains unsharded.
+MT_MODEL = 'bench-8b'
+MT_LAYERS = 2
+MT_BATCH = 2
+MT_SEQ = 4096
+MT_STEPS = 2
+MT_LR = TRAIN_LR
+# No warmup, so step 1 updates at MT_LR (a warmup starts at lr 0) and
+# step 2's loss and grad norm read an update made on the shards, the
+# resumed step 3 one made before the save. `train.loop` takes no warmup
+# flag (nor does the reference's): the ranks set the trainer's default.
+# The cosine decays over max_steps: MT_STEPS on the legs, MT_STEPS + 1
+# on the resume, and the unsharded steps follow the same two schedules.
+MT_WARMUP = 0
+MT_RANKS = 2
+# (leg, --mesh, --attention, the kernel calls each rank makes a layer
+# per pass as (causal, unmasked): the diagonal block, and on the later
+# context rank a past block)
+MT_LEGS = (('fsdp', 'fsdp=-1', None, ((1, 0), (1, 0))),
+           ('tensor', 'tensor=2', None, ((1, 0), (1, 0))),
+           ('ring', 'context=2', 'ring', ((1, 0), (1, 1))))
+# The probe: a loss whose mask is 1 only on the MT_PROBE positions just
+# before the middle of each row, where the ring's two context ranks
+# meet: the last of them is the earlier rank's last position, whose
+# target is the later rank's first token. With one position the probe
+# is that target's loss alone (a ring that masks it reads 0).
+MT_PROBE = 1
+# The ring's K1/K3/K4 shapes a rank launches per layer: the diagonal
+# block (causal) and the past block (no mask), B x 2048 local tokens.
+MT_RING_SHAPES = (('ring_diag', True), ('ring_past', False))
+# A `module:function` each rank process calls first (a CPU rehearsal's
+# counting stand-in for the kernels), with the directory it lives in.
+MT_RANK_SETUP = None
+# The limits, each against the unsharded one-device flash steps on the
+# same seed weights and batch. Sound readings on the H100 (700 W), 2
+# steps a leg without warmup: loss <= 5.4e-5 relative, grad norm <=
+# 1.6e-3 (both the ring's step 2: a full-lr AdamW step moves each
+# weight by about lr times its gradient's sign, so the hops' rounding
+# flips near-zero gradients' updates), the probe <= 0.016.
+# mesh_fault_check.py's faults read, at step 2: loss 0.049 / 0.038 (the
+# batch reductions dropped, fsdp / ring), 0.052 (the column all-reduce
+# dropped), 0.20 (the ring backward on the local lse); grad norm
+# 0.10-0.29, 0.41-0.49 and 8.6e4 (then non-finite); the probe 1.5-1.9,
+# 2.1 and 1.0. The boundary target masked reads the probe at 0 (its
+# only target gone) against 9.3, its loss and grad norm 8.9e-5 and
+# 2.5e-3, within sound reach. Each limit sits between the sound maximum
+# and the least fault reading it is there to catch, about their
+# geometric mean.
+TOL_MT_LOSS_REL = 1e-3       # |loss - unsharded| / unsharded, a step
+TOL_MT_NORM_REL = 1e-2       # |grad norm - unsharded| / unsharded
+TOL_MT_PROBE = 0.1           # |probe loss - unsharded probe loss|
+
+
+def mt_plant(name):
+    """Plant one of mesh_fault_check.py's faults in this rank process
+    (None plants nothing):
+    - 'batch_reduce': the gradient reductions over the batch axes left
+      out (the FSDP reduce-scatter keeps this rank's part unsummed, the
+      data/context all-reduce does nothing);
+    - 'column_allreduce': the column-parallel inputs' backward
+      all-reduce left out (`copy_to` is the identity both ways);
+    - 'boundary_masked': every context rank's last target masked, the
+      boundary's included;
+    - 'local_lse': the ring backward run on the diagonal hop's lse
+      instead of the merged one."""
+    if name is None:
+        return
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.train import trainer
+    if name == 'batch_reduce':
+        collectives.reduce_scatter = lambda t, group, dim: t.chunk(
+            collectives.group_size(group), dim=dim)[
+                collectives.group_rank(group)].contiguous()
+        trainer.reduce_grads_ = lambda grads, cuts, mesh: None
+    elif name == 'column_allreduce':
+        collectives.copy_to = lambda x, group: x
+    elif name == 'boundary_masked':
+        real = llama.loss_fn
+
+        def loss_fn(params, batch, config):
+            mask = batch['mask'].clone()
+            mask[:, -1] = 0.0
+            return real(params, {**batch, 'mask': mask}, config)
+        llama.loss_fn = loss_fn
+    elif name == 'local_lse':
+        merge = fa._merge
+
+        def local(o_acc, lse_acc, o, lse):
+            o_new, lse_new = merge(o_acc, lse_acc, o, lse)
+            return o_new, lse if lse_acc is None else lse_acc
+        fa._merge = local
+    else:
+        raise ValueError(f'unknown mesh fault {name!r}')
+
+
+def mt_probe_batch(torch, trainer, cfg, mesh, probe):
+    """The probe: `synthetic_batch`'s tokens, the mask 1 only on the
+    `probe` (MT_PROBE) positions just before each row's middle; this
+    rank's cut."""
+    batch = trainer.synthetic_batch(cfg, mesh.device)
+    mask = torch.zeros_like(batch['mask'])
+    mid = cfg.seq_len // 2
+    mask[:, mid - probe:mid] = 1.0
+    cut = trainer.batch_shardings(mesh)
+    return {'tokens': cut['tokens'](batch['tokens']).contiguous(),
+            'mask': cut['mask'](mask).contiguous()}
+
+
+def mt_digests(torch, trainer, state, cfg, mesh):
+    """sha256 of every param leaf no mesh axis cuts (bf16 as its bits),
+    by leaf index: what replicated leaves must agree on across ranks."""
+    import hashlib
+
+    from skypilot_tpu_torch.models import llama
+    cuts = trainer.tree_leaves(llama.shard_tree(cfg.model_config(), mesh))
+    out = {}
+    for i, (leaf, shard) in enumerate(zip(
+            trainer.tree_leaves(state['params']), cuts)):
+        if shard.cuts:
+            continue
+        t = leaf.detach()
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        out[str(i)] = hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def mt_leg(torch, argv, cuda):
+    """One run of `train.loop.main(argv)` in this rank: per step its loss,
+    grad norm and seconds (synchronized), the time its collectives took
+    (`parallel.collectives`' ops, each timed from a synchronize), the
+    checkpoint save's and restore's seconds and bytes, the seconds of
+    the set-up before the first step (`setup_s`: the mesh, the train
+    state, the --checkpoint import) and of the whole run (`main_s`),
+    K1/K2/K3/K4 launches by causal flag, the peak memory, and (returned
+    beside the reading) the result and the mesh it ran on."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import checkpoints, loop, trainer
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    steps, meshes = [], []
+    clock = {'s': 0.0, 'calls': 0}
+    ckpt = {}
+    setup = collections.defaultdict(float)
+
+    def clocked(key):
+        def wrap(fn):
+            def wrapper(*args, **kwargs):
+                sync()
+                t0 = time.perf_counter()
+                result = fn(*args, **kwargs)
+                sync()
+                setup[key] += time.perf_counter() - t0
+                return result
+            return wrapper
+        return wrap
+
+    def recording(make):
+        def wrapper(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def step(state, batch):
+                sync()
+                t0 = time.perf_counter()
+                before = (clock['s'], clock['calls'])
+                state, m = fn(state, batch)
+                sync()
+                steps.append({'loss': float(m['loss']),
+                              'grad_norm': float(m['grad_norm']),
+                              's': time.perf_counter() - t0,
+                              'collectives_s': clock['s'] - before[0],
+                              'collective_calls': clock['calls']
+                              - before[1]})
+                return state, m
+            return step
+        return wrapper
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            clock['s'] += time.perf_counter() - t0
+            clock['calls'] += 1
+            return result
+        return wrapper
+
+    def ckpt_timed(key):
+        def wrap(fn):
+            def wrapper(ckpt_dir, state, *args, **kwargs):
+                sync()
+                t0 = time.perf_counter()
+                result = fn(ckpt_dir, state, *args, **kwargs)
+                sync()
+                step = kwargs.get('step') or int(state['step'])
+                ckpt[key + '_s'] = time.perf_counter() - t0
+                ckpt[key + '_bytes'] = _dir_bytes(os.path.join(
+                    ckpt_dir, str(step)))
+                return result
+            return wrapper
+        return wrap
+
+    def recording_mesh(make):
+        def wrapper(*args, **kwargs):
+            meshes.append(make(*args, **kwargs))
+            return meshes[-1]
+        return wrapper
+
+    counters = (fa.flash_attention, fa.flash_attention_quant,
+                fa.flash_attention_dq, fa.flash_attention_dkv)
+    for c in counters:
+        c.causal_launches = {}
+    for key in collectives.staged_bytes:
+        collectives.staged_bytes[key] = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(trainer, 'make_train_step', recording))
+        stack.enter_context(patched(mesh_lib, 'mesh_from_env',
+                                    recording_mesh))
+        for obj, name, key in (
+                (mesh_lib, 'mesh_from_env', 'mesh'),
+                (trainer, 'make_train_state', 'train_state'),
+                (checkpoints, 'restore_params', 'checkpoint_import')):
+            stack.enter_context(patched(obj, name, clocked(key)))
+        for name in ('all_reduce_', 'all_gather', 'reduce_scatter',
+                     'send_recv'):
+            stack.enter_context(patched(collectives, name, timed))
+        stack.enter_context(patched(checkpoints, 'save_train_state',
+                                    ckpt_timed('save')))
+        stack.enter_context(patched(checkpoints, 'restore_train_state',
+                                    ckpt_timed('restore')))
+        t0 = time.perf_counter()
+        res = loop.main(argv)
+        sync()
+        main_s = time.perf_counter() - t0
+    reading = {'argv': argv, 'steps': steps, 'main_s': main_s,
+               'setup_s': dict(setup),
+               'staged_bytes': dict(collectives.staged_bytes),
+               'launches': {name: {'causal': c.causal_launches.get(True, 0),
+                                   'full': c.causal_launches.get(False, 0)}
+                            for name, c in zip(('K1', 'K2', 'K3', 'K4'),
+                                               counters)},
+               'peak_mem_gb': (torch.cuda.max_memory_allocated() / 1e9
+                               if cuda else None), **ckpt}
+    return reading, res, meshes[-1]
+
+
+def mt_rank_main(spec_path):
+    """One rank of the mesh_train gang, run as its own process with the
+    gang variables set: the legs of `spec['legs']` in order, each through
+    `train.loop.main` (`mt_leg`), then on the leg's final state the probe
+    loss and the digests of its replicated leaves. Writes its readings
+    as JSON; any failure raises (non-zero exit)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    import_s = time.time() - spec['started']
+    rank = int(os.environ['SKYTPU_PROCESS_ID'])
+    if spec['setup']:
+        import importlib
+        sys.path.insert(0, spec['setup_path'])
+        module, fn = spec['setup'].split(':')
+        getattr(importlib.import_module(module), fn)()
+    import torch
+
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import trainer
+    mt_plant(spec['fault'])
+    cuda = spec['device'] == 'cuda'
+    out = {'rank': rank, 'legs': {}, 'import_s': import_s,
+           'start_s': time.time() - spec['started']}
+    if spec['hf'] is not None:
+        mt_wait_ready(spec['hf'])
+        out['ready_s'] = time.time() - spec['started']
+    # MT_WARMUP as the trainer's default: `train.loop.main` has no flag.
+    trainer.TrainerConfig = functools.partial(trainer.TrainerConfig,
+                                              warmup_steps=spec['warmup'])
+    base = ['--batch-size', str(spec['batch']), '--seq-len',
+            str(spec['seq']), '--learning-rate', str(spec['lr']),
+            '--device', spec['device']]
+    with depth_cut(spec['model'], spec['layers']) as name:
+        for leg, mesh_arg, attention, _hops in spec['legs']:
+            argv = ['--model', name, '--mesh', mesh_arg, '--max-steps',
+                    str(spec['steps'])] + base
+            if attention:
+                argv += ['--attention', attention]
+            if leg == 'fsdp':
+                # Starts from the seed weights as an HF checkpoint, each
+                # rank importing its fsdp cut; saves its last step.
+                argv += ['--checkpoint', spec['hf'], '--checkpoint-dir',
+                         spec['ckpt'], '--checkpoint-every',
+                         str(spec['steps'])]
+            t0 = time.perf_counter()
+            reading, res, mesh = mt_leg(torch, argv, cuda)
+            t_checks = time.perf_counter()
+            cfg = trainer.TrainerConfig(
+                model=name, batch_size=spec['batch'], seq_len=spec['seq'],
+                learning_rate=spec['lr'], attention_impl=attention)
+            with mesh_lib.use_mesh(mesh), torch.no_grad():
+                reading['probe_loss'] = float(llama.loss_fn(
+                    res['state']['params'], mt_probe_batch(
+                        torch, trainer, cfg, mesh, spec['probe']),
+                    cfg.model_config()))
+            reading['digests'] = mt_digests(torch, trainer, res['state'],
+                                            cfg, mesh)
+            reading['world'] = mesh.world_size
+            reading['local_heads'] = int(
+                res['state']['params']['layers']['wq'].shape[2])
+            reading['checks_s'] = time.perf_counter() - t_checks
+            del res
+            if leg == 'tensor' and spec['resume']:
+                # The fsdp leg's checkpoint, one more step under tensor=2.
+                resume, res, _ = mt_leg(torch, argv[:5] + [
+                    str(spec['steps'] + 1), '--checkpoint-dir',
+                    spec['ckpt']] + argv[6:], cuda)
+                reading['resume'] = resume
+                del res
+            reading['leg_s'] = time.perf_counter() - t0
+            out['legs'][leg] = reading
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    with open(os.path.join(spec['dir'], f'rank{rank}.json'), 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+def mt_wait_ready(hf_dir, timeout=600.0):
+    """Wait (in a rank) until the parent has written the seed weights to
+    `hf_dir` (`mt_export`'s marker); raise if it failed or timed out."""
+    marker = hf_dir + '.ready'
+    t0 = time.perf_counter()
+    while not os.path.exists(marker):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f'no seed checkpoint at {hf_dir} after '
+                               f'{timeout} s')
+        time.sleep(0.05)
+    with open(marker) as f:
+        state = f.read()
+    if state != 'ok':
+        raise RuntimeError(f'the parent failed to write {hf_dir}: {state}')
+
+
+def mt_expected_launches(legs, layers, steps, remat):
+    """K1/K2/K3/K4 launches each rank of each leg makes, from the code,
+    by causal flag ('causal', 'full'): per step and layer, K1 once in the
+    forward and once more in the remat recompute, K3 and K4 once in the
+    backward, each per kernel call of MT_LEGS' per-rank (causal,
+    unmasked) counts: a ring hop's diagonal block causal, a past block
+    unmasked, a block wholly in the future skipped (`_hop_causal`); K2
+    never. The tensor leg's resume adds one step."""
+    per_pass = {'K1': 2 if remat else 1, 'K2': 0, 'K3': 1, 'K4': 1}
+
+    def rank(calls, n_steps):
+        return {k: {'causal': n * layers * n_steps * calls[0],
+                    'full': n * layers * n_steps * calls[1]}
+                for k, n in per_pass.items()}
+    out = {}
+    for leg, _mesh, _attention, calls in legs:
+        out[leg] = [rank(c, steps) for c in calls]
+        if leg == 'tensor':
+            out['resume'] = [rank(c, 1) for c in calls]
+    return out
+
+
+def mt_total(launches):
+    """A rank's launches by kernel, both causal flags summed."""
+    return {k: n['causal'] + n['full'] for k, n in launches.items()}
+
+
+def mt_unsharded(torch, name, hf_dir=None):
+    """The one-device flash steps on the same seed weights and batch:
+    (loss, grad norm) of steps 1..MT_STEPS + 1, the first MT_STEPS on the
+    legs' schedule (max_steps MT_STEPS), the last on the resume's
+    (MT_STEPS + 1); the probe loss after step MT_STEPS (the legs' last)
+    and the seconds a step. With `hf_dir`, the seed weights are first
+    exported there as an HF checkpoint (`checkpoints.export_params`) for
+    the fsdp leg's --checkpoint, then marked ready for the ranks
+    (`mt_wait_ready`), which start before this runs; a failed export
+    marks it failed."""
+    from skypilot_tpu_torch import checkpoints
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import trainer
+    cfgs = [trainer.TrainerConfig(model=name, batch_size=MT_BATCH,
+                                  seq_len=MT_SEQ, max_steps=n,
+                                  learning_rate=MT_LR,
+                                  warmup_steps=MT_WARMUP)
+            for n in (MT_STEPS, MT_STEPS + 1)]
+    cfg = cfgs[0]
+    mesh = trainer.placement(DEV)
+    if hf_dir is not None:
+        try:
+            state = trainer.make_train_state(cfg, mesh)
+            checkpoints.export_params(trainer.tree_map(
+                torch.Tensor.detach, state['params']), cfg.model_config(),
+                hf_dir)
+        except BaseException as e:
+            with open(hf_dir + '.ready', 'w') as f:
+                f.write(f'{type(e).__name__}: {e}')
+            raise
+        with open(hf_dir + '.ready', 'w') as f:
+            f.write('ok')
+    else:
+        state = trainer.make_train_state(cfg, mesh)
+    legs, resume = (trainer.make_train_step(c, mesh) for c in cfgs)
+    batch = trainer.synthetic_batch(cfg, mesh)
+    out = {'steps': [], 'step_s': []}
+    for i in range(MT_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = (legs if i < MT_STEPS else resume)(state, batch)
+        out['steps'].append((float(m['loss']), float(m['grad_norm'])))
+        out['step_s'].append(time.perf_counter() - t0)
+        if i == MT_STEPS - 1:
+            with mesh_lib.use_mesh(mesh), torch.no_grad():
+                out['probe_loss'] = float(llama.loss_fn(
+                    state['params'], mt_probe_batch(torch, trainer, cfg,
+                                                    mesh, MT_PROBE),
+                    cfg.model_config()))
+    return out
+
+
+def mt_faults(out, ref, expected):
+    """The limits a mesh_train reading breaks; empty when it passes."""
+    faults = []
+
+    def held(what, got, want):
+        for i, ((loss, norm), (w_loss, w_norm)) in enumerate(zip(got, want)):
+            if not (math.isfinite(loss) and math.isfinite(norm)):
+                faults.append(f'{what} step {i + 1}: non-finite')
+                continue
+            if not abs(loss - w_loss) / abs(w_loss) < TOL_MT_LOSS_REL:
+                faults.append(f'{what} step {i + 1}: loss {loss} vs '
+                              f'{w_loss} (rel limit {TOL_MT_LOSS_REL})')
+            if not abs(norm - w_norm) / w_norm < TOL_MT_NORM_REL:
+                faults.append(f'{what} step {i + 1}: grad norm {norm} vs '
+                              f'{w_norm} (rel limit {TOL_MT_NORM_REL})')
+
+    for leg, r in out['legs'].items():
+        ranks = r['per_rank']
+        held(leg, r['losses'], ref['steps'][:len(r['losses'])])
+        if any([(x['loss'], x['grad_norm']) for x in p['steps']]
+               != r['losses'] for p in ranks):
+            faults.append(f'{leg}: the ranks report different losses or '
+                          'grad norms')
+        if not abs(r['probe_loss'] - ref['probe_loss']) < TOL_MT_PROBE:
+            faults.append(f"{leg}: probe loss {r['probe_loss']} vs "
+                          f"{ref['probe_loss']} (limit {TOL_MT_PROBE})")
+        if not r['replicated_equal']:
+            faults.append(f'{leg}: replicated leaves differ across ranks')
+        if r['launches_per_rank'] != expected[leg]:
+            faults.append(f"{leg}: launches {r['launches_per_rank']} != "
+                          f'{expected[leg]}')
+        if 'resume' in r:
+            held(f'{leg} resume', r['resume']['losses'],
+                 ref['steps'][MT_STEPS:MT_STEPS + 1])
+            if r['resume']['launches_per_rank'] != expected['resume']:
+                faults.append(f"{leg} resume: launches "
+                              f"{r['resume']['launches_per_rank']} != "
+                              f"{expected['resume']}")
+    return faults
+
+
+def _mt_checkpoint_io(r):
+    """A rank's checkpoint save and restore in a run of `main`: seconds,
+    bytes and GB/s, for those it made."""
+    out = {}
+    for key in ('save', 'restore'):
+        if f'{key}_s' in r:
+            out[f'{key}_s'] = r[f'{key}_s']
+            out[f'{key}_bytes'] = r[f'{key}_bytes']
+            out[f'{key}_gb_per_s'] = r[f'{key}_bytes'] / 1e9 / r[f'{key}_s']
+    return out
+
+
+def _mt_summary(per_rank):
+    """A leg's (or resume's) reading across ranks: rank 0's losses, each
+    rank's steps, launches and peak memory, the median step's seconds
+    and the collectives' share of the step time on rank 0."""
+    steps = per_rank[0]['steps']
+    step_s = sorted(x['s'] for x in steps)
+    total = sum(x['s'] for x in steps)
+    return {'losses': [(x['loss'], x['grad_norm']) for x in steps],
+            'median_step_s': step_s[len(step_s) // 2],
+            'step_s': [x['s'] for x in steps],
+            'collectives_s': sum(x['collectives_s'] for x in steps),
+            'collective_calls': sum(x['collective_calls'] for x in steps),
+            'collectives_share': (sum(x['collectives_s'] for x in steps)
+                                  / total),
+            'launches_per_rank': [p['launches'] for p in per_rank],
+            'peak_mem_gb_per_rank': [p['peak_mem_gb'] for p in per_rank],
+            'per_rank': [{'steps': p['steps']} for p in per_rank]}
+
+
+def mesh_train_phase(torch, legs=None, fault=None):
+    """bench-8b trained over MT_LEGS by MT_RANKS ranks on the card (see
+    the constants' comment): each leg's losses and grad norms, the
+    resumed step's and the probe loss against the unsharded flash steps
+    (TOL_MT_*), the ranks' replicated leaves bit-equal, each rank's
+    K1/K3/K4 launches equal to `mt_expected_launches`. `fault` plants
+    one of `mt_plant`'s faults in the ranks. Returns (reading, with
+    `faults`, and the launches by leg)."""
+    import shutil
+    import tempfile
+    legs = legs or MT_LEGS
+    t0 = time.perf_counter()
+    out = {'model': MT_MODEL, 'layers': MT_LAYERS, 'batch': MT_BATCH,
+           'seq_len': MT_SEQ, 'steps': MT_STEPS, 'warmup': MT_WARMUP,
+           'ranks': MT_RANKS,
+           'backend': 'gloo', 'fault': fault,
+           'legs_run': [leg[0] for leg in legs]}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_mt_')
+    try:
+        from skypilot_tpu_torch import models as models_lib
+        fsdp = any(leg[0] == 'fsdp' for leg in legs)
+        hf_dir = os.path.join(tmp, 'hf') if fsdp else None
+        expected = mt_expected_launches(
+            legs, MT_LAYERS, MT_STEPS, models_lib.resolve(MT_MODEL)[1].remat)
+        spec = {'model': MT_MODEL, 'layers': MT_LAYERS, 'batch': MT_BATCH,
+                'seq': MT_SEQ, 'steps': MT_STEPS, 'lr': MT_LR,
+                'warmup': MT_WARMUP, 'probe': MT_PROBE,
+                'device': DEV, 'legs': legs, 'fault': fault,
+                'resume': fsdp, 'ckpt': os.path.join(tmp, 'ckpt'),
+                'hf': hf_dir, 'dir': tmp,
+                'setup': MT_RANK_SETUP and MT_RANK_SETUP[0],
+                'setup_path': MT_RANK_SETUP and MT_RANK_SETUP[1]}
+        spec_path = os.path.join(tmp, 'spec.json')
+        with open(spec_path, 'w') as f:
+            json.dump({**spec, 'started': time.time()}, f)
+        code = ('import sys, chip_smoke; '
+                'sys.exit(chip_smoke.mt_rank_main(sys.argv[1]))')
+        port = free_port()
+        # The ranks start up while the seed weights are exported and the
+        # unsharded steps run here; the fsdp leg waits for the export.
+        wait = start_ranks(
+            lambda r: [sys.executable, '-c', code, spec_path],
+            lambda r: tp_gang_env(port, r), tmp, 'mt', timeout=900)
+        try:
+            with depth_cut(MT_MODEL, MT_LAYERS) as name:
+                ref = mt_unsharded(torch, name, hf_dir)
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+            rcs, tails, ranks_s = wait()
+        out['unsharded'] = ref
+        if rcs != [0] * MT_RANKS:
+            raise AssertionError(f'mesh_train ranks failed: rcs {rcs}: '
+                                 f'{tails}')
+        ranks = []
+        for r in range(MT_RANKS):
+            with open(os.path.join(tmp, f'rank{r}.json')) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out['ranks_s'] = ranks_s
+    # Seconds from the ranks' launch: imports done, the legs' loop
+    # reached, the seed checkpoint ready (the fsdp leg's wait).
+    out['rank_start'] = {key: [r.get(key) for r in ranks]
+                         for key in ('import_s', 'start_s', 'ready_s')}
+    out['legs'] = {}
+    for leg, *_ in legs:
+        per_rank = [r['legs'][leg] for r in ranks]
+        r0 = per_rank[0]
+        reading = {**_mt_summary(per_rank), 'argv': r0['argv'],
+                   'leg_s': r0['leg_s'], 'main_s': r0['main_s'],
+                   'setup_s': r0['setup_s'], 'checks_s': r0['checks_s'],
+                   'world': r0['world'],
+                   'staged_bytes': r0['staged_bytes'],
+                   'local_heads': r0['local_heads'],
+                   'probe_loss': r0['probe_loss'],
+                   'probe_per_rank': [p['probe_loss'] for p in per_rank],
+                   'replicated_leaves': len(r0['digests']),
+                   'replicated_equal': all(p['digests'] == r0['digests']
+                                           for p in per_rank)}
+        reading.update(_mt_checkpoint_io(r0))
+        if 'resume' in r0:
+            # The resume's run ends, as `fit` does, with a save of its
+            # last step: the mesh-independent save under tensor=2.
+            resume = [p['resume'] for p in per_rank]
+            reading['resume'] = {**_mt_summary(resume),
+                                 'main_s': resume[0]['main_s'],
+                                 'setup_s': resume[0]['setup_s'],
+                                 **_mt_checkpoint_io(resume[0])}
+        out['legs'][leg] = reading
+    out['expected_launches'] = expected
+    out['faults'] = mt_faults(out, ref, expected)
+    out['phase_s'] = time.perf_counter() - t0
+    return out
+
+
+def mt_ring_readings(torch, fa):
+    """K1, K3 and K4 at the ring's per-hop shapes (MT_RING_SHAPES: a
+    rank's B x 2048 local queries against the diagonal block, causal,
+    and against a past block, no mask) against their plain versions,
+    and timed (`kernel_timing`, `bwd_timing`)."""
+    b, t = MT_BATCH, MT_SEQ // MT_RANKS
+    h, kv, d = 32, 8, 128
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    out = {}
+    for path, causal in MT_RING_SHAPES:
+        case = (path, b, t, t, h, kv, d, causal, None, None, None)
+        out[path] = {
+            'check_fwd': kernel_reading(torch, fa, gen, False, b, t, t, h,
+                                        kv, d, None, None, None,
+                                        causal=causal),
+            'check_bwd': bwd_reading(torch, fa, gen, case),
+            'fwd': kernel_timing(torch, fa, False, (
+                b, t, t, h, kv, d, 0 if causal else None), causal=causal),
+            'bwd': bwd_timing(torch, fa, case)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def bytecode_cache():
+    """Keep the bytecode of every module this process and the processes
+    it starts import under PYCACHE in the checkout. Where the Python
+    installation ships no .pyc files and the environment forbids writing
+    them (PYTHONDONTWRITEBYTECODE), every process compiles each module it
+    imports from source again: ~1,900 modules and ~7 s of a rank
+    process's start on the H100 machine (cProfile, `mesh_train`). With
+    the cache the first process to import a module compiles it and the
+    later ones read it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, PYCACHE)
+    os.environ['PYTHONPYCACHEPREFIX'] = path
+    os.environ.pop('PYTHONDONTWRITEBYTECODE', None)
+    sys.pycache_prefix = path
+    sys.dont_write_bytecode = False
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is false; this '
               'script runs on an NVIDIA GPU', file=sys.stderr)
         return 2
+    bytecode_cache()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from skypilot_tpu_torch.ops import _build
@@ -5000,6 +5684,53 @@ def main():
             'launches_per_rank': launches[key],
             **{k: tm[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
                                   'library_ms')}})
+
+    # 28. bench-8b trained over a mesh: two ranks on the card over gloo,
+    # the fsdp, tensor (and its resume of the fsdp checkpoint) and ring
+    # legs through train.loop.main, against the unsharded steps.
+    out = mesh_train_phase(torch)
+    emit('mesh_train', tol_loss_rel=TOL_MT_LOSS_REL,
+         tol_norm_rel=TOL_MT_NORM_REL, tol_probe=TOL_MT_PROBE, **out)
+    if out['faults']:
+        raise AssertionError(f'mesh_train: {out["faults"]}')
+    for name, counter in (('flash_attention', 'K1'),
+                          ('flash_attention_dq', 'K3'),
+                          ('flash_attention_dkv', 'K4')):
+        for leg, reading in out['legs'].items():
+            path_launches[name][f'mesh_train_{leg}'] = [
+                mt_total(n)[counter] for n in reading['launches_per_rank']]
+            if 'resume' in reading:
+                path_launches[name][f'mesh_train_{leg}_resume'] = [
+                    mt_total(n)[counter] for n in reading['resume'][
+                        'launches_per_rank']]
+    # K1, K3 and K4 at the ring's per-hop shapes, checked against their
+    # plain versions and timed; their launches are the ring leg's as the
+    # wrappers counted them by causal flag (the diagonal block causal,
+    # a past block unmasked).
+    ring = mt_ring_readings(torch, fa)
+    emit('mesh_train_ring_kernels', **ring)
+    bad = {path: kernel_faults(r['check_fwd']) + bwd_faults(r['check_bwd'])
+           for path, r in ring.items()
+           if kernel_faults(r['check_fwd']) + bwd_faults(r['check_bwd'])}
+    if bad:
+        raise AssertionError(f'the ring hops\' kernels disagree with their '
+                             f'plain versions: {bad}')
+    ring_leg = out['legs']['ring']
+    for path, causal in MT_RING_SHAPES:
+        reading = ring[path]
+        flag = 'causal' if causal else 'full'
+        for name, tm, counter in (
+                ('flash_attention', reading['fwd'], 'K1'),
+                ('flash_attention_dq', reading['bwd']['dq'], 'K3'),
+                ('flash_attention_dkv', reading['bwd']['dkv'], 'K4')):
+            per_hop = [n[counter][flag]
+                       for n in ring_leg['launches_per_rank']]
+            kernels[name].setdefault('shapes', []).append({
+                'path': f'mesh_train_{path}', 'shape': tm['shape'],
+                'causal': tm['causal'], 'launches': sum(per_hop),
+                'launches_per_rank': per_hop,
+                **{k: tm[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                      'bound_by', 'library_ms')}})
 
     # The later slices' paths, each read with the counts set to 0 just
     # before and read just after (launches beside the main path's).

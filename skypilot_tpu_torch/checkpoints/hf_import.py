@@ -25,9 +25,10 @@ is a `torch.empty` of this rank's shape here), and `_check_names`
 
 Each import reports `ImportStats` through the port's instruments, as
 the reference does (:594-596): `CKPT_IMPORT_SECONDS`, `_BYTES` and
-`_TENSORS`. Under a tensor-parallel `mesh` each rank places only its
-slice of each tensor (`llama.param_logical_axes` under
-`parallel.sharding`), cut on the host before the copy. Knobs:
+`_TENSORS`. Under a `mesh` each rank places only its slice of each
+tensor (`llama.param_logical_axes` under `parallel.sharding`: heads,
+MLP and vocab over `tensor`, `embed` over `fsdp`), cut on the host
+before the copy. Knobs:
 SKYTPU_HF_IMPORT_STRICT
 (an unexpected tensor is an error, not a warning) and
 SKYTPU_HF_IMPORT_CONCURRENCY (read/transform threads running ahead of
@@ -440,7 +441,7 @@ def load_params(
     """Import an HF safetensors checkpoint onto `device` (CUDA unless
     named; a mesh's own device under `mesh`). Returns (params in
     `llama.init_params`' layout, this rank's slices under a
-    tensor-parallel mesh, the config served, detected from config.json
+    mesh, the config served, detected from config.json
     unless given, and the stats)."""
     t0 = time.perf_counter()
     if config is None:

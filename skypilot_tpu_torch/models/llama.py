@@ -24,18 +24,34 @@ policy-driven checkpoint in eager mode, so both policies map to the
 whole-layer recompute here: more FLOPs (one more forward per layer),
 less memory.
 
-Tensor parallelism (serving only, under `parallel.use_mesh` with a
-`tensor` axis larger than 1): each rank holds the slices
-`param_logical_axes` gives it under `parallel.sharding.DEFAULT_RULES`
-(heads, KV heads, MLP and vocab over `tensor`), computes its local heads
-and MLP columns, and the products that contract a split axis (`wo`,
-`w_down`) run in f32 per rank, are all-reduced in f32 and cast once, so
-the result rounds once as the unsharded product does. The embedding is
-vocab-parallel (a masked lookup on the local rows, then an all-reduce;
-this covers a tied head too) and the logits are all-gathered over vocab
-before the final softcap. Where the reference lets GSPMD place these
-collectives, the port writes them out (`_row_parallel`, `embed`,
-`project_logits`). Training under a mesh is the next slice.
+Under a mesh (`parallel.use_mesh`, the ambient mesh of more than one
+rank) each rank holds the slices `param_logical_axes` gives it under
+`parallel.sharding.DEFAULT_RULES` and the layer math writes out the
+collectives GSPMD inserts into the reference's jitted step, through the
+autograd-aware ops of `parallel/collectives.py`:
+- `tensor`: each rank computes its local heads and MLP columns. The
+  inputs of the column-parallel products (`_qkv`, `_mlp`, the head) go
+  through `copy_to` (their gradient all-reduced); the products that
+  contract a split axis (`wo`, `w_down`) run in f32 per rank, are
+  all-reduced in f32 and cast once (`_row_parallel`), so the result
+  rounds once as the unsharded product does. The embedding is
+  vocab-parallel (a masked lookup on the local rows, then an
+  all-reduce; this covers a tied head too) and the logits are
+  all-gathered over vocab (`gather_from`) before the final softcap.
+- `fsdp`: every weight and norm is cut along `embed`; a layer gathers
+  its weights for its forward (`gather_weight`: the gradient
+  reduce-scattered back to the shards) inside the checkpointed layer,
+  so the gathered copies are freed after the forward and gathered again
+  by the remat recompute. The embedding, the final norm and the head
+  gather the same way.
+- `context`: the sequence is cut over `context`; RoPE takes global
+  positions, attention is the ring (`ops.attention.ring_attention`; any
+  other impl gathers K/V over `context`), and `loss_fn` takes each
+  rank's last target from the next rank's first token.
+- `data` x `fsdp` cut the batch; `loss_fn` normalises by the global mask
+  count and sums the loss over the batch and context ranks.
+The trainer reduces the gradients over what these do not
+(`train/trainer.py`).
 
 Products follow the reference's casts: q/k/v/o and the MLP output are
 cast to the config dtype, the MLP gate/up and the logits are f32. In f32
@@ -51,12 +67,13 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from skypilot_tpu_torch.ops import attention as attention_ops
+from skypilot_tpu_torch.parallel import collectives
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding as sharding_lib
 
 Params = Dict[str, Any]
 
@@ -233,7 +250,7 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
         scale = 1.0 / math.sqrt(fan_in)
         full = (torch.randn(shape, generator=generator, device=gen_dev,
                             dtype=torch.float32) * scale).to(dt)
-        if shard is not None and shard.dim is not None:
+        if shard is not None and shard.cuts:
             # A cut is cloned: a view would keep the whole leaf alive.
             full = shard(full).clone()
         return full.to(device)
@@ -248,30 +265,36 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
             out[i] = normal(shape, fan_in, per_layer)
         return out
 
-    def zeros(name, shape):
-        shard = layer_cuts.get(name)
+    def filled(fill, shape, shard):
         if shard is not None:
             shape = shard.local_shape(shape)
-        return torch.zeros(shape, dtype=dt, device=device)
+        return fill(shape, dtype=dt, device=device)
+
+    def zeros(name, shape):
+        return filled(torch.zeros, shape, layer_cuts.get(name))
 
     e, m = c.hidden_size, c.intermediate_size
     h, kv, d = c.num_heads, c.num_kv_heads, c.head_dim
     L = c.num_layers
-    norm_init = torch.zeros if c.norm_plus_one else torch.ones
+    ones = torch.zeros if c.norm_plus_one else torch.ones
+
+    def norm_init(name):
+        return filled(ones, (L, e), layer_cuts.get(name))
+
     layers = {
-        'attn_norm': norm_init((L, e), dtype=dt, device=device),
+        'attn_norm': norm_init('attn_norm'),
         'wq': stacked('wq', (e, h, d), e),
         'wk': stacked('wk', (e, kv, d), e),
         'wv': stacked('wv', (e, kv, d), e),
         'wo': stacked('wo', (h, d, e), h * d),
-        'mlp_norm': norm_init((L, e), dtype=dt, device=device),
+        'mlp_norm': norm_init('mlp_norm'),
         'w_gate': stacked('w_gate', (e, m), e),
         'w_up': stacked('w_up', (e, m), e),
         'w_down': stacked('w_down', (m, e), m),
     }
     if c.post_norms:
-        layers['post_attn_norm'] = norm_init((L, e), dtype=dt, device=device)
-        layers['post_mlp_norm'] = norm_init((L, e), dtype=dt, device=device)
+        layers['post_attn_norm'] = norm_init('post_attn_norm')
+        layers['post_mlp_norm'] = norm_init('post_mlp_norm')
     if c.attn_qkv_bias:
         layers['bq'] = zeros('bq', (L, h, d))
         layers['bk'] = zeros('bk', (L, kv, d))
@@ -279,7 +302,7 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     out = {
         'embed': normal((c.vocab_size, e), e, cuts.get('embed')),
         'layers': layers,
-        'final_norm': norm_init((e,), dtype=dt, device=device),
+        'final_norm': filled(ones, (e,), cuts.get('final_norm')),
     }
     if not c.tied_embeddings:
         out['lm_head'] = normal((e, c.vocab_size), e, cuts.get('lm_head'))
@@ -360,14 +383,39 @@ def _act(gate: torch.Tensor, config) -> torch.Tensor:
     return F.silu(gate)
 
 
+def _tp_group() -> Any:
+    """The ambient mesh's `tensor` group (None without tensor
+    parallelism)."""
+    tp = mesh_lib.tensor_parallel()
+    return None if tp is None else tp.tensor_group
+
+
 def _mlp(h: torch.Tensor, layer_params: Params, config) -> torch.Tensor:
     """GLU MLP: f32 gate/up, activation product cast to the config
     dtype, down projection cast to the config dtype."""
     c = config
+    h = collectives.copy_to(h, _tp_group())
     gate = torch.einsum('bse,em->bsm', h, layer_params['w_gate']).float()
     up = torch.einsum('bse,em->bsm', h, layer_params['w_up']).float()
     act = (_act(gate, c) * up).to(c.dtype)
     return _row_parallel(act, layer_params['w_down'], 'bsm,me->bse', c)
+
+
+class _F32Product(torch.autograd.Function):
+    """x @ w with an f32 result on CUDA (`torch.mm(out_dtype=)`); the
+    backward's products run in the inputs' dtype, as the unsharded
+    product's do."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.T, x.T @ g
 
 
 def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -377,6 +425,8 @@ def _f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return x @ w
     if x.is_cuda:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _F32Product.apply(x, w)
         return torch.mm(x, w, out_dtype=torch.float32)
     return x.float() @ w.float()
 
@@ -392,13 +442,14 @@ def _row_parallel(x: torch.Tensor, w: torch.Tensor, equation: str,
         return torch.einsum(equation, x, w).to(config.dtype)
     k = math.prod(w.shape[:-1])
     part = _f32_product(x.reshape(-1, k), w.reshape(k, w.shape[-1]))
-    dist.all_reduce(part, group=tp.tensor_group)
+    part = collectives.reduce_from(part, tp.tensor_group)
     lead = x.shape[:x.dim() - (w.dim() - 1)]
     return part.reshape(lead + (w.shape[-1],)).to(config.dtype)
 
 
 def _qkv(h: torch.Tensor, layer_params: Params, config):
     c = config
+    h = collectives.copy_to(h, _tp_group())
     q = torch.einsum('bse,ehd->bshd', h, layer_params['wq']).to(c.dtype)
     k = torch.einsum('bse,ehd->bshd', h, layer_params['wk']).to(c.dtype)
     v = torch.einsum('bse,ehd->bshd', h, layer_params['wv']).to(c.dtype)
@@ -409,10 +460,52 @@ def _qkv(h: torch.Tensor, layer_params: Params, config):
     return q, k, v
 
 
+def shard_tree(config, mesh: Optional[mesh_lib.Mesh]) -> Optional[Params]:
+    """The `Shard` of every param on this rank of `mesh` (None without a
+    mesh of more than one rank)."""
+    if mesh is None or mesh.world_size == 1:
+        return None
+    return sharding_lib.tree_shardings(mesh, param_logical_axes(config))
+
+
+def unshard(leaf: torch.Tensor, shard: Optional[sharding_lib.Shard],
+            mesh: Optional[mesh_lib.Mesh]) -> torch.Tensor:
+    """`leaf` gathered along every cut but `tensor`'s (the FSDP weight a
+    layer's math reads whole; its gradient is reduce-scattered back)."""
+    if shard is None:
+        return leaf
+    for c in shard.cuts:
+        if c.axes == ('tensor',):
+            continue
+        if 'tensor' in c.axes:
+            raise ValueError(f'{c.logical} is cut over {c.axes}: a '
+                             'dimension cut by tensor and another axis is '
+                             'not gathered')
+        leaf = collectives.gather_weight(leaf, mesh.group(c.axes), c.dim)
+    return leaf
+
+
 def _layer(x: torch.Tensor, layer_params: Params, config: LlamaConfig,
            positions: torch.Tensor,
-           window: Optional[int] = None) -> torch.Tensor:
+           window: Optional[int] = None,
+           cuts: Optional[Params] = None,
+           mesh: Optional[mesh_lib.Mesh] = None) -> torch.Tensor:
+    """One decoder layer under `mesh` (made the ambient mesh inside: a
+    checkpointed layer is recomputed in the backward, which on CUDA runs
+    on autograd's own thread, where the caller's ambient mesh is not
+    set). `cuts` (the layer's per-layer `Shard`s under a mesh) gathers
+    its FSDP-cut weights first, inside the layer, so a checkpointed
+    layer gathers them again when it is recomputed."""
+    with mesh_lib.use_mesh(mesh):
+        return _layer_math(x, layer_params, config, positions, window, cuts,
+                           mesh)
+
+
+def _layer_math(x, layer_params, config, positions, window, cuts, mesh):
     c = config
+    if cuts is not None:
+        layer_params = {k: unshard(v, cuts[k], mesh)
+                        for k, v in layer_params.items()}
     plus_one = c.norm_plus_one
     h = _rms_norm(x, layer_params['attn_norm'], c.rms_norm_eps, plus_one)
     q, k, v = _qkv(h, layer_params, c)
@@ -421,7 +514,7 @@ def _layer(x: torch.Tensor, layer_params: Params, config: LlamaConfig,
     if c.query_pre_attn_scalar is not None:
         q = q * math.sqrt(c.head_dim / c.query_pre_attn_scalar)
     attn = attention_ops.attention(q, k, v, causal=True,
-                                   impl=c.attention_impl,
+                                   impl=c.attention_impl, mesh=mesh,
                                    block_size=c.attention_block_size,
                                    window=window,
                                    softcap=c.attn_logit_softcap)
@@ -443,12 +536,22 @@ def layer_params_at(params: Params, i: int) -> Params:
     return {name: leaf[i] for name, leaf in params['layers'].items()}
 
 
+def _whole(params: Params, name: str, config) -> torch.Tensor:
+    """A top-level param gathered along its FSDP cut under the ambient
+    mesh (as it is otherwise)."""
+    mesh = mesh_lib.current()
+    if mesh is None:
+        return params[name]
+    shard = sharding_lib.leaf_shard(mesh, param_logical_axes(config)[name])
+    return unshard(params[name], shard, mesh)
+
+
 def embed(params: Params, tokens: torch.Tensor, config) -> torch.Tensor:
     """Token embeddings [.., E]. Under tensor parallelism the table holds
     this rank's vocab rows: a lookup masked to them, all-reduced (one
     rank holds each row, so the f32 sum is exact)."""
     c = config
-    table = params['embed'].to(c.dtype)
+    table = _whole(params, 'embed', config).to(c.dtype)
     tp = mesh_lib.tensor_parallel()
     if tp is None:
         x = table[tokens]
@@ -458,9 +561,7 @@ def embed(params: Params, tokens: torch.Tensor, config) -> torch.Tensor:
         mine = (local >= 0) & (local < rows)
         x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
                         torch.zeros((), dtype=c.dtype, device=table.device))
-        x = x.float()
-        dist.all_reduce(x, group=tp.tensor_group)
-        x = x.to(c.dtype)
+        x = collectives.reduce_from(x.float(), tp.tensor_group).to(c.dtype)
     if c.embed_scale:
         x = x * torch.tensor(math.sqrt(c.hidden_size), dtype=c.dtype,
                              device=x.device)
@@ -472,16 +573,14 @@ def project_logits(x: torch.Tensor, params: Params, config) -> torch.Tensor:
     final softcap live here), over the whole vocab under tensor
     parallelism too."""
     c = config
-    lm_head = (params['embed'].to(c.dtype).T if c.tied_embeddings
-               else params['lm_head'])
+    lm_head = (_whole(params, 'embed', c).to(c.dtype).T if c.tied_embeddings
+               else _whole(params, 'lm_head', c))
+    group = _tp_group()
+    x = collectives.copy_to(x, group)
     logits = torch.einsum('...e,ev->...v', x, lm_head).float()
-    tp = mesh_lib.tensor_parallel()
-    if tp is not None:
-        # Each rank's columns are its vocab rows; every rank samples
-        # from the same gathered logits.
-        parts = [torch.empty_like(logits) for _ in range(tp.tensor_size)]
-        dist.all_gather(parts, logits.contiguous(), group=tp.tensor_group)
-        logits = torch.cat(parts, dim=-1)
+    # Each rank's columns are its vocab rows; every rank samples (or
+    # takes its loss) from the same gathered logits.
+    logits = collectives.gather_from(logits, group, -1)
     if c.final_logit_softcap is not None:
         cap = c.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
@@ -494,18 +593,30 @@ def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     `config.remat` and autograd on, each layer is checkpointed (see the
     module docstring)."""
     c = config
+    mesh = mesh_lib.current()
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        # Global positions: a context rank's slice starts where the
+        # ranks before it end.
+        start = 0 if mesh is None else mesh.index('context') * tokens.shape[1]
+        positions = start + torch.arange(tokens.shape[1],
+                                         device=tokens.device)
     x = embed(params, tokens, c)
+    cuts = shard_tree(c, mesh)
+    layer_cuts = None if cuts is None else {
+        k: v.per_layer() for k, v in cuts['layers'].items()}
     remat = c.remat and torch.is_grad_enabled()
+    ambient = mesh_lib.ambient()
     for i, window in enumerate(layer_windows(c)):
         lp = layer_params_at(params, i)
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                _layer, x, lp, c, positions, window, use_reentrant=False)
+                _layer, x, lp, c, positions, window, layer_cuts, ambient,
+                use_reentrant=False)
         else:
-            x = _layer(x, lp, c, positions, window=window)
-    x = _rms_norm(x, params['final_norm'], c.rms_norm_eps, c.norm_plus_one)
+            x = _layer(x, lp, c, positions, window=window, cuts=layer_cuts,
+                       mesh=ambient)
+    x = _rms_norm(x, _whole(params, 'final_norm', c), c.rms_norm_eps,
+                  c.norm_plus_one)
     return project_logits(x, params, c)
 
 
@@ -515,17 +626,40 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
 
     Targets are the tokens shifted left; the last position is masked, so
     no host-side shifting is needed. The fused form (target logit minus
-    logsumexp) never builds the [B,S,V] log-probabilities."""
+    logsumexp) never builds the [B,S,V] log-probabilities.
+
+    Under a mesh the batch is this rank's cut (`sharding.batch_shard`):
+    the last target of a context rank is the next rank's first token,
+    and only the last rank masks its last position; the mask count is
+    all-reduced over the gradient group (`mesh.GRAD_AXES`) and the
+    masked sum too (`reduce_from`), so every rank returns the global
+    loss, and its gradient is this rank's part of the global one."""
     tokens = batch['tokens']
+    mesh = mesh_lib.current()
     logits = forward(params, tokens, config)
-    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
-                        dim=1)
+    nxt = torch.zeros_like(tokens[:, :1])
+    last = True
+    if mesh is not None and mesh.shape['context'] > 1:
+        firsts = collectives.all_gather(tokens[:, :1].contiguous(),
+                                        mesh.group('context'), 1)
+        at = mesh.index('context')
+        last = at == mesh.shape['context'] - 1
+        if not last:
+            nxt = firsts[:, at + 1:at + 2]
+    targets = torch.cat([tokens[:, 1:], nxt], dim=1)
     mask = batch.get('mask')
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
     mask = mask.float().clone()
-    mask[:, -1] = 0.0
+    if last:
+        mask[:, -1] = 0.0
     target_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     token_ll = target_logit - torch.logsumexp(logits, dim=-1)
-    return -(token_ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = -(token_ll * mask).sum()
+    count = mask.sum()
+    if mesh is not None:
+        group = mesh.group(mesh_lib.GRAD_AXES)
+        count = collectives.all_reduce_(count, group)
+        total = collectives.reduce_from(total, group)
+    return total / torch.clamp(count, min=1.0)

@@ -1,19 +1,31 @@
-"""Attention ops: dense, blockwise (online softmax) and the dispatcher.
+"""Attention ops: dense, blockwise (online softmax), ring and the
+dispatcher.
 
 Ports `skypilot_tpu/ops/attention.py`: `_repeat_kv` (:30),
 `dense_attention` (:40), `_block_update` (:79), `_finalize` (:108),
-`blockwise_attention` (:114) and the `attention` dispatcher (:287).
-Shapes: q [B,Sq,H,D], k/v [B,Skv,KV,D] -> [B,Sq,H,D]. Dense and
-blockwise are plain tensor ops, differentiable through torch; `flash`
-goes to `ops/flash_attention.py` (K1 forward, K3/K4 backward on the
-card). Ring attention waits for the parallel slice (ROADMAP.md, Queue 1).
+`blockwise_attention` (:114), `ring_attention` (:170) and the
+`attention` dispatcher (:287). Shapes: q [B,Sq,H,D], k/v [B,Skv,KV,D]
+-> [B,Sq,H,D]. Dense and blockwise are plain tensor ops, differentiable
+through torch; `flash` goes to `ops/flash_attention.py` (K1 forward,
+K3/K4 backward on the card).
+
+Under a mesh with a `context` axis the tensors are this rank's slice of
+the sequence. `ring_attention` is the reference's: each rank folds the
+K/V block it holds into an online softmax, then passes the block on to
+the next rank (`parallel.collectives.shift`, differentiable), ring-size
+times, the mask at global positions. On CUDA the ring runs the flash
+kernels per hop (`flash_attention.ring_flash_attention`: K1 forward,
+K3/K4 backward). Any other impl under `context` gathers K/V over the
+axis and attends at this rank's query offset.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
+
+from skypilot_tpu_torch.parallel import collectives
 
 _NEG_INF = -1e30
 
@@ -134,29 +146,97 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _finalize(acc_o, acc_l, q.dtype)
 
 
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mesh: Any, axis: str = 'context', causal: bool = True,
+                   block_size: int = 512) -> torch.Tensor:
+    """Ring attention over `mesh`'s `axis` (the reference's :170-284).
+
+    q/k/v are this rank's contiguous slice of the sequence (rank i holds
+    positions [i L, (i+1) L)). Each of ring-size steps folds the K/V
+    block this rank holds, at its global offset, into the online
+    softmax, sub-block by sub-block ([L, sub] scores), then passes it to
+    the next rank. With one rank on the axis it is blockwise attention.
+    CUDA tensors run the flash kernels per hop
+    (`flash_attention.ring_flash_attention`); CPU tensors this plain
+    form, differentiable through `collectives.shift`."""
+    ring = mesh.shape[axis]
+    if ring == 1:
+        return blockwise_attention(q, k, v, causal=causal,
+                                   block_size=block_size)
+    group = mesh.group(axis)
+    if q.is_cuda:
+        from skypilot_tpu_torch.ops import flash_attention as fa
+        return fa.ring_flash_attention(q, k, v, group, causal=causal,
+                                       block_q=block_size,
+                                       block_k=block_size)
+    b, local_len, num_heads, d = q.shape
+    sub = block_size if local_len % block_size == 0 else local_len
+    me = mesh.index(axis)
+    dev = q.device
+    q_pos = me * local_len + torch.arange(local_len, device=dev)
+    acc_o = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    acc_m = torch.full((b, num_heads, local_len), _NEG_INF,
+                       dtype=torch.float32, device=dev)
+    acc_l = torch.zeros((b, num_heads, local_len), dtype=torch.float32,
+                        device=dev)
+    k_blk, v_blk, blk = k, v, me
+    for step in range(ring):
+        for s0 in range(0, local_len, sub):
+            k_pos = blk * local_len + s0 + torch.arange(sub, device=dev)
+            mask = ((q_pos[:, None] >= k_pos[None, :])[None, None]
+                    if causal else None)
+            # GQA heads repeat for the local compute only; the ring
+            # carries compact K/V.
+            acc_o, acc_m, acc_l = _block_update(
+                q, _repeat_kv(k_blk[:, s0:s0 + sub], num_heads),
+                _repeat_kv(v_blk[:, s0:s0 + sub], num_heads), mask, acc_o,
+                acc_m, acc_l)
+        if step < ring - 1:
+            k_blk = collectives.shift(k_blk, group)
+            v_blk = collectives.shift(v_blk, group)
+            blk = (blk - 1) % ring
+    return _finalize(acc_o, acc_l, q.dtype)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, impl: str = 'dense',
-              block_size: int = 512, window: Optional[int] = None,
+              mesh: Optional[Any] = None, block_size: int = 512,
+              window: Optional[int] = None,
               softcap: Optional[float] = None) -> torch.Tensor:
-    """Dispatch: 'dense' | 'blockwise' | 'flash' ('ring' waits for the
-    parallel slice). window/softcap run in the flash kernels; the one
-    flash fallback is a non-causal window, which goes to blockwise, as in
-    the reference."""
+    """Dispatch: 'dense' | 'blockwise' | 'ring' | 'flash'. window/softcap
+    run in the flash kernels; the one flash fallback is a non-causal
+    window, which goes to blockwise, as in the reference. 'ring' needs a
+    mesh and takes no window or softcap (it raises, as the reference's
+    :304-310). Any other impl under a mesh whose `context` axis is
+    larger than 1 gathers K/V over it (`collectives.gather_weight`: the
+    gradient reduce-scattered back) and attends at this rank's global
+    query offset."""
     if impl == 'ring':
-        raise NotImplementedError(
-            "ring attention is not ported yet: it comes with the parallel "
-            "slice (mesh, sharding, ring over NCCL; ROADMAP.md, Queue 1)")
+        if mesh is None:
+            raise ValueError('ring attention requires a mesh')
+        if window is not None or softcap is not None:
+            raise ValueError('ring attention does not support '
+                             'window/softcap; use blockwise')
+        return ring_attention(q, k, v, mesh, causal=causal,
+                              block_size=block_size)
+    q_offset = 0
+    if mesh is not None and mesh.shape['context'] > 1:
+        group = mesh.group('context')
+        k = collectives.gather_weight(k, group, 1)
+        v = collectives.gather_weight(v, group, 1)
+        q_offset = mesh.index('context') * q.shape[1]
     if impl == 'blockwise' or (impl == 'flash' and window is not None
                                and not causal):
         return blockwise_attention(q, k, v, causal=causal,
-                                   block_size=block_size, window=window,
-                                   softcap=softcap)
+                                   block_size=block_size, q_offset=q_offset,
+                                   window=window, softcap=softcap)
     if impl == 'flash':
         from skypilot_tpu_torch.ops import flash_attention as fa
+        offset = {'q_offset': q_offset} if q_offset else {}
         return fa.flash_attention(q, k, v, causal, block_size, block_size,
-                                  window=window, softcap=softcap)
+                                  window=window, softcap=softcap, **offset)
     if impl == 'dense':
-        return dense_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
+        return dense_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               window=window, softcap=softcap)
     raise ValueError(f'Unknown attention impl {impl!r}; '
                      "expected 'dense' | 'blockwise' | 'ring' | 'flash'")

@@ -9,7 +9,12 @@ Ports `skypilot_tpu/ops/flash_attention.py`:
   reached through `_flash_bwd_impl` (:450), in `csrc/flash_bwd.cu`;
 - the `_flash` custom_vjp (:600-629) as `_FlashFn`, a
   `torch.autograd.Function` whose forward is K1 and whose backward is K3
-  and K4 (delta = rowsum(dO * O) in one torch op between them).
+  and K4 (delta = rowsum(dO * O) in one torch op between them);
+- ring attention's hops (`ops/attention.py`'s `ring_attention`, the
+  reference's :170-284) as `_RingFn`: K1 per hop, the hops' (O, lse)
+  merged in f32, and K3/K4 per hop against the merged lse, the dK/dV of
+  each block travelling back around the ring to the rank that holds it
+  (`ring_flash_attention`).
 `_build.py` compiles the kernels for sm_90a at first use.
 
 Each public entry point dispatches on where its tensors lie:
@@ -32,7 +37,8 @@ needs a gradient at another head_dim before K1 runs (`check_backward`).
 kernel launches (plain integers, never the plain version's calls); each
 wrapper's `window_launches` splits the same launches by the window they
 were given (None or its size), which tells a model's local layers from
-its global ones.
+its global ones, and its `causal_launches` by the causal flag (True or
+False), which tells a ring hop's diagonal block from a past one.
 
 K4 differs from the reference in one place: it sums the q heads of a GQA
 group inside the kernel in f32 and rounds dK/dV once, where the
@@ -320,15 +326,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f'flash forward kernel launch failed: CUDA '
                            f'error {err}')
-    _count(flash_attention_quant if quant else flash_attention, window)
+    _count(flash_attention_quant if quant else flash_attention, window,
+           causal)
     return out, lse
 
 
-def _count(wrapper, window) -> None:
-    """One launch of `wrapper`'s kernel, also tallied under its window."""
+def _count(wrapper, window, causal) -> None:
+    """One launch of `wrapper`'s kernel, also tallied under its window
+    and under its causal flag."""
     wrapper.launches += 1
     key = None if window is None else int(window)
     wrapper.window_launches[key] = wrapper.window_launches.get(key, 0) + 1
+    flag = bool(causal)
+    wrapper.causal_launches[flag] = wrapper.causal_launches.get(flag, 0) + 1
 
 
 def _check_attn_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -415,7 +425,7 @@ def _launch_bwd(which: str, q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f'flash backward ({which}) kernel launch failed: '
                            f'CUDA error {err}')
     _count(flash_attention_dq if which == 'dq' else flash_attention_dkv,
-           window)
+           window, causal)
     return out
 
 
@@ -552,6 +562,111 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           softcap, q_offset)
 
 
+def _hop_causal(me: int, src: int, causal: bool) -> Optional[bool]:
+    """How rank `me`'s queries attend the block rank `src` holds (both
+    contiguous slices of one length): the causal mask at no offset (the
+    diagonal block), all of it (a past block, or no causal mask), or
+    None: a block wholly in the future, which no kernel runs."""
+    if not causal:
+        return False
+    if src == me:
+        return True
+    return False if src < me else None
+
+
+def _merge(o_acc, lse_acc, o, lse):
+    """Fold one hop's (O [B,S,H,D], lse [B,H,S,1]) into the f32 running
+    (O, lse) of the hops before it."""
+    o = o.float()
+    if o_acc is None:
+        return o, lse
+    new = torch.logaddexp(lse_acc, lse)
+    scale_acc = torch.exp(lse_acc - new).permute(0, 2, 1, 3)
+    scale = torch.exp(lse - new).permute(0, 2, 1, 3)
+    return o_acc * scale_acc + o * scale, new
+
+
+class _RingFn(torch.autograd.Function):
+    """Ring attention through the flash kernels. Forward: the K/V block
+    of each hop (rank `me` holds block `me - hop` at hop `hop`) through
+    K1 with that block's mask (`_hop_causal`; a block wholly in the
+    future is skipped), the hops' (O, lse) merged in f32, then passed on
+    (`collectives.send_recv`). Backward: delta = rowsum(dO * O) of the
+    merged O; per hop K3 (dQ, summed in f32 here) and K4 (the block's dK,
+    dV) against the MERGED lse; each block's dK/dV (f32) gathers its
+    ranks' parts as it travels the ring, arriving at its owner after
+    ring-size - 1 passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, block_q, block_k):
+        from skypilot_tpu_torch.parallel import collectives
+        n, me = collectives.group_size(group), collectives.group_rank(group)
+        blocks = []
+        o_acc = lse_acc = None
+        k_blk, v_blk = k, v
+        for hop in range(n):
+            mode = _hop_causal(me, (me - hop) % n, causal)
+            blocks += [k_blk, v_blk]
+            if mode is not None:
+                o, lse = flash_fwd(q, k_blk, v_blk, mode, block_q, block_k)
+                o_acc, lse_acc = _merge(o_acc, lse_acc, o, lse)
+            if hop < n - 1:
+                k_blk = collectives.send_recv(k_blk, group, 1)
+                v_blk = collectives.send_recv(v_blk, group, 1)
+        out = o_acc.to(q.dtype)
+        ctx.save_for_backward(q, out, lse_acc.contiguous(), *blocks)
+        ctx.args = (group, causal, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from skypilot_tpu_torch.parallel import collectives
+        q, out, lse, *blocks = ctx.saved_tensors
+        group, causal, block_k = ctx.args
+        n, me = collectives.group_size(group), collectives.group_rank(group)
+        do = do.contiguous()
+        delta = bwd_delta(out, do)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = dv = None
+        # At pass s this rank holds the running dK/dV of block me-1-s,
+        # the block of its hop s+1 (mod n): the last pass's is its own.
+        for s in range(n):
+            hop = (s + 1) % n
+            k_blk, v_blk = blocks[2 * hop], blocks[2 * hop + 1]
+            if s:
+                dk = collectives.send_recv(dk, group, 1)
+                dv = collectives.send_recv(dv, group, 1)
+            else:
+                dk = torch.zeros(k_blk.shape, dtype=torch.float32,
+                                 device=q.device)
+                dv = torch.zeros_like(dk)
+            mode = _hop_causal(me, (me - hop) % n, causal)
+            if mode is None:
+                continue
+            kw = dict(causal=mode, block_k=block_k)
+            dq += flash_attention_dq(q, k_blk, v_blk, do, lse, delta,
+                                     **kw).float()
+            pk, pv = flash_attention_dkv(q, k_blk, v_blk, do, lse, delta,
+                                         **kw)
+            dk += pk.float()
+            dv += pv.float()
+        return (dq.to(q.dtype), dk.to(blocks[0].dtype),
+                dv.to(blocks[1].dtype), None, None, None, None)
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         group, causal: bool = True, block_q: int = 512,
+                         block_k: int = 512) -> torch.Tensor:
+    """Ring attention over `group` (this rank's contiguous slice of the
+    sequence in q, k, v; `_RingFn`): K1 per hop taken, K3/K4 per hop in
+    the backward, on CUDA; the same hops through the plain versions for
+    CPU tensors. A call that needs a gradient at a head_dim K3/K4 are
+    not built for raises first (`check_backward`)."""
+    check_backward(q.device, q.shape[-1], torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)))
+    return _RingFn.apply(q, k, v, group, causal, block_q, block_k)
+
+
 def flash_attention_quant(q: torch.Tensor, k_q: torch.Tensor,
                           k_scale: torch.Tensor, v_q: torch.Tensor,
                           v_scale: torch.Tensor, causal: bool = True,
@@ -571,4 +686,5 @@ for _wrapper in (flash_attention, flash_attention_quant, flash_attention_dq,
                  flash_attention_dkv):
     _wrapper.launches = 0
     _wrapper.window_launches = {}
+    _wrapper.causal_launches = {}
 del _wrapper

@@ -9,23 +9,32 @@ JAX drives every local chip from one process and lays a
 `jax.sharding.Mesh` over them; PyTorch runs one process per device. So a
 `Mesh` here is this process's view of the mesh: the resolved spec, its
 rank and the world size, its device (`cuda:{rank % device_count}`, or
-the CPU), and the process group of its `tensor` axis. Ranks are laid
-out row-major over `AXIS_ORDER`, so the trailing axes (tensor, context)
-hold consecutive ranks, which a launcher places on one host's NVLink,
-and `data` is the outermost: the only axis that crosses slices
-(`make_hybrid_mesh`). A one-process mesh needs no process group.
+the CPU), its coordinate on every axis, and the process groups its
+collectives run over. Ranks are laid out row-major over `AXIS_ORDER`, so
+the trailing axes (tensor, context) hold consecutive ranks, which a
+launcher places on one host's NVLink, and `data` is the outermost: the
+only axis that crosses slices (`make_hybrid_mesh`). A one-process mesh
+needs no process group.
+
+`make_mesh` builds one group per axis of size > 1 (the ranks that share
+every other coordinate), plus the groups the trainer reduces over: the
+batch group (`data` x `fsdp`, the axes the batch is cut along), the
+gradient group (`data` x `fsdp` x `context`, every axis a gradient sums
+over) and every other set of those axes, and the world.
+`Mesh.group(axes)` returns the group of any of these axis sets (None
+where it holds one rank).
 
 The collectives' backend is explicit: `nccl` on CUDA and `gloo` on the
 CPU, unless SKYTPU_TORCH_DIST_BACKEND names one. NCCL refuses two ranks
 on one device, so `make_mesh` raises before it builds an NCCL group
-there; `gloo` serves that case (its CUDA paths stage through the host).
-Every rank also joins a CPU `gloo` group over all ranks
-(`Mesh.control_group`): the replicated scheduler's channel
-(`parallel/control.py`).
+there; `gloo` serves that case (`parallel/collectives.py` stages through
+the host what gloo cannot take on CUDA). Every rank also joins a CPU
+`gloo` group over all ranks (`Mesh.control_group`): the replicated
+scheduler's channel (`parallel/control.py`) and the checkpoint writer's.
 
-`use_mesh` sets the ambient mesh, as the reference's does: the cached
-forward (`models/llama.py`, `inference/engine.py`) reads it to find the
-`tensor` group its reductions run over (`tensor_parallel`).
+`use_mesh` sets the ambient mesh, as the reference's does: the forward
+(`models/llama.py`, `inference/engine.py`) reads it to find the groups
+its collectives run over (`tensor_parallel`, `current`).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import contextlib
 import contextvars
 import dataclasses
 import datetime
+import itertools
 import math
 import os
 import socket
@@ -160,6 +170,10 @@ class Mesh:
     tensor_group: Any = None
     tensor_rank: int = 0
     control_group: Any = None
+    # Axis tuple -> process group, for every axis set of `_GROUP_AXES`
+    # that holds more than one rank (`group`).
+    groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -168,6 +182,30 @@ class Mesh:
     @property
     def tensor_size(self) -> int:
         return self.spec.tensor
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on every axis (row-major ranks)."""
+        return coords_of(self.spec, self.rank)
+
+    def index(self, axes: Union[str, Sequence[str]]) -> int:
+        """This rank's index along `axes`, rank-major in the order given
+        (GSPMD's order for a dimension cut by several axes)."""
+        return index_along(self.spec, self.rank, axes)
+
+    def group(self, axes: Union[str, Sequence[str]]) -> Any:
+        """The process group of this rank along `axes`; None when they
+        hold one rank. Raises for an axis set `make_mesh` did not
+        build."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        live = tuple(a for a in AXIS_ORDER if a in axes
+                     and self.spec.sizes()[a] > 1)
+        if not live:
+            return None
+        if live not in self.groups:
+            raise KeyError(f'no process group over {live} in this mesh '
+                           f'(built: {sorted(self.groups)})')
+        return self.groups[live]
 
 
 def _backend(device: torch.device) -> str:
@@ -210,11 +248,44 @@ def check_distinct_devices(backend: str,
         seen[place] = rank
 
 
-def _tensor_groups(shape: Tuple[int, ...]) -> List[List[int]]:
-    """The ranks of each `tensor` group: ranks that share every other
-    coordinate, consecutive because tensor is the last axis."""
-    t = shape[-1]
-    return np.arange(math.prod(shape)).reshape(-1, t).tolist()
+# The axes a gradient sums over (the batch's data x fsdp and the
+# sequence's context). The axis sets that get a process group (where
+# they hold > 1 rank): each axis alone, every set of gradient axes (the
+# batch group and the gradient group among them: a leaf cut along some
+# of them reduces over the rest), and the world.
+GRAD_AXES = ('data', 'fsdp', 'context')
+_GROUP_AXES = (tuple((a,) for a in AXIS_ORDER)
+               + tuple(c for n in (2, 3)
+                       for c in itertools.combinations(GRAD_AXES, n))
+               + (AXIS_ORDER,))
+
+
+def coords_of(spec: MeshSpec, rank: int) -> Dict[str, int]:
+    """A rank's coordinate on every axis of a resolved spec."""
+    return dict(zip(AXIS_ORDER, (int(c) for c in np.unravel_index(
+        rank, spec.shape()))))
+
+
+def index_along(spec: MeshSpec, rank: int,
+                axes: Union[str, Sequence[str]]) -> int:
+    """A rank's index along `axes`, the first axis major."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    coords, sizes = coords_of(spec, rank), spec.sizes()
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + coords[a]
+    return index
+
+
+def axis_groups(shape: Tuple[int, ...], axes: Sequence[str]
+                ) -> List[List[int]]:
+    """The ranks of each group along `axes`: ranks that share every
+    other coordinate, in rank order."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    keep = [i for i, a in enumerate(AXIS_ORDER) if a in axes]
+    rest = [i for i in range(len(AXIS_ORDER)) if i not in keep]
+    n = math.prod(shape[i] for i in keep)
+    return np.transpose(ranks, rest + keep).reshape(-1, n).tolist()
 
 
 def make_mesh(spec: MeshSpec,
@@ -246,19 +317,26 @@ def make_mesh(spec: MeshSpec,
     check_distinct_devices(backend, placements)
     if dev.type == 'cuda':
         torch.cuda.set_device(dev)
-    tensor_group = None
-    tensor_rank = 0
-    for ranks in _tensor_groups(spec.shape()):
-        group = dist.new_group(ranks, backend=backend,
-                               timeout=_GROUP_TIMEOUT)
-        if rank in ranks:
-            tensor_group, tensor_rank = group, ranks.index(rank)
+    # Every rank takes part in building every group, in one order.
+    groups: Dict[Tuple[str, ...], Any] = {}
+    sizes = spec.sizes()
+    for axes in _GROUP_AXES:
+        live = tuple(a for a in AXIS_ORDER if a in axes and sizes[a] > 1)
+        if not live or live in groups:
+            continue
+        for ranks in axis_groups(spec.shape(), live):
+            group = dist.new_group(ranks, backend=backend,
+                                   timeout=_GROUP_TIMEOUT)
+            if rank in ranks:
+                groups[live] = group
+    tensor_group = groups.get(('tensor',))
+    tensor_rank = coords_of(spec, rank)['tensor']
     from skypilot_tpu_torch.parallel import control
     control_group = dist.new_group(
         list(range(world)), backend='gloo',
         timeout=datetime.timedelta(seconds=control.TIMEOUT_SECONDS))
     return Mesh(spec, rank, world, dev, backend, tensor_group, tensor_rank,
-                control_group)
+                control_group, groups)
 
 
 def make_hybrid_mesh(spec: MeshSpec, num_slices: int,
@@ -289,6 +367,17 @@ def use_mesh(mesh: Optional[Mesh]):
         yield mesh
     finally:
         _AMBIENT.reset(token)
+
+
+def ambient() -> Optional[Mesh]:
+    """The ambient mesh as it was set (a one-rank mesh included)."""
+    return _AMBIENT.get()
+
+
+def current() -> Optional[Mesh]:
+    """The ambient mesh when it spans more than one rank, else None."""
+    mesh = _AMBIENT.get()
+    return mesh if mesh is not None and mesh.world_size > 1 else None
 
 
 def tensor_parallel() -> Optional[Mesh]:

@@ -11,19 +11,25 @@ its collectives out (`models/llama.py`, `inference/engine.py`). So:
 - `spec_for` returns a plain tuple of mesh-axis entries (None, an axis,
   or a tuple of axes), `tuple(PartitionSpec)` of the reference's;
 - `tree_shardings` gives each leaf a `Shard`, the function that cuts a
-  full leaf to this rank's slice along its `tensor` axis;
+  full leaf to this rank's slice along every mesh axis its rules name
+  (`embed` over `fsdp`, heads, MLP and vocab over `tensor`; a batch's
+  `batch` over `data` x `fsdp` and `seq` over `context`,
+  `batch_shard`);
 - `shard` (the reference's `with_sharding_constraint`) has no
   counterpart: it places nothing the port computes.
 
-Only the `tensor` axis cuts (the slice's serving mesh). A dimension the
-tensor degree does not divide raises, where GSPMD would pad it, with one
-exception the reference's tests serve: KV heads fewer than the tensor
-degree, which divides by them, are replicated, so each rank keeps the KV
-head its query heads read.
+A dimension cut by two axes at once takes GSPMD's order: the first axis
+of the rule is the major one (`batch` over ('data', 'fsdp'): data index
+times the fsdp degree plus the fsdp index). A dimension a degree does
+not divide raises, where GSPMD would pad it, with one exception the
+reference's tests serve: KV heads fewer than the tensor degree, which
+divides by them, are replicated, so each rank keeps the KV head its
+query heads read.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import (Any, Callable, Dict, Optional, Sequence, Tuple,
                     Union)
 
@@ -103,67 +109,101 @@ def kv_page_axes(ndim: int, stacked: bool = False
     return axes
 
 
-def cut(n: int, parts: int, index: int, logical: Optional[str] = None
-        ) -> Tuple[int, int]:
+def cut(n: int, parts: int, index: int, logical: Optional[str] = None,
+        axes: Union[str, Tuple[str, ...]] = 'tensor') -> Tuple[int, int]:
     """[start, stop) of part `index` of a dimension of size `n` split
-    `parts` ways. A replicable axis (KV heads) smaller than `parts`,
-    which it divides, gives each part the one entry its group reads."""
+    `parts` ways over mesh `axes`. A replicable axis (KV heads) smaller
+    than `parts`, which it divides, gives each part the one entry its
+    group reads."""
     if n % parts == 0:
         size = n // parts
         return index * size, (index + 1) * size
     if logical in _REPLICABLE and parts % n == 0:
         start = index // (parts // n)
         return start, start + 1
+    over = axes if isinstance(axes, str) else ' x '.join(axes)
     raise ValueError(
-        f'{logical or "an axis"} of size {n} does not split over tensor '
+        f'{logical or "an axis"} of size {n} does not split over {over} '
         f'degree {parts}: the port shards only what divides (KV heads '
         'may also replicate when the degree is a multiple of them)')
 
 
 @dataclasses.dataclass(frozen=True)
-class Shard:
-    """Cut a leaf to one rank's slice: dimension `dim` split `parts`
-    ways, part `index` kept (`dim` None keeps the leaf whole)."""
-    dim: Optional[int] = None
-    parts: int = 1
-    index: int = 0
+class Cut:
+    """Dimension `dim` split `parts` ways over mesh `axes`, part `index`
+    kept."""
+    dim: int
+    parts: int
+    index: int
     logical: Optional[str] = None
+    axes: Tuple[str, ...] = ('tensor',)
 
     def bounds(self, n: int) -> Tuple[int, int]:
-        return cut(n, self.parts, self.index, self.logical)
+        return cut(n, self.parts, self.index, self.logical, self.axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """Cut a leaf to one rank's slice: each `Cut` of `cuts` narrows its
+    dimension (no cuts keep the leaf whole)."""
+    cuts: Tuple[Cut, ...] = ()
 
     def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
-        shape = tuple(shape)
-        if self.dim is None:
-            return shape
-        lo, hi = self.bounds(shape[self.dim])
-        return shape[:self.dim] + (hi - lo,) + shape[self.dim + 1:]
+        shape = list(shape)
+        for c in self.cuts:
+            lo, hi = c.bounds(shape[c.dim])
+            shape[c.dim] = hi - lo
+        return tuple(shape)
 
     def __call__(self, leaf: torch.Tensor) -> torch.Tensor:
-        if self.dim is None:
-            return leaf
-        lo, hi = self.bounds(leaf.shape[self.dim])
-        return leaf.narrow(self.dim, lo, hi - lo)
+        for c in self.cuts:
+            lo, hi = c.bounds(leaf.shape[c.dim])
+            leaf = leaf.narrow(c.dim, lo, hi - lo)
+        return leaf
+
+    def place(self, full_shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This slice's index into the full leaf (a tuple of slices)."""
+        index = [slice(None)] * len(full_shape)
+        for c in self.cuts:
+            lo, hi = c.bounds(full_shape[c.dim])
+            index[c.dim] = slice(lo, hi)
+        return tuple(index)
 
     def per_layer(self) -> 'Shard':
         """The cut of one layer of a leaf stacked over layers (its
         leading axis, which never cuts)."""
-        if self.dim is None:
-            return self
-        if self.dim == 0:
+        if any(c.dim == 0 for c in self.cuts):
             raise ValueError('the layers axis of a stacked leaf does not cut')
-        return dataclasses.replace(self, dim=self.dim - 1)
+        return Shard(tuple(dataclasses.replace(c, dim=c.dim - 1)
+                           for c in self.cuts))
 
 
 def leaf_shard(mesh: Any, logical_axes: Sequence[Optional[str]],
-               rules: Optional[Rules] = None) -> Shard:
-    """The `Shard` of one leaf on this rank of `mesh`."""
+               rules: Optional[Rules] = None, rank: Optional[int] = None
+               ) -> Shard:
+    """The `Shard` of one leaf on this rank of `mesh` (or on `rank`):
+    every dimension whose rule names mesh axes of size > 1 is cut over
+    them, the first axis major."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    rank = mesh.rank if rank is None else rank
+    sizes = mesh.spec.sizes()
+    cuts = []
     for dim, (name, entry) in enumerate(zip(logical_axes,
                                             spec_for(logical_axes, rules))):
         axes = (entry,) if isinstance(entry, str) else (entry or ())
-        if 'tensor' in axes and mesh.tensor_size > 1:
-            return Shard(dim, mesh.tensor_size, mesh.tensor_rank, name)
-    return Shard()
+        axes = tuple(a for a in axes if sizes[a] > 1)
+        if axes:
+            cuts.append(Cut(dim, math.prod(sizes[a] for a in axes),
+                            mesh_lib.index_along(mesh.spec, rank, axes),
+                            name, axes))
+    return Shard(tuple(cuts))
+
+
+def batch_shard(mesh: Any, rules: Optional[Rules] = None) -> Shard:
+    """The cut of a [batch, seq] array (tokens, mask) on this rank: the
+    reference's `batch_shardings`, batch over ('data', 'fsdp') and seq
+    over 'context'."""
+    return leaf_shard(mesh, ('batch', 'seq'), rules)
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
@@ -176,6 +216,9 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
 
 
 def tree_shardings(mesh: Any, logical_tree: Any,
-                   rules: Optional[Rules] = None) -> Any:
-    """A pytree of logical-axis tuples -> the same pytree of `Shard`s."""
-    return tree_map(lambda axes: leaf_shard(mesh, axes, rules), logical_tree)
+                   rules: Optional[Rules] = None,
+                   rank: Optional[int] = None) -> Any:
+    """A pytree of logical-axis tuples -> the same pytree of `Shard`s
+    (this rank's, or `rank`'s)."""
+    return tree_map(lambda axes: leaf_shard(mesh, axes, rules, rank),
+                    logical_tree)

@@ -26,7 +26,17 @@ Against the reference:
   replaces the reference's `abstract_train_state` (a `jax.eval_shape`
   of the state as Orbax's restore target), which torch does not need:
   the state's own tensors give every shape, dtype and device.
-- There is no mesh: one device (the parallel slice, ROADMAP.md).
+- Under a mesh (a save takes the mesh and the model config, a restore
+  the state's cuts, `llama.shard_tree` of its params) the format stays
+  the same, independent of the mesh, as the reference's Orbax
+  checkpoints are:
+  each file entry holds the full tensor. A save gathers every rank's
+  slice to rank 0 over the CPU control group (`_gather_full`: one entry
+  at a time, moved as its bytes, each slice placed by its rank's
+  `Shard`), rank 0 writes the step and its sentinel, and every rank
+  learns that it is durable before the save returns. A restore reads
+  the full entries on every rank and keeps its cut, so a state saved
+  under one mesh resumes under any other (or on one device).
 - `save_train_state(wait=False)` copies every tensor to host memory
   before it returns (the train step updates the params in place), then
   writes in a background thread: its host peak is the whole state. An
@@ -37,6 +47,7 @@ Against the reference:
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -90,6 +101,58 @@ def _flat(tree: Dict[str, Any]) -> Iterator[Tuple[str, torch.Tensor]]:
             yield key, value
 
 
+def _entry_cuts(tree: Dict[str, Any], shardings: Optional[Dict[str, Any]]
+                ) -> Dict[str, Any]:
+    """The `Shard` of each file entry of `tree` (`_flat`'s names): a
+    layer slice takes its stacked leaf's cut one dimension down. Without
+    `shardings`, whole entries (an empty Shard each)."""
+    from skypilot_tpu_torch.parallel import sharding
+    if shardings is None:
+        return {name: sharding.Shard() for name, _ in _flat(tree)}
+    out = {}
+    for name, _ in _flat(tree):
+        parts = name.split('.')
+        out[name] = (shardings['layers'][parts[1]].per_layer()
+                     if parts[0] == 'layers' else shardings[name])
+    return out
+
+
+def _gather_full(tree: Dict[str, Any], mesh: Any, config: Any
+                 ) -> Optional[Dict[str, torch.Tensor]]:
+    """Every entry of a sharded tree put back whole on rank 0's host (on
+    the other ranks, None): each rank's slice is gathered to rank 0 over
+    the CPU control group as its bytes (gloo takes no bf16 or int16),
+    and placed by that rank's `Shard` (replicated slices land on the same
+    place)."""
+    import torch.distributed as dist
+
+    from skypilot_tpu_torch.models import llama as llama_lib
+    from skypilot_tpu_torch.parallel import sharding
+    logical = llama_lib.param_logical_axes(config)
+    sizes = llama_lib.axis_sizes(config)
+    every = [_entry_cuts(tree, sharding.tree_shardings(mesh, logical,
+                                                       rank=r))
+             for r in range(mesh.world_size)]
+    out = {} if mesh.rank == 0 else None
+    for name, local in _flat(tree):
+        part = local.detach().to('cpu').contiguous()
+        bits = part.view(torch.uint8)
+        parts = ([torch.empty_like(bits) for _ in range(mesh.world_size)]
+                 if mesh.rank == 0 else None)
+        dist.gather(bits, parts, dst=0, group=mesh.control_group)
+        if mesh.rank != 0:
+            continue
+        keys = name.split('.')
+        axes = (logical['layers'][keys[1]][1:] if keys[0] == 'layers'
+                else logical[name])
+        full_shape = [sizes[a] for a in axes]
+        full = torch.empty(full_shape, dtype=part.dtype)
+        for r, got in enumerate(parts):
+            full[every[r][name].place(full_shape)] = got.view(part.dtype)
+        out[name] = full
+    return out
+
+
 def _fsync(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -121,22 +184,30 @@ def _write_step(path: str, groups: List[Tuple[str, Dict[str, Any]]],
     _fsync(path)
 
 
-def save_train_state(ckpt_dir: str, state: Dict[str, Any],
-                     step: Optional[int] = None, wait: bool = True) -> str:
-    """Save {params, opt_state (mu, nu, count), step} under
-    ckpt_dir/<step>.
+def _save_sharded(path: str, trees, meta: Dict[str, Any], mesh: Any,
+                  config: Any) -> None:
+    """A mesh's save: every group gathered whole to rank 0
+    (`_gather_full`), rank 0 writes the step and its sentinel, and every
+    rank raises if rank 0's write failed (so every rank retries, or
+    none)."""
+    import torch.distributed as dist
+    host = [(g, _gather_full(tree, mesh, config)) for g, tree in trees]
+    error = None
+    if mesh.rank == 0:
+        try:
+            _replace_dir(path)
+            _write_step(path, host, meta)
+        except Exception as e:  # noqa: BLE001 — every rank raises below
+            error = f'{type(e).__name__}: {e}'
+    del host
+    errors: List[Any] = [None] * mesh.world_size
+    dist.all_gather_object(errors, error, group=mesh.control_group)
+    if errors[0] is not None:
+        raise RuntimeError(f'checkpoint save of {path} failed on rank 0: '
+                           f'{errors[0]}')
 
-    wait=False returns once every tensor is copied to the host; a
-    background thread writes the files and the sentinel (join it with
-    `flush()`), so the step becomes visible to latest_step only when it
-    is durable."""
-    if step is None:
-        step = int(state.get('step', 0))
-    path = _step_path(ckpt_dir, step)
-    faults.inject('checkpoint.save')
-    opt = state['opt_state']
-    meta = {'format': FORMAT, 'step': int(step),
-            'count': int(opt['count'])}
+
+def _replace_dir(path: str) -> None:
     if os.path.exists(path):
         # An earlier save of this step (complete or torn) is replaced,
         # sentinel first so it is never a candidate half-overwritten.
@@ -145,8 +216,36 @@ def save_train_state(ckpt_dir: str, state: Dict[str, Any],
             os.remove(sentinel)
         shutil.rmtree(path)
     os.makedirs(path)
+
+
+def save_train_state(ckpt_dir: str, state: Dict[str, Any],
+                     step: Optional[int] = None, wait: bool = True,
+                     mesh: Optional[Any] = None,
+                     config: Optional[Any] = None) -> str:
+    """Save {params, opt_state (mu, nu, count), step} under
+    ckpt_dir/<step>.
+
+    wait=False returns once every tensor is copied to the host; a
+    background thread writes the files and the sentinel (join it with
+    `flush()`), so the step becomes visible to latest_step only when it
+    is durable. Under a mesh of more than one rank (`mesh`, with the
+    model `config` whose param axes cut the state) every rank calls it:
+    the slices are gathered to rank 0, which writes the full entries,
+    and the save returns on every rank once the step is durable
+    (`wait` is ignored)."""
+    if step is None:
+        step = int(state.get('step', 0))
+    path = _step_path(ckpt_dir, step)
+    faults.inject('checkpoint.save')
+    opt = state['opt_state']
+    meta = {'format': FORMAT, 'step': int(step),
+            'count': int(opt['count'])}
     trees = (('params', state['params']), ('mu', opt['mu']),
              ('nu', opt['nu']))
+    if mesh is not None and mesh.world_size > 1:
+        _save_sharded(path, trees, meta, mesh, config)
+        return path
+    _replace_dir(path)
     if wait:
         # The writer copies one tensor at a time off the device.
         _write_step(path, [(g, dict(_flat(tree))) for g, tree in trees],
@@ -260,10 +359,14 @@ def _host_tensor(tensor: safetensors_io.LazyTensor) -> torch.Tensor:
 
 
 def _restore_group(reader: safetensors_io.CheckpointReader,
-                   tree: Dict[str, Any], where: str) -> None:
+                   tree: Dict[str, Any], where: str,
+                   shardings: Optional[Dict[str, Any]] = None) -> None:
     """Copy every entry of `reader` into the matching slice of `tree`,
-    in place; names, shapes and dtypes must match exactly."""
+    in place, each cut to this rank's slice by `shardings` (the tree's
+    `Shard`s; None: whole); names, shapes and dtypes must match
+    exactly."""
     want = dict(_flat(tree))
+    cuts = _entry_cuts(tree, shardings)
     have = set(reader.names())
     if set(want) != have:
         missing = sorted(set(want) - have)[:4]
@@ -272,7 +375,7 @@ def _restore_group(reader: safetensors_io.CheckpointReader,
                          f'state (missing {missing}, unexpected {extra})')
     with torch.no_grad():
         for name, dst in want.items():
-            src = _host_tensor(reader.tensor(name))
+            src = cuts[name](_host_tensor(reader.tensor(name)))
             if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
                 raise ValueError(
                     f'{where}: {name} is {src.dtype}{list(src.shape)} in '
@@ -282,11 +385,14 @@ def _restore_group(reader: safetensors_io.CheckpointReader,
 
 
 def restore_train_state(ckpt_dir: str, state: Dict[str, Any],
-                        step: Optional[int] = None) -> Dict[str, Any]:
+                        step: Optional[int] = None,
+                        shardings: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, Any]:
     """Restore `step` (default: the latest complete one) in place into
     `state`, a `trainer.make_train_state` of the same config on any
-    device; returns it. Every tensor's name, shape and dtype must
-    match."""
+    device or mesh (`shardings`: its `llama.shard_tree`, which
+    cut each full entry to this rank's slice); returns it. Every
+    tensor's name, shape (after the cut) and dtype must match."""
     step = _resolve_step(ckpt_dir, step)
     path = _step_path(ckpt_dir, step)
     meta = read_state_file(ckpt_dir, step)
@@ -295,7 +401,8 @@ def restore_train_state(ckpt_dir: str, state: Dict[str, Any],
                         ('nu', opt['nu'])):
         with safetensors_io.CheckpointReader(
                 os.path.join(path, group)) as reader:
-            _restore_group(reader, tree, os.path.join(path, group))
+            _restore_group(reader, tree, os.path.join(path, group),
+                           shardings)
     if state['params']['embed'].device.type == 'cuda':
         torch.cuda.synchronize(state['params']['embed'].device)
     opt['count'] = int(meta['count'])
@@ -303,10 +410,17 @@ def restore_train_state(ckpt_dir: str, state: Dict[str, Any],
     return state
 
 
-def _read_params(path: str, device: torch.device) -> Dict[str, Any]:
+def _read_params(path: str, device: torch.device,
+                 config: Optional[Any] = None,
+                 cuts: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The params group of a step directory as the family's
-    `init_params` tree on `device`, layer slices restacked."""
-    out: Dict[str, Any] = {}
+    `init_params` tree on `device`, layer slices restacked. With
+    `config` the entries must fit it (`check_geometry`, read from the
+    header before any tensor is); with `cuts` (the tree's `Shard`s)
+    each entry is cut to this rank's slice on the host, so the device
+    never holds more than the slice."""
+    from skypilot_tpu_torch.parallel import sharding
+    top: Dict[str, safetensors_io.LazyTensor] = {}
     layers: Dict[str, Dict[int, safetensors_io.LazyTensor]] = {}
     with safetensors_io.CheckpointReader(path) as reader:
         for name in reader.names():
@@ -315,21 +429,36 @@ def _read_params(path: str, device: torch.device) -> Dict[str, Any]:
                 layers.setdefault(parts[1], {})[int(parts[2])] = \
                     reader.tensor(name)
             elif len(parts) == 1:
-                out[name] = _host_tensor(reader.tensor(name)).to(device)
+                top[name] = reader.tensor(name)
             else:
                 raise ValueError(f'{path}: unexpected tensor {name!r}')
+        for key, slices in layers.items():
+            if sorted(slices) != list(range(len(slices))):
+                raise ValueError(f'{path}: layers of {key!r} are '
+                                 f'{sorted(slices)}, not 0..'
+                                 f'{len(slices) - 1}')
+        if config is not None:
+            meta = functools.partial(torch.empty, device='meta')
+            check_geometry({**{k: meta(t.shape) for k, t in top.items()},
+                            'layers': {k: meta((len(v),) + v[0].shape)
+                                       for k, v in layers.items()}},
+                           config)
+        cuts = cuts or {}
+        layer_cuts = cuts.get('layers', {})
+        out: Dict[str, Any] = {
+            name: cuts.get(name, sharding.Shard())(_host_tensor(t)).to(
+                device, copy=True)
+            for name, t in top.items()}
         stacked = {}
         for key, slices in layers.items():
-            n = len(slices)
-            if sorted(slices) != list(range(n)):
-                raise ValueError(f'{path}: layers of {key!r} are '
-                                 f'{sorted(slices)}, not 0..{n - 1}')
-            first = _host_tensor(slices[0])
-            buf = torch.empty((n,) + tuple(first.shape), dtype=first.dtype,
-                              device=device)
+            cut = (layer_cuts[key].per_layer() if key in layer_cuts
+                   else sharding.Shard())
+            first = cut(_host_tensor(slices[0]))
+            buf = torch.empty((len(slices),) + tuple(first.shape),
+                              dtype=first.dtype, device=device)
             buf[0].copy_(first)
-            for i in range(1, n):
-                buf[i].copy_(_host_tensor(slices[i]))
+            for i in range(1, len(slices)):
+                buf[i].copy_(cut(_host_tensor(slices[i])))
             stacked[key] = buf
     out['layers'] = stacked
     if device.type == 'cuda':
@@ -369,23 +498,29 @@ def check_geometry(params: Dict[str, Any], config: Any) -> None:
 
 def restore_params(ckpt_dir: str,
                    config: Optional[llama.LlamaConfig] = None,
-                   device: Optional[Union[str, torch.device]] = None
-                   ) -> Dict[str, Any]:
+                   device: Optional[Union[str, torch.device]] = None,
+                   mesh: Optional[Any] = None) -> Dict[str, Any]:
     """Just the model params (the inference and fine-tune path), on
-    `device` (CUDA unless named). An HF safetensors directory is
-    auto-detected and streams in through `checkpoints.load_params` with
-    its own config.json geometry; otherwise the latest complete step of
-    a port train checkpoint. With `config`, train-checkpoint params must
-    fit it (`check_geometry`)."""
+    `device` (CUDA unless named; the mesh's device under `mesh`). An HF
+    safetensors directory is auto-detected and streams in through
+    `checkpoints.load_params` with its own config.json geometry (under a
+    mesh, this rank's slices); otherwise the latest complete step of a
+    port train checkpoint (under a mesh of more than one rank, each
+    entry cut on the host by the `config`'s param axes). With `config`,
+    train-checkpoint params must fit it (`check_geometry`)."""
     from skypilot_tpu_torch import checkpoints as hf_ckpts
-    dev = device_lib.resolve_device(device)
+    sharded = mesh is not None and mesh.world_size > 1
+    dev = mesh.device if mesh is not None else device_lib.resolve_device(
+        device)
     if hf_ckpts.is_hf_checkpoint(ckpt_dir):
-        params, _detected, _stats = hf_ckpts.load_params(ckpt_dir,
-                                                         device=dev)
+        params, _detected, _stats = hf_ckpts.load_params(
+            ckpt_dir, device=dev, mesh=mesh if sharded else None)
         return params
     step = _resolve_step(ckpt_dir, None)
-    params = _read_params(os.path.join(_step_path(ckpt_dir, step),
-                                       'params'), dev)
-    if config is not None:
-        check_geometry(params, config)
-    return params
+    cuts = None
+    if sharded:
+        from skypilot_tpu_torch.parallel import sharding
+        cuts = sharding.tree_shardings(mesh,
+                                       llama.param_logical_axes(config))
+    return _read_params(os.path.join(_step_path(ckpt_dir, step), 'params'),
+                        dev, config, cuts)

@@ -1,11 +1,26 @@
 """Trainer: train state, the optimizer, one train step, MFU accounting.
 
 Ports `skypilot_tpu/train/trainer.py`: `TrainerConfig` (:23-58),
-`make_optimizer` (:61), `make_train_state` (:82), `make_train_step`
-(:109), `synthetic_batch` (:136), `mfu` (:154), `PEAK_FLOPS` (:162) and
-`detect_chip` (:171). It runs on one device: where the reference takes a
-mesh, these take a `device` (None = CUDA, raising without it); sharding
-waits for the parallel slice (ROADMAP.md, Queue 1).
+`make_optimizer` (:61), `batch_shardings` (:75), `make_train_state`
+(:82), `make_train_step` (:109), `synthetic_batch` (:136), `mfu` (:154),
+`PEAK_FLOPS` (:162) and `detect_chip` (:171). Where the reference takes
+a mesh these take a `parallel.Mesh` (one process per device, built by
+`mesh_from_env`) or, for a one-device run, a device (None = CUDA,
+raising without it).
+
+Under a mesh every rank holds its cut of the state
+(`sharding.tree_shardings` of `param_logical_axes`: `embed` over
+`fsdp`, heads, MLP and vocab over `tensor`) and of the batch
+(`batch_shardings`: batch over `data` x `fsdp`, seq over `context`).
+The step is the reference's GSPMD step written out: the loss and its
+gradient through the model's collectives (`models/llama.py`), each
+gradient all-reduced over the axes of `mesh.GRAD_AXES` it is not cut
+along (an FSDP-cut leaf's reduce-scatter over `fsdp` happened in the
+backward), the global norm summed over every shard once (a rank adds a
+leaf's squares only at coordinate 0 of each axis the leaf is replicated
+over), and AdamW on the shards in place. The pipeline and expert axes,
+and an MoE model under a mesh, are refused (`check_mesh`): the next
+parallel slice.
 
 The optimizer is the port's own copy of the reference's
 `optax.chain(clip_by_global_norm(grad_clip), adamw(
@@ -51,7 +66,11 @@ import torch
 from skypilot_tpu_torch import device as device_lib
 from skypilot_tpu_torch import weights
 from skypilot_tpu_torch.models import llama
+from skypilot_tpu_torch.models import moe
 from skypilot_tpu_torch.ops import flash_attention as fa
+from skypilot_tpu_torch.parallel import collectives
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import sharding
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 
@@ -147,11 +166,15 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, grads: List[torch.Tensor], opt_state: Dict[str, Any],
-                params: Any) -> torch.Tensor:
+                params: Any, norm: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """Apply one update in place to `params` and `opt_state`, with
         `grads` in `tree_leaves(params)` order. Returns the global norm
-        of the grads before clipping (a device scalar: no host sync)."""
-        norm = global_norm(grads)
+        of the grads before clipping (a device scalar: no host sync);
+        `norm` gives it (a sharded state's, `sharded_norm`) instead of
+        the norm of `grads`."""
+        if norm is None:
+            norm = global_norm(grads)
         scale = clip_scale(norm, self.grad_clip)
         count = opt_state['count'] + 1
         lr = self.learning_rate(opt_state['count'])
@@ -189,48 +212,161 @@ def make_optimizer(cfg: TrainerConfig) -> AdamW:
     return AdamW(cfg)
 
 
-def make_train_state(cfg: TrainerConfig,
-                     device: Optional[Union[str, torch.device]] = None,
-                     seed: int = 0, params: Optional[Any] = None
-                     ) -> Dict[str, Any]:
-    """Params (random from `seed`, or a copy of the given tree on
-    `device` in the config's dtypes, `weights.cast_params`), the
-    optimizer state and the step count."""
-    dev = device_lib.resolve_device(device)
+Where = Union[None, str, torch.device, mesh_lib.Mesh]
+
+
+def placement(mesh: Where = None) -> mesh_lib.Mesh:
+    """The mesh a train entry point runs on: `mesh` itself, or for a
+    device (None = CUDA) a one-rank mesh on it, so the ambient mesh is
+    always set (ring attention on one rank is blockwise, as the
+    reference's one-device mesh makes it)."""
+    if isinstance(mesh, mesh_lib.Mesh):
+        return mesh
+    dev = device_lib.resolve_device(mesh)
+    return mesh_lib.Mesh(mesh_lib.MeshSpec().resolve(1), 0, 1, dev)
+
+
+def check_mesh(config: Any, mesh: mesh_lib.Mesh) -> None:
+    """Refuse, before any parameter is drawn, what the trainer does not
+    run under a mesh yet: the pipeline and expert axes, and an MoE
+    model. Each is the next parallel slice (ROADMAP.md, Queue 1)."""
+    if mesh.world_size == 1:
+        return
+    for axis in ('pipe', 'expert'):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f'--mesh {axis}={mesh.shape[axis]}: the trainer runs the '
+                "'data', 'fsdp', 'tensor' and 'context' axes; the pipeline "
+                'and expert parallelism are the next parallel slice '
+                '(ROADMAP.md, Queue 1)')
+    if isinstance(config, moe.MoeConfig):
+        raise NotImplementedError(
+            'an MoE model under a mesh of more than one device is the next '
+            'parallel slice (expert parallelism, ROADMAP.md, Queue 1); '
+            'train it on one device')
+
+
+def batch_shardings(mesh: mesh_lib.Mesh) -> Dict[str, sharding.Shard]:
+    """The cut of each batch leaf on this rank (the reference's :75-79):
+    ('batch', 'seq') over ('data', 'fsdp') x 'context'."""
+    cut = sharding.batch_shard(mesh)
+    return {'tokens': cut, 'mask': cut}
+
+
+def _cut_params(params: Any, cuts: Optional[Any]) -> Any:
+    """Each full leaf cut to this rank's slice (`cuts` None: whole), as a
+    copy (a view would keep the full leaf alive)."""
+    if cuts is None:
+        return tree_map(torch.Tensor.clone, params)
+    return sharding.tree_map(lambda leaf, shard: shard(leaf).clone(),
+                             params, cuts)
+
+
+def make_train_state(cfg: TrainerConfig, mesh: Where = None, seed: int = 0,
+                     params: Optional[Any] = None) -> Dict[str, Any]:
+    """Params (random from `seed`, or a copy of the given tree on the
+    device in the config's dtypes, `weights.cast_params`), the optimizer
+    state and the step count. Under a mesh every rank draws each full
+    leaf (a layer at a time) and keeps its cut, so the state is the
+    one-device init cut, on any mesh; given `params` (full leaves) are
+    cut the same way."""
+    mesh = placement(mesh)
+    dev = mesh.device
     mcfg = cfg.model_config()
     check_kernels(mcfg, dev)
+    check_mesh(mcfg, mesh)
+    cuts = llama.shard_tree(mcfg, mesh)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = cfg.model_family().init_params(mcfg, gen, dev)
+        kw = {} if cuts is None else {'shardings': cuts}
+        params = cfg.model_family().init_params(mcfg, gen, dev, **kw)
     else:
         # In the config's dtypes: the MoE router stays f32 in a bf16
         # model, as the reference keeps it.
-        params = tree_map(torch.Tensor.clone,
-                          weights.cast_params(params, mcfg, dev))
+        params = _cut_params(weights.cast_params(params, mcfg, dev), cuts)
     params = tree_map(lambda p: p.requires_grad_(True), params)
     return {'params': params,
             'opt_state': make_optimizer(cfg).init(params), 'step': 0}
 
 
-def make_train_step(cfg: TrainerConfig,
-                    device: Optional[Union[str, torch.device]] = None
+def shard_state(state: Dict[str, Any], cfg: TrainerConfig,
+                mesh: Where = None) -> Dict[str, Any]:
+    """A full train state (`weights.from_jax_train_state`'s, or a
+    one-device state) as this rank's: the params in the config's dtypes
+    and the moments in their own, each leaf cut (copied) onto the mesh's
+    device; the count and the step kept."""
+    mesh = placement(mesh)
+    mcfg = cfg.model_config()
+    cuts = llama.shard_tree(mcfg, mesh)
+    params = _cut_params(weights.cast_params(state['params'], mcfg,
+                                             mesh.device), cuts)
+    opt = state['opt_state']
+    moments = {k: _cut_params(tree_map(lambda t: t.to(mesh.device),
+                                       opt[k]), cuts)
+               for k in ('mu', 'nu')}
+    return {'params': tree_map(lambda p: p.requires_grad_(True), params),
+            'opt_state': {'count': int(opt['count']), **moments},
+            'step': int(state['step'])}
+
+
+def _reduce_axes(shard: sharding.Shard) -> Tuple[str, ...]:
+    """The gradient axes a leaf's gradient is all-reduced over: those of
+    `mesh.GRAD_AXES` it is not cut along."""
+    cut = {a for c in shard.cuts for a in c.axes}
+    return tuple(a for a in mesh_lib.GRAD_AXES if a not in cut)
+
+
+def reduce_grads_(grads: List[torch.Tensor], cuts: List[sharding.Shard],
+                  mesh: mesh_lib.Mesh) -> None:
+    """All-reduce each gradient, in place, over the gradient axes it is
+    not cut along (`_reduce_axes`)."""
+    for g, shard in zip(grads, cuts):
+        collectives.all_reduce_(g, mesh.group(_reduce_axes(shard)))
+
+
+def sharded_norm(grads: List[torch.Tensor], cuts: List[sharding.Shard],
+                 mesh: mesh_lib.Mesh) -> torch.Tensor:
+    """The global norm of a sharded gradient tree (f32): each element's
+    square counted once, by the ranks at coordinate 0 of every axis its
+    leaf is replicated over, summed over the world."""
+    coords = mesh.coords
+    sq = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for g, shard in zip(grads, cuts):
+        cut = {a for c in shard.cuts for a in c.axes}
+        if all(coords[a] == 0 for a in mesh_lib.AXIS_ORDER if a not in cut):
+            sq = sq + torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
+    collectives.all_reduce_(sq, mesh.group(mesh_lib.AXIS_ORDER))
+    return sq.sqrt()
+
+
+def make_train_step(cfg: TrainerConfig, mesh: Where = None
                     ) -> Callable[[Dict[str, Any], Dict[str, Any]],
                                   Tuple[Dict[str, Any], Dict[str, Any]]]:
     """Returns (state, batch) -> (state, metrics). The step updates the
     params and the optimizer moments IN PLACE and returns the same state
-    dict with 'step' advanced; metrics hold 'loss' and 'grad_norm' as
-    device scalars and 'step' as an int."""
+    dict with 'step' advanced; metrics hold 'loss' and 'grad_norm' (both
+    global under a mesh) as device scalars and 'step' as an int. Under a
+    mesh `batch` is this rank's cut (`batch_shardings`)."""
+    mesh = placement(mesh)
     mcfg = cfg.model_config()
-    check_kernels(mcfg, device_lib.resolve_device(device))
+    check_kernels(mcfg, mesh.device)
+    check_mesh(mcfg, mesh)
     family = cfg.model_family()
     optimizer = make_optimizer(cfg)
+    cuts = llama.shard_tree(mcfg, mesh)
+    leaf_cuts = None if cuts is None else tree_leaves(cuts)
 
     def step_fn(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state['params']
-        loss = family.loss_fn(params, batch, mcfg)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
-        grad_norm = optimizer.update_(list(grads), state['opt_state'],
-                                      params)
+        with mesh_lib.use_mesh(mesh):
+            loss = family.loss_fn(params, batch, mcfg)
+            grads = list(torch.autograd.grad(loss, tree_leaves(params)))
+        norm = None
+        if leaf_cuts is not None:
+            reduce_grads_(grads, leaf_cuts, mesh)
+            norm = sharded_norm(grads, leaf_cuts, mesh)
+        grad_norm = optimizer.update_(grads, state['opt_state'], params,
+                                      norm=norm)
         del grads
         state['step'] += 1
         return state, {'loss': loss.detach(), 'grad_norm': grad_norm,
@@ -239,18 +375,21 @@ def make_train_step(cfg: TrainerConfig,
     return step_fn
 
 
-def synthetic_batch(cfg: TrainerConfig,
-                    device: Optional[Union[str, torch.device]] = None,
-                    seed: int = 1) -> Dict[str, torch.Tensor]:
-    """Random-token batch (bench/tests), drawn on `device` from `seed`."""
-    dev = device_lib.resolve_device(device)
+def synthetic_batch(cfg: TrainerConfig, mesh: Where = None, seed: int = 1
+                    ) -> Dict[str, torch.Tensor]:
+    """Random-token batch (bench/tests): the global batch drawn on the
+    device from `seed`, then this rank's cut (`batch_shardings`)."""
+    mesh = placement(mesh)
+    dev = mesh.device
     mcfg = cfg.model_config()
     gen = torch.Generator(device=dev).manual_seed(seed)
     tokens = torch.randint(0, mcfg.vocab_size, (cfg.batch_size, cfg.seq_len),
                            generator=gen, device=dev)
     mask = torch.ones((cfg.batch_size, cfg.seq_len), dtype=torch.float32,
                       device=dev)
-    return {'tokens': tokens, 'mask': mask}
+    cut = batch_shardings(mesh)
+    return {'tokens': cut['tokens'](tokens).contiguous(),
+            'mask': cut['mask'](mask).contiguous()}
 
 
 def mfu(tokens_per_sec: float, config: llama.LlamaConfig, seq_len: int,

@@ -10,7 +10,9 @@ f32 whatever the model dtype (the MoE router, `moe.F32_LEAVES`).
 `config_from_dict` builds the port's `LlamaConfig`, or `MoeConfig` when
 the fields name experts, from `dataclasses.asdict(reference_config)`,
 with the dtype given by name or as any object numpy recognises as a
-dtype.
+dtype. `from_jax_train_state` carries a whole reference train state
+across (params, and optax's AdamW mu, nu and count), for the tests that
+hold the port's step under a mesh against the reference's.
 """
 from __future__ import annotations
 
@@ -45,6 +47,38 @@ def from_jax_params(tree: Any, config: Optional[Any] = None,
     With `config`, floating leaves take its dtypes (`cast_params`)."""
     tree = _map(lambda a, _path: to_tensor(a, device), tree)
     return tree if config is None else cast_params(tree, config)
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The first node of an optax state (nested tuples and named tuples)
+    that carries `mu` and `nu`: `ScaleByAdamState`."""
+    if hasattr(opt_state, 'mu') and hasattr(opt_state, 'nu'):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for node in opt_state:
+            found = _adam_state(node)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_train_state(state: Dict[str, Any], config: Optional[Any] = None,
+                         device: Union[str, torch.device] = 'cpu'
+                         ) -> Dict[str, Any]:
+    """A reference train state ({'params', 'opt_state', 'step'} with
+    numpy leaves: the reference's `make_train_state` or a step's output
+    after `np.asarray` on each leaf) -> the port's full train state:
+    params (in `config`'s dtypes, with one), the AdamW moments in their
+    own dtypes, the count and the step (`trainer.shard_state` cuts it to
+    a rank's slice)."""
+    adam = _adam_state(state['opt_state'])
+    if adam is None:
+        raise ValueError('the optimizer state holds no AdamW mu/nu')
+    return {'params': from_jax_params(state['params'], config, device),
+            'opt_state': {'count': int(np.asarray(adam.count)),
+                          'mu': from_jax_params(adam.mu, None, device),
+                          'nu': from_jax_params(adam.nu, None, device)},
+            'step': int(np.asarray(state['step']))}
 
 
 def _map(fn, tree: Any, path: Tuple[str, ...] = ()) -> Any:

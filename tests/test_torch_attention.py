@@ -134,7 +134,8 @@ def test_attention_routing(monkeypatch):
     assert len(calls) == 1
     assert torch.equal(out, port.blockwise_attention(
         q, k, v, causal=False, block_size=8, window=4))
-    with pytest.raises(NotImplementedError, match='parallel slice'):
+    # Ring attention raises where the reference's does: without a mesh.
+    with pytest.raises(ValueError, match='ring attention requires a mesh'):
         port.attention(q, k, v, impl='ring')
     with pytest.raises(ValueError, match='Unknown attention impl'):
         port.attention(q, k, v, impl='paged')

@@ -702,11 +702,13 @@ def test_gemma_train_phases_rehearse_on_cpu(monkeypatch, one_torch_thread,
 
     def counting(fn, counter=None):
         def wrapper(*args, **kwargs):
-            window = inspect.signature(fn).bind(
-                *args, **kwargs).arguments.get('window')
-            fa._count(counter or wrapper, window)
+            bound = inspect.signature(fn).bind(*args, **kwargs)
+            bound.apply_defaults()
+            fa._count(counter or wrapper, bound.arguments['window'],
+                      bound.arguments['causal'])
             return fn(*args, **kwargs)
         wrapper.launches, wrapper.window_launches = 0, {}
+        wrapper.causal_launches = {}
         return wrapper
 
     monkeypatch.setattr(fa, 'flash_fwd',

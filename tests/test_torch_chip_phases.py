@@ -34,7 +34,7 @@ def counted_kernels(monkeypatch):
     def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
                v_scale=None):
         fa._count(fa.flash_attention if k_scale is None
-                  else fa.flash_attention_quant, window)
+                  else fa.flash_attention_quant, window, causal)
         return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
                          k_scale=k_scale, v_scale=v_scale)
 
@@ -46,11 +46,13 @@ def counted_kernels(monkeypatch):
 
     def counting(fn):
         def wrapper(*args, **kwargs):
-            window = inspect.signature(fn).bind(
-                *args, **kwargs).arguments.get('window')
-            fa._count(wrapper, window)
+            bound = inspect.signature(fn).bind(*args, **kwargs)
+            bound.apply_defaults()
+            fa._count(wrapper, bound.arguments['window'],
+                      bound.arguments['causal'])
             return fn(*args, **kwargs)
         wrapper.launches, wrapper.window_launches = 0, {}
+        wrapper.causal_launches = {}
         return wrapper
 
     monkeypatch.setattr(fa, '_launch', launch)
@@ -272,7 +274,7 @@ def stub_rank_kernels():
     def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
                v_scale=None):
         fa._count(fa.flash_attention if k_scale is None
-                  else fa.flash_attention_quant, window)
+                  else fa.flash_attention_quant, window, causal)
         return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
                          k_scale=k_scale, v_scale=v_scale)
 
@@ -345,3 +347,109 @@ def test_tp_serve_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
     assert over['added_ms'] == pytest.approx(over['synced_ms']
                                              - over['plain_ms'])
     assert {'share_of_bf16_wall', 'share_of_int8_wall'} <= set(over)
+
+
+def stub_mesh_rank_kernels():
+    """In a mesh_train rank process (chip_smoke.MT_RANK_SETUP): the
+    tp_serve stand-in for K1, K3/K4 counted as `counted_kernels` counts
+    them, and ring attention on the CUDA path's hops
+    (`ring_flash_attention`, its K1/K3/K4 through the counting
+    stand-ins) where the CPU would run the plain ring."""
+    from skypilot_tpu_torch.ops import attention
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    stub_rank_kernels()
+
+    def counting(fn):
+        def wrapper(*args, **kwargs):
+            fa._count(wrapper, kwargs.get('window'),
+                      kwargs.get('causal', True))
+            return fn(*args, **kwargs)
+        wrapper.launches, wrapper.window_launches = 0, {}
+        wrapper.causal_launches = {}
+        return wrapper
+
+    for name in ('flash_attention_dq', 'flash_attention_dkv'):
+        setattr(fa, name, counting(getattr(fa, name)))
+
+    def ring(q, k, v, mesh, axis='context', causal=True, block_size=512):
+        return fa.ring_flash_attention(q, k, v, mesh.group(axis),
+                                       causal=causal, block_q=block_size,
+                                       block_k=block_size)
+    attention.ring_attention = ring
+
+
+def _rehearse_mesh_train(monkeypatch):
+    """chip_smoke's mesh_train constants at the tiny sizes (f32, 2
+    layers, global batch 2 x 32, flash on the fsdp and tensor legs)."""
+    monkeypatch.setattr(chip_smoke, 'MT_MODEL', 'tiny')
+    monkeypatch.setattr(chip_smoke, 'MT_SEQ', 32)
+    monkeypatch.setattr(chip_smoke, 'MT_LEGS', (
+        ('fsdp', 'fsdp=-1', 'flash', ((1, 0), (1, 0))),
+        ('tensor', 'tensor=2', 'flash', ((1, 0), (1, 0))),
+        ('ring', 'context=2', 'ring', ((1, 0), (1, 1)))))
+    monkeypatch.setattr(chip_smoke, 'MT_RANK_SETUP', (
+        'test_torch_chip_phases:stub_mesh_rank_kernels',
+        os.path.dirname(os.path.abspath(__file__))))
+
+
+def test_mesh_train_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
+    """mesh_train on tiny (f32): two rank processes over gloo through
+    train.loop.main per leg (fsdp from the seed weights as an HF
+    --checkpoint, saving; tensor and its resume of the fsdp checkpoint;
+    ring), against the unsharded steps here: no limit
+    broken, each rank's launches by causal flag those
+    `mt_expected_launches` writes from the code, the checkpoint's save
+    and restore read."""
+    _rehearse_mesh_train(monkeypatch)
+    out = chip_smoke.mesh_train_phase(torch)
+    assert out['faults'] == []
+    want = chip_smoke.mt_expected_launches(chip_smoke.MT_LEGS, 2, 2, False)
+
+    def split(causal, full, k2=(0, 0)):
+        return {k: {'causal': c, 'full': f} for k, (c, f) in (
+            ('K1', (causal, full)), ('K2', k2), ('K3', (causal, full)),
+            ('K4', (causal, full)))}
+    assert want['ring'] == [split(4, 0), split(4, 4)]
+    assert want['resume'] == [split(2, 0)] * 2
+    assert [chip_smoke.mt_total(n) for n in want['ring']] == [
+        {'K1': 4, 'K2': 0, 'K3': 4, 'K4': 4},
+        {'K1': 8, 'K2': 0, 'K3': 8, 'K4': 8}]
+    legs = out['legs']
+    for leg in ('fsdp', 'tensor', 'ring'):
+        assert legs[leg]['launches_per_rank'] == want[leg]
+        assert legs[leg]['world'] == 2 and legs[leg]['replicated_equal']
+        assert 0 < legs[leg]['collectives_share'] < 1
+        assert len(legs[leg]['losses']) == chip_smoke.MT_STEPS
+    assert legs['tensor']['local_heads'] == 2
+    assert legs['ring']['replicated_leaves'] == 12
+    assert legs['fsdp']['replicated_leaves'] == 0
+    assert legs['fsdp']['save_gb_per_s'] > 0
+    assert '--checkpoint' in legs['fsdp']['argv']
+    assert legs['tensor']['resume']['launches_per_rank'] == want['resume']
+    assert legs['tensor']['resume']['restore_gb_per_s'] > 0
+    assert legs['tensor']['resume']['save_gb_per_s'] > 0
+    # The set-up's clock: the fsdp leg imports the seed checkpoint, which
+    # the ranks wait for after their start.
+    assert set(legs['fsdp']['setup_s']) == {'mesh', 'train_state',
+                                            'checkpoint_import'}
+    starts = out['rank_start']
+    assert all(0 < a <= b <= c for a, b, c in zip(
+        starts['import_s'], starts['start_s'], starts['ready_s']))
+
+
+@pytest.mark.parametrize('fault', ['batch_reduce', 'column_allreduce',
+                                   'boundary_masked', 'local_lse'])
+def test_mesh_train_faults_break_a_limit_on_cpu(monkeypatch, counted_kernels,
+                                                fault):
+    """mesh_fault_check.py's faults planted in the tiny rehearsal's
+    ranks, each on the legs it touches: each breaks a limit."""
+    import mesh_fault_check
+    _rehearse_mesh_train(monkeypatch)
+    legs = {leg[0]: leg for leg in chip_smoke.MT_LEGS}
+    out = chip_smoke.mesh_train_phase(
+        torch, legs=tuple(legs[n] for n in mesh_fault_check.FAULT_LEGS[
+            fault]), fault=fault)
+    # A numeric limit breaks: not only the launch count or the ranks'
+    # agreement.
+    assert any('loss' in f or 'grad norm' in f for f in out['faults']), (
+        fault, out['faults'])

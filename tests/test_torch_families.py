@@ -210,7 +210,7 @@ def test_head_dim_256_flash_config_trains_on_cpu(monkeypatch):
     cfg = trainer.TrainerConfig(model='tiny-gemma-d256', batch_size=2,
                                 seq_len=32, max_steps=3, warmup_steps=1,
                                 learning_rate=1e-2)
-    res = train_loop.fit(cfg, device='cpu', log_every=1,
+    res = train_loop.fit(cfg, 'cpu', log_every=1,
                          log_fn=lambda *_: None)
     losses = [h['loss'] for h in res['history']]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -259,23 +259,30 @@ def test_kernel_head_dims_split_forward_and_backward():
 
 def test_launch_count_tallies_each_window():
     """`_count`, which each launcher calls once where its kernel launches,
-    adds one to the wrapper's launches and one to its tally for that
-    window, so a run can read a model's local and global layers apart.
-    Every wrapper starts with an empty tally."""
+    adds one to the wrapper's launches, one to its tally for that window,
+    so a run can read a model's local and global layers apart, and one
+    to its tally for the causal flag, so a run can read a ring hop's
+    diagonal block from a past one. Every wrapper starts with empty
+    tallies."""
     for wrapper in (fa.flash_attention, fa.flash_attention_quant,
                     fa.flash_attention_dq, fa.flash_attention_dkv):
         assert isinstance(wrapper.window_launches, dict)
+        assert isinstance(wrapper.causal_launches, dict)
 
     def wrapper():
         pass
 
     wrapper.launches, wrapper.window_launches = 0, {}
-    for window in (4096, 2 ** 30, 4096, None, np.int64(4096)):
-        fa._count(wrapper, window)
+    wrapper.causal_launches = {}
+    for window, causal in ((4096, True), (2 ** 30, 1), (4096, False),
+                           (None, True), (np.int64(4096), 0)):
+        fa._count(wrapper, window, causal)
     assert wrapper.launches == 5
     assert wrapper.window_launches == {4096: 3, 2 ** 30: 1, None: 1}
     assert all(type(key) is int for key in wrapper.window_launches
                if key is not None)
+    assert wrapper.causal_launches == {True: 3, False: 2}
+    assert all(type(key) is bool for key in wrapper.causal_launches)
 
 
 def test_head_dim_256_gradient_is_refused_for_cuda_before_the_forward():

@@ -388,15 +388,17 @@ def test_two_gloo_ranks_run_the_forwards_collectives(tiny):
 
 
 def test_training_and_the_checkpoints_cli_keep_one_device(tmp_path):
-    """The refusals this slice keeps: the trainer and the checkpoints
-    CLI take no mesh of more than one device (the next parallel slice);
-    a one-device mesh is accepted."""
+    """The checkpoints CLI still imports on one device only; the trainer
+    takes a mesh of several devices as one process per device, so one
+    process asking for two raises, naming the gang variables. A
+    one-device mesh is accepted by both."""
     from skypilot_tpu_torch.checkpoints import __main__ as cli
     from skypilot_tpu_torch.train import loop
-    with pytest.raises(NotImplementedError, match='parallel slice'):
+    with pytest.raises(NotImplementedError, match='imports on one device'):
         cli.main(['import', str(tmp_path), '--device', 'cpu', '--mesh',
                   'tensor=2'])
-    with pytest.raises(NotImplementedError, match='parallel slice'):
+    with pytest.raises(ValueError, match='one process per device.*'
+                       'SKYTPU_PROCESS_ID'):
         loop.main(['--device', 'cpu', '--mesh', 'tensor=2'])
     # A one-device mesh passes the check (the empty directory then fails
     # as a checkpoint, rc 1).
