@@ -289,11 +289,29 @@ Phases, each printing one JSON line:
                   checkpoint save and restore GB/s. Then K1, K3 and K4
                   checked against their plain versions and timed at the
                   ring's per-hop shapes (`mesh_train_ring_kernels`),
-                  with the ring leg's launches at each.
-                  `mesh_fault_check.py` plants the four faults the
+                  with the ring leg's launches at each. In the same
+                  ranks, two more legs (`extra_legs`): `pipe`, bench-8b
+                  through `pipeline.llama_pipeline_forward` over pipe=2
+                  (one layer a stage, 2 microbatches, each stage holding
+                  its layers of the seed-0 draw), one forward and
+                  backward of the cross-entropy: the sampled logits, the
+                  loss and every gradient leaf's norm against the
+                  unsharded forward's (TOL_PIPE_*), the replicated
+                  leaves' gradients bit-equal across the stages, K1 4
+                  and K3/K4 2 a rank; `expert`, mixtral-8x7b at full
+                  width (2 layers, 1 x 4096, 4 experts a rank) through
+                  `train.loop.main --mesh expert=2 --attention flash`,
+                  against the parent's unsharded steps (run once the
+                  ranks' fsdp, tensor and ring legs are done: the two
+                  mixtral states never share the card) within
+                  TOL_MT_LOSS_REL / TOL_MT_NORM_REL, the ranks agreeing,
+                  replicated leaves bit-equal, K1 8 and K3/K4 4 a rank,
+                  peak memory a rank and for the card.
+                  `mesh_fault_check.py` plants the ten faults the
                   limits must catch.
 Then a `kernels` line (each kernel's `path_launches`: its launches on
-the openai, batch, roundtrip, MoE, tp_serve and mesh_train paths) and,
+the openai, batch, roundtrip, MoE, tp_serve and mesh_train paths, the
+pipe and expert legs among them) and,
 last,
 {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
@@ -1851,9 +1869,7 @@ def spec_engines(torch, inference, fa, llama, params, config, dparams,
     with the draft (and, with `target_as_draft`, with the target as its
     own draft), the same greedy prompts through each. K1 (K2 with
     `quant`) launches and their shapes are read around the draft
-    engines' runs only. After them, on bf16 KV, one pure spec dispatch
-    (8 rounds) of the draft engine runs under the profiler. Returns the
-    readings, with
+    engines' runs only. Returns the readings, with
     `faults`: each divergence the rule does not pass and (target as
     draft) acceptance under TOL_SPEC_ACCEPT. Raises when K1/K2 never
     launched."""
@@ -1881,7 +1897,7 @@ def spec_engines(torch, inference, fa, llama, params, config, dparams,
            'spec_fuse_rounds': SPEC_ROUNDS, 'plain': plain_run}
     fa._launch = recording
     counter.launches = 0
-    runs, profiled = {}, None
+    runs = {}
     try:
         for name, draft in drafts:
             engine = inference.InferenceEngine(
@@ -1889,28 +1905,11 @@ def spec_engines(torch, inference, fa, llama, params, config, dparams,
                 spec_fuse_rounds=SPEC_ROUNDS, **kw)
             runs[name] = run_greedy(torch, inference, engine, prompts,
                                     SPEC_NEW)
-            if name == 'draft' and not quant:
-                profiled = engine
             del engine
             torch.cuda.empty_cache()
     finally:
         fa._launch = launch
     out['kernel_launches'] = counter.launches
-    if profiled is not None:
-        # Where a dispatch's time goes: the prompts again, the step that
-        # admits them, then the next (a pure spec dispatch) under the
-        # profiler.
-        for p in prompts:
-            profiled.submit(p, inference.SamplingParams(
-                max_new_tokens=SPEC_NEW))
-        profiled.step()
-        out['dispatch_profile'] = profile_breakdown(
-            torch, profiled.step,
-            shares={k: v for k, v in PREFILL_SHARES.items()
-                    if not k.startswith('K1')})
-        profiled.abort_all()
-        del profiled
-        torch.cuda.empty_cache()
     out['launched_shapes'] = [{'shape': list(c), 'launches': n} for c, n in
                               sorted(collections.Counter(shapes).items())]
     if not 0 < out['kernel_launches'] == len(shapes):
@@ -4299,6 +4298,7 @@ def start_ranks(argv_of, env_of, log_dir, name, timeout):
                 f.close()
         return rcs, tails, time.perf_counter() - t0
 
+    wait.alive = lambda: all(p.poll() is None for p in procs)
     return wait
 
 
@@ -4654,6 +4654,50 @@ MT_RANK_SETUP = None
 TOL_MT_LOSS_REL = 1e-3       # |loss - unsharded| / unsharded, a step
 TOL_MT_NORM_REL = 1e-2       # |grad norm - unsharded| / unsharded
 TOL_MT_PROBE = 0.1           # |probe loss - unsharded probe loss|
+# The two legs after MT_LEGS, in the same ranks (MT_EXTRA_LEGS):
+# - 'pipe': the same bench-8b cut (MT_LAYERS layers, one a stage) through
+#   `pipeline.llama_pipeline_forward` over MT_PIPE_MESH, the global batch
+#   MT_BATCH x MT_SEQ in MT_MICROBATCHES microbatches, each stage holding
+#   only its layers of the seed-0 draw; one forward and backward of the
+#   port's cross-entropy (`llama.cross_entropy`), its gradients through
+#   the trainer's reduction (`reduce_grads_`: none over `pipe`). Held
+#   against the unsharded `llama.forward` of the same weights and batch
+#   (the parent's, before its first step): the logits at every
+#   MT_LOGIT_STRIDE-th position of each row (max |a - b| / max |b|), the
+#   loss, and the norm of every gradient leaf (each layer's on its
+#   stage), relative; the replicated leaves' gradients (embed, final
+#   norm, head) bit-equal across the stages.
+# - 'expert': mixtral-8x7b at full width cut to MT_EXPERT_LAYERS layers,
+#   `train.loop.main --mesh expert=2 --attention flash`, MT_EXPERT_BATCH
+#   x MT_SEQ, MT_STEPS steps without warmup, each rank holding 4 of the 8
+#   experts; against the unsharded steps the parent runs on the same
+#   seed and schedule (after its bench-8b steps, and before this leg
+#   starts: the ranks wait for its marker, so the two mixtral states
+#   never share the card), with the mesh limits.
+MT_EXTRA_LEGS = ('pipe', 'expert')
+MT_PIPE_MESH = 'pipe=2'
+MT_MICROBATCHES = 2
+MT_LOGIT_STRIDE = 64
+MT_EXPERT_MODEL = 'mixtral-8x7b'
+MT_EXPERT_LAYERS = 2
+MT_EXPERT_BATCH = 1
+MT_EXPERT_MESH = 'expert=2'
+# The pipe leg's limits. Sound on the H100 (700 W): the logits and the
+# loss bit-equal to the unsharded forward's (0.0), each gradient leaf's
+# norm within 9.3e-5 (the microbatches' gradients summed in f32 against
+# one product over the batch). mesh_fault_check.py's faults read: the
+# logits 1.29-1.33 (stages swapped, the recorded microbatch off by one),
+# the loss 4.8e-4 and 9.3e-4 (the same two), a leaf's norm 5.9e-3 to 1.0
+# (off by one 5.9e-3, swapped 0.035, the embedding's left on stage 0
+# 1.0, the replicated leaves summed over pipe 1.0). The logits limit
+# allows a sound reading four bf16 steps (2^-8 each) off, should another
+# cuBLAS kernel serve the microbatch's rows; the loss limit sits between
+# the mesh legs' sound reach (5.4e-5) and the least fault (4.8e-4), and
+# the norm limit between the sound 9.3e-5 and the least fault 5.9e-3,
+# about their geometric means.
+TOL_PIPE_LOGITS_REL = 0.02   # pipelined logits, max|a-b| / max|b|
+TOL_PIPE_LOSS_REL = 1.5e-4   # |loss - unsharded| / unsharded
+TOL_PIPE_NORM_REL = 1e-3     # each gradient leaf's norm, relative
 
 
 def mt_plant(name):
@@ -4696,8 +4740,102 @@ def mt_plant(name):
             o_new, lse_new = merge(o_acc, lse_acc, o, lse)
             return o_new, lse if lse_acc is None else lse_acc
         fa._merge = local
+    elif name in MT_PIPE_FAULTS:
+        mt_plant_pipe(name)
+    elif name in MT_EXPERT_FAULTS:
+        mt_plant_expert(name)
     else:
         raise ValueError(f'unknown mesh fault {name!r}')
+
+
+MT_PIPE_FAULTS = ('stages_swapped', 'microbatch_off_by_one',
+                  'embed_stage0_only', 'head_summed_twice')
+MT_EXPERT_FAULTS = ('expert_not_reduced', 'topk_local')
+
+
+def mt_plant_pipe(name):
+    """The pipe leg's faults:
+    - 'stages_swapped': each stage holds the other stage's layers (the
+      stack runs layer 1 before layer 0);
+    - 'microbatch_off_by_one': the last stage's outputs recorded one
+      microbatch on (microbatch j's output in j + 1's place);
+    - 'embed_stage0_only': the stack's input gradient left on stage 0
+      (no broadcast: the embedding's gradient 0 on the later stage);
+    - 'head_summed_twice': the replicated leaves' gradients (the
+      head's, the final norm's, the embedding's) all-reduced over `pipe`
+      by the trainer's reduction, as if `pipe` were a gradient axis: each
+      summed over the two stages."""
+    import numpy as np
+    import torch
+
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import pipeline, sharding
+    if name == 'stages_swapped':
+        real = sharding.stage_shard
+
+        def swapped(mesh, shard=None, rank=None):
+            rank = mesh.rank if rank is None else rank
+            other = mesh_lib.index_along(mesh.spec, rank, 'pipe')
+            size = mesh.spec.sizes()['pipe']
+            coords = mesh_lib.coords_of(mesh.spec, rank)
+            coords['pipe'] = size - 1 - other
+            flip = int(np.ravel_multi_index(
+                tuple(coords[a] for a in mesh_lib.AXIS_ORDER),
+                mesh.spec.shape()))
+            return real(mesh, shard, rank=flip)
+        sharding.stage_shard = swapped
+    elif name == 'microbatch_off_by_one':
+        real = pipeline._forward
+
+        def shifted(s, x, leaves):
+            out, inputs = real(s, x, leaves)
+            mb = out.reshape(s.microbatches, -1, *out.shape[1:])
+            return mb.roll(1, 0).reshape(out.shape), inputs
+        pipeline._forward = shifted
+    elif name == 'embed_stage0_only':
+        real = pipeline._input_grads
+
+        def stage0(s, dx, like):
+            got = real(s, dx, like)
+            return got if s.stage == 0 else torch.zeros_like(got)
+        pipeline._input_grads = stage0
+    elif name == 'head_summed_twice':
+        from skypilot_tpu_torch.train import trainer
+        real = trainer._reduce_axes
+
+        def with_pipe(shard):
+            cut = {a for c in shard.cuts for a in c.axes}
+            return real(shard) + (() if 'pipe' in cut else ('pipe',))
+        trainer._reduce_axes = with_pipe
+
+
+def mt_plant_expert(name):
+    """The expert leg's faults:
+    - 'expert_not_reduced': the expert outputs not all-reduced over
+      `expert` (each rank combines its own experts' outputs only);
+    - 'topk_local': the router's logits not gathered over `expert`: each
+      rank's own experts' logits with the others' at -1e30, so each rank
+      takes its top-k over its own experts."""
+    import torch
+
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    op = {'expert_not_reduced': 'reduce_from',
+          'topk_local': 'gather_from'}[name]
+    real = getattr(collectives, op)
+
+    def planted(x, group, *args):
+        mesh = mesh_lib.current()
+        if mesh is None or group is None or group is not mesh.group(
+                'expert'):
+            return real(x, group, *args)
+        if name == 'expert_not_reduced':
+            return x
+        parts = [torch.full_like(x, -1e30)
+                 for _ in range(collectives.group_size(group))]
+        parts[collectives.group_rank(group)] = x
+        return torch.cat(parts, dim=args[0])
+    setattr(collectives, op, planted)
 
 
 def mt_probe_batch(torch, trainer, cfg, mesh, probe):
@@ -4853,12 +4991,148 @@ def mt_leg(torch, argv, cuda):
     return reading, res, meshes[-1]
 
 
+def mt_leaf_names(params):
+    """Every leaf's name in `trainer.tree_leaves(params)` order
+    (`layers.<key>` for a stacked leaf)."""
+    return sorted([f'layers.{k}' for k in params['layers']]
+                  + [k for k in params if k != 'layers'])
+
+
+def mt_grad_norms(torch, params, grads, first=0):
+    """The f32 norm of every gradient leaf by name (`layers.<key>.<i>`
+    for layer i of the whole stack: this stage's layers start at
+    `first`), from `grads` in `trainer.tree_leaves(params)` order."""
+    out = {}
+    for name, g in zip(mt_leaf_names(params), grads):
+        if name.startswith('layers.'):
+            for i in range(g.shape[0]):
+                out[f'{name}.{first + i}'] = float(torch.linalg.vector_norm(
+                    g[i], dtype=torch.float32))
+        else:
+            out[name] = float(torch.linalg.vector_norm(g, dtype=torch.float32))
+    return out
+
+
+def mt_pipe_leg(torch, model, spec, cuda):
+    """The pipe leg in this rank (see MT_EXTRA_LEGS): set-up (the mesh,
+    the seed-0 draw cut to this stage), then one forward and backward
+    through `pipeline.llama_pipeline_forward`, timed, with the time its
+    collectives took, the bytes staged through the host, K1/K3/K4
+    launches by causal flag, the loss, the sampled logits (written to
+    `spec['dir']`), every gradient leaf's norm, the replicated leaves'
+    gradient digests and the peak memory."""
+    import hashlib
+
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import pipeline, sharding
+    from skypilot_tpu_torch.train import trainer
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    mesh = mesh_lib.mesh_from_env(mesh_lib.MeshSpec.parse(spec['pipe_mesh']),
+                                  spec['device'])
+    cfg = trainer.TrainerConfig(model=model, batch_size=spec['batch'],
+                                seq_len=spec['seq'], attention_impl='flash')
+    config = cfg.model_config()
+    trainer.check_kernels(config, mesh.device)
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    full = llama.init_params(config, gen, mesh.device)
+    cuts = llama.shard_tree(config, mesh)
+    cuts['layers'] = {k: sharding.stage_shard(mesh, v)
+                      for k, v in cuts['layers'].items()}
+    params = sharding.tree_map(
+        lambda leaf, shard: shard(leaf).clone().requires_grad_(True),
+        full, cuts)
+    del full
+    leaf_cuts = trainer.tree_leaves(cuts)
+    batch = trainer.synthetic_batch(cfg, mesh)
+    sync()
+    setup_s = time.perf_counter() - t0
+    clock = {'s': 0.0, 'calls': 0}
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            sync()
+            t = time.perf_counter()
+            result = fn(*args, **kwargs)
+            sync()
+            clock['s'] += time.perf_counter() - t
+            clock['calls'] += 1
+            return result
+        return wrapper
+
+    counters = (fa.flash_attention, fa.flash_attention_quant,
+                fa.flash_attention_dq, fa.flash_attention_dkv)
+    for c in counters:
+        c.causal_launches = {}
+    for key in collectives.staged_bytes:
+        collectives.staged_bytes[key] = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    leaves = trainer.tree_leaves(params)
+    with contextlib.ExitStack() as stack:
+        for name in ('send', 'recv', 'broadcast', 'all_reduce_'):
+            stack.enter_context(patched(collectives, name, timed))
+        sync()
+        t1 = time.perf_counter()
+        logits = pipeline.llama_pipeline_forward(
+            params, batch['tokens'], config, mesh,
+            num_microbatches=spec['microbatches'])
+        with mesh_lib.use_mesh(mesh):
+            loss = llama.cross_entropy(logits, batch)
+        grads = list(torch.autograd.grad(loss, leaves))
+        trainer.reduce_grads_(grads, leaf_cuts, mesh)
+        sync()
+        step_s = time.perf_counter() - t1
+    stage = mesh.index('pipe')
+    per = config.num_layers // mesh.shape['pipe']
+    sample = logits.detach()[:, ::spec['logit_stride']].float().cpu()
+    torch.save(sample, os.path.join(spec['dir'],
+                                    f'pipe_logits{mesh.rank}.pt'))
+    digests = {}
+    for name, g in zip(mt_leaf_names(params), grads):
+        if not name.startswith('layers.'):
+            t = g.detach()
+            t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+            digests[name] = hashlib.sha256(
+                t.cpu().numpy().tobytes()).hexdigest()
+    return {'mesh': spec['pipe_mesh'], 'stage': stage,
+            'microbatches': spec['microbatches'],
+            'local_layers': int(params['layers']['wq'].shape[0]),
+            'setup_s': setup_s, 'step_s': step_s,
+            'collectives_s': clock['s'], 'collective_calls': clock['calls'],
+            'staged_bytes': dict(collectives.staged_bytes),
+            'loss': float(loss.detach()),
+            'grad_norms': mt_grad_norms(torch, params, grads, stage * per),
+            'digests': digests,
+            'launches': {name: {'causal': c.causal_launches.get(True, 0),
+                                'full': c.causal_launches.get(False, 0)}
+                         for name, c in zip(('K1', 'K2', 'K3', 'K4'),
+                                            counters)},
+            'peak_mem_gb': (torch.cuda.max_memory_allocated() / 1e9
+                            if cuda else None),
+            'leg_s': time.perf_counter() - t0}
+
+
+def mt_device_used_gb(torch, cuda):
+    """The card's memory in use now, every process's (None off CUDA)."""
+    if not cuda:
+        return None
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 1e9
+
+
 def mt_rank_main(spec_path):
     """One rank of the mesh_train gang, run as its own process with the
     gang variables set: the legs of `spec['legs']` in order, each through
     `train.loop.main` (`mt_leg`), then on the leg's final state the probe
-    loss and the digests of its replicated leaves. Writes its readings
-    as JSON; any failure raises (non-zero exit)."""
+    loss and the digests of its replicated leaves; then the legs of
+    `spec['extra']`: 'pipe' (`mt_pipe_leg`) and 'expert' (through
+    `train.loop.main` once the parent's unsharded mixtral steps are
+    done). Writes its readings as JSON; any failure raises (non-zero
+    exit)."""
     with open(spec_path) as f:
         spec = json.load(f)
     import_s = time.time() - spec['started']
@@ -4928,20 +5202,70 @@ def mt_rank_main(spec_path):
             gc.collect()
             if cuda:
                 torch.cuda.empty_cache()
+        if rank == 0:
+            # The parent's unsharded mixtral steps may take the card now:
+            # the legs with the largest states are done.
+            mt_mark_ready(spec['legs_done'], 'ok')
+        if 'pipe' in spec['extra']:
+            out['legs']['pipe'] = mt_pipe_leg(torch, name, spec, cuda)
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    if 'expert' in spec['extra']:
+        # After the parent's unsharded mixtral steps have freed the card.
+        t0 = time.perf_counter()
+        mt_wait_ready(spec['moe_ready'])
+        wait_s = time.perf_counter() - t0
+        with depth_cut(spec['expert_model'], spec['expert_layers']) as name:
+            argv = ['--model', name, '--mesh', spec['expert_mesh'],
+                    '--max-steps', str(spec['steps']), '--batch-size',
+                    str(spec['expert_batch']), '--seq-len', str(spec['seq']),
+                    '--learning-rate', str(spec['lr']), '--device',
+                    spec['device'], '--attention', 'flash']
+            reading, res, mesh = mt_leg(torch, argv, cuda)
+            reading['device_used_gb'] = mt_device_used_gb(torch, cuda)
+            cfg = trainer.TrainerConfig(
+                model=name, batch_size=spec['expert_batch'],
+                seq_len=spec['seq'], attention_impl='flash')
+            reading['digests'] = mt_digests(torch, trainer, res['state'],
+                                            cfg, mesh)
+            reading['world'] = mesh.world_size
+            reading['local_experts'] = int(
+                res['state']['params']['layers']['w_gate'].shape[1])
+            del res
+        reading['wait_s'] = wait_s
+        reading['leg_s'] = time.perf_counter() - t0 - wait_s
+        out['legs']['expert'] = reading
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
     with open(os.path.join(spec['dir'], f'rank{rank}.json'), 'w') as f:
         json.dump(out, f)
     return 0
 
 
-def mt_wait_ready(hf_dir, timeout=600.0):
-    """Wait (in a rank) until the parent has written the seed weights to
-    `hf_dir` (`mt_export`'s marker); raise if it failed or timed out."""
+def mt_mark_ready(path, state):
+    """Mark `path` ready ('ok') or failed (the error) for `mt_wait_ready`
+    on the other side: the marker appears whole (written aside, then
+    renamed), so a waiter never reads it half written."""
+    with open(path + '.ready.tmp', 'w') as f:
+        f.write(state)
+    os.replace(path + '.ready.tmp', path + '.ready')
+
+
+def mt_wait_ready(hf_dir, timeout=600.0, alive=None):
+    """Wait until the other side has marked `hf_dir` ready (its marker
+    `hf_dir.ready`): in a rank, the parent's seed weights or unsharded
+    mixtral steps; in the parent, the ranks' largest legs. Raise if it
+    failed, timed out, or `alive()` says the writer has ended."""
     marker = hf_dir + '.ready'
     t0 = time.perf_counter()
     while not os.path.exists(marker):
         if time.perf_counter() - t0 > timeout:
             raise TimeoutError(f'no seed checkpoint at {hf_dir} after '
                                f'{timeout} s')
+        if alive is not None and not alive():
+            raise RuntimeError(f'{marker}: its writer has ended')
         time.sleep(0.05)
     with open(marker) as f:
         state = f.read()
@@ -4971,12 +5295,91 @@ def mt_expected_launches(legs, layers, steps, remat):
     return out
 
 
+def mt_extra_launches(extra, pipe_layers, stages, microbatches,
+                      expert_layers, steps, expert_remat):
+    """K1/K2/K3/K4 launches each rank of the extra legs makes, from the
+    code, by causal flag. The pipe leg, per layer its stage holds and per
+    microbatch: K1 once in the forward and once in the backward's
+    recompute of the stage, K3 and K4 once; no bubble step runs. The
+    expert leg as a one-device step: per step and layer K1 once (twice
+    with remat), K3 and K4 once; each rank runs every layer's
+    attention."""
+    out = {}
+    if 'pipe' in extra:
+        n = pipe_layers // stages * microbatches
+        out['pipe'] = [{k: {'causal': c * n, 'full': 0} for k, c in (
+            ('K1', 2), ('K2', 0), ('K3', 1), ('K4', 1))}] * stages
+    if 'expert' in extra:
+        n = expert_layers * steps
+        out['expert'] = [{k: {'causal': c * n, 'full': 0} for k, c in (
+            ('K1', 2 if expert_remat else 1), ('K2', 0), ('K3', 1),
+            ('K4', 1))}] * MT_RANKS
+    return out
+
+
 def mt_total(launches):
     """A rank's launches by kernel, both causal flags summed."""
     return {k: n['causal'] + n['full'] for k, n in launches.items()}
 
 
-def mt_unsharded(torch, name, hf_dir=None):
+def mt_pipe_reference(torch, params, batch, config, mesh):
+    """The pipe leg's oracle: the unsharded `llama.forward` of `params` on
+    `batch`, its cross-entropy and gradients (the first step's, before
+    its update): the logits at every MT_LOGIT_STRIDE-th position (a host
+    tensor), the loss and every gradient leaf's norm."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.train import trainer
+    with mesh_lib.use_mesh(mesh):
+        logits = llama.forward(params, batch['tokens'], config)
+        loss = llama.cross_entropy(logits, batch)
+        grads = torch.autograd.grad(loss, trainer.tree_leaves(params))
+    sample = logits.detach()[:, ::MT_LOGIT_STRIDE].float().cpu()
+    del logits
+    return {'loss': float(loss.detach()), 'logits': sample,
+            'grad_norms': mt_grad_norms(torch, params, grads)}
+
+
+def mt_unsharded_moe(torch, name, marker):
+    """The expert leg's oracle: mixtral's unsharded flash steps (`name`,
+    the depth cut) at the leg's batch, seed and schedule: (loss, grad
+    norm) a step, the seconds a step and the peak memory; the state is
+    freed and `marker` marked ready for the ranks (failed, if it
+    failed)."""
+    from skypilot_tpu_torch.train import trainer
+    try:
+        cfg = trainer.TrainerConfig(model=name, batch_size=MT_EXPERT_BATCH,
+                                    seq_len=MT_SEQ, max_steps=MT_STEPS,
+                                    learning_rate=MT_LR,
+                                    warmup_steps=MT_WARMUP,
+                                    attention_impl='flash')
+        mesh = trainer.placement(DEV)
+        cuda = mesh.device.type == 'cuda'
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        state = trainer.make_train_state(cfg, mesh)
+        step = trainer.make_train_step(cfg, mesh)
+        batch = trainer.synthetic_batch(cfg, mesh)
+        out = {'steps': [], 'step_s': []}
+        for _ in range(MT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            out['steps'].append((float(m['loss']), float(m['grad_norm'])))
+            out['step_s'].append(time.perf_counter() - t0)
+        out['peak_mem_gb'] = (torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else None)
+        del state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    except BaseException as e:
+        mt_mark_ready(marker, f'{type(e).__name__}: {e}')
+        raise
+    mt_mark_ready(marker, 'ok')
+    return out
+
+
+def mt_unsharded(torch, name, hf_dir=None, pipe=False):
     """The one-device flash steps on the same seed weights and batch:
     (loss, grad norm) of steps 1..MT_STEPS + 1, the first MT_STEPS on the
     legs' schedule (max_steps MT_STEPS), the last on the resume's
@@ -4985,7 +5388,8 @@ def mt_unsharded(torch, name, hf_dir=None):
     exported there as an HF checkpoint (`checkpoints.export_params`) for
     the fsdp leg's --checkpoint, then marked ready for the ranks
     (`mt_wait_ready`), which start before this runs; a failed export
-    marks it failed."""
+    marks it failed. With `pipe`, the pipe leg's oracle on the seed
+    weights first (`mt_pipe_reference`)."""
     from skypilot_tpu_torch import checkpoints
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
@@ -5004,16 +5408,17 @@ def mt_unsharded(torch, name, hf_dir=None):
                 torch.Tensor.detach, state['params']), cfg.model_config(),
                 hf_dir)
         except BaseException as e:
-            with open(hf_dir + '.ready', 'w') as f:
-                f.write(f'{type(e).__name__}: {e}')
+            mt_mark_ready(hf_dir, f'{type(e).__name__}: {e}')
             raise
-        with open(hf_dir + '.ready', 'w') as f:
-            f.write('ok')
+        mt_mark_ready(hf_dir, 'ok')
     else:
         state = trainer.make_train_state(cfg, mesh)
     legs, resume = (trainer.make_train_step(c, mesh) for c in cfgs)
     batch = trainer.synthetic_batch(cfg, mesh)
     out = {'steps': [], 'step_s': []}
+    if pipe:
+        out['pipe'] = mt_pipe_reference(torch, state['params'], batch,
+                                        cfg.model_config(), mesh)
     for i in range(MT_STEPS + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5070,6 +5475,98 @@ def mt_faults(out, ref, expected):
     return faults
 
 
+def mt_extra_faults(out, ref, expected):
+    """The limits the extra legs' readings break; empty when they pass."""
+    faults = []
+    legs = out['extra_legs']
+    if 'pipe' in legs:
+        r = legs['pipe']
+        if not r['logits_rel'] < TOL_PIPE_LOGITS_REL:
+            faults.append(f"pipe: logits {r['logits_rel']} off the "
+                          f'unsharded (rel limit {TOL_PIPE_LOGITS_REL})')
+        if not r['loss_rel'] < TOL_PIPE_LOSS_REL:
+            faults.append(f"pipe: loss {r['loss_rel']} off the unsharded "
+                          f'(rel limit {TOL_PIPE_LOSS_REL})')
+        if not r['grad_norm_rel'] < TOL_PIPE_NORM_REL:
+            faults.append(f"pipe: grad norm of {r['worst_leaf']} "
+                          f"{r['grad_norm_rel']} off the unsharded (rel "
+                          f'limit {TOL_PIPE_NORM_REL})')
+        if r['missing_leaves']:
+            faults.append(f"pipe: no gradient for {r['missing_leaves']}")
+        if not (r['replicated_equal'] and r['logits_equal']):
+            faults.append('pipe: the stages\' replicated gradients or '
+                          'logits differ')
+        if r['launches_per_rank'] != expected['pipe']:
+            faults.append(f"pipe: launches {r['launches_per_rank']} != "
+                          f"{expected['pipe']}")
+    if 'expert' in legs:
+        r = legs['expert']
+        for i, ((loss, norm), (w_loss, w_norm)) in enumerate(zip(
+                r['losses'], ref['moe']['steps'])):
+            if not (math.isfinite(loss) and math.isfinite(norm)):
+                faults.append(f'expert step {i + 1}: non-finite')
+                continue
+            if not abs(loss - w_loss) / abs(w_loss) < TOL_MT_LOSS_REL:
+                faults.append(f'expert step {i + 1}: loss {loss} vs '
+                              f'{w_loss} (rel limit {TOL_MT_LOSS_REL})')
+            if not abs(norm - w_norm) / w_norm < TOL_MT_NORM_REL:
+                faults.append(f'expert step {i + 1}: grad norm {norm} vs '
+                              f'{w_norm} (rel limit {TOL_MT_NORM_REL})')
+        if len(r['losses']) != MT_STEPS:
+            faults.append(f"expert: {len(r['losses'])} steps")
+        if not r['ranks_agree']:
+            faults.append('expert: the ranks report different losses or '
+                          'grad norms')
+        if not r['replicated_equal']:
+            faults.append('expert: replicated leaves differ across ranks')
+        if r['launches_per_rank'] != expected['expert']:
+            faults.append(f"expert: launches {r['launches_per_rank']} != "
+                          f"{expected['expert']}")
+    return faults
+
+
+def mt_pipe_summary(torch, per_rank, ref, tmp):
+    """The pipe leg's readings across ranks against the parent's oracle
+    (`mt_pipe_reference`): the sampled logits' relative error (each
+    rank's, the largest) and whether the ranks' are bit-equal, the loss's,
+    the largest gradient-leaf norm's and its leaf, the replicated
+    gradients bit-equal, and the times."""
+    want = ref['logits']
+    samples = [torch.load(os.path.join(tmp, f'pipe_logits{r}.pt'))
+               for r in range(len(per_rank))]
+    logits_rel = max(float((g - want).abs().max() / want.abs().max())
+                     for g in samples)
+    norms = {}
+    for p in per_rank:
+        norms.update(p['grad_norms'])
+    rel = {name: abs(norms[name] - w) / w
+           for name, w in ref['grad_norms'].items() if name in norms}
+    worst = max(rel, key=rel.get)
+    r0 = per_rank[0]
+    return {'mesh': r0['mesh'], 'microbatches': r0['microbatches'],
+            'local_layers': [p['local_layers'] for p in per_rank],
+            'logits_rel': logits_rel,
+            'logits_equal': all(bool((g == samples[0]).all())
+                                for g in samples),
+            'loss': r0['loss'], 'ref_loss': ref['loss'],
+            'loss_rel': max(abs(p['loss'] - ref['loss']) / ref['loss']
+                            for p in per_rank),
+            'grad_norm_rel': rel[worst], 'worst_leaf': worst,
+            'missing_leaves': sorted(set(ref['grad_norms']) - set(norms)),
+            'replicated_leaves': len(r0['digests']),
+            'replicated_equal': all(p['digests'] == r0['digests']
+                                    for p in per_rank),
+            'launches_per_rank': [p['launches'] for p in per_rank],
+            'peak_mem_gb_per_rank': [p['peak_mem_gb'] for p in per_rank],
+            'step_s': [p['step_s'] for p in per_rank],
+            'setup_s': [p['setup_s'] for p in per_rank],
+            'leg_s': r0['leg_s'],
+            'collectives_s': r0['collectives_s'],
+            'collective_calls': r0['collective_calls'],
+            'collectives_share': r0['collectives_s'] / r0['step_s'],
+            'staged_bytes': r0['staged_bytes']}
+
+
 def _mt_checkpoint_io(r):
     """A rank's checkpoint save and restore in a run of `main`: seconds,
     bytes and GB/s, for those it made."""
@@ -5101,36 +5598,50 @@ def _mt_summary(per_rank):
             'per_rank': [{'steps': p['steps']} for p in per_rank]}
 
 
-def mesh_train_phase(torch, legs=None, fault=None):
+def mesh_train_phase(torch, legs=None, fault=None, extra=MT_EXTRA_LEGS):
     """bench-8b trained over MT_LEGS by MT_RANKS ranks on the card (see
     the constants' comment): each leg's losses and grad norms, the
     resumed step's and the probe loss against the unsharded flash steps
     (TOL_MT_*), the ranks' replicated leaves bit-equal, each rank's
-    K1/K3/K4 launches equal to `mt_expected_launches`. `fault` plants
-    one of `mt_plant`'s faults in the ranks. Returns (reading, with
-    `faults`, and the launches by leg)."""
+    K1/K3/K4 launches equal to `mt_expected_launches`; then in the same
+    ranks the `extra` legs (MT_EXTRA_LEGS: bench-8b pipelined over
+    pipe=2, mixtral-8x7b over expert=2) against their unsharded oracles
+    (`mt_extra_faults`). `fault` plants one of `mt_plant`'s faults in
+    the ranks. Returns the reading, with `faults`."""
     import shutil
     import tempfile
-    legs = legs or MT_LEGS
+    legs = MT_LEGS if legs is None else legs
     t0 = time.perf_counter()
     out = {'model': MT_MODEL, 'layers': MT_LAYERS, 'batch': MT_BATCH,
            'seq_len': MT_SEQ, 'steps': MT_STEPS, 'warmup': MT_WARMUP,
            'ranks': MT_RANKS,
            'backend': 'gloo', 'fault': fault,
-           'legs_run': [leg[0] for leg in legs]}
+           'legs_run': [leg[0] for leg in legs] + list(extra)}
     tmp = tempfile.mkdtemp(prefix='chip_smoke_mt_')
     try:
         from skypilot_tpu_torch import models as models_lib
         fsdp = any(leg[0] == 'fsdp' for leg in legs)
         hf_dir = os.path.join(tmp, 'hf') if fsdp else None
-        expected = mt_expected_launches(
-            legs, MT_LAYERS, MT_STEPS, models_lib.resolve(MT_MODEL)[1].remat)
+        moe_ready = os.path.join(tmp, 'moe')
+        legs_done = os.path.join(tmp, 'legs')
+        remat = models_lib.resolve(MT_MODEL)[1].remat
+        expected = mt_expected_launches(legs, MT_LAYERS, MT_STEPS, remat)
+        expected.update(mt_extra_launches(
+            extra, MT_LAYERS, MT_RANKS, MT_MICROBATCHES, MT_EXPERT_LAYERS,
+            MT_STEPS, models_lib.resolve(MT_EXPERT_MODEL)[1].remat))
         spec = {'model': MT_MODEL, 'layers': MT_LAYERS, 'batch': MT_BATCH,
                 'seq': MT_SEQ, 'steps': MT_STEPS, 'lr': MT_LR,
                 'warmup': MT_WARMUP, 'probe': MT_PROBE,
                 'device': DEV, 'legs': legs, 'fault': fault,
                 'resume': fsdp, 'ckpt': os.path.join(tmp, 'ckpt'),
-                'hf': hf_dir, 'dir': tmp,
+                'hf': hf_dir, 'dir': tmp, 'extra': list(extra),
+                'pipe_mesh': MT_PIPE_MESH, 'microbatches': MT_MICROBATCHES,
+                'logit_stride': MT_LOGIT_STRIDE,
+                'expert_model': MT_EXPERT_MODEL,
+                'expert_layers': MT_EXPERT_LAYERS,
+                'expert_batch': MT_EXPERT_BATCH,
+                'expert_mesh': MT_EXPERT_MESH, 'moe_ready': moe_ready,
+                'legs_done': legs_done,
                 'setup': MT_RANK_SETUP and MT_RANK_SETUP[0],
                 'setup_path': MT_RANK_SETUP and MT_RANK_SETUP[1]}
         spec_path = os.path.join(tmp, 'spec.json')
@@ -5140,25 +5651,43 @@ def mesh_train_phase(torch, legs=None, fault=None):
                 'sys.exit(chip_smoke.mt_rank_main(sys.argv[1]))')
         port = free_port()
         # The ranks start up while the seed weights are exported and the
-        # unsharded steps run here; the fsdp leg waits for the export.
+        # unsharded steps run here; the fsdp leg waits for the export,
+        # the expert leg for the unsharded mixtral steps to end.
         wait = start_ranks(
             lambda r: [sys.executable, '-c', code, spec_path],
             lambda r: tp_gang_env(port, r), tmp, 'mt', timeout=900)
         try:
             with depth_cut(MT_MODEL, MT_LAYERS) as name:
-                ref = mt_unsharded(torch, name, hf_dir)
+                ref = mt_unsharded(torch, name, hf_dir,
+                                   pipe='pipe' in extra)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if 'expert' in extra:
+                # Not beside the ranks' fsdp, tensor and ring legs: the
+                # unsharded mixtral state peaks at ~52 GB on the H100.
+                mt_wait_ready(legs_done, alive=wait.alive)
+                with depth_cut(MT_EXPERT_MODEL, MT_EXPERT_LAYERS) as name:
+                    ref['moe'] = mt_unsharded_moe(torch, name, moe_ready)
+            out['parent_reserved_gb'] = (torch.cuda.memory_reserved() / 1e9
+                                         if DEV == 'cuda' else None)
         finally:
             gc.collect()
             torch.cuda.empty_cache()
             rcs, tails, ranks_s = wait()
-        out['unsharded'] = ref
-        if rcs != [0] * MT_RANKS:
-            raise AssertionError(f'mesh_train ranks failed: rcs {rcs}: '
-                                 f'{tails}')
+            # A rank's failure explains a failure here too: report it.
+            if rcs != [0] * MT_RANKS:
+                raise AssertionError(f'mesh_train ranks failed: rcs {rcs}: '
+                                     f'{tails}')
+        out['unsharded'] = {k: v for k, v in ref.items() if k != 'pipe'}
         ranks = []
         for r in range(MT_RANKS):
             with open(os.path.join(tmp, f'rank{r}.json')) as f:
                 ranks.append(json.load(f))
+        out['extra_legs'] = {}
+        if 'pipe' in extra:
+            out['extra_legs']['pipe'] = mt_pipe_summary(
+                torch, [r['legs']['pipe'] for r in ranks], ref['pipe'], tmp)
+            out['unsharded']['pipe_loss'] = ref['pipe']['loss']
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out['ranks_s'] = ranks_s
@@ -5191,8 +5720,35 @@ def mesh_train_phase(torch, legs=None, fault=None):
                                  'setup_s': resume[0]['setup_s'],
                                  **_mt_checkpoint_io(resume[0])}
         out['legs'][leg] = reading
+    if 'expert' in extra:
+        per_rank = [r['legs']['expert'] for r in ranks]
+        r0 = per_rank[0]
+        peaks = [p['peak_mem_gb'] for p in per_rank]
+        out['extra_legs']['expert'] = {
+            **_mt_summary(per_rank), 'argv': r0['argv'],
+            'leg_s': r0['leg_s'], 'wait_s': r0['wait_s'],
+            'main_s': r0['main_s'], 'setup_s': r0['setup_s'],
+            'world': r0['world'], 'local_experts': r0['local_experts'],
+            'staged_bytes': r0['staged_bytes'],
+            'ranks_agree': all([(x['loss'], x['grad_norm'])
+                                for x in p['steps']]
+                               == [(x['loss'], x['grad_norm'])
+                                   for x in r0['steps']]
+                               for p in per_rank),
+            'replicated_leaves': len(r0['digests']),
+            'replicated_equal': all(p['digests'] == r0['digests']
+                                    for p in per_rank),
+            'device_used_gb_per_rank': [p['device_used_gb']
+                                        for p in per_rank],
+            # The card's peak, reckoned: every rank's peak at once, plus
+            # what the parent keeps reserved meanwhile.
+            'card_peak_gb_reckoned': (
+                sum(peaks) + out['parent_reserved_gb']
+                if None not in peaks + [out['parent_reserved_gb']]
+                else None)}
     out['expected_launches'] = expected
-    out['faults'] = mt_faults(out, ref, expected)
+    out['faults'] = (mt_faults(out, ref, expected)
+                     + mt_extra_faults(out, ref, expected))
     out['phase_s'] = time.perf_counter() - t0
     return out
 
@@ -5687,10 +6243,15 @@ def main():
 
     # 28. bench-8b trained over a mesh: two ranks on the card over gloo,
     # the fsdp, tensor (and its resume of the fsdp checkpoint) and ring
-    # legs through train.loop.main, against the unsharded steps.
+    # legs through train.loop.main, against the unsharded steps; then in
+    # the same ranks bench-8b pipelined over pipe=2 and mixtral-8x7b over
+    # expert=2.
     out = mesh_train_phase(torch)
     emit('mesh_train', tol_loss_rel=TOL_MT_LOSS_REL,
-         tol_norm_rel=TOL_MT_NORM_REL, tol_probe=TOL_MT_PROBE, **out)
+         tol_norm_rel=TOL_MT_NORM_REL, tol_probe=TOL_MT_PROBE,
+         tol_pipe_logits_rel=TOL_PIPE_LOGITS_REL,
+         tol_pipe_loss_rel=TOL_PIPE_LOSS_REL,
+         tol_pipe_norm_rel=TOL_PIPE_NORM_REL, **out)
     if out['faults']:
         raise AssertionError(f'mesh_train: {out["faults"]}')
     for name, counter in (('flash_attention', 'K1'),
@@ -5703,6 +6264,9 @@ def main():
                 path_launches[name][f'mesh_train_{leg}_resume'] = [
                     mt_total(n)[counter] for n in reading['resume'][
                         'launches_per_rank']]
+        for leg, reading in out['extra_legs'].items():
+            path_launches[name][f'mesh_train_{leg}'] = [
+                mt_total(n)[counter] for n in reading['launches_per_rank']]
     # K1, K3 and K4 at the ring's per-hop shapes, checked against their
     # plain versions and timed; their launches are the ring leg's as the
     # wrappers counted them by causal flag (the diagonal block causal,

@@ -14,10 +14,19 @@ per fault with the fault planted in the rank processes
 - boundary_masked: each context rank's last target masked, the one at
   the boundary included: the ring leg;
 - local_lse: the ring backward run on the diagonal hop's lse instead of
-  the merged one: the ring leg.
+  the merged one: the ring leg;
+- stages_swapped: each pipeline stage holding the other's layers;
+  microbatch_off_by_one: the last stage's outputs recorded one
+  microbatch on; embed_stage0_only: the stack's input gradient (the
+  embedding's) left on stage 0; head_summed_twice: the replicated
+  leaves' gradients all-reduced over `pipe` by the trainer's reduction,
+  summed over the stages: the pipe leg;
+- expert_not_reduced: the expert outputs not all-reduced over `expert`;
+  topk_local: the router's top-k over each rank's own experts' logits:
+  the expert leg.
 Prints one JSON line a run (its limits' readings and the limits it
 broke) and exits non-zero unless the sound run breaks none and every
-fault breaks at least one. Needs one CUDA device; about 3 minutes.
+fault breaks at least one. Needs one CUDA device; about 8 minutes.
 """
 import json
 import sys
@@ -26,7 +35,13 @@ import time
 FAULT_LEGS = {'batch_reduce': ('fsdp', 'ring'),
               'column_allreduce': ('tensor',),
               'boundary_masked': ('ring',),
-              'local_lse': ('ring',)}
+              'local_lse': ('ring',),
+              'stages_swapped': ('pipe',),
+              'microbatch_off_by_one': ('pipe',),
+              'embed_stage0_only': ('pipe',),
+              'head_summed_twice': ('pipe',),
+              'expert_not_reduced': ('expert',),
+              'topk_local': ('expert',)}
 
 
 def readings(out):
@@ -46,6 +61,20 @@ def readings(out):
             'norm_rel': [abs(a[1] - b[1]) / b[1]
                          for a, b in zip(steps, want)],
             'probe_abs': abs(r['probe_loss'] - ref['probe_loss']),
+            'replicated_equal': r['replicated_equal']}
+    extra = out['extra_legs']
+    if 'pipe' in extra:
+        got['pipe'] = {key: extra['pipe'][key] for key in (
+            'logits_rel', 'loss_rel', 'grad_norm_rel', 'worst_leaf',
+            'logits_equal', 'replicated_equal')}
+    if 'expert' in extra:
+        r = extra['expert']
+        got['expert'] = {
+            'loss_rel': [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(
+                r['losses'], ref['moe']['steps'])],
+            'norm_rel': [abs(a[1] - b[1]) / b[1] for a, b in zip(
+                r['losses'], ref['moe']['steps'])],
+            'ranks_agree': r['ranks_agree'],
             'replicated_equal': r['replicated_equal']}
     return got
 
@@ -69,9 +98,13 @@ def main(argv):
     ok = True
     t0 = time.perf_counter()
     for fault in [None] + faults:
-        run_legs = (chip_smoke.MT_LEGS if fault is None
-                    else tuple(legs[name] for name in FAULT_LEGS[fault]))
-        out = chip_smoke.mesh_train_phase(torch, legs=run_legs, fault=fault)
+        names = legs if fault is None else FAULT_LEGS[fault]
+        run_legs = tuple(legs[name] for name in names if name in legs)
+        extra = (chip_smoke.MT_EXTRA_LEGS if fault is None else
+                 tuple(n for n in FAULT_LEGS[fault]
+                       if n in chip_smoke.MT_EXTRA_LEGS))
+        out = chip_smoke.mesh_train_phase(torch, legs=run_legs, fault=fault,
+                                          extra=extra)
         broken = out['faults']
         caught = bool(broken) if fault else not broken
         ok &= caught
@@ -82,7 +115,12 @@ def main(argv):
     print(json.dumps({'ok': ok, 'seconds': time.perf_counter() - t0,
                       'limits': {'loss_rel': chip_smoke.TOL_MT_LOSS_REL,
                                  'norm_rel': chip_smoke.TOL_MT_NORM_REL,
-                                 'probe_abs': chip_smoke.TOL_MT_PROBE}}),
+                                 'probe_abs': chip_smoke.TOL_MT_PROBE,
+                                 'pipe_logits_rel':
+                                     chip_smoke.TOL_PIPE_LOGITS_REL,
+                                 'pipe_loss_rel': chip_smoke.TOL_PIPE_LOSS_REL,
+                                 'pipe_norm_rel':
+                                     chip_smoke.TOL_PIPE_NORM_REL}}),
           flush=True)
     return 0 if ok else 1
 

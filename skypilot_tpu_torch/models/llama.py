@@ -3,11 +3,12 @@
 Ports `skypilot_tpu/models/llama.py`: `LlamaConfig` (:38), the llama
 `CONFIGS` (:96), `init_params` (:219), `layer_windows` (:294),
 `_rms_norm` (:309), `_rope_freqs` (:317), `_rope` (:339), `_layer`
-(:354), `forward` (:415), `loss_fn` (:467) and `LlamaConfig.num_params` /
-`flops_per_token` (:80-92). The parameter layout is the reference's at
-the public boundary: `[L, ...]` leaves, `wq` [E,H,D], `wk`/`wv`
-[E,KV,D], `wo` [H,D,E], `w_gate`/`w_up` [E,M], `w_down` [M,E], so
-weights map one to one. Attention dispatches through
+(:354), `forward` (:415), `loss_fn` (:467; its cross-entropy is
+`cross_entropy`, which the pipeline's logits share) and
+`LlamaConfig.num_params` / `flops_per_token` (:80-92). The parameter
+layout is the reference's at the public boundary: `[L, ...]` leaves,
+`wq` [E,H,D], `wk`/`wv` [E,KV,D], `wo` [H,D,E], `w_gate`/`w_up` [E,M],
+`w_down` [M,E], so weights map one to one. Attention dispatches through
 `ops.attention.attention` on `config.attention_impl` ('dense' |
 'blockwise' | 'flash'; 'flash' runs K1 forward and K3/K4 backward on the
 card). `forward` is differentiable; serving callers run it under
@@ -50,6 +51,9 @@ autograd-aware ops of `parallel/collectives.py`:
   rank's last target from the next rank's first token.
 - `data` x `fsdp` cut the batch; `loss_fn` normalises by the global mask
   count and sums the loss over the batch and context ranks.
+- `pipe`: `parallel/pipeline.py` runs `_layer` per stage; `expert`: the
+  MoE family (`models/moe.py`) shares this layer math, its
+  `param_logical_axes` reached through `logical_axes`.
 The trainer reduces the gradients over what these do not
 (`train/trainer.py`).
 
@@ -221,13 +225,26 @@ def param_logical_axes(config: LlamaConfig) -> Params:
     return out
 
 
-def axis_sizes(config: LlamaConfig) -> Dict[str, int]:
-    """The size of each logical axis under `config`."""
+def axis_sizes(config) -> Dict[str, int]:
+    """The size of each logical axis under `config` (an MoE config's
+    `expert` too)."""
     c = config
-    return {'layers': c.num_layers, 'embed': c.hidden_size,
-            'heads': c.num_heads, 'kv_heads': c.num_kv_heads,
-            'head_dim': c.head_dim, 'mlp': c.intermediate_size,
-            'vocab': c.vocab_size}
+    out = {'layers': c.num_layers, 'embed': c.hidden_size,
+           'heads': c.num_heads, 'kv_heads': c.num_kv_heads,
+           'head_dim': c.head_dim, 'mlp': c.intermediate_size,
+           'vocab': c.vocab_size}
+    if hasattr(c, 'num_experts'):
+        out['expert'] = c.num_experts
+    return out
+
+
+def logical_axes(config) -> Params:
+    """`param_logical_axes` of `config`'s family: the llama core's, or
+    MoE's (`models/moe.py`) for an MoE config."""
+    from skypilot_tpu_torch.models import moe
+    if isinstance(config, moe.MoeConfig):
+        return moe.param_logical_axes(config)
+    return param_logical_axes(config)
 
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
@@ -461,26 +478,28 @@ def _qkv(h: torch.Tensor, layer_params: Params, config):
 
 
 def shard_tree(config, mesh: Optional[mesh_lib.Mesh]) -> Optional[Params]:
-    """The `Shard` of every param on this rank of `mesh` (None without a
-    mesh of more than one rank)."""
+    """The `Shard` of every param of `config`'s family on this rank of
+    `mesh` (None without a mesh of more than one rank)."""
     if mesh is None or mesh.world_size == 1:
         return None
-    return sharding_lib.tree_shardings(mesh, param_logical_axes(config))
+    return sharding_lib.tree_shardings(mesh, logical_axes(config))
 
 
 def unshard(leaf: torch.Tensor, shard: Optional[sharding_lib.Shard],
             mesh: Optional[mesh_lib.Mesh]) -> torch.Tensor:
-    """`leaf` gathered along every cut but `tensor`'s (the FSDP weight a
-    layer's math reads whole; its gradient is reduce-scattered back)."""
+    """`leaf` gathered along every cut but `tensor`'s and `expert`'s
+    (the FSDP weight a layer's math reads whole; its gradient is
+    reduce-scattered back). The layer math runs on its tensor columns
+    and its experts as they lie."""
     if shard is None:
         return leaf
     for c in shard.cuts:
-        if c.axes == ('tensor',):
+        if c.axes in (('tensor',), ('expert',)):
             continue
-        if 'tensor' in c.axes:
+        if 'tensor' in c.axes or 'expert' in c.axes:
             raise ValueError(f'{c.logical} is cut over {c.axes}: a '
-                             'dimension cut by tensor and another axis is '
-                             'not gathered')
+                             'dimension cut by tensor or expert and '
+                             'another axis is not gathered')
         leaf = collectives.gather_weight(leaf, mesh.group(c.axes), c.dim)
     return leaf
 
@@ -542,7 +561,7 @@ def _whole(params: Params, name: str, config) -> torch.Tensor:
     mesh = mesh_lib.current()
     if mesh is None:
         return params[name]
-    shard = sharding_lib.leaf_shard(mesh, param_logical_axes(config)[name])
+    shard = sharding_lib.leaf_shard(mesh, logical_axes(config)[name])
     return unshard(params[name], shard, mesh)
 
 
@@ -562,7 +581,7 @@ def embed(params: Params, tokens: torch.Tensor, config) -> torch.Tensor:
         x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)],
                         torch.zeros((), dtype=c.dtype, device=table.device))
         x = collectives.reduce_from(x.float(), tp.tensor_group).to(c.dtype)
-    if c.embed_scale:
+    if getattr(c, 'embed_scale', False):     # MoeConfig has no knobs
         x = x * torch.tensor(math.sqrt(c.hidden_size), dtype=c.dtype,
                              device=x.device)
     return x
@@ -573,7 +592,8 @@ def project_logits(x: torch.Tensor, params: Params, config) -> torch.Tensor:
     final softcap live here), over the whole vocab under tensor
     parallelism too."""
     c = config
-    lm_head = (_whole(params, 'embed', c).to(c.dtype).T if c.tied_embeddings
+    tied = getattr(c, 'tied_embeddings', False)
+    lm_head = (_whole(params, 'embed', c).to(c.dtype).T if tied
                else _whole(params, 'lm_head', c))
     group = _tp_group()
     x = collectives.copy_to(x, group)
@@ -581,7 +601,7 @@ def project_logits(x: torch.Tensor, params: Params, config) -> torch.Tensor:
     # Each rank's columns are its vocab rows; every rank samples (or
     # takes its loss) from the same gathered logits.
     logits = collectives.gather_from(logits, group, -1)
-    if c.final_logit_softcap is not None:
+    if getattr(c, 'final_logit_softcap', None) is not None:
         cap = c.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
     return logits
@@ -622,7 +642,14 @@ def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             config: LlamaConfig) -> torch.Tensor:
-    """Next-token cross-entropy; batch: {'tokens': [B,S], 'mask': [B,S]}.
+    """Next-token cross-entropy of `forward`'s logits; batch: {'tokens':
+    [B,S], 'mask': [B,S]} (`cross_entropy`)."""
+    return cross_entropy(forward(params, batch['tokens'], config), batch)
+
+
+def cross_entropy(logits: torch.Tensor, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+    """Next-token cross-entropy of `logits` [B,S,V] f32 over `batch`.
 
     Targets are the tokens shifted left; the last position is masked, so
     no host-side shifting is needed. The fused form (target logit minus
@@ -636,7 +663,6 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
     loss, and its gradient is this rank's part of the global one."""
     tokens = batch['tokens']
     mesh = mesh_lib.current()
-    logits = forward(params, tokens, config)
     nxt = torch.zeros_like(tokens[:, :1])
     last = True
     if mesh is not None and mesh.shape['context'] > 1:

@@ -4,8 +4,8 @@ autograd differentiates and the replicated scheduler's control channel.
 Ports `skypilot_tpu/parallel/__init__.py`'s exports (mesh.py and
 sharding.py). `named_sharding` and `shard` have no counterpart here:
 each rank holds its own slice and the forward writes its collectives
-out (`parallel/sharding.py`, `parallel/collectives.py`). `pipeline.py`
-is the next slice.
+out (`parallel/sharding.py`, `parallel/collectives.py`). GPipe over
+the `pipe` axis is `parallel/pipeline.py`.
 """
 from skypilot_tpu_torch.parallel.mesh import (AXIS_ORDER, Mesh, MeshSpec,
                                               initialize_distributed,

@@ -24,6 +24,10 @@ forward's transpose:
 - `shift(x, group, step)`: the ring's neighbour exchange, each rank's
   `x` sent `step` ranks on (the backward sends the gradient back).
 
+The pipeline (`parallel/pipeline.py`) writes its own backward and calls
+the plain ops: `send`/`recv` between neighbouring stages along `pipe`
+and `broadcast` of the last stage's output to every stage.
+
 Each takes a process group (None, or a group of one rank, makes it the
 identity) and runs in the group's own rank order. Serving calls the same
 functions under `torch.no_grad()`, where only the forward runs, so its
@@ -32,8 +36,9 @@ product and the embedding, an all-gather of the logits.
 
 gloo takes CUDA tensors for all-reduce and all-gather (it stages them
 through the host itself) but not for point-to-point or reduce-scatter:
-those stage through the host here, openly, in `reduce_scatter` and
-`send_recv`; `staged_bytes` counts the bytes each staged op moved.
+those stage through the host here, openly, in `reduce_scatter`, `send_recv`,
+`send` and `recv`; `staged_bytes` counts the bytes each staged op moved
+(the pipeline's stage exchange under 'pipe').
 Nothing falls back: a collective that fails raises.
 """
 from __future__ import annotations
@@ -45,7 +50,7 @@ import torch.distributed as dist
 
 # Bytes the host-staged ops (gloo point-to-point and reduce-scatter on
 # CUDA tensors) copied off the device, by op: what staging costs.
-staged_bytes = {'shift': 0, 'reduce_scatter': 0}
+staged_bytes = {'shift': 0, 'reduce_scatter': 0, 'pipe': 0}
 
 
 def group_size(group: Any) -> int:
@@ -119,6 +124,38 @@ def send_recv(t: torch.Tensor, group: Any, step: int) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out.to(t.device) if staged else out
+
+
+def send(t: torch.Tensor, group: Any, dst: int) -> None:
+    """Send `t` to the rank at index `dst` of `group` (no autograd);
+    returns once it is sent."""
+    buf = t.contiguous()
+    if _stages(group, t):
+        staged_bytes['pipe'] += buf.numel() * buf.element_size()
+        buf = buf.cpu()
+    dist.send(buf, dist.get_global_rank(group, dst), group=group)
+
+
+def recv(like: torch.Tensor, group: Any, src: int) -> torch.Tensor:
+    """What the rank at index `src` of `group` sent: a tensor of
+    `like`'s shape, dtype and device (no autograd)."""
+    staged = _stages(group, like)
+    out = torch.empty(like.shape, dtype=like.dtype,
+                      device='cpu' if staged else like.device)
+    if staged:
+        staged_bytes['pipe'] += out.numel() * out.element_size()
+    dist.recv(out, dist.get_global_rank(group, src), group=group)
+    return out.to(like.device) if staged else out
+
+
+def broadcast(t: torch.Tensor, group: Any, src: int) -> torch.Tensor:
+    """The tensor of the rank at index `src` of `group`, on every rank
+    (`t` gives the shape and dtype elsewhere; no autograd)."""
+    if group_size(group) == 1:
+        return t
+    t = t.contiguous()
+    dist.broadcast(t, dist.get_global_rank(group, src), group=group)
+    return t
 
 
 class _CopyTo(torch.autograd.Function):

@@ -22,7 +22,10 @@ batch group (`data` x `fsdp`, the axes the batch is cut along), the
 gradient group (`data` x `fsdp` x `context`, every axis a gradient sums
 over) and every other set of those axes, and the world.
 `Mesh.group(axes)` returns the group of any of these axis sets (None
-where it holds one rank).
+where it holds one rank). The layers read the `pipe` group (a stage's
+index is `Mesh.index('pipe')`, its neighbours the group's ranks beside
+it: `parallel/pipeline.py`) and the `expert` group (an MoE's experts,
+`models/moe.py`).
 
 The collectives' backend is explicit: `nccl` on CUDA and `gloo` on the
 CPU, unless SKYTPU_TORCH_DIST_BACKEND names one. NCCL refuses two ranks
@@ -249,10 +252,14 @@ def check_distinct_devices(backend: str,
 
 
 # The axes a gradient sums over (the batch's data x fsdp and the
-# sequence's context). The axis sets that get a process group (where
-# they hold > 1 rank): each axis alone, every set of gradient axes (the
-# batch group and the gradient group among them: a leaf cut along some
-# of them reduces over the rest), and the world.
+# sequence's context). Not `pipe` or `expert`: the batch is replicated
+# over both (the reference's `batch` rule is ('data', 'fsdp')), so every
+# rank along them computes the same gradient of a leaf they share; a
+# pipeline stage's layers and an expert rank's experts are its own.
+# The axis sets that get a process group (where they hold > 1 rank):
+# each axis alone, every set of gradient axes (the batch group and the
+# gradient group among them: a leaf cut along some of them reduces over
+# the rest), and the world.
 GRAD_AXES = ('data', 'fsdp', 'context')
 _GROUP_AXES = (tuple((a,) for a in AXIS_ORDER)
                + tuple(c for n in (2, 3)

@@ -14,7 +14,11 @@ its collectives out (`models/llama.py`, `inference/engine.py`). So:
   full leaf to this rank's slice along every mesh axis its rules name
   (`embed` over `fsdp`, heads, MLP and vocab over `tensor`; a batch's
   `batch` over `data` x `fsdp` and `seq` over `context`,
-  `batch_shard`);
+  `batch_shard`); an MoE's expert dim over `expert` (`router` [L,E,X]
+  on X, `w_gate`/`w_up`/`w_down` [L,X,...] on X);
+- `stage_shard` cuts a stacked leaf's layer dim over `pipe`, the
+  pipeline's stages (`parallel/pipeline.py`); no rule names `pipe`, so
+  the trainer replicates every leaf over it, as the reference's does;
 - `shard` (the reference's `with_sharding_constraint`) has no
   counterpart: it places nothing the port computes.
 
@@ -197,6 +201,24 @@ def leaf_shard(mesh: Any, logical_axes: Sequence[Optional[str]],
                             mesh_lib.index_along(mesh.spec, rank, axes),
                             name, axes))
     return Shard(tuple(cuts))
+
+
+def stage_shard(mesh: Any, shard: Optional[Shard] = None,
+                rank: Optional[int] = None) -> Shard:
+    """`shard` (a stacked `[L, ...]` leaf's cut; None: whole) with its
+    layer dim also cut over `pipe`: the stage's contiguous layers, as the
+    reference's `pipeline_apply` places the stack (`P('pipe')`,
+    pipeline.py:74). A layer count the stage count does not divide
+    raises ValueError."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    rank = mesh.rank if rank is None else rank
+    stages = mesh.spec.sizes()['pipe']
+    cuts = () if shard is None else shard.cuts
+    if stages == 1:
+        return Shard(cuts)
+    stage = Cut(0, stages, mesh_lib.index_along(mesh.spec, rank, 'pipe'),
+                'layers', ('pipe',))
+    return Shard((stage,) + tuple(cuts))
 
 
 def batch_shard(mesh: Any, rules: Optional[Rules] = None) -> Shard:

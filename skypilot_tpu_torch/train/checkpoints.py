@@ -27,7 +27,8 @@ Against the reference:
   of the state as Orbax's restore target), which torch does not need:
   the state's own tensors give every shape, dtype and device.
 - Under a mesh (a save takes the mesh and the model config, a restore
-  the state's cuts, `llama.shard_tree` of its params) the format stays
+  the state's cuts, `llama.shard_tree` of its params: an MoE's experts
+  cut over `expert` among them) the format stays
   the same, independent of the mesh, as the reference's Orbax
   checkpoints are:
   each file entry holds the full tensor. A save gathers every rank's
@@ -128,7 +129,7 @@ def _gather_full(tree: Dict[str, Any], mesh: Any, config: Any
 
     from skypilot_tpu_torch.models import llama as llama_lib
     from skypilot_tpu_torch.parallel import sharding
-    logical = llama_lib.param_logical_axes(config)
+    logical = llama_lib.logical_axes(config)
     sizes = llama_lib.axis_sizes(config)
     every = [_entry_cuts(tree, sharding.tree_shardings(mesh, logical,
                                                        rank=r))
@@ -506,7 +507,8 @@ def restore_params(ckpt_dir: str,
     `checkpoints.load_params` with its own config.json geometry (under a
     mesh, this rank's slices); otherwise the latest complete step of a
     port train checkpoint (under a mesh of more than one rank, each
-    entry cut on the host by the `config`'s param axes). With `config`,
+    entry cut on the host by the `config`'s param axes: an MoE's experts
+    over `expert` too). With `config`,
     train-checkpoint params must fit it (`check_geometry`)."""
     from skypilot_tpu_torch import checkpoints as hf_ckpts
     sharded = mesh is not None and mesh.world_size > 1
@@ -520,7 +522,6 @@ def restore_params(ckpt_dir: str,
     cuts = None
     if sharded:
         from skypilot_tpu_torch.parallel import sharding
-        cuts = sharding.tree_shardings(mesh,
-                                       llama.param_logical_axes(config))
+        cuts = sharding.tree_shardings(mesh, llama.logical_axes(config))
     return _read_params(os.path.join(_step_path(ckpt_dir, step), 'params'),
                         dev, config, cuts)

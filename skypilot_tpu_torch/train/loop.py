@@ -30,8 +30,9 @@ included: the loss read of a log window is the only sync),
 window sets `TRAIN_MFU` (over the world's chips) and `TRAIN_LOSS`.
 `main` builds its mesh with `mesh_from_env(MeshSpec.parse(--mesh))`
 (default `fsdp=-1`: every rank of the gang on the fsdp axis), as the
-reference's :185-187; the trainer takes the data, fsdp, tensor and
-context axes (`trainer.check_mesh` refuses the rest).
+reference's :185-187; the trainer takes every axis (`pipe` and, for a
+dense model, `expert` replicate it; an MoE's experts are cut over
+`expert`).
 """
 from __future__ import annotations
 

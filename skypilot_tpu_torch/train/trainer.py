@@ -9,18 +9,24 @@ a mesh these take a `parallel.Mesh` (one process per device, built by
 raising without it).
 
 Under a mesh every rank holds its cut of the state
-(`sharding.tree_shardings` of `param_logical_axes`: `embed` over
-`fsdp`, heads, MLP and vocab over `tensor`) and of the batch
-(`batch_shardings`: batch over `data` x `fsdp`, seq over `context`).
+(`sharding.tree_shardings` of the family's `param_logical_axes`: `embed`
+over `fsdp`, heads, MLP and vocab over `tensor`, an MoE's experts over
+`expert`) and of the batch (`batch_shardings`: batch over `data` x
+`fsdp`, seq over `context`; replicated over `pipe`, `expert` and
+`tensor`).
 The step is the reference's GSPMD step written out: the loss and its
 gradient through the model's collectives (`models/llama.py`), each
 gradient all-reduced over the axes of `mesh.GRAD_AXES` it is not cut
 along (an FSDP-cut leaf's reduce-scatter over `fsdp` happened in the
 backward), the global norm summed over every shard once (a rank adds a
 leaf's squares only at coordinate 0 of each axis the leaf is replicated
-over), and AdamW on the shards in place. The pipeline and expert axes,
-and an MoE model under a mesh, are refused (`check_mesh`): the next
-parallel slice.
+over), and AdamW on the shards in place. `pipe` and `expert` are not
+gradient axes: no rule cuts the batch over them, so every rank along
+them computes the same gradients of the leaves it shares (an expert
+rank's MLP input gradient summed over `expert` in the backward,
+`models/moe.py`). A dense model is replicated over both, and an MoE
+over `pipe`, as the reference's rules place them (its trainer never
+calls its pipeline: `parallel/pipeline.py` is its own entry point).
 
 The optimizer is the port's own copy of the reference's
 `optax.chain(clip_by_global_norm(grad_clip), adamw(
@@ -52,7 +58,8 @@ flash config at a head_dim K3/K4 are not built for is refused before
 any step (`check_kernels`); the CPU trains it through the plain
 versions. The MoE family trains through its own `loss_fn` (cross-entropy
 plus the router aux loss), its router kept in f32 in a bf16 model
-(`weights.cast_params`); its MFU counts the active params
+(`weights.cast_params`), and under a mesh its experts cut over
+`expert`; its MFU counts the active params
 (`MoeConfig.flops_per_token`).
 """
 from __future__ import annotations
@@ -226,26 +233,6 @@ def placement(mesh: Where = None) -> mesh_lib.Mesh:
     return mesh_lib.Mesh(mesh_lib.MeshSpec().resolve(1), 0, 1, dev)
 
 
-def check_mesh(config: Any, mesh: mesh_lib.Mesh) -> None:
-    """Refuse, before any parameter is drawn, what the trainer does not
-    run under a mesh yet: the pipeline and expert axes, and an MoE
-    model. Each is the next parallel slice (ROADMAP.md, Queue 1)."""
-    if mesh.world_size == 1:
-        return
-    for axis in ('pipe', 'expert'):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f'--mesh {axis}={mesh.shape[axis]}: the trainer runs the '
-                "'data', 'fsdp', 'tensor' and 'context' axes; the pipeline "
-                'and expert parallelism are the next parallel slice '
-                '(ROADMAP.md, Queue 1)')
-    if isinstance(config, moe.MoeConfig):
-        raise NotImplementedError(
-            'an MoE model under a mesh of more than one device is the next '
-            'parallel slice (expert parallelism, ROADMAP.md, Queue 1); '
-            'train it on one device')
-
-
 def batch_shardings(mesh: mesh_lib.Mesh) -> Dict[str, sharding.Shard]:
     """The cut of each batch leaf on this rank (the reference's :75-79):
     ('batch', 'seq') over ('data', 'fsdp') x 'context'."""
@@ -274,7 +261,6 @@ def make_train_state(cfg: TrainerConfig, mesh: Where = None, seed: int = 0,
     dev = mesh.device
     mcfg = cfg.model_config()
     check_kernels(mcfg, dev)
-    check_mesh(mcfg, mesh)
     cuts = llama.shard_tree(mcfg, mesh)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -350,7 +336,6 @@ def make_train_step(cfg: TrainerConfig, mesh: Where = None
     mesh = placement(mesh)
     mcfg = cfg.model_config()
     check_kernels(mcfg, mesh.device)
-    check_mesh(mcfg, mesh)
     family = cfg.model_family()
     optimizer = make_optimizer(cfg)
     cuts = llama.shard_tree(mcfg, mesh)

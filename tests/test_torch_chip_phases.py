@@ -380,13 +380,15 @@ def stub_mesh_rank_kernels():
 
 def _rehearse_mesh_train(monkeypatch):
     """chip_smoke's mesh_train constants at the tiny sizes (f32, 2
-    layers, global batch 2 x 32, flash on the fsdp and tensor legs)."""
+    layers, global batch 2 x 32, flash on the fsdp and tensor legs; the
+    expert leg on tiny-moe, 2 layers, 1 x 32)."""
     monkeypatch.setattr(chip_smoke, 'MT_MODEL', 'tiny')
     monkeypatch.setattr(chip_smoke, 'MT_SEQ', 32)
     monkeypatch.setattr(chip_smoke, 'MT_LEGS', (
         ('fsdp', 'fsdp=-1', 'flash', ((1, 0), (1, 0))),
         ('tensor', 'tensor=2', 'flash', ((1, 0), (1, 0))),
         ('ring', 'context=2', 'ring', ((1, 0), (1, 1)))))
+    monkeypatch.setattr(chip_smoke, 'MT_EXPERT_MODEL', 'tiny-moe')
     monkeypatch.setattr(chip_smoke, 'MT_RANK_SETUP', (
         'test_torch_chip_phases:stub_mesh_rank_kernels',
         os.path.dirname(os.path.abspath(__file__))))
@@ -428,6 +430,28 @@ def test_mesh_train_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
     assert legs['tensor']['resume']['launches_per_rank'] == want['resume']
     assert legs['tensor']['resume']['restore_gb_per_s'] > 0
     assert legs['tensor']['resume']['save_gb_per_s'] > 0
+    # The pipe leg: one layer a stage, 2 microbatches, K1 in the forward
+    # and the recompute, no bubble work; the expert leg: tiny-moe has no
+    # remat, so K1 once a layer and step.
+    extra = out['extra_legs']
+    want_extra = chip_smoke.mt_extra_launches(('pipe', 'expert'), 2, 2, 2,
+                                              2, 2, False)
+    assert [chip_smoke.mt_total(n) for n in want_extra['pipe']] == [
+        {'K1': 4, 'K2': 0, 'K3': 2, 'K4': 2}] * 2
+    assert want_extra['expert'] == [split(4, 0)] * 2
+    pipe = extra['pipe']
+    assert pipe['launches_per_rank'] == want_extra['pipe']
+    assert pipe['local_layers'] == [1, 1] and pipe['replicated_leaves'] == 3
+    assert pipe['replicated_equal'] and pipe['logits_equal']
+    assert pipe['missing_leaves'] == [] and 0 < pipe['collectives_share'] < 1
+    assert pipe['staged_bytes']['pipe'] == 0      # gloo takes CPU tensors
+    expert = extra['expert']
+    assert expert['launches_per_rank'] == want_extra['expert']
+    assert expert['local_experts'] == 2 and expert['world'] == 2
+    assert expert['ranks_agree'] and expert['replicated_equal']
+    assert len(expert['losses']) == chip_smoke.MT_STEPS
+    assert out['unsharded']['moe']['steps'] and 'pipe_loss' in out[
+        'unsharded']
     # The set-up's clock: the fsdp leg imports the seed checkpoint, which
     # the ranks wait for after their start.
     assert set(legs['fsdp']['setup_s']) == {'mesh', 'train_state',
@@ -438,7 +462,10 @@ def test_mesh_train_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
 
 
 @pytest.mark.parametrize('fault', ['batch_reduce', 'column_allreduce',
-                                   'boundary_masked', 'local_lse'])
+                                   'boundary_masked', 'local_lse',
+                                   'stages_swapped', 'microbatch_off_by_one',
+                                   'embed_stage0_only', 'head_summed_twice',
+                                   'expert_not_reduced', 'topk_local'])
 def test_mesh_train_faults_break_a_limit_on_cpu(monkeypatch, counted_kernels,
                                                 fault):
     """mesh_fault_check.py's faults planted in the tiny rehearsal's
@@ -446,10 +473,11 @@ def test_mesh_train_faults_break_a_limit_on_cpu(monkeypatch, counted_kernels,
     import mesh_fault_check
     _rehearse_mesh_train(monkeypatch)
     legs = {leg[0]: leg for leg in chip_smoke.MT_LEGS}
+    names = mesh_fault_check.FAULT_LEGS[fault]
     out = chip_smoke.mesh_train_phase(
-        torch, legs=tuple(legs[n] for n in mesh_fault_check.FAULT_LEGS[
-            fault]), fault=fault)
+        torch, legs=tuple(legs[n] for n in names if n in legs), fault=fault,
+        extra=tuple(n for n in names if n in chip_smoke.MT_EXTRA_LEGS))
     # A numeric limit breaks: not only the launch count or the ranks'
     # agreement.
-    assert any('loss' in f or 'grad norm' in f for f in out['faults']), (
-        fault, out['faults'])
+    assert any('loss' in f or 'grad norm' in f or 'logits' in f
+               for f in out['faults']), (fault, out['faults'])

@@ -23,8 +23,6 @@ What is held, f32 on both sides (only the reductions reorder):
   device, and its third step equals the reference's uninterrupted one;
 - an HF `--checkpoint` imported under fsdp=2 is the one-device import,
   cut;
-- the refusals: pipe=2, expert=2 and an MoE model under a mesh, each
-  naming the next slice;
 - a remat layer's recompute, run by a backward outside the caller's
   `use_mesh` (autograd's own thread on CUDA), under the layer's mesh.
 """
@@ -62,7 +60,6 @@ PARITY = [('fsdp2', 'tiny', None, 'fsdp=2', 2),
           ('data2_context2_ring', 'tiny', 'ring', 'data=2,context=2', 4)]
 COLLECTIVES = ('copy_to', 'reduce_from', 'gather_from', 'gather_weight',
                'shift')
-REFUSALS = ('pipe=2', 'expert=2', 'moe')
 REMAT_SPECS = ('fsdp=2', 'fsdp=1,tensor=2')
 TRAIN_PARAMS_SPECS = ('fsdp=2', 'fsdp=1,tensor=2')
 
@@ -282,17 +279,6 @@ def _remat_outside(spec):
     return max(float((a - b).abs().max()) for a, b in zip(*grads))
 
 
-def _refusal(what):
-    cfg = trainer.TrainerConfig(model='tiny-moe' if what == 'moe'
-                                else 'tiny', **KW)
-    mesh = _mesh('fsdp=2' if what == 'moe' else what + ',fsdp=1')
-    try:
-        trainer.make_train_state(cfg, mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 def _gang(rank, world, port, jobs, out):
     os.environ.update(SKYTPU_COORDINATOR_ADDR=f'127.0.0.1:{port}',
                       SKYTPU_NUM_PROCESSES=str(world),
@@ -312,8 +298,6 @@ def _gang(rank, world, port, jobs, out):
                 results[key] = _hf_case(args)
             elif kind == 'train_params':
                 results[key] = _train_params_case(*args)
-            elif kind == 'refusal':
-                results[key] = _refusal(args)
             elif kind == 'remat':
                 results[key] = _remat_outside(args)
             elif kind == 'copy' and rank == 0:
@@ -381,7 +365,6 @@ def runs(tmp_path_factory):
         ('hf', 'hf', hf_dir)]
     jobs[2] += [('train_params_' + spec, 'train_params', (ckpt, spec))
                 for spec in TRAIN_PARAMS_SPECS]
-    jobs[2] += [(what, 'refusal', what) for what in REFUSALS]
     jobs[2] += [('remat_' + spec, 'remat', spec) for spec in REMAT_SPECS]
     gangs = {w: _run_gang(w, j) for w, j in jobs.items()}
     ref = {('tiny', None): _ref_run('tiny', None, inits['tiny'], STEPS + 1),
@@ -488,10 +471,3 @@ def test_remat_recomputes_under_the_mesh_outside_its_context(runs, spec):
     those taken inside."""
     for rank, res in runs['ranks'][2].items():
         assert res['remat_' + spec] == 0.0, (rank, res['remat_' + spec])
-
-
-@pytest.mark.parametrize('what', REFUSALS)
-def test_what_the_trainer_does_not_shard_raises(runs, what):
-    for rank, res in runs['ranks'][2].items():
-        assert res[what] is not None and 'next parallel slice' in res[what], (
-            rank, res[what])
