@@ -251,8 +251,8 @@ Phases, each printing one JSON line:
                   half of the seed-0 weights (16 q / 4 kv heads, half the
                   MLP and vocab). 8 greedy prompts of 100-1500 tokens, 32
                   new each, on bf16 then int8 KV: first-token logits
-                  within TOL_LOGITS_REL of the unsharded engine (built
-                  here first and freed before the ranks start), tokens
+                  within TOL_LOGITS_REL of the unsharded engine (run
+                  here beside the ranks), tokens
                   equal to its tokens up to near-ties (TOL_SPEC_GAP) and
                   equal across the ranks, K1 (K2) launches on each rank
                   equal to expected_prefill_launches; prefill and decode
@@ -260,11 +260,31 @@ Phases, each printing one JSON line:
                   share of the prefill and of decode, peak memory per
                   rank. Two ranks
                   asking for NCCL on the one card exit with the mesh's
-                  error. Then the server as two processes (--mesh
-                  tensor=2): /health, three /generate (one streamed) and
-                  one /v1/completions, token for token the engine leg's
-                  answers to the same requests; SIGTERM to rank 0, and
-                  rank 1 exits within TP_FOLLOWER_EXIT_S. K1 and K2
+                  error. In the same ranks: the target as its own draft
+                  (SPEC_K, SPEC_ROUNDS; tokens equal the ranks' bf16
+                  tokens up to near-ties, acceptance at least
+                  TOL_SPEC_ACCEPT, K1 launches per rank as the bf16
+                  leg's), a migration leg (the longest and the shortest
+                  prompt snapshotted after TP_MIG_DISPATCHES dispatches,
+                  a third exported at its handoff pause, all restored:
+                  tokens equal the bf16 leg's, the restored pages
+                  byte-equal to the snapshotted ones on every rank, all 8
+                  KV heads in each blob) and `moe_mesh`: mixtral-8x7b at
+                  full width, MOE_MESH_LAYERS (4) layers, over expert=2
+                  (4 experts a rank) on the moe_serve prompts, against an
+                  unsharded engine of the same depth and seed run here
+                  beside the ranks (logits within TOL_LOGITS_REL, tokens
+                  up to near-ties, K1 launches, no host sync in a decode
+                  dispatch's MoE layers on either rank). Then the server
+                  as two processes (--mesh tensor=2): /health, three
+                  /generate (one streamed) and one /v1/completions, token
+                  for token the engine leg's answers to the same
+                  requests; a stream drained by /internal/drain, its blob
+                  restored on an unsharded engine and continued (the
+                  near-tie rule against the ranks' tokens); SIGTERM to
+                  rank 0, and rank 1 exits within TP_FOLLOWER_EXIT_S.
+                  `mesh_fault_check.py` plants four serving faults the
+                  gates must catch (`tp_plant`). K1 and K2
                   checked (check_bf16/check_int8 `tp2_engine_chunk`) and
                   timed at a rank's heaviest chunk (TP_TIMING_SHAPE).
  28. mesh_train - bench-8b at full width (2 of 5 layers, bf16, global
@@ -310,8 +330,9 @@ Phases, each printing one JSON line:
                   `mesh_fault_check.py` plants the ten faults the
                   limits must catch.
 Then a `kernels` line (each kernel's `path_launches`: its launches on
-the openai, batch, roundtrip, MoE, tp_serve and mesh_train paths, the
-pipe and expert legs among them) and,
+the openai, batch, roundtrip, MoE, tp_serve (its spec and migration
+legs and moe_mesh among them) and mesh_train paths, the pipe and expert
+legs among them) and,
 last,
 {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
@@ -730,11 +751,13 @@ def profile_breakdown(torch, fn, top=8, shares=None):
     time (sum of kernel self times on the one stream), its idle share,
     the kernels that take the most device time and, for each label of
     `shares` (label -> substrings of kernel names), its ms and share of
-    the busy time."""
+    the busy time. Only the device's activity is traced: every reading
+    here is a kernel's, and tracing the host's ops as well tripled the
+    profiler's cost (40 s against 13 s after a gemma2-9b batch of 60,000
+    kernels) and added its overhead to the wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -776,7 +799,8 @@ def batch_inputs(torch, eng, engine, prompts, padded_len):
     cache = eng.init_cache(cfg, n, engine.state.max_seq_len,
                            pad_to=engine.prefill_chunk,
                            kv_quant=engine.kv_quant,
-                           page_size=engine.kv_page_size, device=dev)
+                           page_size=engine.kv_page_size, device=dev,
+                           mesh=engine.mesh)
     w = cache['table'].shape[1]
     cache['table'][:] = 1 + torch.arange(n * w, dtype=torch.int32,
                                          device=dev).reshape(n, w)
@@ -1780,8 +1804,8 @@ def divergence_reading(torch, llama, params, config, prompt, plain, spec):
     """Where `spec` first leaves `plain` (greedy tokens of one prompt):
     the index, both tokens, the target's top two tokens and their logit
     gap, and each token's deficit (the top logit minus the token's),
-    from a dense forward over the prompt and the plain tokens before
-    it."""
+    from a dense forward (`llama.forward`, or an MoE module's) over the
+    prompt and the plain tokens before it."""
     j = first_divergence(plain, spec)
     if j is None:
         return {'equal': True}
@@ -1790,8 +1814,10 @@ def divergence_reading(torch, llama, params, config, prompt, plain, spec):
     if j < min(len(plain), len(spec)):
         with torch.inference_mode():
             logits = llama.forward(params, torch.tensor(
-                [list(prompt) + list(plain[:j])], device=DEV),
-                config)[0, -1].float()
+                [list(prompt) + list(plain[:j])], device=DEV), config)
+        if isinstance(logits, tuple):      # an MoE forward: (logits, aux)
+            logits = logits[0]
+        logits = logits[0, -1].float()
         top = torch.topk(logits, 2)
         out.update(plain_token=plain[j], spec_token=spec[j],
                    top2=[int(t) for t in top.indices],
@@ -2807,29 +2833,64 @@ def batch_request_file(rng, path, n, lengths, vocab):
     return reqs
 
 
-def batch_run(torch, inference, fa, reqs, inp, argv,
-              command=('-m', 'skypilot_tpu_torch.inference.batch')):
-    """`python -m skypilot_tpu_torch.inference.batch` (or `command`) on
-    `argv` as a process, then `run_batch` in this process on an engine
-    built from the same flags, with K1's (K2's) launches and the
-    admissions' expected count around it; the two outputs must be equal,
-    byte for byte."""
-    from skypilot_tpu_torch.inference import batch as batch_lib
+def batch_process(inp, argv, command=('-m',
+                                      'skypilot_tpu_torch.inference.batch')):
+    """Start `python -m skypilot_tpu_torch.inference.batch` (or
+    `command`) on `argv` as a process writing `inp`.out; returns wait():
+    (its full argv, its stderr's last `[batch]` line, its output, its
+    seconds), raising if it failed."""
     outp = inp + '.out'
     argv = ['--input', inp, '--output', outp, '--device', DEV, *argv]
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, *command, *argv],
         cwd=os.path.dirname(os.path.abspath(__file__)),
-        capture_output=True, text=True, timeout=600)
-    process_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f'batch {argv}: rc {proc.returncode}\n'
-                             f'{proc.stderr[-3000:]}')
-    line = [ln for ln in proc.stderr.splitlines()
-            if ln.startswith('[batch]')][-1]
-    with open(outp) as f:
-        written = f.read()
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ended = {}
+
+    def collect():
+        # Its seconds end when it does, not when the caller asks.
+        try:
+            ended['err'] = proc.communicate(timeout=600)[1]
+        finally:
+            ended['s'] = time.perf_counter() - t0
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    collector = threading.Thread(target=collect, daemon=True)
+    collector.start()
+
+    def wait():
+        collector.join()
+        err, process_s = ended.get('err', ''), ended['s']
+        if proc.returncode != 0:
+            raise AssertionError(f'batch {argv}: rc {proc.returncode}\n'
+                                 f'{err[-3000:]}')
+        line = [ln for ln in err.splitlines()
+                if ln.startswith('[batch]')][-1]
+        with open(outp) as f:
+            return argv, line, f.read(), process_s
+
+    return wait
+
+
+def batch_run(torch, inference, fa, reqs, inp, argv,
+              command=('-m', 'skypilot_tpu_torch.inference.batch'),
+              started=None, then=None):
+    """`python -m skypilot_tpu_torch.inference.batch` (or `command`) on
+    `argv` as a process (`started`: batch_process's wait() of one already
+    running), then `run_batch` in this process on an engine built from
+    the same flags, with K1's (K2's) launches and the admissions'
+    expected count around it; the two outputs must be equal, byte for
+    byte. `then` (a function) runs once the process has ended and
+    before the in-process run: the next leg's process starts there, so
+    its start-up overlaps this run."""
+    from skypilot_tpu_torch.inference import batch as batch_lib
+    wait = started or batch_process(inp, argv, command)
+    argv, line, written, process_s = wait()
+    if then is not None:
+        then()
     args = batch_lib.build_parser().parse_args(argv)
     engine = inference.build_engine(args.model, **batch_lib.engine_kwargs(args))
     counter = (fa.flash_attention_quant if engine.kv_quant == 'int8'
@@ -2867,6 +2928,8 @@ def batch_phase(torch, inference, fa, rng, hf_dir, tmp):
     BATCH_PROMPT_LENGTHS tokens, BATCH_NEW new each, greedy, 8 slots):
     llama3-8b on bf16 then int8 KV, then phase 18's HF checkpoint; each
     output equal, byte for byte, to run_batch in this process."""
+    import shutil
+
     from skypilot_tpu_torch import models as models_lib
     vocab = models_lib.resolve(BATCH_MODEL)[1].vocab_size
     inp = os.path.join(tmp, 'batch.jsonl')
@@ -2875,12 +2938,27 @@ def batch_phase(torch, inference, fa, rng, hf_dir, tmp):
     common = ['--max-new-tokens', str(BATCH_NEW), *BATCH_FLAGS]
     out = {'requests': BATCH_REQUESTS, 'lengths': BATCH_PROMPT_LENGTHS,
            'max_new_tokens': BATCH_NEW}
-    for name, flags in (
-            ('bf16', ['--model', BATCH_MODEL, '--kv-quant', 'none']),
+    legs = [('bf16', ['--model', BATCH_MODEL, '--kv-quant', 'none']),
             ('int8', ['--model', BATCH_MODEL, '--kv-quant', 'int8']),
-            ('checkpoint', ['--model', CKPT_MODEL, '--checkpoint', hf_dir])):
-        out[name] = batch_run(torch, inference, fa, reqs, inp,
-                              common + flags)
+            ('checkpoint', ['--model', CKPT_MODEL, '--checkpoint', hf_dir])]
+    # Each leg's process writes its own file; the next leg's process
+    # starts (imports, CUDA, weights) while this leg's in-process run
+    # goes, and only once this leg's process has ended.
+    paths = {name: f'{inp}.{name}' for name, _ in legs}
+    for path in paths.values():
+        shutil.copyfile(inp, path)
+    running = {}
+
+    def start(i):
+        if i < len(legs):
+            name, flags = legs[i]
+            running[name] = batch_process(paths[name], common + flags)
+
+    start(0)
+    for i, (name, flags) in enumerate(legs):
+        out[name] = batch_run(torch, inference, fa, reqs, paths[name],
+                              common + flags, started=running.pop(name),
+                              then=functools.partial(start, i + 1))
     return out
 
 
@@ -3855,11 +3933,13 @@ def moe_main_path(torch, inference, fa, engine, prompts, quant):
                                 / max(st['decode_seconds'], 1e-9))}
 
 
-def moe_decode_syncs(torch, eng, moe, engine, rng):
+def moe_decode_syncs(torch, eng, moe, engine, rng, exempt=()):
     """One fused decode dispatch (MOE_DECODE_STEPS steps, 8 slots)
     under torch.cuda.set_sync_debug_mode: 'error' inside every MoE layer
     (a host sync there raises), 'warn' around the rest, whose syncs are
-    counted and held to the loop's own check, one a step."""
+    counted and held to the loop's own check, one a step. The functions
+    `exempt` names ((module, name) pairs: a mesh's collectives, which
+    gloo stages through the host) run unchecked inside the layers."""
     import warnings
     n = engine.state.cache['length'].shape[0]
     prompts = [prompt_tokens(rng, 64, engine.config.vocab_size)
@@ -3895,8 +3975,21 @@ def moe_decode_syncs(torch, eng, moe, engine, rng):
                 torch.cuda.set_sync_debug_mode('warn')
         return wrapper
 
-    with warnings.catch_warnings(record=True) as caught, \
-            patched(moe, '_moe_mlp', strict):
+    def unchecked(fn):
+        # Called inside a layer, where the mode is 'error'.
+        def wrapper(*a, **kw):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode('error')
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for obj, name in exempt:
+            stack.enter_context(patched(obj, name, unchecked))
+        caught = stack.enter_context(warnings.catch_warnings(record=True))
+        stack.enter_context(patched(moe, '_moe_mlp', strict))
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
         try:
@@ -3929,14 +4022,11 @@ def moe_serve_phase(torch, inference, eng, fa, rng):
     (reading, {'bf16': K1 launches, 'int8': K2 launches})."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.models import moe
-    lo, hi = MOE_PROMPT_LENGTHS
     vocab = moe.CONFIGS[MOE_MODEL].vocab_size
-    lengths = [int(x) for x in rng.integers(lo, hi + 1, size=8)]
-    prompts = [prompt_tokens(rng, MOE_LONG, vocab)] + [
-        prompt_tokens(rng, m, vocab) for m in lengths]
+    prompts = moe_prompts(rng)
     check = [prompt_tokens(rng, m, vocab) for m in (700, 1300)]
     out, launches = {'layers': MOE_SERVE_LAYERS, **MOE_KW,
-                     'prompt_lengths': [MOE_LONG] + lengths,
+                     'prompt_lengths': [len(p) for p in prompts],
                      'max_new_tokens': MOE_NEW}, {}
     params = config = None
     for quant in (False, True):
@@ -4055,6 +4145,107 @@ TP_TIMING_SHAPE = (8, 512, 2048, 16, 4, 128, 1536)
 # A `module:function` each rank process calls first (a CPU rehearsal's
 # counting stand-in for the kernels), with the directory it lives in.
 TP_RANK_SETUP = None
+# The legs tp_serve's ranks run, in order (mesh_fault_check.py runs the
+# ones a planted fault touches).
+TP_LEGS = ('bf16', 'server', 'int8', 'spec', 'migration', 'moe')
+# The migration leg: the fused decode dispatches (the prefill's
+# included) before its snapshots.
+TP_MIG_DISPATCHES = 2
+# The server leg's drained stream: prompt tokens and new tokens, drained
+# after TP_DRAIN_AFTER streamed tokens.
+TP_DRAIN_REQUEST = (500, 48)
+TP_DRAIN_AFTER = 4
+# The moe leg: mixtral-8x7b at full width over MOE_MESH, its depth cut to
+# MOE_MESH_LAYERS of 32 (the script's time; each layer holds the same
+# expert and collective work), the moe_serve phase's 8 prompts.
+MOE_MESH = 'expert=2'
+MOE_MESH_LAYERS = 4
+# The two gangs the legs run in (`tp_serve_legs`): the second starts once
+# the parent's unsharded references have freed the card.
+TP_GANGS = (('spec', 'migration', 'moe'), ('bf16', 'server', 'int8'))
+# The faults mesh_fault_check.py plants in tp_serve's ranks (`tp_plant`)
+# and the legs each runs.
+TP_FAULT_LEGS = {'serve_expert_not_reduced': ('moe',),
+                 'draft_off_mesh': ('bf16', 'spec'),
+                 'snapshot_rank0_heads': ('bf16', 'migration'),
+                 'restore_rank0_heads': ('bf16', 'migration')}
+
+
+def tp_plant(name):
+    """Plant one of mesh_fault_check.py's serving faults in this rank
+    process (None plants nothing):
+    - 'serve_expert_not_reduced': the expert outputs not all-reduced
+      over `expert` on the serving path (each rank combines its own
+      experts' outputs only);
+    - 'draft_off_mesh': the draft's layers run off the mesh in the
+      speculative rounds: its cut weights' row-parallel products left
+      unreduced over `tensor` (a draft not sharded as the target);
+    - 'snapshot_rank0_heads': the snapshot's gather packs rank 0's KV
+      heads in every rank's place;
+    - 'restore_rank0_heads': every rank keeps rank 0's KV heads of the
+      restore's broadcast blob."""
+    if name is None:
+        return
+    import torch
+
+    from skypilot_tpu_torch.inference import engine as eng
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    if name == 'serve_expert_not_reduced':
+        mt_plant_expert('expert_not_reduced')
+    elif name == 'draft_off_mesh':
+        real = eng.fused_spec_rounds
+
+        def off_mesh(params, cache, draft_params, *args, **kwargs):
+            hidden, layer = eng._hidden_with_cache, eng._layer_with_cache
+
+            def layer_off_mesh(*a, **kw):
+                with mesh_lib.use_mesh(None):
+                    return layer(*a, **kw)
+
+            def draft_hidden(p, *a, **kw):
+                if p is not draft_params:
+                    return hidden(p, *a, **kw)
+                eng._layer_with_cache = layer_off_mesh
+                try:
+                    return hidden(p, *a, **kw)
+                finally:
+                    eng._layer_with_cache = layer
+
+            eng._hidden_with_cache = draft_hidden
+            try:
+                return real(params, cache, draft_params, *args, **kwargs)
+            finally:
+                eng._hidden_with_cache = hidden
+        eng.fused_spec_rounds = off_mesh
+    elif name == 'snapshot_rank0_heads':
+        real, gather = eng.InferenceEngine._all_heads, collectives.all_gather
+
+        def rank0_everywhere(t, group, dim):
+            parts = gather(t, group, dim).chunk(
+                collectives.group_size(group), dim)
+            return torch.cat([parts[0]] * len(parts), dim)
+
+        def rank0(self, leaf, dim):
+            collectives.all_gather = rank0_everywhere
+            try:
+                return real(self, leaf, dim)
+            finally:
+                collectives.all_gather = gather
+        eng.InferenceEngine._all_heads = rank0
+    elif name == 'restore_rank0_heads':
+        real = eng.InferenceEngine._scatter_kv
+
+        def rank0(self, *args):
+            mesh = self.mesh
+            self.mesh = dataclasses.replace(mesh, tensor_rank=0)
+            try:
+                return real(self, *args)
+            finally:
+                self.mesh = mesh
+        eng.InferenceEngine._scatter_kv = rank0
+    else:
+        raise ValueError(f'unknown serving fault {name!r}')
 
 
 @contextlib.contextmanager
@@ -4126,16 +4317,20 @@ def clock_overhead(torch, dist, mesh, width, probe):
 
 
 def tp_rank_main(spec_path):
-    """One rank of the tp_serve engine leg, run as its own process with
-    the gang variables set: build_engine(mesh_arg=TP_MESH) (its slice of
-    the seed-0 weights), then on bf16 KV the 8 prompts (rank 0 submits,
-    the other rank follows) with K1's launches, the collectives' time
+    """One rank of the tp_serve gang, run as its own process with the
+    gang variables set, through the legs `spec['legs']` names in order:
+    build_engine(mesh_arg=TP_MESH) (its slice of the seed-0 weights),
+    then on bf16 KV the 8 prompts (rank 0 submits, the other rank
+    follows) with K1's launches, the collectives' time
     (`collective_clock`) and the replicated scheduler's own host time
     (the plan hash on every rank, rank 0's publish) read around them;
     the server leg's requests one at a time on a fresh engine; what the
-    clock's synchronizes cost (`clock_overhead`); then the 8 prompts on
-    int8 KV (K2). Writes its readings as JSON (rank 0's first-token
-    logits beside them); any failure raises (non-zero exit)."""
+    clock's synchronizes cost (`clock_overhead`); the 8 prompts on int8
+    KV (K2); the target as its own draft (`tp_spec_leg`); snapshot,
+    restore and handoff (`tp_migration_leg`); then mixtral-8x7b over
+    MOE_MESH (`tp_moe_leg`). Writes its readings as JSON (rank 0's
+    first-token logits beside them); any failure raises (non-zero
+    exit)."""
     with open(spec_path) as f:
         spec = json.load(f)
     rank = int(os.environ['SKYTPU_PROCESS_ID'])
@@ -4144,6 +4339,7 @@ def tp_rank_main(spec_path):
         sys.path.insert(0, spec['setup_path'])
         module, fn = spec['setup'].split(':')
         getattr(importlib.import_module(module), fn)()
+    tp_plant(spec['fault'])
     import torch
     import torch.distributed as dist
 
@@ -4153,18 +4349,8 @@ def tp_rank_main(spec_path):
     dev = spec['device']
     kw = spec['engine_kw']
     prompts = spec['prompts']
-    t0 = time.perf_counter()
-    engine = inference.build_engine(spec['model'], device=dev, seed=0,
-                                    mesh_arg=spec['mesh'], kv_quant='none',
-                                    **kw)
-    torch.cuda.synchronize()
-    params, config, mesh = engine.params, engine.config, engine.mesh
-    out = {'rank': rank, 'init_s': time.perf_counter() - t0,
-           'backend': mesh.backend, 'device': str(mesh.device),
-           'local_heads': int(params['layers']['wq'].shape[2]),
-           'local_kv_heads': int(params['layers']['wk'].shape[2]),
-           'local_mlp': int(params['layers']['w_up'].shape[-1]),
-           'local_vocab': int(params['embed'].shape[0])}
+    legs = spec['legs']
+    out = {'rank': rank}
 
     def follow_or_lead(engine, lead):
         """Rank 0 runs `lead(engine)`, then stops the followers; the
@@ -4186,7 +4372,23 @@ def tp_rank_main(spec_path):
         engine.follow()
         return None, seen
 
+    engine = None
+    if any(leg in legs for leg in ('bf16', 'int8', 'spec', 'migration')):
+        t0 = time.perf_counter()
+        engine = inference.build_engine(spec['model'], device=dev, seed=0,
+                                        mesh_arg=spec['mesh'],
+                                        kv_quant='none', **kw)
+        torch.cuda.synchronize()
+        params, config, mesh = engine.params, engine.config, engine.mesh
+        out.update({'init_s': time.perf_counter() - t0,
+                    'backend': mesh.backend, 'device': str(mesh.device),
+                    'local_heads': int(params['layers']['wq'].shape[2]),
+                    'local_kv_heads': int(params['layers']['wk'].shape[2]),
+                    'local_mlp': int(params['layers']['w_up'].shape[-1]),
+                    'local_vocab': int(params['embed'].shape[0])})
     for key in ('bf16', 'int8'):
+        if key not in legs:
+            continue
         if key == 'int8':
             del engine
             gc.collect()
@@ -4221,7 +4423,7 @@ def tp_rank_main(spec_path):
             torch.save(torch.cat(logits).float().cpu(),
                        os.path.join(spec['dir'], f'logits_{key}.pt'))
         out[key] = r
-        if key == 'bf16':
+        if key == 'bf16' and 'server' in legs:
             # The server leg's requests, one at a time on a fresh engine
             # of the server's flags: what the server must answer.
             del engine
@@ -4239,11 +4441,247 @@ def tp_rank_main(spec_path):
             out['clock_overhead'] = clock_overhead(
                 torch, dist, mesh, config.hidden_size,
                 spec['clock_probe'])
-    out['peak_mem_gb'] = (torch.cuda.max_memory_allocated(mesh.device) / 1e9
-                          if mesh.device.type == 'cuda' else None)
+    if engine is not None:
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 'spec' in legs:
+        out['spec'] = tp_spec_leg(torch, inference, fa, params, config, mesh,
+                                  spec, follow_or_lead)
+    if 'migration' in legs:
+        out['migration'] = tp_migration_leg(torch, inference, eng, fa,
+                                            params, config, mesh, spec,
+                                            follow_or_lead)
+    out['peak_mem_gb'] = peak_gb(torch)
+    if 'moe' in legs:
+        params = config = mesh = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        out['moe'] = tp_moe_leg(torch, inference, eng, fa, spec,
+                                follow_or_lead, rank)
     with open(os.path.join(spec['dir'], f'rank{rank}.json'), 'w') as f:
         json.dump(out, f)
     return 0
+
+
+def peak_gb(torch):
+    """The process's peak allocated device memory in GB (None without
+    CUDA)."""
+    return (torch.cuda.max_memory_allocated() / 1e9
+            if torch.cuda.is_available() else None)
+
+
+def tp_spec_leg(torch, inference, fa, params, config, mesh, spec,
+                follow_or_lead):
+    """The 8 prompts on bf16 KV with the target as its own draft (the
+    same tensors; its cache sharded as the target's), SPEC_K drafted
+    tokens a round, SPEC_ROUNDS rounds a dispatch: K1 launches (the
+    target's prefill; the draft's is dense) and, on rank 0, the rounds'
+    readings (`run_greedy`)."""
+    engine = inference.InferenceEngine(
+        params, config, mesh=mesh, kv_quant='none', draft=(params, config),
+        spec_k=SPEC_K, spec_fuse_rounds=SPEC_ROUNDS, **spec['engine_kw'])
+    prompts = spec['prompts']
+    fa.flash_attention.launches = fa.flash_attention_quant.launches = 0
+    run, seen = follow_or_lead(engine, lambda e: run_greedy(
+        torch, inference, e, prompts, spec['new'])[1])
+    r = {'launches': fa.flash_attention.launches,
+         'other_launches': fa.flash_attention_quant.launches,
+         'tokens': [seen.get(i) for i in range(len(prompts))],
+         'expected_launches': expected_prefill_launches(
+             engine, [len(p) for p in prompts]),
+         'draft_local_heads': int(
+             engine._draft_params['layers']['wq'].shape[2]),
+         'spec_k': SPEC_K, 'spec_fuse_rounds': SPEC_ROUNDS}
+    if run is not None:
+        r.update(run)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def watch_migration_pages(torch, engine):
+    """On any rank: the request's pages of this rank's pool as a
+    snapshot gathers them, and whether a restore spliced the same bytes
+    (the i-th restore against the i-th snapshot). Returns the list of
+    verdicts, filled as the engine runs."""
+    snapped, equal = [], []
+    snap_kv, restore = engine._snapshot_kv, engine._restore_locked
+
+    def pages_of(slot, n):
+        ids = torch.tensor(engine._slot_pages[slot][:n],
+                           device=engine.device)
+        out = []
+        for name in ('k', 'v'):
+            leaf = engine.state.cache[name]
+            for part in (leaf.values() if isinstance(leaf, dict)
+                         else [leaf]):
+                out.append(part.index_select(1, ids).clone())
+        return out
+
+    def snapshot_kv(i, length):
+        snapped.append(pages_of(i, -(-length // engine.kv_page_size)))
+        return snap_kv(i, length)
+
+    def restore_locked(header, arrays):
+        rid = restore(header, arrays)
+        if header.get('layout') == 'paged':
+            slot = next(i for i, s in enumerate(engine.state.slots)
+                        if s is not None and s.request_id == rid)
+            got = pages_of(slot, -(-int(header['length'])
+                                   // engine.kv_page_size))
+            want = snapped[len(equal)]
+            equal.append(all(torch.equal(a, b) for a, b in zip(got, want)))
+        return rid
+
+    engine._snapshot_kv = snapshot_kv
+    engine._restore_locked = restore_locked
+    return equal
+
+
+def tp_migration_leg(torch, inference, eng, fa, params, config, mesh, spec,
+                     follow_or_lead):
+    """The 8 prompts on bf16 KV, the one after the longest and the
+    shortest submitted with handoff=True: after the prefill and
+    TP_MIG_DISPATCHES fused decode dispatches the longest and the
+    shortest are snapshotted and the handoff request exported at its
+    pause, all three aborted and restored, and every request run to its
+    end. Every rank checks that each restore spliced the bytes its
+    snapshot gathered; rank 0 reads the blobs (bytes, KV heads) and
+    times the gather, pack, unpack, scatter and splice."""
+    engine = inference.InferenceEngine(params, config, mesh=mesh,
+                                       kv_quant='none', **spec['engine_kw'])
+    prompts = spec['prompts']
+    lengths = [len(p) for p in prompts]
+    longest = lengths.index(max(lengths))
+    shortest = lengths.index(min(lengths))
+    handoff = next(i for i in range(len(prompts))
+                   if i not in (longest, shortest))
+    moved = [longest, shortest, handoff]
+    equal = watch_migration_pages(torch, engine)
+    times = {key: [] for key in ('snapshot', 'gather', 'pack', 'unpack',
+                                 'restore', 'scatter', 'splice')}
+
+    def lead(e):
+        sampling = inference.SamplingParams(max_new_tokens=spec['new'])
+        rids = [e.submit(p, sampling, handoff=i == handoff)
+                for i, p in enumerate(prompts)]
+        for _ in range(TP_MIG_DISPATCHES):
+            e.step()
+        paused = e.handoff_pending() == [rids[handoff]]
+        progress = e.active_progress()
+        at_snapshot = [len(progress[rids[i]]) for i in moved]
+        blobs = []
+        for i in moved:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blobs.append(e.snapshot_request(rids[i]))
+            times['snapshot'].append(time.perf_counter() - t0)
+        e.mark_handoff_exported(rids[handoff])
+        for i in moved:
+            e.abort(rids[i])
+        for i, blob in zip(moved, blobs):
+            t0 = time.perf_counter()
+            rids[i] = e.restore_request(blob)
+            torch.cuda.synchronize()
+            times['restore'].append(time.perf_counter() - t0)
+        e.run_to_completion()
+        heads = []
+        for blob in blobs:
+            _, arrays = eng._snapshot_unpack(blob)
+            heads.append(sorted({int(a.shape[3]) for a in arrays.values()}))
+        return {'rids': rids, 'paused': paused,
+                'tokens_at_snapshot': at_snapshot,
+                'blob_bytes': [len(b) for b in blobs],
+                'blob_kv_heads': heads}
+
+    fa.flash_attention.launches = 0
+    with timed(engine, '_snapshot_kv', times['gather']), \
+            timed(eng, '_snapshot_pack', times['pack']), \
+            timed(eng, '_snapshot_unpack', times['unpack']), \
+            timed(engine, '_scatter_kv', times['scatter']), \
+            timed(eng, '_splice_pool_pages', times['splice']):
+        run, seen = follow_or_lead(engine, lead)
+    r = {'moved': moved, 'handoff': handoff, 'restored_bytes_equal': equal,
+         'launches': fa.flash_attention.launches,
+         'expected_launches': expected_prefill_launches(engine, lengths),
+         'seen': {str(k): v for k, v in seen.items()}}
+    if run is not None:
+        r.update(run, ms={key: [t * 1e3 for t in v]
+                          for key, v in times.items()})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def tp_moe_leg(torch, inference, eng, fa, spec, follow_or_lead, rank):
+    """mixtral-8x7b at full width, MOE_MESH_LAYERS layers, over MOE_MESH
+    (each rank its share of the experts), the moe_serve phase's 8
+    prompts greedy on bf16 KV: K1 launches, the collectives' time in the
+    prefill and in decode, rank 0's first-token logits; then, on every
+    rank together, one fused decode dispatch held to no host sync in
+    its MoE layers (`moe_decode_syncs`; the collectives themselves, a
+    host copy under gloo, exempt)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.parallel import collectives
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    m = spec['moe']
+    t0 = time.perf_counter()
+    with depth_cut(m['model'], m['layers']) as name:
+        engine = inference.build_engine(name, device=spec['device'], seed=0,
+                                        mesh_arg=m['mesh'], kv_quant='none',
+                                        **m['engine_kw'])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = m['prompts']
+    logits = capture_first_logits(engine)
+    fa.flash_attention.launches = fa.flash_attention_quant.launches = 0
+    with collective_clock(torch, dist, eng) as clock:
+        run, seen = follow_or_lead(engine, lambda e: run_greedy(
+            torch, inference, e, prompts, m['new'])[1])
+    lp = engine.params['layers']
+    r = {'init_s': init_s, 'launches': fa.flash_attention.launches,
+         'other_launches': fa.flash_attention_quant.launches,
+         'tokens': [seen.get(i) for i in range(len(prompts))],
+         'expected_launches': expected_prefill_launches(
+             engine, [len(p) for p in prompts]),
+         'collectives': clock,
+         'local_experts': int(lp['w_gate'].shape[1]),
+         'param_gb': sum(t.numel() * t.element_size()
+                         for t in tree_leaves(engine.params)) / 1e9,
+         'layer_param_gb': sum(t.numel() * t.element_size()
+                               for t in lp.values()) / 1e9
+         / engine.config.num_layers}
+    if run is not None:
+        prompt_total = sum(len(p) for p in prompts)
+        r.update(run, prefill_s=engine.stats['prefill_seconds'],
+                 prefill_tok_s=prompt_total / max(
+                     engine.stats['prefill_seconds'], 1e-9))
+        torch.save(torch.cat(logits).float().cpu(),
+                   os.path.join(spec['dir'], 'logits_moe.pt'))
+    with mesh_lib.use_mesh(engine.mesh):
+        r['decode_syncs'] = moe_decode_syncs(
+            torch, eng, moe, engine, np.random.default_rng(m['sync_seed']),
+            exempt=((collectives, 'all_reduce_'),
+                    (collectives, 'all_gather')))
+    r['peak_mem_gb'] = peak_gb(torch)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
 
 
 def tp_gang_env(port, rank, backend='gloo'):
@@ -4326,12 +4764,15 @@ def tp_nccl_refusal(tmp):
     return check
 
 
-def tp_server_leg(torch, requests, want, tmp):
+def tp_server_leg(torch, requests, want, tmp, drain=None):
     """The port's server as TP_RANKS processes of --mesh TP_MESH through
     the normal entry point: /health, each of `requests` through /generate
     (one streamed) one at a time, then /v1/completions on the first, every
-    answer token for token `want`; then SIGTERM to rank 0, after which
-    rank 1 must exit within TP_FOLLOWER_EXIT_S."""
+    answer token for token `want`; with `drain` (prompt, new tokens) a
+    stream of it drained by /internal/drain?deadline=0 after
+    TP_DRAIN_AFTER tokens (its migrate frame's blob returned as
+    `drain['blob']`); then SIGTERM to rank 0, after which rank 1 must
+    exit within TP_FOLLOWER_EXIT_S."""
     here = os.path.dirname(os.path.abspath(__file__))
     http, gang = free_port(), free_port()
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
@@ -4347,6 +4788,7 @@ def tp_server_leg(torch, requests, want, tmp):
                               stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(TP_RANKS)]
     base = f'http://127.0.0.1:{http}'
+    drained = None
 
     def tail(r):
         logs[r].seek(0)
@@ -4388,6 +4830,8 @@ def tp_server_leg(torch, requests, want, tmp):
         v1 = json.loads(http_json(base + '/v1/completions', {
             'prompt': requests[0][0], 'max_tokens': requests[0][1],
             'temperature': 0})[1])['choices'][0]['tokens']
+        if drain is not None:
+            drained = tp_drain_stream(base, *drain)
         procs[0].send_signal(signal.SIGTERM)
         t0 = time.perf_counter()
         try:
@@ -4407,106 +4851,244 @@ def tp_server_leg(torch, requests, want, tmp):
         for f in logs:
             f.close()
     faults = []
-    if got != want:
+    if got != want[:len(requests)]:
         faults.append(f'server tokens {got} != engine leg {want}')
     if v1 != want[0]:
         faults.append(f'/v1 tokens {v1} != engine leg {want[0]}')
     if (leader_rc, follower_rc) != (0, 0):
         faults.append(f'exit codes {leader_rc}, {follower_rc}: {tails}')
-    return {'command': ' '.join(cmd[1:]), 'load_s': load_s,
-            'request_s': request_s, 'tokens_equal': got == want,
-            'v1_equal': v1 == want[0], 'follower_exit_s': follower_exit_s,
-            'exit_codes': [leader_rc, follower_rc], 'faults': faults}
+    out = {'command': ' '.join(cmd[1:]), 'load_s': load_s,
+           'request_s': request_s, 'tokens_equal': got == want[:len(
+               requests)], 'v1_equal': v1 == want[0],
+           'follower_exit_s': follower_exit_s,
+           'exit_codes': [leader_rc, follower_rc], 'faults': faults}
+    if drained is not None:
+        faults += drained.pop('faults')
+        out['drain'] = drained
+    return out
 
 
-def tp_serve_phase(torch, inference, fa, rng):
+def tp_drain_stream(base, prompt, new):
+    """A stream of `prompt` on the server at `base`, drained after
+    TP_DRAIN_AFTER tokens by POST /internal/drain?deadline=0: the tokens
+    streamed, the migrate frame's sent count and blob, the drain's
+    answer, and the 503 a new request then gets."""
+    import base64
+    req = urllib.request.Request(base + '/generate', data=json.dumps({
+        'prompt_tokens': prompt, 'max_new_tokens': new,
+        'stream': True}).encode(), headers={'Content-Type':
+                                            'application/json'})
+    got, doc, frame = [], {}, None
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        for frame in sse_frames(line.decode() for line in resp):
+            if 'token' not in frame:
+                break
+            got.append(frame['token'])
+            if len(got) == TP_DRAIN_AFTER:
+                drain = threading.Thread(target=lambda: doc.update(
+                    answer=http_json(base + '/internal/drain?deadline=0',
+                                     {})))
+                drain.start()
+    stream_s = time.perf_counter() - t0
+    faults = []
+    if len(got) < TP_DRAIN_AFTER:
+        raise AssertionError(f'drained stream ended after {got}: {frame}')
+    drain.join(120)
+    migrate = (frame or {}).get('migrate')
+    if migrate is None:
+        raise AssertionError(f'drained stream ended with {frame}')
+    status, body = doc['answer']
+    answer = json.loads(body)
+    if status != 200 or answer != {
+            'status': 'drained', 'finished_naturally': False,
+            'snapshots': [], 'migrated_streams': 1}:
+        faults.append(f'drain answered {status} {answer}')
+    if migrate['sent'] != len(got):
+        faults.append(f'migrate frame sent {migrate["sent"]}, streamed '
+                      f'{len(got)}')
+    try:
+        refused = http_json(base + '/generate', {'prompt_tokens': [1, 2],
+                                                 'max_new_tokens': 2})[0]
+    except urllib.error.HTTPError as e:
+        refused = e.code
+    if refused != 503:
+        faults.append(f'a draining replica answered {refused}, not 503')
+    return {'streamed': got, 'sent': migrate['sent'], 'stream_s': stream_s,
+            'blob': base64.b64decode(migrate['snapshot']),
+            'new_request_status': refused, 'faults': faults}
+
+
+def moe_prompts(rng):
+    """The moe_serve phase's draws from its generator: the long prompt
+    and the 8 prompts of MOE_PROMPT_LENGTHS (in that order)."""
+    from skypilot_tpu_torch.models import moe
+    lo, hi = MOE_PROMPT_LENGTHS
+    vocab = moe.CONFIGS[MOE_MODEL].vocab_size
+    lengths = [int(x) for x in rng.integers(lo, hi + 1, size=8)]
+    return ([prompt_tokens(rng, MOE_LONG, vocab)]
+            + [prompt_tokens(rng, m, vocab) for m in lengths])
+
+
+def tp_moe_reference(torch, inference, prompts):
+    """The moe leg's reference: an unsharded engine of the same depth
+    and seed on one device, the same prompts greedy. Returns (tokens,
+    first-token logits on the host, its readings, its params on the
+    host, its config)."""
+    eng_kw = dict(MOE_KW, kv_quant='none')
+    with depth_cut(MOE_MODEL, MOE_MESH_LAYERS) as name:
+        engine = inference.build_engine(name, device=DEV, seed=0, **eng_kw)
+    seen = capture_first_logits(engine)
+    tokens, run = run_greedy(torch, inference, engine, prompts, MOE_NEW)
+    logits = torch.cat(seen).float().cpu()
+    from skypilot_tpu_torch.inference import engine as eng
+    params = eng._to_device(engine.params, torch.device('cpu'))
+    config = engine.config
+    del engine, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens, logits, run, params, config
+
+
+def tp_serve_phase(torch, inference, fa, rng, legs=None, fault=None):
     """llama3-8b served over a TP_MESH mesh (see tp_rank_main): the ranks'
     first-token logits within TOL_LOGITS_REL of the unsharded engine's
-    on the same seed (built here and freed before the ranks start), their
-    greedy tokens equal to its tokens up to near-ties (the divergence
-    rule, TOL_SPEC_GAP) and to each other's, K1 (K2) launches on each
-    rank equal to expected_prefill_launches; NCCL with two ranks on one
-    device refused; then the server leg (tp_server_leg). Returns
-    (reading, {'bf16': K1 launches, 'int8': K2 launches} per rank)."""
+    on the same seed (run here beside the ranks), their greedy tokens
+    equal to its tokens up to near-ties (the divergence rule,
+    TOL_SPEC_GAP) and to each other's, K1 (K2) launches on each rank
+    equal to expected_prefill_launches; NCCL with two ranks on one
+    device refused; the target as its own draft (tokens equal the
+    ranks' own bf16 tokens up to near-ties, acceptance at least
+    TOL_SPEC_ACCEPT); snapshot, restore and handoff (tokens equal, the
+    restored pages byte-equal on every rank, every KV head in the blob);
+    mixtral-8x7b over MOE_MESH against its unsharded engine (run here
+    beside the ranks); then the server leg (tp_server_leg), drained into
+    an unsharded engine. `legs` (default TP_LEGS) and `fault`
+    (`tp_plant`) serve mesh_fault_check.py. Returns (reading, K1/K2
+    launches per rank by leg)."""
     import shutil
     import tempfile
 
     from skypilot_tpu_torch import models as models_lib
     from skypilot_tpu_torch.inference import engine as eng
     from skypilot_tpu_torch.models import llama
+    legs = TP_LEGS if legs is None else legs
     vocab = models_lib.resolve(TP_MODEL)[1].vocab_size
     lo, hi = TP_PROMPT_LENGTHS
     lengths = [int(x) for x in rng.integers(lo, hi + 1, size=8)]
     prompts = [prompt_tokens(rng, m, vocab) for m in lengths]
     requests = [(prompt_tokens(rng, n, vocab), new, stream)
                 for n, new, stream in TP_SERVER_REQUESTS]
+    drain = (prompt_tokens(rng, TP_DRAIN_REQUEST[0], vocab),
+             TP_DRAIN_REQUEST[1])
     out = {'model': TP_MODEL, 'mesh': TP_MESH, 'ranks': TP_RANKS,
            'backend': 'gloo', **TP_KW, 'prompt_lengths': lengths,
-           'max_new_tokens': TP_NEW}
+           'max_new_tokens': TP_NEW, 'legs': list(legs), 'fault': fault}
     tmp = tempfile.mkdtemp(prefix='chip_smoke_tp_')
     try:
         launches = tp_serve_legs(torch, inference, eng, llama, prompts,
-                                 requests, out, tmp, tp_nccl_refusal(tmp))
+                                 requests, drain, out, tmp, legs, fault)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out, launches
 
 
-def tp_serve_legs(torch, inference, eng, llama, prompts, requests, out, tmp,
-                  nccl_check):
-    """tp_serve_phase's legs in `tmp`, filling `out` (with `faults`); the
-    NCCL refusal's ranks (`nccl_check`) run beside the unsharded engine.
-    Returns the K1/K2 launches per rank."""
-    # The unsharded engine on the same seed: the reference.
-    ref = {}
-    t0 = time.perf_counter()
-    engine = inference.build_engine(TP_MODEL, device=DEV, seed=0,
-                                    kv_quant='none', **TP_KW)
-    params, config = engine.params, engine.config
-    for key in ('bf16', 'int8'):
-        if key == 'int8':
-            engine = inference.InferenceEngine(params, config,
-                                               kv_quant='int8', device=DEV,
-                                               **TP_KW)
-        seen = capture_first_logits(engine)
-        tokens, run = run_greedy(torch, inference, engine, prompts, TP_NEW)
-        ref[key] = {'tokens': tokens, 'logits': torch.cat(seen).float(),
-                    'decode_tok_s': run['decode_tok_s']}
-        del engine
-    out['unsharded_s'] = time.perf_counter() - t0
-    out['nccl_refusal'] = nccl_check()
-    # The dense forward of the near-tie rule needs the params again
-    # after the ranks: they wait on the host.
-    host_params = eng._to_device(params, torch.device('cpu'))
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+def tp_serve_legs(torch, inference, eng, llama, prompts, requests, drain,
+                  out, tmp, legs, fault):
+    """tp_serve_phase's legs in `tmp`, filling `out` (with `faults`), run
+    by two gangs of TP_RANKS ranks each (`TP_GANGS`, their gloo
+    collectives host-bound, so the two overlap): the first starts at
+    once, beside the unsharded engines here (llama3-8b on the same seed,
+    then mixtral-8x7b at the moe leg's depth) and the NCCL refusal's
+    ranks; the second once those have freed the card. Returns the K1/K2
+    launches per rank by leg."""
+    import numpy as np
+    moe_all = moe_prompts(np.random.default_rng(9))
+    moe_in = moe_all[1:]
     spec = {'model': TP_MODEL, 'mesh': TP_MESH, 'device': DEV,
             'engine_kw': TP_KW, 'prompts': prompts, 'new': TP_NEW,
-            'server_requests': [(p, n) for p, n, _ in requests],
-            'clock_probe': TP_CLOCK_PROBE,
-            'dir': tmp, 'setup': TP_RANK_SETUP and TP_RANK_SETUP[0],
+            'server_requests': [(p, n) for p, n, _ in requests] + [drain],
+            'clock_probe': TP_CLOCK_PROBE, 'legs': list(legs),
+            'fault': fault,
+            'moe': {'model': MOE_MODEL, 'layers': MOE_MESH_LAYERS,
+                    'mesh': MOE_MESH, 'engine_kw': MOE_KW,
+                    'prompts': moe_in, 'new': MOE_NEW, 'sync_seed': 11},
+            'setup': TP_RANK_SETUP and TP_RANK_SETUP[0],
             'setup_path': TP_RANK_SETUP and TP_RANK_SETUP[1]}
-    spec_path = os.path.join(tmp, 'spec.json')
-    with open(spec_path, 'w') as f:
-        json.dump(spec, f)
-    code = ('import sys, chip_smoke; '
-            'sys.exit(chip_smoke.tp_rank_main(sys.argv[1]))')
-    port = free_port()
-    rcs, tails, ranks_s = start_ranks(
-        lambda r: [sys.executable, '-c', code, spec_path],
-        lambda r: tp_gang_env(port, r), tmp, 'rank', timeout=900)()
-    if rcs != [0] * TP_RANKS:
-        raise AssertionError(f'tp ranks failed: rcs {rcs}: {tails}')
-    ranks = []
-    for r in range(TP_RANKS):
-        with open(os.path.join(tmp, f'rank{r}.json')) as f:
-            ranks.append(json.load(f))
-    out['ranks_s'] = ranks_s
-    faults, launches = [], {}
-    for key in ('bf16', 'int8'):
-        got = torch.load(os.path.join(tmp, f'logits_{key}.pt')).to(
-            ref[key]['logits'].device)
+    gang_legs = [[leg for leg in gang if leg in legs] for gang in TP_GANGS]
+    gang_dirs = [os.path.join(tmp, f'gang{g}') for g in range(len(TP_GANGS))]
+    waits = {}
+
+    def start_gang(g):
+        if not gang_legs[g]:
+            return
+        os.makedirs(gang_dirs[g])
+        path = os.path.join(gang_dirs[g], 'spec.json')
+        with open(path, 'w') as f:
+            json.dump({**spec, 'legs': gang_legs[g], 'dir': gang_dirs[g]}, f)
+        code = ('import sys, chip_smoke; '
+                'sys.exit(chip_smoke.tp_rank_main(sys.argv[1]))')
+        port = free_port()
+        waits[g] = start_ranks(lambda r: [sys.executable, '-c', code, path],
+                               lambda r: tp_gang_env(port, r), gang_dirs[g],
+                               'rank', timeout=1200)
+
+    start_gang(0)
+    nccl_check = tp_nccl_refusal(tmp) if 'server' in legs else None
+    # The unsharded references, beside the ranks.
+    ref, host_params, config = {}, None, None
+    t0 = time.perf_counter()
+    llama_keys = [k for k in ('bf16', 'int8') if k in legs]
+    if llama_keys:
+        engine = inference.build_engine(TP_MODEL, device=DEV, seed=0,
+                                        kv_quant='none', **TP_KW)
+        params, config = engine.params, engine.config
+        for key in llama_keys:
+            if key == 'int8':
+                engine = inference.InferenceEngine(
+                    params, config, kv_quant='int8', device=DEV, **TP_KW)
+            seen = capture_first_logits(engine)
+            tokens, run = run_greedy(torch, inference, engine, prompts,
+                                     TP_NEW)
+            ref[key] = {'tokens': tokens,
+                        'logits': torch.cat(seen).float().cpu(),
+                        'decode_tok_s': run['decode_tok_s']}
+            del engine, seen
+        # The near-tie rule's dense forward needs the params after the
+        # ranks: they wait on the host.
+        host_params = eng._to_device(params, torch.device('cpu'))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out['unsharded_s'] = time.perf_counter() - t0
+    moe_ref = None
+    if 'moe' in legs:
+        t0 = time.perf_counter()
+        moe_ref = tp_moe_reference(torch, inference, moe_in)
+        out['moe_unsharded_s'] = time.perf_counter() - t0
+    if nccl_check is not None:
+        out['nccl_refusal'] = nccl_check()
+    start_gang(1)
+    t0 = time.perf_counter()
+    ranks = [{} for _ in range(TP_RANKS)]
+    out['gangs'] = {}
+    for g in sorted(waits):
+        rcs, tails, ranks_s = waits[g]()
+        if rcs != [0] * TP_RANKS:
+            raise AssertionError(f'tp ranks failed: rcs {rcs}: {tails}')
+        out['gangs'][g] = {'legs': gang_legs[g], 'ranks_s': ranks_s}
+        for r in range(TP_RANKS):
+            with open(os.path.join(gang_dirs[g], f'rank{r}.json')) as f:
+                got = json.load(f)
+            # Each gang's own rank facts beside its legs' readings.
+            ranks[r].update({**got, **{f'{k}_gang{g}': got.get(k) for k in (
+                'init_s', 'peak_mem_gb')}})
+    out['ranks_wait_s'] = time.perf_counter() - t0
+    faults, launches, diverged = [], {}, []
+    logits_dir = {leg: gang_dirs[g] for g, gang in enumerate(gang_legs)
+                  for leg in gang}
+    for key in llama_keys:
+        got = torch.load(os.path.join(logits_dir[key], f'logits_{key}.pt'))
         r0 = ranks[0][key]
         reading = {
             'logits_rel_err': rel_err(torch, got, ref[key]['logits']),
@@ -4531,29 +5113,64 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, out, tmp,
             faults.append(f'{key}: the ranks\' tokens differ')
         launches[key] = reading['launches_per_rank']
         out[key] = reading
-    # Near-ties: a divergence from the unsharded tokens passes only
-    # where both tokens lie within TOL_SPEC_GAP of the top logit.
-    diverged = [(key, i) for key in ('bf16', 'int8') for i in range(
-        len(prompts)) if ranks[0][key]['tokens'][i]
-        != ref[key]['tokens'][i]]
-    if diverged:
+        # Near-ties: a divergence from the unsharded tokens passes only
+        # where both tokens lie within TOL_SPEC_GAP of the top logit.
+        diverged += [(key, i, ref[key]['tokens'][i], r0['tokens'][i])
+                     for i in range(len(prompts))
+                     if r0['tokens'][i] != ref[key]['tokens'][i]]
+    if 'spec' in legs:
+        faults += tp_spec_checks(ranks, out, launches, diverged)
+    if 'migration' in legs:
+        faults += tp_migration_checks(ranks, out, config, prompts,
+                                      launches)
+    if 'moe' in legs:
+        faults += tp_moe_checks(torch, ranks, out, launches, moe_ref,
+                                moe_in, logits_dir['moe'])
+    del moe_ref
+    if llama_keys:
+        tp_llama_summary(ranks, out, llama_keys, config)
+        if ranks[0]['local_heads'] * TP_RANKS != config.num_heads:
+            faults.append(f'rank heads {out["per_rank"]}')
+    if 'server' in legs:
+        out['server_requests_ranks_equal'] = all(
+            r['server_requests'] == ranks[0]['server_requests']
+            for r in ranks)
+        if not out['server_requests_ranks_equal']:
+            faults.append('the ranks\' server-leg tokens differ')
+        t0 = time.perf_counter()
+        out['server'] = tp_server_leg(torch, requests,
+                                      ranks[0]['server_requests'], tmp,
+                                      drain=drain)
+        out['server']['leg_s'] = time.perf_counter() - t0
+        faults += [f'server: {f}' for f in out['server'].pop('faults')]
+    blob = out.get('server', {}).get('drain', {}).pop('blob', None)
+    if diverged or blob is not None:
+        # The dense forward of the near-tie rule, and the drained
+        # stream's blob restored on an unsharded engine.
         params = eng._to_device(host_params, torch.device(DEV))
-        for key in ('bf16', 'int8'):
+        for key in sorted({d[0] for d in diverged}):
             out[key]['divergences'] = [divergence_reading(
-                torch, llama, params, config, prompts[i],
-                ref[key]['tokens'][i], ranks[0][key]['tokens'][i])
-                for k, i in diverged if k == key]
+                torch, llama, params, config, prompts[i], want, got)
+                for k, i, want, got in diverged if k == key]
             faults += [f'{key}: {f}' for f in divergence_faults(
                 out[key]['divergences'])]
+        if blob is not None:
+            faults += tp_drain_restore(torch, inference, params, config,
+                                       blob, drain, out, ranks, llama)
         del params
         gc.collect()
         torch.cuda.empty_cache()
-    del host_params
-    # The collectives' share of the prefill and of decode, read in the
-    # run (rank 0's clock against its engine's own seconds), and the
-    # replicated scheduler's host time (each rank's plan hashes, rank 0's
-    # publishes) against the run's wall time.
-    for key in ('bf16', 'int8'):
+    out['faults'] = faults
+    return launches
+
+
+def tp_llama_summary(ranks, out, keys, config):
+    """The collectives' share of the prefill and of decode, read in the
+    run (rank 0's clock against its engine's own seconds), the
+    replicated scheduler's host time (each rank's plan hashes, rank 0's
+    publishes) against the run's wall time, what the clock's
+    synchronizes add, and each rank's cut and peak memory."""
+    for key in keys:
         clock = ranks[0][key]['collectives']
         out[key]['collectives'] = {
             **clock, 'share_of_prefill': clock['prefill_s']
@@ -4564,32 +5181,204 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, out, tmp,
             'per_rank': sched,
             'share_of_wall': (sched[0]['plan_s'] + sched[0]['publish_s'])
             / out[key]['wall_s']}
-    # The clock's synchronizes: what one adds to a collective, times the
-    # collectives each run made, against its wall time.
-    over = ranks[0]['clock_overhead']
-    out['clock_overhead'] = {**over, **{
-        f'share_of_{key}_wall': over['added_ms'] * 1e-3 * (
-            out[key]['collectives']['prefill_calls']
-            + out[key]['collectives']['decode_calls']) / out[key]['wall_s']
-        for key in ('bf16', 'int8')}}
-    out['per_rank'] = [{k: r[k] for k in (
+    if 'clock_overhead' in ranks[0]:
+        over = ranks[0]['clock_overhead']
+        out['clock_overhead'] = {**over, **{
+            f'share_of_{key}_wall': over['added_ms'] * 1e-3 * (
+                out[key]['collectives']['prefill_calls']
+                + out[key]['collectives']['decode_calls'])
+            / out[key]['wall_s'] for key in keys}}
+    out['per_rank'] = [{k: r.get(k) for k in (
         'rank', 'backend', 'device', 'init_s', 'local_heads',
         'local_kv_heads', 'local_mlp', 'local_vocab', 'peak_mem_gb')}
         for r in ranks]
-    if ranks[0]['local_heads'] * TP_RANKS != config.num_heads:
-        faults.append(f'rank heads {out["per_rank"]}')
-    out['server_requests_ranks_equal'] = all(
-        r['server_requests'] == ranks[0]['server_requests']
-        for r in ranks)
-    if not out['server_requests_ranks_equal']:
-        faults.append('the ranks\' server-leg tokens differ')
+
+
+def tp_spec_checks(ranks, out, launches, diverged):
+    """The spec leg's gates: K1 launches per rank the target's expected
+    prefill launches (and K2 none), the ranks' tokens equal, acceptance
+    at least TOL_SPEC_ACCEPT; its divergences from the ranks' own bf16
+    tokens join `diverged` (the near-tie rule)."""
+    faults = []
+    r0 = ranks[0]['spec']
+    reading = {
+        'launches_per_rank': [r['spec']['launches'] for r in ranks],
+        'expected_launches': r0['expected_launches'],
+        'ranks_tokens_equal': all(r['spec']['tokens'] == r0['tokens']
+                                  for r in ranks),
+        'tokens_equal_bf16': sum(a == b for a, b in zip(
+            r0['tokens'], ranks[0]['bf16']['tokens'])),
+        'draft_local_heads': [r['spec']['draft_local_heads']
+                              for r in ranks],
+        **{k: r0[k] for k in (
+            'spec_k', 'spec_fuse_rounds', 'wall_s', 'decode_s',
+            'decode_tok_s', 'spec_dispatches', 'spec_rounds',
+            'ms_per_round', 'tokens_per_round', 'proposed_tokens',
+            'accepted_tokens', 'acceptance', 'accepted_per_round')
+           if k in r0},
+        'decode_tok_s_vs_bf16': r0.get('decode_tok_s', 0.0)
+        / out['bf16']['decode_tok_s']}
+    if any(n != r0['expected_launches']
+           for n in reading['launches_per_rank']) or any(
+               r['spec']['other_launches'] for r in ranks):
+        faults.append(f'spec launches {reading["launches_per_rank"]} != '
+                      f'{r0["expected_launches"]} per rank')
+    if not reading['ranks_tokens_equal']:
+        faults.append('spec: the ranks\' tokens differ')
+    faults += [f'spec: {f}' for f in acceptance_faults(
+        r0.get('accepted_tokens', 0), r0.get('proposed_tokens', 0))]
+    want = ranks[0]['bf16']['tokens']
+    diverged += [('spec', i, want[i], r0['tokens'][i])
+                 for i in range(len(want)) if r0['tokens'][i] != want[i]]
+    launches['spec'] = reading['launches_per_rank']
+    out['spec'] = reading
+    return faults
+
+
+def tp_migration_checks(ranks, out, config, prompts, launches):
+    """The migration leg's gates: every request's tokens on every rank
+    equal the ranks' own uninterrupted bf16 tokens (the migration
+    phase's rule), each restore spliced on every rank the bytes its
+    snapshot gathered, every blob carries all KV heads, and the handoff
+    request paused."""
+    faults = []
+    r0 = ranks[0]['migration']
+    rids = r0['rids']
+    want = ranks[0]['bf16']['tokens']
+    per_rank = [[r['migration']['seen'].get(str(rid)) for rid in rids]
+                for r in ranks]
+    equal = [sum(a == b for a, b in zip(tokens, want))
+             for tokens in per_rank]
+    bytes_equal = [r['migration']['restored_bytes_equal'] for r in ranks]
+    launched = [r['migration']['launches'] for r in ranks]
+    reading = {
+        'launches_per_rank': launched,
+        'expected_launches': r0['expected_launches'],
+        'moved': r0['moved'], 'handoff': r0['handoff'],
+        'prompt_lengths': [len(prompts[i]) for i in r0['moved']],
+        'tokens_at_snapshot': r0['tokens_at_snapshot'],
+        'tokens_equal_bf16_per_rank': equal,
+        'restored_bytes_equal_per_rank': bytes_equal,
+        'handoff_paused': r0['paused'],
+        'blob_bytes': r0['blob_bytes'], 'blob_kv_heads': r0['blob_kv_heads'],
+        'ms': r0['ms']}
+    if any(n != len(want) for n in equal):
+        faults.append(f'migration: tokens equal the bf16 leg\'s on '
+                      f'{equal} of {len(want)} requests (per rank)')
+    if any(v != [True] * len(r0['moved']) for v in bytes_equal):
+        faults.append(f'migration: restored pages not byte-equal to the '
+                      f'snapshotted ones: {bytes_equal}')
+    heads = config.num_kv_heads
+    if any(h != [heads] for h in r0['blob_kv_heads']):
+        faults.append(f'migration: blob KV heads {r0["blob_kv_heads"]} '
+                      f'!= [{heads}]')
+    if not r0['paused']:
+        faults.append('migration: the handoff request did not pause')
+    if any(n != r0['expected_launches'] for n in launched):
+        faults.append(f'migration launches {launched} != '
+                      f'{r0["expected_launches"]} per rank')
+    launches['migration'] = launched
+    out['migration'] = reading
+    return faults
+
+
+def tp_moe_checks(torch, ranks, out, launches, moe_ref, prompts, tmp):
+    """The moe leg's gates against its unsharded engine: first-token
+    logits within TOL_LOGITS_REL, the ranks' tokens equal and equal to
+    the unsharded ones up to near-ties (a dense MoE forward on the host
+    params), K1 launches per rank the expected prefill launches, no host
+    sync in a decode dispatch's MoE layers on any rank; the collectives'
+    share of the prefill and of decode, and the peak memory a rank with
+    the full depth's worked out from it."""
+    from skypilot_tpu_torch.models import moe
+    faults = []
+    tokens, logits, run, params, config = moe_ref
+    r0 = ranks[0]['moe']
+    got = torch.load(os.path.join(tmp, 'logits_moe.pt'))
+    clock = r0['collectives']
+    layers = MOE_MESH_LAYERS
+    full = moe.CONFIGS[MOE_MODEL].num_layers
+    reading = {
+        'model': MOE_MODEL, 'layers': layers, 'mesh': MOE_MESH,
+        'logits_rel_err': rel_err(torch, got, logits),
+        'launches_per_rank': [r['moe']['launches'] for r in ranks],
+        'expected_launches': r0['expected_launches'],
+        'ranks_tokens_equal': all(r['moe']['tokens'] == r0['tokens']
+                                  for r in ranks),
+        'tokens_equal_unsharded': sum(a == b for a, b in zip(
+            r0['tokens'], tokens)),
+        'local_experts': [r['moe']['local_experts'] for r in ranks],
+        'decode_syncs': [r['moe']['decode_syncs'] for r in ranks],
+        **{k: r0[k] for k in ('init_s', 'prefill_s', 'prefill_tok_s',
+                              'decode_s', 'decode_tok_s', 'wall_s')},
+        'unsharded': {k: run[k] for k in ('wall_s', 'decode_tok_s')},
+        'collectives': {**clock, 'share_of_prefill': clock['prefill_s']
+                        / r0['prefill_s'],
+                        'share_of_decode': clock['decode_s']
+                        / r0['decode_s']},
+        'peak_mem_gb_per_rank': [r['moe']['peak_mem_gb'] for r in ranks],
+        'param_gb_per_rank': r0['param_gb'],
+        'layer_param_gb_per_rank': r0['layer_param_gb']}
+    if r0['peak_mem_gb'] is not None:
+        reading['full_depth_peak_gb_per_rank'] = (
+            r0['peak_mem_gb'] + (full - layers) * r0['layer_param_gb'])
+    if not reading['logits_rel_err'] < TOL_LOGITS_REL:
+        faults.append(f'moe logits rel err {reading["logits_rel_err"]}')
+    if any(n != r0['expected_launches']
+           for n in reading['launches_per_rank']) or any(
+               r['moe']['other_launches'] for r in ranks):
+        faults.append(f'moe launches {reading["launches_per_rank"]} != '
+                      f'{r0["expected_launches"]} per rank')
+    if not reading['ranks_tokens_equal']:
+        faults.append('moe: the ranks\' tokens differ')
+    if reading['local_experts'] != [
+            moe.CONFIGS[MOE_MODEL].num_experts // TP_RANKS] * TP_RANKS:
+        faults.append(f'moe experts a rank {reading["local_experts"]}')
+    diverged = [(i, tokens[i], r0['tokens'][i]) for i in range(len(tokens))
+                if r0['tokens'][i] != tokens[i]]
+    if diverged:
+        from skypilot_tpu_torch.inference import engine as eng
+        dev_params = eng._to_device(params, torch.device(DEV))
+        reading['divergences'] = [divergence_reading(
+            torch, moe, dev_params, config, prompts[i], want, have)
+            for i, want, have in diverged]
+        faults += [f'moe: {f}' for f in divergence_faults(
+            reading['divergences'])]
+        del dev_params
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches['moe'] = reading['launches_per_rank']
+    out['moe'] = reading
+    return faults
+
+
+def tp_drain_restore(torch, inference, params, config, blob, drain, out,
+                     ranks, llama):
+    """The drained stream's blob restored on an unsharded engine built
+    from the same params: the continued tokens against the sharded
+    engine's for that request (the ranks' server leg) under the
+    divergence rule, the streamed tokens a prefix of them."""
+    faults = []
+    engine = inference.InferenceEngine(params, config, device=DEV,
+                                       kv_quant='none', **TP_KW)
     t0 = time.perf_counter()
-    out['server'] = tp_server_leg(torch, requests,
-                                  ranks[0]['server_requests'], tmp)
-    out['server']['leg_s'] = time.perf_counter() - t0
-    faults += [f'server: {f}' for f in out['server'].pop('faults')]
-    out['faults'] = faults
-    return launches
+    rid = engine.restore_request(blob)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = engine.run_to_completion()[rid]
+    del engine
+    want = ranks[0]['server_requests'][-1]
+    streamed = out['server']['drain']['streamed']
+    reading = divergence_reading(torch, llama, params, config, drain[0],
+                                 want, got)
+    out['server']['drain'].update(
+        blob_bytes=len(blob), restore_ms=restore_s * 1e3,
+        tokens=len(got), equal_sharded=got == want, divergence=reading)
+    if got[:len(streamed)] != streamed:
+        faults.append(f'drain: restored tokens {got[:len(streamed)]} do '
+                      f'not continue the stream {streamed}')
+    faults += [f'drain: {f}' for f in divergence_faults([reading])]
+    return faults
 
 
 # The mesh_train phase: bench-8b at full width (4096 / 14336, 32 / 8
@@ -6219,14 +7008,23 @@ def main():
     torch.cuda.empty_cache()
 
     # 27. llama3-8b over a tensor=2 mesh: two ranks on the card over gloo,
-    # K1 (K2) on each rank's 16 q / 4 kv heads, then the server as two
-    # processes. Its own generator, as the later slices' phases.
+    # K1 (K2) on each rank's 16 q / 4 kv heads, the target as its own
+    # draft, snapshot / restore / handoff; in the same ranks mixtral-8x7b
+    # over expert=2 (the unsharded references run here beside them);
+    # then the server as two processes, drained into an unsharded
+    # engine. Its own generator, as the later slices' phases.
     t0 = time.perf_counter()
     out, launches = tp_serve_phase(torch, inference, fa,
                                    np.random.default_rng(10))
+    moe_mesh = out.pop('moe')
     emit('tp_serve', phase_s=time.perf_counter() - t0, **out)
+    emit('moe_mesh', **moe_mesh)
     if out['faults']:
         raise AssertionError(f'tp_serve: {out["faults"]}')
+    path_launches['flash_attention']['tp_serve_spec'] = launches['spec']
+    path_launches['flash_attention']['tp_serve_migration'] = launches[
+        'migration']
+    path_launches['flash_attention']['moe_mesh'] = launches['moe']
     for quant, name in ((False, 'flash_attention'),
                         (True, 'flash_attention_quant')):
         key = 'int8' if quant else 'bf16'

@@ -1,10 +1,10 @@
-"""Plant faults in the mesh training path and check that chip_smoke's
-mesh_train limits catch each one.
+"""Plant faults in the mesh training and serving paths and check that
+chip_smoke's mesh_train and tp_serve limits catch each one.
 
     python3 mesh_fault_check.py [FAULT ...]
 
 Runs chip_smoke's `mesh_train_phase` once sound (every leg), then once
-per fault with the fault planted in the rank processes
+per training fault with the fault planted in the rank processes
 (`chip_smoke.mt_plant`) on the legs it touches:
 - batch_reduce: the gradient reductions over the batch axes left out
   (the FSDP reduce-scatter keeps this rank's part unsummed, the
@@ -24,9 +24,25 @@ per fault with the fault planted in the rank processes
 - expert_not_reduced: the expert outputs not all-reduced over `expert`;
   topk_local: the router's top-k over each rank's own experts' logits:
   the expert leg.
+The serving faults run chip_smoke's `tp_serve_phase` once sound (the
+bf16, spec, migration and moe legs), then once per fault planted in its
+ranks (`chip_smoke.tp_plant`) on the legs it touches
+(`chip_smoke.TP_FAULT_LEGS`):
+- serve_expert_not_reduced: the expert outputs not all-reduced over
+  `expert` on the serving path: the moe leg;
+- draft_off_mesh: the draft's layers run off the mesh in the
+  speculative rounds (its row-parallel products unreduced): the spec
+  leg;
+- snapshot_rank0_heads: the snapshot packs rank 0's KV heads in every
+  rank's place; restore_rank0_heads: the restore hands every rank rank
+  0's heads: the migration leg.
 Prints one JSON line a run (its limits' readings and the limits it
-broke) and exits non-zero unless the sound run breaks none and every
-fault breaks at least one. Needs one CUDA device; about 8 minutes.
+broke) and exits non-zero unless each sound run breaks none and every
+fault breaks at least one. A serving run whose ranks failed counts as
+caught only where a follower raised on the ranks' divergence (the
+ranks-equal gate, `raised_gates`), never for any other error. Needs one
+CUDA device; about 8 minutes for the training faults, about 10 for the
+serving ones.
 """
 import json
 import sys
@@ -79,6 +95,76 @@ def readings(out):
     return got
 
 
+def serve_readings(out):
+    """The numbers tp_serve's gates read on the legs a run took."""
+    got = {}
+    if 'spec' in out:
+        got['spec'] = {k: out['spec'].get(k) for k in (
+            'acceptance', 'ranks_tokens_equal', 'tokens_equal_bf16')}
+    if 'migration' in out:
+        got['migration'] = {k: out['migration'][k] for k in (
+            'tokens_equal_bf16_per_rank', 'restored_bytes_equal_per_rank',
+            'blob_kv_heads')}
+    if 'moe' in out:
+        got['moe'] = {k: out['moe'][k] for k in (
+            'logits_rel_err', 'ranks_tokens_equal',
+            'tokens_equal_unsharded')}
+    return got
+
+
+# A serving fault may set the ranks apart before a gate reads the run: a
+# follower's host plan (its requests' last tokens among it) then leaves
+# rank 0's, `InferenceEngine.follow` raises with this text and the gang
+# fails. That is the ranks-equal gate, checked in the run.
+DIVERGED = 'the replicas diverged'
+
+
+def raised_gates(text):
+    """The gates a tp_serve run that raised `text` broke: the ranks-equal
+    gate where a rank's log holds DIVERGED, none otherwise (a run that
+    failed for another reason caught nothing)."""
+    if DIVERGED in text:
+        return ["ranks_equal: a follower's host plan left rank 0's "
+                f'({DIVERGED!r} in its log)']
+    return []
+
+
+def check_serving(torch, chip_smoke, faults):
+    """The sound tp_serve legs, then each serving fault on its legs;
+    True when the sound run raises nothing and breaks no gate, and every
+    fault breaks a named gate (`out['faults']`, or `raised_gates`)."""
+    import numpy as np
+
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    sound = tuple(leg for leg in chip_smoke.TP_LEGS if any(
+        leg in chip_smoke.TP_FAULT_LEGS[f] for f in faults))
+    ok = True
+    for fault in [None] + faults:
+        legs = sound if fault is None else chip_smoke.TP_FAULT_LEGS[fault]
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            out, _ = chip_smoke.tp_serve_phase(
+                torch, inference, fa, np.random.default_rng(10), legs=legs,
+                fault=fault)
+            broken, readings = out['faults'], serve_readings(out)
+        except AssertionError as e:
+            raised = str(e)
+            broken, readings = raised_gates(raised), {}
+        caught = bool(broken) if fault else not broken and raised is None
+        ok &= caught
+        line = {'fault': fault, 'caught' if fault else 'sound': caught,
+                'broken': broken, 'readings': readings,
+                'phase_s': time.perf_counter() - t0}
+        if raised is not None:
+            at = raised.find(DIVERGED)
+            line['raised'] = (raised[max(0, at - 300):at + 100] if at >= 0
+                              else raised[-2000:])
+        print(json.dumps(line), flush=True)
+    return ok
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -88,16 +174,22 @@ def main(argv):
     chip_smoke.bytecode_cache()
     from skypilot_tpu_torch.ops import _build
     _build.library()
-    faults = argv or list(FAULT_LEGS)
-    unknown = [f for f in faults if f not in FAULT_LEGS]
+    faults = argv or list(FAULT_LEGS) + list(chip_smoke.TP_FAULT_LEGS)
+    unknown = [f for f in faults if f not in FAULT_LEGS
+               and f not in chip_smoke.TP_FAULT_LEGS]
     if unknown:
         print(f'mesh_fault_check: unknown faults {unknown}; known: '
-              f'{sorted(FAULT_LEGS)}', file=sys.stderr)
+              f'{sorted(FAULT_LEGS) + sorted(chip_smoke.TP_FAULT_LEGS)}',
+              file=sys.stderr)
         return 2
+    serving = [f for f in faults if f in chip_smoke.TP_FAULT_LEGS]
+    faults = [f for f in faults if f in FAULT_LEGS]
     legs = {leg[0]: leg for leg in chip_smoke.MT_LEGS}
     ok = True
     t0 = time.perf_counter()
-    for fault in [None] + faults:
+    if serving:
+        ok &= check_serving(torch, chip_smoke, serving)
+    for fault in ([None] + faults) if faults else []:
         names = legs if fault is None else FAULT_LEGS[fault]
         run_legs = tuple(legs[name] for name in names if name in legs)
         extra = (chip_smoke.MT_EXTRA_LEGS if fault is None else

@@ -7,7 +7,8 @@ HF safetensors checkpoint (`checkpoint=`, through
 (`skypilot_tpu_torch.train.checkpoints`), or are drawn from a seed on
 the device. Under `mesh_arg` ('tensor=2') each process is one rank of
 the mesh (`parallel.mesh_from_env`, from the SKYTPU_* gang variables)
-and holds only its slice of the weights.
+and holds only its slice of the weights (heads over `tensor`, an MoE's
+experts over `expert`) and of a draft's.
 """
 from typing import Optional, Union
 
@@ -30,20 +31,21 @@ __all__ = ['DecodeState', 'InferenceEngine', 'SamplingParams',
 
 
 def _shardings(mesh, config):
-    """The `Shard` tree of a llama-core config on this rank of `mesh`
-    (None without one)."""
-    if mesh is None or mesh.tensor_size == 1:
+    """The `Shard` tree of `config`'s family (llama-core or MoE) on this
+    rank of `mesh` (None without a mesh of several ranks)."""
+    if mesh is None or mesh.world_size == 1:
         return None
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.parallel import sharding
-    return sharding.tree_shardings(mesh, llama.param_logical_axes(config))
+    return sharding.tree_shardings(mesh, llama.logical_axes(config))
 
 
 def draw_params(model: str, seed: int, device: torch.device, mesh=None):
     """(params, config) of `model` with random weights drawn from a
     generator seeded `seed` on `device`: what build_engine serves. With
-    a tensor-parallel `mesh` the draws are the same and each leaf keeps
-    this rank's slice, so a rank's peak is one full leaf above its
+    a `mesh` of several ranks the draws are the same and each leaf keeps
+    this rank's slice (heads, MLP and vocab over `tensor`, an MoE's
+    experts over `expert`), so a rank's peak is one full leaf above its
     shard."""
     from skypilot_tpu_torch import models as models_lib
     family, config = models_lib.resolve(model)
@@ -62,8 +64,9 @@ def restore_params(checkpoint: str, device: torch.device, config,
     `config`; under a tensor-parallel `mesh` each rank places its own
     slice of each tensor. A port train checkpoint (`train/checkpoints.py`)
     gives its latest complete step's params with `config`, the named
-    model's, as the reference gives an Orbax checkpoint's (whole, on the
-    host, under a mesh: the engine cuts them); params that do not fit it
+    model's, as the reference gives an Orbax checkpoint's (under a mesh of
+    several ranks each entry cut on the host to this rank's slice, an
+    MoE's experts over `expert` too); params that do not fit it
     raise ValueError. An Orbax checkpoint of the JAX package raises
     NotImplementedError."""
     from skypilot_tpu_torch import checkpoints as ckpt_lib
@@ -73,8 +76,8 @@ def restore_params(checkpoint: str, device: torch.device, config,
                                                       device=device,
                                                       mesh=mesh)
         return params, config
-    where = 'cpu' if _shardings(mesh, config) is not None else device
-    return train_ckpts.restore_params(checkpoint, config, where), config
+    return train_ckpts.restore_params(checkpoint, config, device,
+                                      mesh=mesh), config
 
 
 def build_engine(model: str, *,
@@ -105,10 +108,12 @@ def build_engine(model: str, *,
     draft for speculative decode: from `draft_checkpoint`, or drawn from
     its own generator seeded `seed + 1` (the reference draws the target
     from key 0 and the draft from key 1).
-    `mesh_arg` ('tensor=2', as the reference's :52-56) builds the mesh
-    from the gang variables (`parallel.mesh_from_env`): this process is
-    one rank, on its own device, with its slice of the same weights;
-    rank 0 takes the requests and the others run `engine.follow()`.
+    `mesh_arg` ('tensor=2', 'expert=2,tensor=2', as the reference's
+    :52-56) builds the mesh from the gang variables
+    (`parallel.mesh_from_env`): this process is one rank, on its own
+    device, with its slice of the same weights, a draft's too (drawn or
+    imported cut); rank 0 takes the requests and the others run
+    `engine.follow()`.
     What the mesh cannot serve raises before any weight is drawn
     (`engine.check_mesh`)."""
     from skypilot_tpu_torch import device as device_lib
@@ -124,8 +129,10 @@ def build_engine(model: str, *,
     else:
         dev = device_lib.resolve_device(device)
     if mesh is not None and not checkpoint:
-        engine_lib.check_mesh(mesh, models_lib.resolve(model)[1],
-                              bool(draft_model))
+        engine_lib.check_mesh(
+            mesh, models_lib.resolve(model)[1],
+            models_lib.resolve(draft_model)[1]
+            if draft_model and not draft_checkpoint else None)
     if checkpoint:
         params, config = restore_params(checkpoint, dev,
                                         models_lib.resolve(model)[1], mesh)
@@ -134,9 +141,9 @@ def build_engine(model: str, *,
     draft = None
     if draft_model:
         draft = (restore_params(draft_checkpoint, dev,
-                                models_lib.resolve(draft_model)[1])
+                                models_lib.resolve(draft_model)[1], mesh)
                  if draft_checkpoint
-                 else draw_params(draft_model, seed + 1, dev))
+                 else draw_params(draft_model, seed + 1, dev, mesh))
     return InferenceEngine(params, config, batch_size=batch_size,
                            max_seq_len=max_seq_len, seed=seed,
                            prefill_chunk=prefill_chunk,

@@ -17,8 +17,9 @@ every free slot at once.
 `--checkpoint` takes an HF safetensors dir or a port train checkpoint
 (`train/checkpoints.py`), layout auto-detected; an HF dir's geometry
 wins over `--model`, a train checkpoint must fit it. `--mesh tensor=N`
-runs one process per rank, each started with the same flags and the
-gang variables (SKYTPU_COORDINATOR_ADDR, SKYTPU_NUM_PROCESSES,
+(or `expert=N`, for an MoE `--model`; with `--draft-model` too) runs one
+process per rank, each started with the same flags and the gang
+variables (SKYTPU_COORDINATOR_ADDR, SKYTPU_NUM_PROCESSES,
 SKYTPU_PROCESS_ID), as the server's: rank 0 reads the input and writes
 the output, the others follow its engine until it is done.
 
@@ -102,10 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--temperature', type=float, default=0.0)
     parser.add_argument('--top-k', type=int, default=0)
     parser.add_argument('--mesh', default=None,
-                        help='Shard over a device mesh, e.g. tensor=2: one '
-                             'process per rank (see inference.server '
-                             '--help); rank 0 reads --input and writes '
-                             '--output.')
+                        help='Shard over a device mesh, e.g. tensor=2 or '
+                             'expert=2 (an MoE): one process per rank (see '
+                             'inference.server --help); rank 0 reads '
+                             '--input and writes --output.')
     parser.add_argument('--draft-model', default=None,
                         help='Speculative decoding: a small same-vocab '
                              'draft model proposes spec-k tokens per '

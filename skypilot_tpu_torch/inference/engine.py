@@ -65,18 +65,29 @@ Differences by design, each stated where it happens:
   sync where the routed rows are few (decode: `moe._moe_mlp`'s static
   path) and one per layer on a prefill chunk (its grouped path).
 
-- Tensor-parallel serving (`mesh=`, reference :1455-1514) runs one
-  process per device. Each rank holds its slice of the params
-  (`llama.param_logical_axes` under `parallel.sharding.DEFAULT_RULES`)
-  and of the KV heads in its pool (`init_cache(mesh=)`), and runs the
-  forward under `parallel.use_mesh`, whose `tensor` group carries the
-  reductions `models/llama.py` writes out; the flash kernels run per
-  rank on its own heads (the reference turns its Pallas kernel off
-  under a mesh). The host side runs on every rank, replicated: rank 0
+- Serving on a mesh (`mesh=`, reference :1455-1514) runs one process
+  per device. Each rank holds its slice of the params (the family's
+  `param_logical_axes` under `parallel.sharding.DEFAULT_RULES`: heads,
+  MLP and vocab over `tensor`, an MoE's experts over `expert`) and of
+  the KV heads in its pool (`init_cache(mesh=)`: heads over `tensor`,
+  whole on every `expert` rank), and runs the forward under
+  `parallel.use_mesh`, whose groups carry the reductions
+  `models/llama.py` and `models/moe.py` write out; the flash kernels
+  run per rank on its own heads (the reference turns its Pallas kernel
+  off under a mesh). A draft is cut as a llama over `tensor` and its
+  cache sharded like the target's (reference :1384-1392, where GSPMD
+  places the draft's params; here each rank's draft attends its own
+  cache heads). The host side runs on every rank, replicated: rank 0
   publishes its host events once per step and the others follow
-  (`parallel/control.py`, `follow`). Only the `tensor` axis may exceed
-  1; a draft model, an MoE config and snapshot/restore/handoff under a
-  mesh raise NotImplementedError (the next slice).
+  (`parallel/control.py`, `follow`). A snapshot, a restore, a handoff
+  resume and a lease's expiry are events too: rank 0 publishes a
+  snapshot or a restore at once, then every rank joins the all-gather
+  of the request's KV heads over its `tensor` group (rank 0 keeps the
+  result) or the broadcast of the blob's leaves from rank 0 (each rank
+  keeps its own heads), on the pool's device, so a blob carries every
+  KV head, as an unsharded engine's does, and crosses packages and
+  geometries. Only the `tensor` and `expert` axes may exceed 1
+  (`check_mesh`).
 """
 from __future__ import annotations
 
@@ -100,6 +111,7 @@ from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.observability import instruments as obs
 from skypilot_tpu_torch.observability import spans
 from skypilot_tpu_torch.ops import flash_attention as fa_lib
+from skypilot_tpu_torch.parallel import collectives
 from skypilot_tpu_torch.parallel import control as control_lib
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.parallel import sharding as sharding_lib
@@ -989,7 +1001,7 @@ class _Slot:
 class DecodeState:
     """Host-side view of the device cache + slots, on `device` (cuda
     unless named, like every entry point), holding this rank's KV heads
-    under a mesh. With `draft_config`,
+    under a mesh (the draft's too). With `draft_config`,
     `draft_cache` mirrors the cache for speculative decode: never
     quantised, and paged with the main cache's geometry (the same table
     width and pool size, read from the main pool's int8 leaf when the
@@ -1018,7 +1030,8 @@ class DecodeState:
                 draft_pages = int(_leaf(self.cache['k']).shape[1]) - 1
             self.draft_cache = init_cache(
                 draft_config, batch_size, self.max_seq_len, pad_to=pad_to,
-                page_size=page_size, num_pages=draft_pages, device=device)
+                page_size=page_size, num_pages=draft_pages, device=device,
+                mesh=mesh)
         self.last_tokens = torch.zeros((batch_size,), dtype=torch.int32,
                                        device=device)
         self.slots: List[Optional[_Slot]] = [None] * batch_size
@@ -1040,16 +1053,16 @@ class InferenceEngine:
     env registry (envs.py); explicit arguments win. Runs on CUDA unless
     `device` says otherwise.
 
-    With a `mesh` (`parallel.mesh_from_env`; only its `tensor` axis may
-    exceed 1, see `check_mesh`) this process is one rank of a
-    tensor-parallel replica: `params` are the full tree or this rank's
-    slices of it, the pool holds this rank's KV heads, and on a mesh of
-    several processes rank 0 takes the requests (submit, abort, step)
-    while every other rank runs `follow()`. Rank 0 calls `heartbeat()`
-    while idle and `stop_followers()` when done. The paged layout stays
-    the default unless SKYTPU_KV_PAGES_SHARDED says otherwise, and
-    `use_flash` stays on for CUDA: the kernels run per rank on its own
-    heads.
+    With a `mesh` (`parallel.mesh_from_env`; its `tensor` and `expert`
+    axes may exceed 1, see `check_mesh`) this process is one rank of a
+    sharded replica: `params` (and a draft's) are the full tree or this
+    rank's slices of it, the pool holds this rank's KV heads, and on a
+    mesh of several processes rank 0 takes the requests (submit, abort,
+    step, snapshot, restore, resume_handoff) while every other rank runs
+    `follow()`. Rank 0 calls `heartbeat()` while idle and
+    `stop_followers()` when done. The paged layout stays the default
+    unless SKYTPU_KV_PAGES_SHARDED says otherwise, and `use_flash` stays
+    on for CUDA: the kernels run per rank on its own heads.
     """
 
     def __init__(self, params: Params, config: llama.LlamaConfig,
@@ -1085,14 +1098,15 @@ class InferenceEngine:
                 config = dataclasses.replace(config,
                                              capacity_factor=exact_cf)
         if mesh is not None:
-            check_mesh(mesh, config, draft is not None)
+            check_mesh(mesh, config, None if draft is None else draft[1])
             if (device is not None
                     and torch.device(device).type != mesh.device.type):
                 raise ValueError(f'device {device} is not this rank\'s '
                                  f'mesh device {mesh.device}')
             device = mesh.device
         self.mesh = mesh
-        self._sharded = mesh is not None and mesh.tensor_size > 1
+        # Several ranks: each holds its cut of the params.
+        self._sharded = mesh is not None and mesh.world_size > 1
         self.device = device_lib.resolve_device(device)
         if use_flash is None:
             use_flash = default_use_flash(self.device)
@@ -1147,7 +1161,9 @@ class InferenceEngine:
                     'prefill_interleave is incompatible with a draft model '
                     '(the draft cache needs one-shot prefill); drop one of '
                     'the two.')
-            self._draft_params = _to_device(dparams, self.device)
+            self._draft_params = (
+                _place_params(dparams, dconfig, mesh, self.device)
+                if self._sharded else _to_device(dparams, self.device))
             self._draft_config = dconfig
             prefill_interleave = 0
         eff_max_seq_len = max_seq_len or config.max_seq_len
@@ -1250,17 +1266,15 @@ class InferenceEngine:
         load balancer can restore it elsewhere; on lease expiry or
         resume_handoff it decodes here as if never flagged. Ignored on
         a speculative engine (its snapshots are refused anyway). Under
-        a mesh only rank 0 submits, and `handoff` raises."""
+        a mesh only rank 0 submits."""
         self._check_leader('submit')
-        if handoff and self._sharded:
-            raise NotImplementedError(_NEXT_SLICE.format(
-                what='a planned handoff'))
         sampling = sampling or SamplingParams()
         request_id = self._submit(prompt_tokens, sampling, handoff)
         if self._channel is not None:
             self._events.append(('submit', request_id,
                                  [int(t) for t in prompt_tokens],
-                                 dataclasses.asdict(sampling)))
+                                 dataclasses.asdict(sampling),
+                                 bool(handoff)))
         return request_id
 
     def _submit(self, prompt_tokens: List[int], sampling: SamplingParams,
@@ -1412,7 +1426,15 @@ class InferenceEngine:
     def resume_handoff(self, request_id: int) -> bool:
         """Resume local decode of a handoff-paused request. False when
         it is not paused here (resumed by lease expiry, finished,
-        aborted or never admitted): calling twice is harmless."""
+        aborted or never admitted): calling twice is harmless. Under a
+        mesh rank 0 resumes, and its followers with it."""
+        self._check_leader('resume_handoff')
+        resumed = self._resume_handoff(request_id)
+        if resumed and self._channel is not None:
+            self._events.append(('resume', request_id))
+        return resumed
+
+    def _resume_handoff(self, request_id: int) -> bool:
         for s in self.state.slots:
             if s is not None and s.request_id == request_id:
                 if not s.handoff_pause:
@@ -1451,7 +1473,9 @@ class InferenceEngine:
 
     def _expire_handoff_leases(self) -> None:
         """A lease that runs out resumes its request locally (counted as
-        a fallback, never an error)."""
+        a fallback, never an error). Under a mesh rank 0's clock decides
+        and its followers resume with it (an event; they count
+        nothing)."""
         if not self._handoff_deadline:
             return
         now = time.monotonic()
@@ -1460,9 +1484,10 @@ class InferenceEngine:
                 continue
             deadline = self._handoff_deadline.get(slot.request_id)
             if deadline is not None and now >= deadline:
-                slot.handoff_pause = False
-                self._handoff_deadline.pop(slot.request_id, None)
+                self._resume_handoff(slot.request_id)
                 self._count('handoff_fallbacks', obs.HANDOFF_FALLBACKS)
+                if self._channel is not None:
+                    self._events.append(('resume', slot.request_id))
 
     # -- request migration (snapshot / restore) ------------------------------
 
@@ -1477,10 +1502,10 @@ class InferenceEngine:
         SKYTPU_MIGRATION_MAX_BYTES, or for a decoding request of a
         speculative engine (its draft cache would desynchronise). An
         armed `engine.snapshot` fault raises before any device read.
-        Under a sharded mesh it raises NotImplementedError."""
-        if self._sharded:
-            raise NotImplementedError(_NEXT_SLICE.format(
-                what='a request snapshot'))
+        Under a mesh rank 0 snapshots: its followers join the gather of
+        the request's KV heads (an event), and the blob holds every
+        head."""
+        self._check_leader('snapshot_request')
         faults.inject('engine.snapshot')
         with spans.span('engine.snapshot',
                         attrs={'request_id': request_id}):
@@ -1511,15 +1536,11 @@ class InferenceEngine:
             generated=slot.generated, logprobs=slot.logprobs,
             length=length,
             layout='paged' if self.kv_page_size else 'dense')
-        if self.kv_page_size:
-            n_used = -(-length // self.kv_page_size)
-            pages = self._slot_pages[i][:n_used]
-            got = {name: _gather_pool_pages(self.state.cache[name], pages)
-                   for name in ('k', 'v')}
-        else:
-            got = {name: _gather_dense_row(self.state.cache[name], i,
-                                           length)
-                   for name in ('k', 'v')}
+        if self._channel is not None:
+            # The followers join the gather now, not at the next step.
+            self._events.append(('snapshot', request_id))
+            self._publish()
+        got = self._snapshot_kv(i, length)
         arrays: List[Tuple[str, torch.Tensor]] = []
         for name in ('k', 'v'):
             leaf = got[name]
@@ -1536,6 +1557,51 @@ class InferenceEngine:
                 f'SKYTPU_MIGRATION_MAX_BYTES={cap}; the request '
                 'honest-terminates instead of shipping it')
         return _snapshot_pack(header, arrays)
+
+    def _snapshot_kv(self, i: int, length: int) -> Optional[Dict[str, KV]]:
+        """Slot i's KV at positions 0..length-1 (its pages, or its dense
+        row), every KV head: under a mesh every rank gathers its `tensor`
+        group's heads, and only rank 0 keeps the result (None
+        elsewhere)."""
+        if self.kv_page_size:
+            n_used = -(-length // self.kv_page_size)
+            pages = self._slot_pages[i][:n_used]
+            got = {name: _gather_pool_pages(self.state.cache[name], pages)
+                   for name in ('k', 'v')}
+        else:
+            got = {name: _gather_dense_row(self.state.cache[name], i,
+                                           length)
+                   for name in ('k', 'v')}
+        if not self._sharded:
+            return got
+        out = {}
+        for name, kv in got.items():
+            if _is_quant(kv):
+                out[name] = {'q': self._all_heads(kv['q'], kv['q'].dim() - 2),
+                             's': self._all_heads(kv['s'], kv['s'].dim() - 1)}
+            else:
+                out[name] = self._all_heads(kv, kv.dim() - 2)
+        return out if self.mesh.rank == 0 else None
+
+    def _all_heads(self, leaf: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every KV head of a leaf whose `dim` holds this rank's heads:
+        gathered over `tensor` on the leaf's device (a host tensor never
+        meets an NCCL group) and placed by each rank's cut."""
+        tp = self.mesh.tensor_size
+        parts = collectives.all_gather(leaf.contiguous(),
+                                       self.mesh.tensor_group, dim)
+        shape = list(leaf.shape)
+        shape[dim] = self.config.num_kv_heads
+        whole = leaf.new_empty(shape)
+        for (lo, hi), part in zip(self._head_cuts(), parts.chunk(tp, dim)):
+            whole.narrow(dim, lo, hi - lo).copy_(part)
+        return whole
+
+    def _head_cuts(self) -> List[Tuple[int, int]]:
+        """Each `tensor` rank's [start, stop) of the KV heads."""
+        tp = self.mesh.tensor_size
+        return [sharding_lib.cut(self.config.num_kv_heads, tp, r, 'kv_heads')
+                for r in range(tp)]
 
     def _snapshot_header(self, request_id: int, prompt: List[int],
                          sampling: SamplingParams, prompt_len: int,
@@ -1572,10 +1638,10 @@ class InferenceEngine:
         token. Returns the NEW request id. SnapshotError for a blob
         that cannot be trusted or does not fit this engine's geometry;
         RuntimeError when no slot or not enough pages are free. Under a
-        sharded mesh it raises NotImplementedError."""
-        if self._sharded:
-            raise NotImplementedError(_NEXT_SLICE.format(
-                what='a request restore'))
+        mesh rank 0 checks the blob (its arrays hold every KV head) and
+        commits the host state, then publishes the restore and hands
+        each rank its heads."""
+        self._check_leader('restore_request')
         header, arrays = _snapshot_unpack(blob)
         with spans.span('engine.restore',
                         attrs={'origin_request_id':
@@ -1583,7 +1649,10 @@ class InferenceEngine:
             return self._restore_locked(header, arrays)
 
     def _restore_locked(self, header: Dict[str, Any],
-                        arrays: Dict[str, torch.Tensor]) -> int:
+                        arrays: Optional[Dict[str, torch.Tensor]]) -> int:
+        """The restore of a blob's `header` and `arrays` (None on a
+        follower, which replays rank 0's checked restore and receives its
+        heads)."""
         try:
             sampling = SamplingParams(**header['sampling'])
             prompt = [int(t) for t in header['prompt']]
@@ -1636,7 +1705,10 @@ class InferenceEngine:
             if key not in arrays:
                 raise SnapshotError(f'snapshot missing array {key!r}')
             arr = arrays[key]
-            tail = leaf.shape[2:] if page else leaf.shape[3:]
+            # The blob holds every KV head (dim 3 of a pool or cache leaf).
+            shape = list(leaf.shape)
+            shape[3] = self.config.num_kv_heads
+            tail = shape[2:] if page else shape[3:]
             want_rows = n_used if page else length
             if (arr.dim() < 2 or arr.shape[0] != leaf.shape[0]
                     or arr.shape[1] != want_rows
@@ -1658,7 +1730,8 @@ class InferenceEngine:
                         's': check_and_get(f'{name}.s', leaf['s'])}
             return check_and_get(name, leaf)
 
-        data = {'k': build('k'), 'v': build('v')}
+        data = ({'k': build('k'), 'v': build('v')} if arrays is not None
+                else None)
         if page:
             w = int(self.state.cache['table'].shape[1])
             if n_used > w:
@@ -1668,32 +1741,79 @@ class InferenceEngine:
             need = max(n_used, self._pages_needed(
                 prompt_len, sampling.max_new_tokens))
             if need > len(self._page_alloc):
-                self._reclaim(need - len(self._page_alloc))
-            if need > len(self._page_alloc):
-                raise RuntimeError(
-                    f'restore refused: needs {need} free KV pages, '
-                    f'pool has {len(self._page_alloc)} (try another '
-                    'replica)')
+                short = need - len(self._page_alloc)
+                self._reclaim(short)
+                if need > len(self._page_alloc):
+                    if self._channel is not None:
+                        # The eviction stands: the followers evict too.
+                        self._events.append(('reclaim', short))
+                    raise RuntimeError(
+                        f'restore refused: needs {need} free KV pages, '
+                        f'pool has {len(self._page_alloc)} (try another '
+                        'replica)')
             pages = self._page_alloc[:need]
             del self._page_alloc[:need]
-            for name in ('k', 'v'):
-                _splice_pool_pages(self.state.cache[name], pages[:n_used],
-                                   data[name])
             self._slot_pages[i] = pages
             self._slot_shared[i] = set()
             self._set_table_rows(i, pages)
-        else:
-            for name in ('k', 'v'):
-                _splice_dense_row(self.state.cache[name], i, data[name])
-        self.state.cache['length'][i] = length
-        self.state.last_tokens[i] = generated[-1]
         request_id = self._next_id
         self._next_id += 1
         self._trace_begin(request_id)
         self.state.slots[i] = _Slot(request_id, sampling, generated,
                                     logprobs, prompt_len, prompt=prompt)
+        if self._channel is not None and self._channel.leader:
+            # The host state is committed: the followers replay it (the
+            # plan hash covers the pages taken), then every rank takes
+            # its heads.
+            self._events.append(('restore', {
+                k: v for k, v in header.items() if k != 'arrays'},
+                request_id))
+            self._publish()
+        if self._sharded:
+            data = self._scatter_kv(data, length, n_used)
+        for name in ('k', 'v'):
+            if page:
+                _splice_pool_pages(self.state.cache[name], pages[:n_used],
+                                   data[name])
+            else:
+                _splice_dense_row(self.state.cache[name], i, data[name])
+        self.state.cache['length'][i] = length
+        self.state.last_tokens[i] = generated[-1]
         self._update_gauges()
         return request_id
+
+    def _scatter_kv(self, data: Optional[Dict[str, KV]], length: int,
+                    n_used: int) -> Dict[str, KV]:
+        """This rank's KV heads of a restore's `data` (every head, on
+        rank 0; None elsewhere): rank 0's leaves broadcast to every rank
+        on the pool's device, each rank keeping its own heads."""
+        world = self.mesh.group(mesh_lib.AXIS_ORDER)
+        lo, hi = self._head_cuts()[self.mesh.tensor_rank]
+        lead = (n_used,) if self.kv_page_size else (length,)
+
+        def mine(whole, pool, off):
+            # The leaf of every head: [L, n_used or length, ...], the
+            # heads `off` dims from the end.
+            shape = [pool.shape[0], *lead,
+                     *pool.shape[2 if self.kv_page_size else 3:]]
+            shape[-off] = self.config.num_kv_heads
+            buf = (torch.empty(shape, dtype=pool.dtype, device=pool.device)
+                   if whole is None else whole.to(pool.device))
+            buf = collectives.broadcast(buf, world, 0)
+            return buf.narrow(len(shape) - off, lo, hi - lo)
+
+        out = {}
+        for name in ('k', 'v'):
+            pool = self.state.cache[name]
+            whole = None if data is None else data[name]
+            if _is_quant(pool):
+                out[name] = {
+                    part: mine(None if whole is None else whole[part],
+                               pool[part], off)
+                    for part, off in (('q', 2), ('s', 1))}
+            else:
+                out[name] = mine(whole, pool, 2)
+        return out
 
     # -- span plumbing (host-side phase attribution) -------------------------
 
@@ -2311,11 +2431,13 @@ class InferenceEngine:
 
     def _plan(self) -> int:
         """A hash of the host state every rank must hold alike: ids,
-        queue, slots (with their last token) and page books."""
+        queue, slots (with their last token and handoff pause) and page
+        books (a restore's pages among them)."""
         slots = tuple(
             None if s is None else (s.request_id, s.prompt_len,
                                     len(s.generated), s.generated[-1:],
-                                    s.pending is None, s.pos)
+                                    s.pending is None, s.pos,
+                                    s.handoff_pause)
             for s in self.state.slots)
         return zlib.crc32(repr((
             self._next_id, [rid for rid, _, _ in self._queue], slots,
@@ -2328,20 +2450,42 @@ class InferenceEngine:
         self._channel.publish(events, self._plan(), step=step, stop=stop)
 
     def _apply(self, event: tuple) -> None:
-        """One of rank 0's host events, replayed on a follower."""
+        """One of rank 0's host events, replayed on a follower: the
+        host state changes as on rank 0, and a snapshot or a restore
+        joins rank 0's exchange of the request's KV heads."""
         kind = event[0]
         if kind == 'submit':
-            _, request_id, prompt, sampling = event
-            got = self._submit(prompt, SamplingParams(**sampling))
-            if got != request_id:
-                raise RuntimeError(f'rank {self.mesh.rank} admitted request '
-                                   f'{request_id} as {got}')
+            _, request_id, prompt, sampling, handoff = event
+            got = self._submit(prompt, SamplingParams(**sampling), handoff)
+            self._check_id('admitted', request_id, got)
         elif kind == 'abort':
             self._abort(event[1])
         elif kind == 'abort_all':
             self._abort_all()
+        elif kind == 'resume':
+            self._resume_handoff(event[1])
+        elif kind == 'reclaim':
+            self._reclaim(event[1])
+        elif kind == 'snapshot':
+            for i, slot in enumerate(self.state.slots):
+                if slot is not None and slot.request_id == event[1]:
+                    self._snapshot_kv(
+                        i, slot.prompt_len + len(slot.generated) - 1)
+                    break
+            else:
+                raise RuntimeError(f'rank {self.mesh.rank} holds no request '
+                                   f'{event[1]} to snapshot')
+        elif kind == 'restore':
+            _, header, request_id = event
+            self._check_id('restored', request_id,
+                           self._restore_locked(header, None))
         else:
             raise ValueError(f'unknown host event {event!r}')
+
+    def _check_id(self, what: str, want: int, got: int) -> None:
+        if got != want:
+            raise RuntimeError(f'rank {self.mesh.rank} {what} request '
+                               f'{want} as {got}')
 
     def heartbeat(self) -> None:
         """On rank 0 of a mesh of several processes: publish (the events
@@ -2387,17 +2531,19 @@ class InferenceEngine:
 
     def step(self) -> None:
         """Admit, prefill and run one decode round. On rank 0 of a mesh
-        of several processes the host events since the last step go to
-        the followers first, which step with it."""
+        of several processes the host events since the last step (the
+        leases its clock expired among them) go to the followers first,
+        which step with it."""
         if self._channel is not None:
             self._check_leader('step')
+        self._expire_handoff_leases()
+        if self._channel is not None:
             self._publish(step=True)
         with self._mesh_ctx():
             self._step()
 
     def _step(self) -> None:
         self._evict_finished()
-        self._expire_handoff_leases()
         self._insert_from_queue()
         self._advance_prefill()
         # Slots mid-prefill and slots paused under a handoff lease sit
@@ -2475,31 +2621,37 @@ class InferenceEngine:
         self._update_gauges()
 
 
-_NEXT_SLICE = ('{what} under a tensor-parallel mesh is not ported yet (the '
-               'next slice of the parallel layer, ROADMAP.md Queue 1)')
+_NEXT_SLICE = ('{what} is not ported yet: the data, fsdp and context '
+               'serving axes are the next slice of the parallel layer (the '
+               'context axis cuts a dense cache on its sequence dim; '
+               'ROADMAP.md Queue 1)')
+# The axes a serving mesh may cut.
+SERVING_AXES = ('expert', 'tensor')
 
 
-def check_mesh(mesh: mesh_lib.Mesh, config: Any, draft: bool = False
-               ) -> None:
-    """What a mesh serves in this slice: only its `tensor` axis may
-    exceed 1, for a llama-core config without a draft, whose head, KV
-    head, MLP and vocab counts split over the tensor degree (KV heads
-    may instead replicate, when the degree is a multiple of them).
-    Raises NotImplementedError (the next slice) or ValueError."""
-    if draft:
-        raise NotImplementedError(_NEXT_SLICE.format(
-            what='speculative decode (a draft model)'))
-    if isinstance(config, moe_lib.MoeConfig):
-        raise NotImplementedError(_NEXT_SLICE.format(what='an MoE model'))
+def check_mesh(mesh: mesh_lib.Mesh, config: Any,
+               draft_config: Any = None) -> None:
+    """What a mesh serves: its `tensor` and `expert` axes may exceed 1.
+    The config's (and a draft's) head, KV head, MLP and vocab counts
+    must split over the tensor degree (KV heads may instead replicate,
+    when the degree is a multiple of them), an MoE's experts over the
+    expert degree (a dense model replicates over `expert`). Raises
+    NotImplementedError (the next slice) or ValueError."""
     others = {axis: n for axis, n in mesh.shape.items()
-              if axis != 'tensor' and n > 1}
+              if axis not in SERVING_AXES and n > 1}
     if others:
         raise NotImplementedError(_NEXT_SLICE.format(
-            what=f'serving over mesh axes {others}') + '; only the '
-            "'tensor' axis shards serving")
-    sizes = llama.axis_sizes(config)
-    for name in ('heads', 'kv_heads', 'mlp', 'vocab'):
-        sharding_lib.cut(sizes[name], mesh.tensor_size, 0, name)
+            what=f'serving over mesh axes {others}') + "; only the "
+            "'tensor' and 'expert' axes shard serving")
+    for cfg in (config, draft_config):
+        if cfg is None:
+            continue
+        sizes = llama.axis_sizes(cfg)
+        for name in ('heads', 'kv_heads', 'mlp', 'vocab'):
+            sharding_lib.cut(sizes[name], mesh.tensor_size, 0, name)
+    if isinstance(config, moe_lib.MoeConfig):
+        sharding_lib.cut(config.num_experts, mesh.shape['expert'], 0,
+                         'expert', 'expert')
 
 
 def _place_params(params: Params, config: Any, mesh: mesh_lib.Mesh,
@@ -2512,7 +2664,7 @@ def _place_params(params: Params, config: Any, mesh: mesh_lib.Mesh,
     def place(leaf, shard, axes):
         full = tuple(sizes[a] for a in axes)
         local = shard.local_shape(full)
-        if tuple(leaf.shape) == full:
+        if tuple(leaf.shape) == full and local != full:
             leaf = shard(leaf).clone()   # a view would keep the leaf alive
         elif tuple(leaf.shape) != local:
             raise ValueError(f'a param of axes {axes} has shape '
@@ -2520,7 +2672,7 @@ def _place_params(params: Params, config: Any, mesh: mesh_lib.Mesh,
                              f'nor this rank\'s slice {local}')
         return leaf.contiguous().to(device)
 
-    logical = llama.param_logical_axes(config)
+    logical = llama.logical_axes(config)
     return sharding_lib.tree_map(
         place, params, sharding_lib.tree_shardings(mesh, logical), logical)
 

@@ -58,21 +58,28 @@ shedding (`shed_limit`, reference :423-440): past `--max-queue-depth`
 (or SKYTPU_MAX_QUEUE_DEPTH) queued requests, /generate and the /v1
 routes answer 503 with Retry-After and count in REQUESTS_SHED.
 
-Tensor-parallel serving (`--mesh tensor=N`, reference :897-898) runs
-one process per rank, each started with the same flags and the gang
-variables SKYTPU_COORDINATOR_ADDR (host:port of rank 0's rendezvous),
-SKYTPU_NUM_PROCESSES=N and SKYTPU_PROCESS_ID. Rank 0 serves every route;
-the other ranks bind no port and follow its engine
-(`InferenceEngine.follow`), exiting 0 when rank 0 stops them (SIGTERM
-on rank 0) and non-zero when rank 0 is gone. The engine loop keeps an
-idle rank 0's followers posted (`heartbeat`), and a failed step ends
-every rank of a replica: its followers may be mid-collective.
+Sharded serving (`--mesh tensor=N`, `expert=N` or both, reference
+:897-898) runs one process per rank, each started with the same flags
+and the gang variables SKYTPU_COORDINATOR_ADDR (host:port of rank 0's
+rendezvous), SKYTPU_NUM_PROCESSES and SKYTPU_PROCESS_ID. An MoE model
+cuts its experts over `expert`, and `--draft-model` shards its draft
+as the target. Rank 0 serves every route, `/internal/drain|snapshot|
+restore|resume` and the handoff frame included; the other ranks bind no
+port and follow its engine (`InferenceEngine.follow`), which publishes
+each snapshot, restore and resume as a control event: the followers
+join the gather of a request's KV heads to rank 0, or the scatter of a
+blob's, at the same point of their step sequence, so a blob from a
+sharded replica restores on an unsharded one and back. Followers exit
+0 when rank 0 stops them (SIGTERM on rank 0) and non-zero when rank 0
+is gone. The engine loop keeps an idle rank 0's followers posted
+(`heartbeat`), and a failed step ends every rank of a replica: its
+followers may be mid-collective.
 
   python -m skypilot_tpu_torch.inference.server --model llama3-8b \
       --port 8080 [--device cuda] [--draft-model llama3-1b --spec-k 4]
       [--checkpoint HF_OR_TRAIN_DIR] [--draft-checkpoint DIR]
       [--max-queue-depth N] [--tokenizer DIR] [--served-model-name ID]
-      [--mesh tensor=N]
+      [--mesh tensor=N | expert=N | expert=N,tensor=M]
 """
 from __future__ import annotations
 
@@ -916,10 +923,11 @@ def main() -> None:
                              '0 = bounded by the pool only).')
     parser.add_argument('--mesh', default=None,
                         help='Shard serving over a device mesh, e.g. '
-                             'tensor=2: one process per rank, each started '
-                             'with the same flags and SKYTPU_COORDINATOR_'
-                             'ADDR, SKYTPU_NUM_PROCESSES and '
-                             'SKYTPU_PROCESS_ID; rank 0 serves.')
+                             'tensor=2, expert=2 (an MoE) or '
+                             'expert=2,tensor=2: one process per rank, each '
+                             'started with the same flags and '
+                             'SKYTPU_COORDINATOR_ADDR, SKYTPU_NUM_PROCESSES '
+                             'and SKYTPU_PROCESS_ID; rank 0 serves.')
     parser.add_argument('--no-exit-with-parent', action='store_true',
                         help='Keep serving after the launcher exits '
                              '(deliberate daemonization only).')

@@ -73,6 +73,14 @@ GSPMD inserts into the reference's:
   expert ranks) and the experts' rows through `copy_to` over `tensor`.
 Under `context` the sequence is cut as llama's (global RoPE positions,
 attention over the gathered K/V or the ring).
+
+The cached engine (`inference/engine.py`) serves the same `_moe_mlp`
+under its mesh (`tensor` and `expert`; no batch or context rank, so
+`_assign`'s global routing is the local one), with `valid`: the static
+path runs this rank's experts with no host sync (decode), and the
+grouped path's host read of the row counts is this rank's own
+(prefill). No collective's shape depends on those counts: the expert
+outputs summed over `expert` (and `tensor`) are always [G,k,E].
 """
 from __future__ import annotations
 

@@ -28,6 +28,11 @@ The pipeline (`parallel/pipeline.py`) writes its own backward and calls
 the plain ops: `send`/`recv` between neighbouring stages along `pipe`
 and `broadcast` of the last stage's output to every stage.
 
+Request migration on a sharded engine (`inference/engine.py`) moves a
+page set's KV heads with the plain ops, on the pool's device: a
+snapshot `all_gather`s them over `tensor`, a restore `broadcast`s the
+blob's leaves from rank 0 to every rank.
+
 Each takes a process group (None, or a group of one rank, makes it the
 identity) and runs in the group's own rank order. Serving calls the same
 functions under `torch.no_grad()`, where only the forward runs, so its

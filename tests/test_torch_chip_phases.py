@@ -8,6 +8,7 @@ resume, export, serve, torn-step, re-export and CLI steps of the round
 trip.
 """
 import dataclasses
+import json
 import os
 import sys
 
@@ -160,9 +161,15 @@ def test_batch_and_roundtrip_phases_rehearse_on_cpu(monkeypatch, tmp_path,
 @pytest.fixture
 def host_syncs(monkeypatch):
     """torch.cuda.set_sync_debug_mode as the card applies it, on the
-    CPU: in 'warn' mode a host read of a tensor (`item`, `tolist`,
-    `bool`, `int`, `float`) warns 'called a synchronizing CUDA
-    operation', in 'error' mode it raises."""
+    CPU (`emulate_sync_debug_mode`)."""
+    return emulate_sync_debug_mode(monkeypatch.setattr)
+
+
+def emulate_sync_debug_mode(setattr_=setattr):
+    """torch.cuda.set_sync_debug_mode on the CPU: in 'warn' mode a host
+    read of a tensor (`item`, `tolist`, `bool`, `int`, `float`) warns
+    'called a synchronizing CUDA operation', in 'error' mode it
+    raises."""
     import warnings
     mode = {'now': 0}
 
@@ -178,10 +185,9 @@ def host_syncs(monkeypatch):
             return fn(self, *args, **kwargs)
         return wrapper
 
-    monkeypatch.setattr(torch.cuda, 'set_sync_debug_mode', set_mode)
+    setattr_(torch.cuda, 'set_sync_debug_mode', set_mode)
     for name in ('item', 'tolist', '__bool__', '__int__', '__float__'):
-        monkeypatch.setattr(torch.Tensor, name,
-                            checked(getattr(torch.Tensor, name)))
+        setattr_(torch.Tensor, name, checked(getattr(torch.Tensor, name)))
     return mode
 
 
@@ -289,29 +295,72 @@ def stub_rank_kernels():
     eng.default_use_flash = lambda device: True
     for name in ('synchronize', 'empty_cache'):
         setattr(torch.cuda, name, lambda *a: None)
+    emulate_sync_debug_mode()
     torch.set_num_threads(1)
+
+
+def _rehearse_tp_serve(monkeypatch):
+    """chip_smoke's tp_serve constants at the tiny sizes (f32): tiny at
+    tensor 2, tiny-moe (2 layers) at expert 2."""
+    monkeypatch.setattr(chip_smoke, 'TP_MODEL', 'tiny')
+    monkeypatch.setattr(chip_smoke, 'TP_KW', dict(
+        batch_size=8, max_seq_len=128, prefill_chunk=16, kv_page_size=8))
+    monkeypatch.setattr(chip_smoke, 'TP_PROMPT_LENGTHS', (5, 60))
+    # Past the migration leg's two dispatches of 8 steps.
+    monkeypatch.setattr(chip_smoke, 'TP_NEW', 20)
+    monkeypatch.setattr(chip_smoke, 'TP_SERVER_REQUESTS', (
+        (20, 4, False), (40, 5, False), (30, 6, True)))
+    monkeypatch.setattr(chip_smoke, 'TP_DRAIN_REQUEST', (20, 100))
+    monkeypatch.setattr(chip_smoke, 'TP_CLOCK_PROBE', (10, 2, 32))
+    monkeypatch.setattr(chip_smoke, 'MOE_MODEL', 'tiny-moe')
+    monkeypatch.setattr(chip_smoke, 'MOE_MESH_LAYERS', 2)
+    monkeypatch.setattr(chip_smoke, 'MOE_KW', dict(
+        batch_size=8, max_seq_len=128, prefill_chunk=16, kv_page_size=8,
+        prefix_cache=False))
+    monkeypatch.setattr(chip_smoke, 'MOE_PROMPT_LENGTHS', (5, 60))
+    monkeypatch.setattr(chip_smoke, 'MOE_LONG', 100)
+    monkeypatch.setattr(chip_smoke, 'MOE_NEW', 6)
+    monkeypatch.setattr(chip_smoke, 'TP_RANK_SETUP', (
+        'test_torch_chip_phases:stub_rank_kernels',
+        os.path.dirname(os.path.abspath(__file__))))
 
 
 def test_tp_serve_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
     """tp_serve on tiny (f32) at tensor 2: two rank processes over gloo
     against the unsharded engine here (logits, tokens, launches on each
-    rank), the NCCL refusal, then the server as two processes token for
-    token and its follower's exit after SIGTERM to rank 0."""
-    monkeypatch.setattr(chip_smoke, 'TP_MODEL', 'tiny')
-    monkeypatch.setattr(chip_smoke, 'TP_KW', dict(
-        batch_size=8, max_seq_len=128, prefill_chunk=16, kv_page_size=8))
-    monkeypatch.setattr(chip_smoke, 'TP_PROMPT_LENGTHS', (5, 60))
-    monkeypatch.setattr(chip_smoke, 'TP_NEW', 6)
-    monkeypatch.setattr(chip_smoke, 'TP_SERVER_REQUESTS', (
-        (20, 4, False), (40, 5, False), (30, 6, True)))
-    monkeypatch.setattr(chip_smoke, 'TP_CLOCK_PROBE', (10, 2, 32))
-    monkeypatch.setattr(chip_smoke, 'TP_RANK_SETUP', (
-        'test_torch_chip_phases:stub_rank_kernels',
-        os.path.dirname(os.path.abspath(__file__))))
+    rank), the NCCL refusal, the target as its own draft, snapshot /
+    restore / handoff with the restored pages byte-equal on each rank,
+    tiny-moe over expert 2 against its unsharded engine, then the server
+    as two processes token for token, drained into an unsharded engine,
+    and its follower's exit after SIGTERM to rank 0."""
+    _rehearse_tp_serve(monkeypatch)
     out, launches = chip_smoke.tp_serve_phase(
         torch, inference_module(), counted_kernels,
         np.random.default_rng(10))
     assert out['faults'] == []
+    spec = out['spec']
+    assert spec['launches_per_rank'] == [spec['expected_launches']] * 2
+    # Every drafted token is accepted but those past a request's budget.
+    assert spec['acceptance'] >= chip_smoke.TOL_SPEC_ACCEPT
+    assert spec['ranks_tokens_equal']
+    assert spec['tokens_equal_bf16'] == 8
+    assert spec['draft_local_heads'] == [2, 2]
+    mig = out['migration']
+    assert mig['tokens_equal_bf16_per_rank'] == [8, 8]
+    assert mig['restored_bytes_equal_per_rank'] == [[True] * 3] * 2
+    assert mig['blob_kv_heads'] == [[2]] * 3 and mig['handoff_paused']
+    assert mig['launches_per_rank'] == [mig['expected_launches']] * 2
+    moe = out['moe']
+    assert moe['local_experts'] == [2, 2] and moe['ranks_tokens_equal']
+    assert moe['tokens_equal_unsharded'] == 8
+    assert moe['logits_rel_err'] < 1e-5
+    assert moe['launches_per_rank'] == [moe['expected_launches']] * 2
+    assert [s['moe_layers_run'] for s in moe['decode_syncs']] == \
+        [chip_smoke.MOE_DECODE_STEPS * 2] * 2
+    assert launches['moe'] == moe['launches_per_rank']
+    drain = out['server']['drain']
+    assert drain['equal_sharded'] and drain['new_request_status'] == 503
+    assert 0 < drain['sent'] == len(drain['streamed']) < 100
     for key in ('bf16', 'int8'):
         run = out[key]
         assert run['launches_per_rank'] == [run['expected_launches']] * 2
@@ -331,9 +380,9 @@ def test_tp_serve_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
         clock = out[key]['collectives']
         # The embedding and two reductions a layer, and the logits'
         # gather, per prefill chunk (4 at the 60-token bucket) and per
-        # decode step (5 after the first token).
+        # decode step (19 after the first token).
         assert clock['prefill_calls'] == 4 * (2 * layers + 1) + 1
-        assert clock['decode_calls'] == 5 * (2 * layers + 2)
+        assert clock['decode_calls'] == 19 * (2 * layers + 2)
         assert 0 < clock['share_of_prefill'] < 1
         assert 0 < clock['share_of_decode'] < 1
         # One plan hash a message on each rank: rank 0's publishes, the
@@ -347,6 +396,49 @@ def test_tp_serve_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
     assert over['added_ms'] == pytest.approx(over['synced_ms']
                                              - over['plain_ms'])
     assert {'share_of_bf16_wall', 'share_of_int8_wall'} <= set(over)
+
+
+@pytest.mark.parametrize('fault', sorted(chip_smoke.TP_FAULT_LEGS))
+def test_tp_serve_faults_break_a_gate_on_cpu(monkeypatch, counted_kernels,
+                                             fault):
+    """mesh_fault_check.py's serving faults, each on the legs it touches:
+    every one breaks a tp_serve gate (the sound legs pass in the test
+    above)."""
+    _rehearse_tp_serve(monkeypatch)
+    out, _ = chip_smoke.tp_serve_phase(
+        torch, inference_module(), counted_kernels,
+        np.random.default_rng(10), legs=chip_smoke.TP_FAULT_LEGS[fault],
+        fault=fault)
+    assert out['faults'], fault
+
+
+@pytest.mark.parametrize('tail, caught', [
+    ("RuntimeError: rank 1's host plan (7) left rank 0's (9): the "
+     'replicas diverged', True),
+    ('torch.OutOfMemoryError: CUDA out of memory', False)])
+def test_mesh_fault_check_counts_failed_ranks_only_by_their_divergence(
+        monkeypatch, capsys, tail, caught):
+    """mesh_fault_check.py's serving check: a fault whose ranks fail is
+    caught only where a follower raised on the ranks' divergence (the
+    text `InferenceEngine.follow` raises), and a sound run whose ranks
+    fail is not sound."""
+    import inspect
+
+    import mesh_fault_check
+    from skypilot_tpu_torch.inference import engine as port_engine
+    assert mesh_fault_check.DIVERGED in inspect.getsource(
+        port_engine.InferenceEngine.follow)
+
+    def ranks_fail(*args, **kwargs):
+        raise AssertionError(f'tp ranks failed: rcs [1, 1]: [{tail!r}]')
+
+    monkeypatch.setattr(chip_smoke, 'tp_serve_phase', ranks_fail)
+    assert not mesh_fault_check.check_serving(
+        torch, chip_smoke, ['serve_expert_not_reduced'])
+    sound, fault = [json.loads(line)
+                    for line in capsys.readouterr().out.splitlines()]
+    assert sound['sound'] is False and fault['caught'] is caught
+    assert bool(fault['broken']) is caught and tail[-20:] in fault['raised']
 
 
 def stub_mesh_rank_kernels():

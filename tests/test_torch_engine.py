@@ -401,7 +401,7 @@ def test_h100_policy_defaults(tiny, monkeypatch):
     # A mesh keeps the flash kernels (the reference refuses use_flash
     # under one: pallas_call has no partitioning rules) and the paged
     # pool, unless SKYTPU_KV_PAGES_SHARDED says dense; an explicit page
-    # size wins. Only the tensor axis may exceed 1.
+    # size wins. Only the tensor and expert axes may exceed 1.
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
     mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(), 'cpu')
     engine = port_inference.InferenceEngine(tparams, config, mesh=mesh,

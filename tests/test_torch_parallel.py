@@ -279,18 +279,21 @@ def test_indivisible_shapes_raise(tiny):
 
 
 def test_what_a_mesh_does_not_serve_raises(tiny):
+    """The data, fsdp and context serving axes are the next slice (a
+    draft and an MoE config serve under tensor and expert:
+    tests/test_torch_sharded_serving.py)."""
     config, tparams = tiny
     mesh = _fake_mesh(2, 0)
-    with pytest.raises(NotImplementedError, match='draft model.*next slice'):
-        port_eng.check_mesh(mesh, config, (tparams, config))
-    with pytest.raises(NotImplementedError, match='MoE'):
-        port_eng.check_mesh(mesh, moe.CONFIGS['tiny-moe'])
     for spec in (port_mesh.MeshSpec(fsdp=2, tensor=1),
                  port_mesh.MeshSpec(fsdp=1, data=2, tensor=2),
-                 port_mesh.MeshSpec(fsdp=1, context=2)):
+                 port_mesh.MeshSpec(fsdp=1, context=2),
+                 port_mesh.MeshSpec(fsdp=1, context=2, expert=2)):
         wide = dataclasses.replace(mesh, spec=spec)
-        with pytest.raises(NotImplementedError, match="only the 'tensor'"):
+        with pytest.raises(NotImplementedError,
+                           match='context serving axes are the next slice'):
             port_eng.check_mesh(wide, config)
+        with pytest.raises(NotImplementedError, match="only the 'tensor'"):
+            port_eng.check_mesh(wide, moe.CONFIGS['tiny-moe'], config)
 
 
 def test_hf_import_places_each_ranks_slice(tmp_path):

@@ -425,10 +425,15 @@ def test_draft_gating(models):
         with pytest.raises(ValueError, match=match):
             port_inference.InferenceEngine(tparams, config, device='cpu',
                                            **kw)
-    with pytest.raises(NotImplementedError):
-        port_inference.InferenceEngine(tparams, config, device='cpu',
-                                       draft=(tparams, config),
-                                       mesh=object())
+    # A draft serves under tensor and expert
+    # (tests/test_torch_sharded_serving.py); the context axis still
+    # raises, with a draft too.
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    with pytest.raises(NotImplementedError, match='context serving axes'):
+        port_inference.InferenceEngine(
+            tparams, config, device='cpu', draft=(tparams, config),
+            mesh=mesh_lib.Mesh(mesh_lib.MeshSpec(fsdp=1, context=2), 0, 2,
+                               torch.device('cpu')))
     engine = port_inference.InferenceEngine(
         tparams, config, draft=(tparams, config), prefix_cache=True,
         prefill_chunk=16, max_seq_len=SEQ, kv_page_size=8, device='cpu')
