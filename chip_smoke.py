@@ -543,23 +543,29 @@ def attn_inputs(torch, gen, b, t, s, h, kv, d, quant):
 
 def visible_span(t, s, off, window):
     """(query-key pairs visible under the causal/window mask, number of
-    kv positions any query needs) for one (batch, head)."""
-    pairs, lo_min, hi_max = 0, s, 0
+    kv positions any query needs, number of query rows that see at least
+    one key) for one (batch, head)."""
+    pairs, lo_min, hi_max, rows = 0, s, 0, 0
     for row in range(t):
         qp = off + row
         hi = min(s, qp + 1)
         lo = max(0, qp - window + 1) if window is not None else 0
         if hi > lo:
             pairs += hi - lo
+            rows += 1
             lo_min, hi_max = min(lo_min, lo), max(hi_max, hi)
-    return pairs, max(0, hi_max - lo_min)
+    return pairs, max(0, hi_max - lo_min), rows
 
 
 def bound_ms(b, t, s, h, kv, d, off, window, quant):
-    pairs, kv_rows = visible_span(t, s, off, window)
+    """(bound_ms, bound_by, flops) of K1 (K2 with `quant`): 4*d FLOP a
+    visible pair; q read for the rows that see a key, the kv rows any
+    query needs read once, O and lse written for every row (a row that
+    sees no key only writes O = 0 and lse = +inf)."""
+    pairs, kv_rows, q_rows = visible_span(t, s, off, window)
     flops = 4.0 * b * h * d * pairs
     esz = 1 if quant else 2
-    nbytes = (b * t * h * d * 2                       # q
+    nbytes = (b * q_rows * h * d * 2                  # q (rows that see)
               + 2 * b * kv_rows * kv * d * esz       # k, v (needed rows)
               + (2 * b * kv_rows * kv * 4 if quant else 0)  # scales
               + b * t * h * d * 2 + b * h * t * 4)   # o, lse
@@ -3396,15 +3402,18 @@ def bwd_readings(torch, fa):
 
 def bwd_bounds(b, sq, skv, h, kv, d, off, window):
     """(bound_ms, bound_by, flops) of K3 and K4: 6*d (K3) and 8*d (K4)
-    FLOP a visible pair; each input read once, each output written once
-    (q, dO, dQ [B,Sq,H,D], the kv rows any query needs, lse and delta)."""
-    pairs, kv_rows = visible_span(sq, skv, off if off else 0, window)
-    q_bytes = b * sq * h * d * 2
+    FLOP a visible pair; each input read once where a row needs it (q,
+    dO, lse and delta of the rows that see a key, the kv rows any query
+    needs), each output written once (dQ [B,Sq,H,D], dK, dV)."""
+    pairs, kv_rows, q_rows = visible_span(sq, skv, off if off else 0,
+                                          window)
+    q_bytes = b * q_rows * h * d * 2
     kv_bytes = b * kv_rows * kv * d * 2
-    row_bytes = 2 * b * h * sq * 4
+    row_bytes = 2 * b * h * q_rows * 4
     out = {}
     for name, per_pair, nbytes in (
-            ('dq', 6, 3 * q_bytes + 2 * kv_bytes + row_bytes),
+            ('dq', 6, 2 * q_bytes + b * sq * h * d * 2 + 2 * kv_bytes
+             + row_bytes),
             ('dkv', 8, 2 * q_bytes + 2 * kv_bytes + row_bytes
              + 2 * b * skv * kv * d * 2)):
         flops = float(per_pair) * d * pairs * b * h
@@ -3509,10 +3518,12 @@ def replayed_routes(torch, moe):
              'valid': None}
 
     def wrap_mlp(fn):
-        def mlp(h, layer_params, config, mode='auto', valid=None):
+        def mlp(h, layer_params, config, mode='auto', valid=None,
+                replicated=False):
             state['valid'] = valid
             try:
-                return fn(h, layer_params, config, mode=mode, valid=valid)
+                return fn(h, layer_params, config, mode=mode, valid=valid,
+                          replicated=replicated)
             finally:
                 state['valid'] = None
         return mlp
@@ -4147,7 +4158,8 @@ TP_TIMING_SHAPE = (8, 512, 2048, 16, 4, 128, 1536)
 TP_RANK_SETUP = None
 # The legs tp_serve's ranks run, in order (mesh_fault_check.py runs the
 # ones a planted fault touches).
-TP_LEGS = ('bf16', 'server', 'int8', 'spec', 'migration', 'moe')
+TP_LEGS = ('bf16', 'server', 'int8', 'spec', 'migration', 'moe', 'fsdp',
+           'context')
 # The migration leg: the fused decode dispatches (the prefill's
 # included) before its snapshots.
 TP_MIG_DISPATCHES = 2
@@ -4160,15 +4172,74 @@ TP_DRAIN_AFTER = 4
 # expert and collective work), the moe_serve phase's 8 prompts.
 MOE_MESH = 'expert=2'
 MOE_MESH_LAYERS = 4
-# The two gangs the legs run in (`tp_serve_legs`): the second starts once
-# the parent's unsharded references have freed the card.
-TP_GANGS = (('spec', 'migration', 'moe'), ('bf16', 'server', 'int8'))
+# The fsdp leg: llama3-8b at full width and depth over FSDP_MESH on the
+# bf16 leg's engine flags (TP_KW), FSDP_PROMPTS prompts drawn in
+# FSDP_PROMPT_LENGTHS (one prefill chunk), FSDP_NEW tokens each (the
+# prefill's and one decode step's): every forward gathers each layer's
+# weights over gloo through the host, the leg's cost.
+FSDP_MESH = 'fsdp=2'
+FSDP_PROMPTS = 4
+FSDP_PROMPT_LENGTHS = (100, 500)
+FSDP_NEW = 2
+# The context leg: llama3-8b at full width over CTX_MESH, its depth cut to
+# CTX_LAYERS of 32 (the card holds this gang beside tp_serve's two: each
+# rank holds every weight), one CTX_PROMPT-token prompt prefilled in
+# chunks of 1536 into a dense cache of 4608 positions: the spans are
+# [0, 2304) and [2304, 4608), so the chunk [1536, 3072) straddles the
+# boundary and rank 1's first chunk sees no key of its span; then
+# CTX_NEW - 1 decode steps, on bf16 and then int8 KV.
+CTX_MESH = 'context=2'
+CTX_LAYERS = 16
+CTX_KW = dict(batch_size=2, max_seq_len=4608, prefill_chunk=1536,
+              kv_page_size=0)
+CTX_PROMPT = 4000
+CTX_NEW = 8
+# K1/K2 at a context rank's shapes (B, T, S, H, KV, D, q_offset): rank
+# 1's first chunk, every row before its span (no tile to read, lse +inf),
+# and its straddling chunk, 768 rows before the span and 768 in it.
+CTX_TIMING_SHAPES = (('cp_masked', (1, 1536, 2304, 32, 8, 128, -2304)),
+                     ('cp_partial', (1, 1536, 2304, 32, 8, 128, -768)))
+# The context leg's layer-0 K row against the unsharded engine's:
+# max|a - b| / max|b| over the prompt's positions and the decoded ones
+# both share (a write landing in the wrong rank's span moves whole
+# rows).
+TOL_CTX_SPAN_REL = 0.05
+# The gangs the legs run in (`tp_serve_legs`): the first starts at once,
+# the second once the parent's unsharded references have freed the card,
+# the third once the first has ended (three gangs beside the references
+# ran the card out of memory).
+TP_GANGS = (('spec', 'migration', 'moe'), ('bf16', 'server', 'int8'),
+            ('fsdp', 'context'))
 # The faults mesh_fault_check.py plants in tp_serve's ranks (`tp_plant`)
 # and the legs each runs.
 TP_FAULT_LEGS = {'serve_expert_not_reduced': ('moe',),
                  'draft_off_mesh': ('bf16', 'spec'),
                  'snapshot_rank0_heads': ('bf16', 'migration'),
-                 'restore_rank0_heads': ('bf16', 'migration')}
+                 'restore_rank0_heads': ('bf16', 'migration'),
+                 'fsdp_layer_ungathered': ('fsdp',),
+                 'fsdp_weights_whole': ('fsdp',),
+                 'context_lse_unmerged': ('context',),
+                 'context_write_other_span': ('context',),
+                 'context_cache_whole': ('context',),
+                 'context_masked_unlaunched': ('context',)}
+# The gate each fault of the fsdp and context legs is counted by: the
+# start of the fault line it must break (`tp_fsdp_checks`,
+# `tp_context_checks`), or the starts of that gate's line on bf16 and
+# on int8 KV.
+TP_FAULT_GATES = {'fsdp_layer_ungathered': 'fsdp logits',
+                  'fsdp_weights_whole': 'fsdp weight bytes',
+                  'context_lse_unmerged': 'context bf16 logits',
+                  'context_write_other_span': "context: the spans'",
+                  'context_cache_whole': ('context bf16: cache bytes',
+                                          'context int8: cache bytes'),
+                  'context_masked_unlaunched': ('context bf16 launches',
+                                                'context int8 launches')}
+# The faults that leave every output as it was and so must break their
+# named gate and no other: a weight or a cache kept whole, a launch left
+# out. A misplaced write, an unmerged lse or an ungathered layer changes
+# what attention reads, and so the logits and tokens too.
+TP_FAULTS_ALONE = ('fsdp_weights_whole', 'context_cache_whole',
+                   'context_masked_unlaunched')
 
 
 def tp_plant(name):
@@ -4183,7 +4254,22 @@ def tp_plant(name):
     - 'snapshot_rank0_heads': the snapshot's gather packs rank 0's KV
       heads in every rank's place;
     - 'restore_rank0_heads': every rank keeps rank 0's KV heads of the
-      restore's broadcast blob."""
+      restore's broadcast blob;
+    - 'fsdp_layer_ungathered': each layer's weights read from rank 0's
+      fsdp shard alone, in every rank's place, never gathered whole;
+    - 'fsdp_weights_whole': every rank drawing and keeping each weight
+      whole, read with no gather (the fsdp axis cutting nothing);
+    - 'context_lse_unmerged': the context ranks' partials folded by a
+      bare logaddexp, a span with no visible key left at lse = +inf
+      instead of weighing 0;
+    - 'context_write_other_span': each context rank writes every new
+      position into its own span (modulo its length), the other rank's
+      positions included;
+    - 'context_cache_whole': every rank keeping the whole dense cache
+      and attending all of it (the context axis cutting no sequence);
+    - 'context_masked_unlaunched': a chunk whose rows all lie before
+      this rank's span takes O = 0, lse = +inf without its K1/K2
+      launch."""
     if name is None:
         return
     import torch
@@ -4233,6 +4319,67 @@ def tp_plant(name):
             finally:
                 collectives.all_gather = gather
         eng.InferenceEngine._all_heads = rank0
+    elif name == 'fsdp_layer_ungathered':
+        real, gather = eng._layer_at, collectives.gather_weight
+
+        def rank0_shard(x, group, dim):
+            whole = gather(x, group, dim)
+            n = collectives.group_size(group)
+            return torch.cat([whole.narrow(dim, 0, x.shape[dim])] * n, dim)
+
+        def layer_at(params, i, cuts):
+            collectives.gather_weight = rank0_shard
+            try:
+                return real(params, i, cuts)
+            finally:
+                collectives.gather_weight = gather
+        eng._layer_at = layer_at
+    elif name == 'fsdp_weights_whole':
+        from skypilot_tpu_torch import inference
+        inference._shardings = lambda mesh, config: None
+        eng._place_params = lambda params, config, mesh, device: \
+            eng._to_device(params, device)
+        collectives.gather_weight = lambda x, group, dim: x
+    elif name == 'context_lse_unmerged':
+        from skypilot_tpu_torch.ops import flash_attention as fa
+
+        def logaddexp_merge(o_acc, lse_acc, o, lse):
+            o = o.float()
+            if o_acc is None:
+                return o, lse
+            new = torch.logaddexp(lse_acc, lse)
+            return (o_acc * torch.exp(lse_acc - new).permute(0, 2, 1, 3)
+                    + o * torch.exp(lse - new).permute(0, 2, 1, 3), new)
+        fa._merge = logaddexp_merge
+    elif name == 'context_cache_whole':
+        real = eng.init_cache
+
+        def whole(*args, mesh=None, **kwargs):
+            return real(*args, **kwargs)
+        eng.init_cache = whole
+        eng._context_span = lambda local_len: (None, 0, local_len)
+    elif name == 'context_masked_unlaunched':
+        from skypilot_tpu_torch.ops import flash_attention as fa
+        real = fa.flash_fwd
+
+        def skip_masked(q, k, v, causal=True, *args, q_offset=None,
+                        **kwargs):
+            b, t, h, _ = q.shape
+            if causal and q_offset is not None and q_offset + t <= 0:
+                return (torch.zeros_like(q),
+                        torch.full((b, h, t, 1), math.inf,
+                                   dtype=torch.float32, device=q.device))
+            return real(q, k, v, causal, *args, q_offset=q_offset, **kwargs)
+        fa.flash_fwd = skip_masked
+    elif name == 'context_write_other_span':
+        def write_everywhere(leaf, new, local_start, rows):
+            s_loc = leaf.shape[1]
+            for p0 in range(0, new.shape[1], s_loc):
+                piece = new[:, p0:p0 + s_loc]
+                idx = torch.remainder(local_start[:, None] + p0 + torch.arange(
+                    piece.shape[1], device=leaf.device)[None], s_loc)
+                leaf[rows, idx] = piece.to(leaf.dtype)
+        eng._span_write = write_everywhere
     elif name == 'restore_rank0_heads':
         real = eng.InferenceEngine._scatter_kv
 
@@ -4327,8 +4474,10 @@ def tp_rank_main(spec_path):
     the server leg's requests one at a time on a fresh engine; what the
     clock's synchronizes cost (`clock_overhead`); the 8 prompts on int8
     KV (K2); the target as its own draft (`tp_spec_leg`); snapshot,
-    restore and handoff (`tp_migration_leg`); then mixtral-8x7b over
-    MOE_MESH (`tp_moe_leg`). Writes its readings as JSON (rank 0's
+    restore and handoff (`tp_migration_leg`); mixtral-8x7b over
+    MOE_MESH (`tp_moe_leg`); then llama3-8b over FSDP_MESH
+    (`tp_fsdp_leg`) and over CTX_MESH (`tp_context_leg`). Writes its
+    readings as JSON (rank 0's
     first-token logits beside them); any failure raises (non-zero
     exit)."""
     with open(spec_path) as f:
@@ -4461,6 +4610,12 @@ def tp_rank_main(spec_path):
             torch.cuda.reset_peak_memory_stats()
         out['moe'] = tp_moe_leg(torch, inference, eng, fa, spec,
                                 follow_or_lead, rank)
+    if 'fsdp' in legs:
+        out['fsdp'] = tp_fsdp_leg(torch, inference, eng, fa, spec,
+                                  follow_or_lead)
+    if 'context' in legs:
+        out['context'] = tp_context_leg(torch, inference, eng, fa, spec,
+                                        follow_or_lead, rank)
     with open(os.path.join(spec['dir'], f'rank{rank}.json'), 'w') as f:
         json.dump(out, f)
     return 0
@@ -4676,6 +4831,121 @@ def tp_moe_leg(torch, inference, eng, fa, spec, follow_or_lead, rank):
     gc.collect()
     torch.cuda.empty_cache()
     return r
+
+
+def tp_fsdp_leg(torch, inference, eng, fa, spec, follow_or_lead):
+    """llama3-8b at full width and depth over FSDP_MESH (each rank its
+    half of every weight's `embed` dim, each layer gathered for its math),
+    the bf16 leg's engine flags, the leg's prompts, FSDP_NEW tokens each:
+    K1 launches, the collectives' time, this rank's weight bytes and peak
+    memory, rank 0's first-token logits."""
+    import torch.distributed as dist
+    f = spec['fsdp']
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = inference.build_engine(spec['model'], device=spec['device'],
+                                    seed=0, mesh_arg=f['mesh'],
+                                    kv_quant='none', **spec['engine_kw'])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = f['prompts']
+    logits = capture_first_logits(engine)
+    fa.flash_attention.launches = fa.flash_attention_quant.launches = 0
+    with collective_clock(torch, dist, eng) as clock:
+        run, seen = follow_or_lead(engine, lambda e: run_greedy(
+            torch, inference, e, prompts, f['new'])[1])
+    r = {'init_s': init_s, 'launches': fa.flash_attention.launches,
+         'other_launches': fa.flash_attention_quant.launches,
+         'tokens': [seen.get(i) for i in range(len(prompts))],
+         'expected_launches': expected_prefill_launches(
+             engine, [len(p) for p in prompts]),
+         'collectives': clock,
+         'weight_bytes': sum(t.numel() * t.element_size()
+                             for t in tree_leaves(engine.params)),
+         'local_embed': list(engine.params['embed'].shape),
+         'peak_mem_gb': peak_gb(torch)}
+    if run is not None:
+        prompt_total = sum(len(p) for p in prompts)
+        r.update(run, prefill_s=engine.stats['prefill_seconds'],
+                 prefill_tok_s=prompt_total / max(
+                     engine.stats['prefill_seconds'], 1e-9))
+        torch.save(torch.cat(logits).float().cpu(),
+                   os.path.join(spec['dir'], 'logits_fsdp.pt'))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def kv_bytes(engine):
+    """The bytes of an engine's KV cache leaves on this rank."""
+    return sum(t.numel() * t.element_size() for name in ('k', 'v')
+               for t in tree_leaves(engine.state.cache[name]))
+
+
+def tp_context_leg(torch, inference, eng, fa, spec, follow_or_lead, rank):
+    """llama3-8b at full width, CTX_LAYERS layers, over CTX_MESH (each
+    rank its span of the dense cache), the long prompt greedy on bf16 then
+    int8 KV: K1 (K2) launches, counted by the offset each launched at,
+    the collectives' time, this rank's cache bytes and positions, its
+    layer-0 K row of the prompt's slot (a file beside rank 0's
+    first-token logits)."""
+    import torch.distributed as dist
+    c = spec['context']
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with depth_cut(spec['model'], c['layers']) as name:
+        engine = inference.build_engine(name, device=spec['device'], seed=0,
+                                        mesh_arg=c['mesh'], kv_quant='none',
+                                        **c['engine_kw'])
+    torch.cuda.synchronize()
+    out = {'init_s': time.perf_counter() - t0}
+    params, config, mesh = engine.params, engine.config, engine.mesh
+    prompt = c['prompt']
+    for key in ('bf16', 'int8'):
+        if key == 'int8':
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = inference.InferenceEngine(params, config, mesh=mesh,
+                                               kv_quant='int8',
+                                               **c['engine_kw'])
+        counter = fa.flash_attention_quant if key == 'int8' \
+            else fa.flash_attention
+        logits = capture_first_logits(engine)
+        for w in (fa.flash_attention, fa.flash_attention_quant):
+            w.launches, w.offset_launches = 0, {}
+        with collective_clock(torch, dist, eng) as clock:
+            run, seen = follow_or_lead(engine, lambda e: run_greedy(
+                torch, inference, e, [prompt], c['new'])[1])
+        k = engine.state.cache['k']
+        leaf = k['q'] if isinstance(k, dict) else k
+        r = {'launches': counter.launches,
+             'other_launches': (fa.flash_attention.launches
+                                + fa.flash_attention_quant.launches
+                                - counter.launches),
+             'offset_launches': {str(o): n for o, n in
+                                 counter.offset_launches.items()},
+             'tokens': seen.get(0),
+             'expected_launches': expected_prefill_launches(
+                 engine, [len(prompt)]),
+             'collectives': clock, 'cache_bytes': kv_bytes(engine),
+             'cache_positions': int(leaf.shape[2])}
+        if key == 'bf16':
+            torch.save(k[0, 0].float().cpu(),
+                       os.path.join(spec['dir'], f'krow{rank}.pt'))
+        if run is not None:
+            r.update(run, prefill_s=engine.stats['prefill_seconds'])
+            torch.save(torch.cat(logits).float().cpu(),
+                       os.path.join(spec['dir'], f'logits_context_{key}.pt'))
+        out[key] = r
+    out['peak_mem_gb'] = peak_gb(torch)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def tree_leaves(tree):
@@ -4962,10 +5232,13 @@ def tp_serve_phase(torch, inference, fa, rng, legs=None, fault=None):
     TOL_SPEC_ACCEPT); snapshot, restore and handoff (tokens equal, the
     restored pages byte-equal on every rank, every KV head in the blob);
     mixtral-8x7b over MOE_MESH against its unsharded engine (run here
-    beside the ranks); then the server leg (tp_server_leg), drained into
-    an unsharded engine. `legs` (default TP_LEGS) and `fault`
-    (`tp_plant`) serve mesh_fault_check.py. Returns (reading, K1/K2
-    launches per rank by leg)."""
+    beside the ranks); llama3-8b over FSDP_MESH against the bf16
+    reference's first FSDP_NEW tokens (`tp_fsdp_checks`) and at
+    CTX_LAYERS layers over CTX_MESH against its own unsharded engine
+    (`tp_context_checks`), in a gang of their own; then the server leg
+    (tp_server_leg), drained into an unsharded engine. `legs` (default
+    TP_LEGS) and `fault` (`tp_plant`) serve mesh_fault_check.py. Returns
+    (reading, K1/K2 launches per rank by leg)."""
     import shutil
     import tempfile
 
@@ -4996,16 +5269,32 @@ def tp_serve_phase(torch, inference, fa, rng, legs=None, fault=None):
 def tp_serve_legs(torch, inference, eng, llama, prompts, requests, drain,
                   out, tmp, legs, fault):
     """tp_serve_phase's legs in `tmp`, filling `out` (with `faults`), run
-    by two gangs of TP_RANKS ranks each (`TP_GANGS`, their gloo
-    collectives host-bound, so the two overlap): the first starts at
-    once, beside the unsharded engines here (llama3-8b on the same seed,
-    then mixtral-8x7b at the moe leg's depth) and the NCCL refusal's
-    ranks; the second once those have freed the card. Returns the K1/K2
-    launches per rank by leg."""
+    by gangs of TP_RANKS ranks each (`TP_GANGS`, their gloo collectives
+    host-bound, so they overlap): the first starts at once, beside the
+    unsharded engines here (llama3-8b on the same seed, then its
+    CTX_LAYERS-layer cut, then mixtral-8x7b at the moe leg's depth) and
+    the NCCL refusal's ranks; the second once those have freed the card,
+    the third once the first has ended. Returns the K1/K2 launches per
+    rank by leg."""
     import numpy as np
+
+    from skypilot_tpu_torch import models as models_lib
     moe_all = moe_prompts(np.random.default_rng(9))
     moe_in = moe_all[1:]
+    # The fsdp and context legs' prompts, from generators of their own.
+    vocab = models_lib.resolve(TP_MODEL)[1].vocab_size
+    fsdp_rng = np.random.default_rng(17)
+    fsdp_prompts = [prompt_tokens(fsdp_rng, int(n), vocab) for n in
+                    fsdp_rng.integers(FSDP_PROMPT_LENGTHS[0],
+                                      FSDP_PROMPT_LENGTHS[1] + 1,
+                                      size=FSDP_PROMPTS)]
+    ctx_prompt = prompt_tokens(np.random.default_rng(16), CTX_PROMPT, vocab)
     spec = {'model': TP_MODEL, 'mesh': TP_MESH, 'device': DEV,
+            'fsdp': {'mesh': FSDP_MESH, 'prompts': fsdp_prompts,
+                     'new': FSDP_NEW},
+            'context': {'mesh': CTX_MESH, 'layers': CTX_LAYERS,
+                        'engine_kw': CTX_KW, 'prompt': ctx_prompt,
+                        'new': CTX_NEW},
             'engine_kw': TP_KW, 'prompts': prompts, 'new': TP_NEW,
             'server_requests': [(p, n) for p, n, _ in requests] + [drain],
             'clock_probe': TP_CLOCK_PROBE, 'legs': list(legs),
@@ -5035,21 +5324,32 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, drain,
 
     start_gang(0)
     nccl_check = tp_nccl_refusal(tmp) if 'server' in legs else None
-    # The unsharded references, beside the ranks.
+    # The unsharded references, beside the ranks: llama3-8b on the bf16
+    # and int8 legs' prompts and on the fsdp leg's.
     ref, host_params, config = {}, None, None
     t0 = time.perf_counter()
     llama_keys = [k for k in ('bf16', 'int8') if k in legs]
-    if llama_keys:
+    ref_runs = {'bf16': ('none', prompts, TP_NEW),
+                'int8': ('int8', prompts, TP_NEW),
+                'fsdp': ('none', fsdp_prompts, FSDP_NEW)}
+    ref_keys = [k for k in ref_runs if k in legs]
+    if ref_keys:
         engine = inference.build_engine(TP_MODEL, device=DEV, seed=0,
                                         kv_quant='none', **TP_KW)
         params, config = engine.params, engine.config
-        for key in llama_keys:
-            if key == 'int8':
-                engine = inference.InferenceEngine(
-                    params, config, kv_quant='int8', device=DEV, **TP_KW)
+        del engine
+        ref['param_bytes'] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(params))
+        ref['layer_bytes'] = sum(
+            t.numel() * t.element_size()
+            for t in params['layers'].values()) // config.num_layers
+        for key in ref_keys:
+            quant, ref_prompts, new = ref_runs[key]
+            engine = inference.InferenceEngine(
+                params, config, kv_quant=quant, device=DEV, **TP_KW)
             seen = capture_first_logits(engine)
-            tokens, run = run_greedy(torch, inference, engine, prompts,
-                                     TP_NEW)
+            tokens, run = run_greedy(torch, inference, engine, ref_prompts,
+                                     new)
             ref[key] = {'tokens': tokens,
                         'logits': torch.cat(seen).float().cpu(),
                         'decode_tok_s': run['decode_tok_s']}
@@ -5061,6 +5361,11 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, drain,
         gc.collect()
         torch.cuda.empty_cache()
     out['unsharded_s'] = time.perf_counter() - t0
+    ctx_ref = None
+    if 'context' in legs:
+        t0 = time.perf_counter()
+        ctx_ref = tp_context_reference(torch, inference, eng, ctx_prompt)
+        out['context_unsharded_s'] = time.perf_counter() - t0
     moe_ref = None
     if 'moe' in legs:
         t0 = time.perf_counter()
@@ -5072,17 +5377,29 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, drain,
     t0 = time.perf_counter()
     ranks = [{} for _ in range(TP_RANKS)]
     out['gangs'] = {}
-    for g in sorted(waits):
+
+    def collect(g):
+        if g not in waits:
+            return
         rcs, tails, ranks_s = waits[g]()
         if rcs != [0] * TP_RANKS:
             raise AssertionError(f'tp ranks failed: rcs {rcs}: {tails}')
-        out['gangs'][g] = {'legs': gang_legs[g], 'ranks_s': ranks_s}
+        out['gangs'][g] = {'legs': gang_legs[g], 'ranks_s': ranks_s,
+                           'ended_s': time.perf_counter() - t0}
         for r in range(TP_RANKS):
             with open(os.path.join(gang_dirs[g], f'rank{r}.json')) as f:
                 got = json.load(f)
             # Each gang's own rank facts beside its legs' readings.
             ranks[r].update({**got, **{f'{k}_gang{g}': got.get(k) for k in (
                 'init_s', 'peak_mem_gb')}})
+
+    # The gangs after the second take the card the first one frees: three
+    # gangs beside the references do not fit its 80 GB.
+    collect(0)
+    for g in range(2, len(TP_GANGS)):
+        start_gang(g)
+    for g in range(1, len(TP_GANGS)):
+        collect(g)
     out['ranks_wait_s'] = time.perf_counter() - t0
     faults, launches, diverged = [], {}, []
     logits_dir = {leg: gang_dirs[g] for g, gang in enumerate(gang_legs)
@@ -5127,6 +5444,14 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, drain,
         faults += tp_moe_checks(torch, ranks, out, launches, moe_ref,
                                 moe_in, logits_dir['moe'])
     del moe_ref
+    if 'fsdp' in legs:
+        faults += tp_fsdp_checks(torch, ranks, out, launches, ref,
+                                 fsdp_prompts, logits_dir['fsdp'], diverged)
+    if 'context' in legs:
+        faults += tp_context_checks(torch, llama, ranks, out, launches,
+                                    ctx_ref, ctx_prompt,
+                                    logits_dir['context'])
+    del ctx_ref
     if llama_keys:
         tp_llama_summary(ranks, out, llama_keys, config)
         if ranks[0]['local_heads'] * TP_RANKS != config.num_heads:
@@ -5149,8 +5474,9 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, drain,
         # stream's blob restored on an unsharded engine.
         params = eng._to_device(host_params, torch.device(DEV))
         for key in sorted({d[0] for d in diverged}):
+            source = fsdp_prompts if key == 'fsdp' else prompts
             out[key]['divergences'] = [divergence_reading(
-                torch, llama, params, config, prompts[i], want, got)
+                torch, llama, params, config, source[i], want, got)
                 for k, i, want, got in diverged if k == key]
             faults += [f'{key}: {f}' for f in divergence_faults(
                 out[key]['divergences'])]
@@ -5162,6 +5488,198 @@ def tp_serve_legs(torch, inference, eng, llama, prompts, requests, drain,
         torch.cuda.empty_cache()
     out['faults'] = faults
     return launches
+
+
+def tp_fsdp_checks(torch, ranks, out, launches, ref, prompts, tmp,
+                   diverged):
+    """The fsdp leg's gates against the unsharded engine on the same
+    flags and prompts: first-token logits within TOL_LOGITS_REL, the
+    ranks' tokens equal and equal to the unsharded ones up to near-ties
+    (added to `diverged`), K1 launches per rank the expected prefill
+    launches (K2 none), each rank's weight bytes half the unsharded
+    engine's; the collectives' share of the prefill and of decode, and
+    each rank's peak memory beside the unsharded weights' half and one
+    gathered layer."""
+    faults = []
+    r0 = ranks[0]['fsdp']
+    got = torch.load(os.path.join(tmp, 'logits_fsdp.pt'))
+    want = ref['fsdp']['tokens']
+    clock = r0['collectives']
+    reading = {
+        'model': TP_MODEL, 'mesh': FSDP_MESH, **TP_KW,
+        'prompt_lengths': [len(p) for p in prompts],
+        'max_new_tokens': FSDP_NEW,
+        'logits_rel_err': rel_err(torch, got, ref['fsdp']['logits']),
+        'launches_per_rank': [r['fsdp']['launches'] for r in ranks],
+        'expected_launches': r0['expected_launches'],
+        'ranks_tokens_equal': all(r['fsdp']['tokens'] == r0['tokens']
+                                  for r in ranks),
+        'tokens_equal_unsharded': sum(a == b for a, b in zip(
+            r0['tokens'], want)),
+        'weight_bytes_per_rank': [r['fsdp']['weight_bytes'] for r in ranks],
+        'unsharded_weight_bytes': ref['param_bytes'],
+        'gathered_layer_bytes': ref['layer_bytes'],
+        'local_embed': r0['local_embed'],
+        'peak_mem_gb_per_rank': [r['fsdp']['peak_mem_gb'] for r in ranks],
+        **{k: r0[k] for k in ('init_s', 'prefill_s', 'prefill_tok_s',
+                              'decode_s', 'decode_tok_s', 'wall_s')},
+        'collectives': {**clock, 'share_of_prefill': clock['prefill_s']
+                        / r0['prefill_s'],
+                        'share_of_decode': clock['decode_s']
+                        / max(r0['decode_s'], 1e-9)}}
+    if not reading['logits_rel_err'] < TOL_LOGITS_REL:
+        faults.append(f'fsdp logits rel err {reading["logits_rel_err"]}')
+    if any(n != r0['expected_launches']
+           for n in reading['launches_per_rank']) or any(
+               r['fsdp']['other_launches'] for r in ranks):
+        faults.append(f'fsdp launches {reading["launches_per_rank"]} != '
+                      f'{r0["expected_launches"]} per rank')
+    if not reading['ranks_tokens_equal']:
+        faults.append('fsdp: the ranks\' tokens differ')
+    if any(2 * b != ref['param_bytes']
+           for b in reading['weight_bytes_per_rank']):
+        faults.append(f'fsdp weight bytes a rank '
+                      f'{reading["weight_bytes_per_rank"]}, not half of '
+                      f'{ref["param_bytes"]}')
+    diverged += [('fsdp', i, want[i], r0['tokens'][i])
+                 for i in range(len(want)) if r0['tokens'][i] != want[i]]
+    launches['fsdp'] = reading['launches_per_rank']
+    out['fsdp'] = reading
+    return faults
+
+
+def tp_context_reference(torch, inference, eng, prompt):
+    """The context leg's reference: an unsharded engine of CTX_LAYERS
+    layers on the same seed and CTX_KW, the long prompt greedy on bf16
+    then int8 KV: tokens, first-token logits, cache bytes, and the bf16
+    cache's layer-0 K row of the prompt's slot. Returns (those by key,
+    the params on the host, the config)."""
+    with depth_cut(TP_MODEL, CTX_LAYERS) as name:
+        engine = inference.build_engine(name, device=DEV, seed=0,
+                                        kv_quant='none', **CTX_KW)
+    params, config = engine.params, engine.config
+    ref = {}
+    for key in ('bf16', 'int8'):
+        if key == 'int8':
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = inference.InferenceEngine(params, config, device=DEV,
+                                               kv_quant='int8', **CTX_KW)
+        seen = capture_first_logits(engine)
+        tokens, run = run_greedy(torch, inference, engine, [prompt],
+                                 CTX_NEW)
+        ref[key] = {'tokens': tokens[0],
+                    'logits': torch.cat(seen).float().cpu(),
+                    'cache_bytes': kv_bytes(engine),
+                    'wall_s': run['wall_s']}
+        if key == 'bf16':
+            ref[key]['k_row'] = engine.state.cache['k'][0, 0].float().cpu()
+        del seen
+    del engine
+    host = eng._to_device(params, torch.device('cpu'))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref, host, config
+
+
+def tp_context_checks(torch, llama, ranks, out, launches, ctx_ref, prompt,
+                      tmp):
+    """The context leg's gates against its unsharded engine, on bf16 and
+    int8 KV: first-token logits within TOL_LOGITS_REL, the ranks' tokens
+    equal and equal to the unsharded ones up to near-ties (a dense
+    forward on the host params), K1 (K2) launches per rank the expected
+    prefill launches and no other kernel's, each rank's cache half the
+    unsharded cache's bytes and positions; on bf16 the ranks' layer-0 K
+    rows, side by side, within TOL_CTX_SPAN_REL of the unsharded row over
+    the prompt's positions and those of the decoded tokens both share;
+    the collectives' share."""
+    faults = []
+    ref, host_params, config = ctx_ref
+    reading = {'model': TP_MODEL, 'layers': CTX_LAYERS, 'mesh': CTX_MESH,
+               **CTX_KW, 'prompt_len': len(prompt),
+               'max_new_tokens': CTX_NEW,
+               'peak_mem_gb_per_rank': [r['context']['peak_mem_gb']
+                                        for r in ranks],
+               'init_s': ranks[0]['context']['init_s']}
+    diverged = []
+    for key in ('bf16', 'int8'):
+        r0 = ranks[0]['context'][key]
+        got = torch.load(os.path.join(tmp, f'logits_context_{key}.pt'))
+        clock = r0['collectives']
+        rk = {
+            'logits_rel_err': rel_err(torch, got, ref[key]['logits']),
+            'launches_per_rank': [r['context'][key]['launches']
+                                  for r in ranks],
+            'offset_launches_per_rank': [r['context'][key]['offset_launches']
+                                         for r in ranks],
+            'expected_launches': r0['expected_launches'],
+            'ranks_tokens_equal': all(r['context'][key]['tokens']
+                                      == r0['tokens'] for r in ranks),
+            'tokens_equal_unsharded': r0['tokens'] == ref[key]['tokens'],
+            'cache_bytes_per_rank': [r['context'][key]['cache_bytes']
+                                     for r in ranks],
+            'unsharded_cache_bytes': ref[key]['cache_bytes'],
+            'cache_positions_per_rank': [r['context'][key]['cache_positions']
+                                         for r in ranks],
+            **{k: r0[k] for k in ('prefill_s', 'decode_s', 'decode_tok_s',
+                                  'wall_s')},
+            'unsharded_wall_s': ref[key]['wall_s'],
+            'collectives': {**clock, 'share_of_prefill': clock['prefill_s']
+                            / r0['prefill_s'],
+                            'share_of_decode': clock['decode_s']
+                            / max(r0['decode_s'], 1e-9)}}
+        if not rk['logits_rel_err'] < TOL_LOGITS_REL:
+            faults.append(f'context {key} logits rel err '
+                          f'{rk["logits_rel_err"]}')
+        if any(n != r0['expected_launches']
+               for n in rk['launches_per_rank']) or any(
+                   r['context'][key]['other_launches'] for r in ranks):
+            faults.append(f'context {key} launches '
+                          f'{rk["launches_per_rank"]} != '
+                          f'{r0["expected_launches"]} per rank')
+        if not rk['ranks_tokens_equal']:
+            faults.append(f'context {key}: the ranks\' tokens differ')
+        if any(2 * b != ref[key]['cache_bytes']
+               for b in rk['cache_bytes_per_rank']) or any(
+                   2 * n != CTX_KW['max_seq_len']
+                   for n in rk['cache_positions_per_rank']):
+            faults.append(f'context {key}: cache bytes a rank '
+                          f'{rk["cache_bytes_per_rank"]} and positions '
+                          f'{rk["cache_positions_per_rank"]}, not half the '
+                          f'unsharded {ref[key]["cache_bytes"]}')
+        if not rk['tokens_equal_unsharded']:
+            diverged.append((key, ref[key]['tokens'], r0['tokens']))
+        reading[key] = rk
+        launches[f'context_{key}'] = rk['launches_per_rank']
+    rows = torch.cat([torch.load(os.path.join(tmp, f'krow{r}.pt'))
+                      for r in range(len(ranks))])
+    # The prompt's positions and those of the decoded tokens both sides
+    # share (a near-tie's token has its own key).
+    j = first_divergence(ref['bf16']['tokens'],
+                         ranks[0]['context']['bf16']['tokens'])
+    n = len(prompt) + min(CTX_NEW - 1, CTX_NEW if j is None else j)
+    reading['span_positions'] = n
+    want = ref['bf16']['k_row'][:n]
+    reading['span_rel_err'] = float((rows[:n] - want).abs().max()
+                                    / want.abs().max())
+    if not reading['span_rel_err'] < TOL_CTX_SPAN_REL:
+        faults.append(f'context: the spans\' layer-0 K rows off the '
+                      f'unsharded row by {reading["span_rel_err"]}')
+    if diverged:
+        from skypilot_tpu_torch.inference import engine as eng
+        dev_params = eng._to_device(host_params, torch.device(DEV))
+        for key, want_tokens, have in diverged:
+            reading[key]['divergence'] = divergence_reading(
+                torch, llama, dev_params, config, prompt, want_tokens, have)
+            faults += [f'context {key}: {f}' for f in divergence_faults(
+                [reading[key]['divergence']])]
+        del dev_params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out['context'] = reading
+    return faults
 
 
 def tp_llama_summary(ranks, out, keys, config):
@@ -7017,14 +7535,52 @@ def main():
     out, launches = tp_serve_phase(torch, inference, fa,
                                    np.random.default_rng(10))
     moe_mesh = out.pop('moe')
+    fsdp_serve, context_serve = out.pop('fsdp'), out.pop('context')
     emit('tp_serve', phase_s=time.perf_counter() - t0, **out)
     emit('moe_mesh', **moe_mesh)
+    emit('fsdp_serve', **fsdp_serve)
+    emit('context_serve', **context_serve)
     if out['faults']:
         raise AssertionError(f'tp_serve: {out["faults"]}')
     path_launches['flash_attention']['tp_serve_spec'] = launches['spec']
     path_launches['flash_attention']['tp_serve_migration'] = launches[
         'migration']
     path_launches['flash_attention']['moe_mesh'] = launches['moe']
+    # The fourteenth slice's paths, launches per rank: llama3-8b over
+    # fsdp=2 (the serving shape's chunks) and over context=2 (each
+    # rank's span; the shapes below).
+    path_launches['flash_attention']['tp_serve_fsdp'] = launches['fsdp']
+    path_launches['flash_attention']['tp_serve_context'] = launches[
+        'context_bf16']
+    path_launches['flash_attention_quant']['tp_serve_context'] = launches[
+        'context_int8']
+    # K1/K2 at a context rank's shapes, rank 1's negative offsets: held
+    # against their plain versions (lse = +inf rows among them) and
+    # timed, beside the launches each rank made at that offset.
+    for quant, name in ((False, 'flash_attention'),
+                        (True, 'flash_attention_quant')):
+        gen = torch.Generator(device=DEV).manual_seed(16 + int(quant))
+        offsets = context_serve['int8' if quant else 'bf16'][
+            'offset_launches_per_rank']
+        for path, shape in CTX_TIMING_SHAPES:
+            check = kernel_reading(torch, fa, gen, quant, *shape, None, None)
+            if kernel_faults(check):
+                raise AssertionError(f'{name} disagrees with its plain '
+                                     f'version at {path}: '
+                                     f'{kernel_faults(check)}')
+            tm = kernel_timing(torch, fa, quant, shape)
+            emit('timing', kernel=name, path=path, check=check, **tm)
+            per_rank = [n.get(str(shape[-1]), 0) for n in offsets]
+            kernels[name]['max_abs_err'] = max(kernels[name]['max_abs_err'],
+                                               check['max_abs_err'])
+            kernels[name]['shapes'].append({
+                'path': path, 'shape': tm['shape'],
+                'q_offset': tm['q_offset'], 'launches': sum(per_rank),
+                'launches_per_rank': per_rank,
+                'max_abs_err': check['max_abs_err'],
+                'masked_rows': check['masked_rows'],
+                **{k: tm[k] for k in ('ms', 'plain_ms', 'bound_ms',
+                                      'bound_by', 'library_ms')}})
     for quant, name in ((False, 'flash_attention'),
                         (True, 'flash_attention_quant')):
         key = 'int8' if quant else 'bf16'

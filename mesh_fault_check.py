@@ -35,14 +35,30 @@ ranks (`chip_smoke.tp_plant`) on the legs it touches
   leg;
 - snapshot_rank0_heads: the snapshot packs rank 0's KV heads in every
   rank's place; restore_rank0_heads: the restore hands every rank rank
-  0's heads: the migration leg.
+  0's heads: the migration leg;
+- fsdp_layer_ungathered: each layer's weights read from rank 0's fsdp
+  shard alone, never gathered whole; fsdp_weights_whole: every rank
+  keeping each weight whole: the fsdp leg;
+- context_lse_unmerged: the context ranks' partials folded by a bare
+  logaddexp, a span with no visible key left at lse = +inf;
+  context_write_other_span: each context rank writes every new position
+  into its own span; context_cache_whole: every rank keeping the whole
+  cache; context_masked_unlaunched: a rank's chunk that sees no key of
+  its span taken without its K1/K2 launch: the context leg.
+These count only where their named gate breaks
+(`chip_smoke.TP_FAULT_GATES`: the fsdp logits and weight bytes, the
+context bf16 logits, the context spans' layer-0 K rows, the context
+bf16 cache bytes and launches); the gates a fault broke beside its
+named one are listed as `other_broken`, and a fault of
+`chip_smoke.TP_FAULTS_ALONE` (outputs unchanged) counts only with none.
 Prints one JSON line a run (its limits' readings and the limits it
 broke) and exits non-zero unless each sound run breaks none and every
 fault breaks at least one. A serving run whose ranks failed counts as
 caught only where a follower raised on the ranks' divergence (the
 ranks-equal gate, `raised_gates`), never for any other error. Needs one
 CUDA device; about 8 minutes for the training faults, about 10 for the
-serving ones.
+tensor and expert legs' four serving faults, about 5 for the fsdp and
+context legs' six.
 """
 import json
 import sys
@@ -109,6 +125,18 @@ def serve_readings(out):
         got['moe'] = {k: out['moe'][k] for k in (
             'logits_rel_err', 'ranks_tokens_equal',
             'tokens_equal_unsharded')}
+    if 'fsdp' in out:
+        got['fsdp'] = {k: out['fsdp'][k] for k in (
+            'logits_rel_err', 'ranks_tokens_equal',
+            'tokens_equal_unsharded', 'launches_per_rank',
+            'weight_bytes_per_rank')}
+    if 'context' in out:
+        got['context'] = {'span_rel_err': out['context']['span_rel_err'],
+                          **{key: {k: out['context'][key][k] for k in (
+                              'logits_rel_err', 'ranks_tokens_equal',
+                              'tokens_equal_unsharded', 'launches_per_rank',
+                              'cache_bytes_per_rank')}
+                             for key in ('bf16', 'int8')}}
     return got
 
 
@@ -127,6 +155,15 @@ def raised_gates(text):
         return ["ranks_equal: a follower's host plan left rank 0's "
                 f'({DIVERGED!r} in its log)']
     return []
+
+
+def named_gates(fault, broken):
+    """The broken gates a fault is counted by: those of its named gate
+    (`chip_smoke.TP_FAULT_GATES`) where it has one, else every one."""
+    import chip_smoke
+    gate = chip_smoke.TP_FAULT_GATES.get(fault)
+    return broken if gate is None else [b for b in broken
+                                        if b.startswith(gate)]
 
 
 def check_serving(torch, chip_smoke, faults):
@@ -148,14 +185,20 @@ def check_serving(torch, chip_smoke, faults):
             out, _ = chip_smoke.tp_serve_phase(
                 torch, inference, fa, np.random.default_rng(10), legs=legs,
                 fault=fault)
-            broken, readings = out['faults'], serve_readings(out)
+            every = out['faults']
+            broken, readings = named_gates(fault, every), serve_readings(out)
         except AssertionError as e:
             raised = str(e)
-            broken, readings = raised_gates(raised), {}
-        caught = bool(broken) if fault else not broken and raised is None
+            every = broken = raised_gates(raised)
+            readings = {}
+        other = [b for b in every if b not in broken]
+        caught = (bool(broken) and not (
+            fault in chip_smoke.TP_FAULTS_ALONE and other)) if fault else \
+            not broken and raised is None
         ok &= caught
         line = {'fault': fault, 'caught' if fault else 'sound': caught,
-                'broken': broken, 'readings': readings,
+                'broken': broken, 'other_broken': other,
+                'readings': readings,
                 'phase_s': time.perf_counter() - t0}
         if raised is not None:
             at = raised.find(DIVERGED)

@@ -7,8 +7,10 @@ Ports `skypilot_tpu/checkpoints/__main__.py` (:36-283): `_cmd_inspect`,
 codes:
 
   inspect <dir>              family, geometry, shard/tensor inventory
-  import <dir> [--device D]  stream onto a device (CUDA unless named);
-                             prints a stats JSON line
+  import <dir> [--device D] [--mesh SPEC]
+                             stream onto a device (CUDA unless named),
+                             or each rank's cut under a mesh; prints a
+                             stats JSON line
   verify <dir>               structural + mapping + finite-value
                              checks; `--against <dir>` adds a
                              per-tensor numeric diff. Exit 0 = clean;
@@ -20,9 +22,12 @@ codes:
 `export` keeps the reference's flag name `--orbax` so that scripts carry
 over; in the port its directory is a train checkpoint written by the
 port's `fit` (`train/checkpoints.py`). As in the reference, `--model`
-gives the export geometry; params that do not fit it raise. `import`
-takes `--device` where the reference takes `--mesh` (one device here; a
-mesh of more than one device raises).
+gives the export geometry; params that do not fit it raise. `import
+--mesh` imports under `mesh_from_env` as the reference's does (:66-74),
+one process per device: each process of the gang runs the same command
+with the gang variables set, and places its cut of every tensor
+(`hf_import.load_params(mesh=)`); one process asking for several
+devices raises, naming those variables.
 """
 from __future__ import annotations
 
@@ -73,13 +78,21 @@ def _cmd_inspect(args) -> int:
 
 
 def _cmd_import(args) -> int:
+    mesh = None
     if args.mesh:
-        from skypilot_tpu_torch import device as device_lib
-        device_lib.check_one_device_mesh(args.mesh)
-    params, config, stats = hf_import.load_params(
-        args.checkpoint, device=args.device, strict=args.strict,
-        concurrency=args.concurrency)
-    del params  # the point was proving the load; free the device
+        # One process per device, as serving and training run a mesh:
+        # each rank imports its cut of every tensor.
+        from skypilot_tpu_torch.parallel import mesh as mesh_lib
+        mesh = mesh_lib.mesh_from_env(mesh_lib.MeshSpec.parse(args.mesh),
+                                      args.device)
+    try:
+        params, config, stats = hf_import.load_params(
+            args.checkpoint, device=None if mesh else args.device,
+            mesh=mesh, strict=args.strict, concurrency=args.concurrency)
+        del params  # the point was proving the load; free the device
+    finally:
+        if mesh is not None:
+            mesh_lib.shutdown()
     print(json.dumps({
         'rc': 0,
         'family': hf_import.infer_family(config),
@@ -246,8 +259,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="Target device (default CUDA; 'cpu' for the "
                         'CPU).')
     p.add_argument('--mesh', default=None,
-                   help='Accepted for the reference\'s scripts: only a '
-                        'one-device mesh (every axis 1 or -1).')
+                   help='Import under a device mesh, e.g. fsdp=2 or '
+                        'tensor=2: one process per device, each started '
+                        'with the same flags and the gang variables '
+                        '(SKYTPU_COORDINATOR_ADDR, SKYTPU_NUM_PROCESSES, '
+                        'SKYTPU_PROCESS_ID); each rank places its cut of '
+                        'every tensor and prints its own stats.')
     p.add_argument('--strict', default=None,
                    action=argparse.BooleanOptionalAction,
                    help='Fail on unexpected tensors (default: '

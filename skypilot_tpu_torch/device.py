@@ -23,21 +23,3 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             'plain PyTorch paths on the CPU.')
     return dev
 
-
-def check_one_device_mesh(spec: str) -> None:
-    """Accept only a mesh spec (comma-separated axis=size, as the
-    reference's `--mesh`) that resolves to one device: every axis of
-    size 1 or -1 (fill). Anything larger raises NotImplementedError: the
-    checkpoints CLI imports on one device (serving takes `--mesh
-    tensor=N`, training any mesh of the data, fsdp, tensor and context
-    axes; `hf_import.load_params(mesh=)` cuts an import for them)."""
-    sizes = {}
-    for part in spec.split(','):
-        axis, _, size = part.partition('=')
-        sizes[axis.strip()] = int(size)
-    if any(s not in (1, -1) for s in sizes.values()):
-        raise NotImplementedError(
-            f'--mesh {spec!r} spans more than one device; the checkpoints '
-            'CLI imports on one device (a mesh import is '
-            '`load_params(mesh=)`, which serving and training call per '
-            'rank; ROADMAP.md, Queue 1)')

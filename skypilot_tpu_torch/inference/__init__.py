@@ -8,7 +8,8 @@ HF safetensors checkpoint (`checkpoint=`, through
 the device. Under `mesh_arg` ('tensor=2') each process is one rank of
 the mesh (`parallel.mesh_from_env`, from the SKYTPU_* gang variables)
 and holds only its slice of the weights (heads over `tensor`, an MoE's
-experts over `expert`) and of a draft's.
+experts over `expert`, every weight's `embed` dim over `fsdp`) and of a
+draft's.
 """
 from typing import Optional, Union
 
@@ -45,8 +46,8 @@ def draw_params(model: str, seed: int, device: torch.device, mesh=None):
     generator seeded `seed` on `device`: what build_engine serves. With
     a `mesh` of several ranks the draws are the same and each leaf keeps
     this rank's slice (heads, MLP and vocab over `tensor`, an MoE's
-    experts over `expert`), so a rank's peak is one full leaf above its
-    shard."""
+    experts over `expert`, `embed` over `fsdp`), so a rank's peak is one
+    full leaf above its shard."""
     from skypilot_tpu_torch import models as models_lib
     family, config = models_lib.resolve(model)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -108,8 +109,8 @@ def build_engine(model: str, *,
     draft for speculative decode: from `draft_checkpoint`, or drawn from
     its own generator seeded `seed + 1` (the reference draws the target
     from key 0 and the draft from key 1).
-    `mesh_arg` ('tensor=2', 'expert=2,tensor=2', as the reference's
-    :52-56) builds the mesh from the gang variables
+    `mesh_arg` ('tensor=2', 'expert=2,tensor=2', 'fsdp=2', 'context=2',
+    as the reference's :52-56) builds the mesh from the gang variables
     (`parallel.mesh_from_env`): this process is one rank, on its own
     device, with its slice of the same weights, a draft's too (drawn or
     imported cut); rank 0 takes the requests and the others run

@@ -16,9 +16,10 @@ every free slot at once.
 
 `--checkpoint` takes an HF safetensors dir or a port train checkpoint
 (`train/checkpoints.py`), layout auto-detected; an HF dir's geometry
-wins over `--model`, a train checkpoint must fit it. `--mesh tensor=N`
-(or `expert=N`, for an MoE `--model`; with `--draft-model` too) runs one
-process per rank, each started with the same flags and the gang
+wins over `--model`, a train checkpoint must fit it. `--mesh` (any
+axis the server's takes: `tensor=N`, `expert=N` for an MoE `--model`,
+`fsdp=N`, `context=N`, ...; with `--draft-model` too) runs one process
+per rank, each started with the same flags and the gang
 variables (SKYTPU_COORDINATOR_ADDR, SKYTPU_NUM_PROCESSES,
 SKYTPU_PROCESS_ID), as the server's: rank 0 reads the input and writes
 the output, the others follow its engine until it is done.
@@ -103,10 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--temperature', type=float, default=0.0)
     parser.add_argument('--top-k', type=int, default=0)
     parser.add_argument('--mesh', default=None,
-                        help='Shard over a device mesh, e.g. tensor=2 or '
-                             'expert=2 (an MoE): one process per rank (see '
-                             'inference.server --help); rank 0 reads '
-                             '--input and writes --output.')
+                        help='Shard over a device mesh, e.g. tensor=2, '
+                             'expert=2 (an MoE), fsdp=2 or context=2: one '
+                             'process per rank (see inference.server '
+                             '--help); rank 0 reads --input and writes '
+                             '--output.')
     parser.add_argument('--draft-model', default=None,
                         help='Speculative decoding: a small same-vocab '
                              'draft model proposes spec-k tokens per '
@@ -167,6 +169,14 @@ def engine_kwargs(args) -> Dict[str, Any]:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    try:
+        _main(args)
+    finally:
+        mesh_lib.shutdown()
+
+
+def _main(args) -> None:
     from skypilot_tpu_torch import envs
     from skypilot_tpu_torch import inference as inf
 

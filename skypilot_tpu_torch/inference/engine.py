@@ -2,7 +2,7 @@
 
 Ports the serving path of `skypilot_tpu/inference/engine.py`.
 
-Device math: `quantize_kv` (:92), `init_cache` (:344, unsharded only),
+Device math: `quantize_kv` (:92), `init_cache` (:344),
 `_paged_read`/`_paged_write` (:138, :168), `_flash_prefill_ok` (:471),
 `_cached_attention` (:488), `_attn_with_cache`, `_layer_with_cache`,
 `_moe_layer_with_cache`, `_moe_hidden_with_cache` (:698-749),
@@ -66,18 +66,32 @@ Differences by design, each stated where it happens:
   path) and one per layer on a prefill chunk (its grouped path).
 
 - Serving on a mesh (`mesh=`, reference :1455-1514) runs one process
-  per device. Each rank holds its slice of the params (the family's
+  per device, over every axis the reference serves (`check_mesh`).
+  Each rank holds its slice of the params (the family's
   `param_logical_axes` under `parallel.sharding.DEFAULT_RULES`: heads,
-  MLP and vocab over `tensor`, an MoE's experts over `expert`) and of
-  the KV heads in its pool (`init_cache(mesh=)`: heads over `tensor`,
-  whole on every `expert` rank), and runs the forward under
-  `parallel.use_mesh`, whose groups carry the reductions
-  `models/llama.py` and `models/moe.py` write out; the flash kernels
-  run per rank on its own heads (the reference turns its Pallas kernel
-  off under a mesh). A draft is cut as a llama over `tensor` and its
-  cache sharded like the target's (reference :1384-1392, where GSPMD
-  places the draft's params; here each rank's draft attends its own
-  cache heads). The host side runs on every rank, replicated: rank 0
+  MLP and vocab over `tensor`, an MoE's experts over `expert`, every
+  weight's `embed` dim over `fsdp`; `data` and `pipe` replicate, as the
+  reference's cached path places them) and of the cache
+  (`init_cache(mesh=)`: KV heads over `tensor`, a dense cache's
+  sequence over `context`, whole on every other rank), and runs the
+  forward under `parallel.use_mesh`, whose groups carry the reductions
+  `models/llama.py` and `models/moe.py` write out. Under `fsdp` the
+  cached layer math gathers one layer's weights at a time
+  (`_layer_at`, `llama.unshard`), the embedding, final norm and head as
+  the forward does (`llama._whole`). Under `context` (reference
+  :369-391, :452-456: a dense cache, no pages, so no prefix cache)
+  each rank attends its span of keys and the ranks' (O, lse) merge
+  over the `context` group (`_context_attention`,
+  `_merge_over_context`): a prefill chunk through K1/K2 at the span's
+  offset (negative for a span past the chunk's first rows, whose rows
+  give lse = +inf and weigh 0), decode through the dense partial
+  softmax; each rank writes only its span's positions (`_span_write`).
+  The flash kernels run per rank on its own heads and span (the
+  reference turns its Pallas kernel off under a mesh). A draft is cut
+  as a llama, its cache sharded like the target's (reference
+  :1384-1392, where GSPMD places the draft's params; here each rank's
+  draft attends its own cache heads and span). The host side runs on
+  every rank, replicated: rank 0
   publishes its host events once per step and the others follow
   (`parallel/control.py`, `follow`). A snapshot, a restore, a handoff
   resume and a lease's expiry are events too: rank 0 publishes a
@@ -86,8 +100,9 @@ Differences by design, each stated where it happens:
   result) or the broadcast of the blob's leaves from rank 0 (each rank
   keeps its own heads), on the pool's device, so a blob carries every
   KV head, as an unsharded engine's does, and crosses packages and
-  geometries. Only the `tensor` and `expert` axes may exceed 1
-  (`check_mesh`).
+  geometries; under `context` the request's dense row is all-gathered
+  over the spans first, and each rank splices its span of a restored
+  row.
 """
 from __future__ import annotations
 
@@ -168,11 +183,24 @@ def _map_kv(fn, kv: KV) -> KV:
 
 
 def cache_capacity(cache: Cache) -> int:
-    """Logical KV positions addressable per slot."""
+    """Logical KV positions addressable per slot (every rank's span of a
+    dense cache cut over the ambient mesh's `context` axis)."""
     leaf = _leaf(cache['k'])
     if _is_paged(cache):
         return int(cache['table'].shape[1]) * int(leaf.shape[2])
-    return int(leaf.shape[2])
+    return _context_span(int(leaf.shape[2]))[2]
+
+
+def _context_span(local_len: int) -> Tuple[Any, int, int]:
+    """(the `context` group, the first position of this rank's span, the
+    whole sequence length) of a dense cache leaf whose sequence dim holds
+    `local_len` positions here, under the ambient mesh (no group, 0 and
+    `local_len` when the mesh does not cut the sequence)."""
+    mesh = mesh_lib.current()
+    if mesh is None or mesh.shape['context'] == 1:
+        return None, 0, local_len
+    return (mesh.group('context'), mesh.index('context') * local_len,
+            mesh.shape['context'] * local_len)
 
 
 def init_cache(config: llama.LlamaConfig, batch_size: int,
@@ -186,18 +214,33 @@ def init_cache(config: llama.LlamaConfig, batch_size: int,
     [L,P,page,KV,D] whose page 0 is the scratch page every empty table
     entry points at, plus a [B,W] block table. int8 leaves are
     {'q': int8, 's': f32 [..]}. With a mesh, KV is this rank's KV heads
-    (`sharding.kv_page_axes`: the heads axis alone splits over
-    'tensor'); tables and lengths are whole on every rank."""
+    (the heads axis splits over 'tensor') and a dense leaf's sequence
+    dim splits over 'context' (reference :452-456): rank c of the
+    context axis holds positions [c S/C, (c+1) S/C), S rounded up to a
+    multiple of the context degree (and of `pad_to`) as the reference
+    rounds it (:369-374). A paged cache takes no context axis
+    (ValueError, reference :376-391); tables and lengths are whole on
+    every rank."""
     c = config
-    # Dense and paged leaves alike are [L, B or P, S or page, KV, D].
-    heads = sharding_lib.Shard() if mesh is None else sharding_lib.leaf_shard(
-        mesh, sharding_lib.kv_page_axes(5, stacked=True))
     device = device_lib.resolve_device(device)
     s = max_seq_len or c.max_seq_len
-    multiple = max(1, pad_to)
+    ctx = 1 if mesh is None else mesh.shape['context']
+    multiple = math.lcm(max(1, pad_to), ctx)
     s = -(-s // multiple) * multiple
     if kv_quant not in ('none', 'int8'):
         raise ValueError(f'kv_quant must be none|int8, got {kv_quant!r}')
+    if page_size > 0 and ctx > 1:
+        raise ValueError(
+            'paged KV (page_size > 0) is incompatible with a '
+            "context-sharded cache (mesh axis 'context' > 1): "
+            'pages indirect the sequence dim the context axis '
+            'partitions. Drop the context axis (tensor-sharded '
+            'meshes page fine) or set page_size=0 for the dense '
+            'layout, whose sequence dim context-shards.')
+    # Dense and paged leaves alike are [L, B or P, S or page, KV, D].
+    cut = sharding_lib.Shard() if mesh is None else sharding_lib.leaf_shard(
+        mesh, (None, None, None if page_size > 0 else 'seq', 'kv_heads',
+               None))
 
     def kv_zeros(shape):
         if kv_quant == 'int8':
@@ -212,13 +255,13 @@ def init_cache(config: llama.LlamaConfig, batch_size: int,
         s = -(-s // step) * step
         w = s // page_size
         p = (num_pages + 1) if num_pages > 0 else (batch_size * w + 1)
-        shape = heads.local_shape(
+        shape = cut.local_shape(
             (c.num_layers, p, page_size, c.num_kv_heads, c.head_dim))
         return {'k': kv_zeros(shape), 'v': kv_zeros(shape),
                 'length': length,
                 'table': torch.zeros((batch_size, w), dtype=torch.int32,
                                      device=device)}
-    shape = heads.local_shape(
+    shape = cut.local_shape(
         (c.num_layers, batch_size, s, c.num_kv_heads, c.head_dim))
     return {'k': kv_zeros(shape), 'v': kv_zeros(shape), 'length': length}
 
@@ -270,12 +313,18 @@ def _dense_write(cache_kv: KV, new: torch.Tensor,
                  write_at: torch.Tensor) -> KV:
     """Write [B,T,...] rows at write_at[b] of a dense [B,S,...] layer
     cache, in place. The start clamps to S - T like the reference's
-    dynamic_update_slice."""
+    dynamic_update_slice. Under a mesh that cuts the sequence over
+    `context` the leaf holds this rank's span of S, and the rank writes
+    only the positions inside it (`_span_write`)."""
     def write_leaf(leaf, new_leaf):
-        s, t = leaf.shape[1], new_leaf.shape[1]
+        group, lo, s = _context_span(leaf.shape[1])
+        t = new_leaf.shape[1]
         start = torch.clamp(write_at.long(), 0, s - t)
-        idx = start[:, None] + torch.arange(t, device=leaf.device)[None]
         rows = torch.arange(leaf.shape[0], device=leaf.device)[:, None]
+        if group is not None:
+            _span_write(leaf, new_leaf, start - lo, rows)
+            return leaf
+        idx = start[:, None] + torch.arange(t, device=leaf.device)[None]
         leaf[rows, idx] = new_leaf.to(leaf.dtype)
         return leaf
 
@@ -285,6 +334,27 @@ def _dense_write(cache_kv: KV, new: torch.Tensor,
         write_leaf(cache_kv['s'], newq['s'])
         return cache_kv
     return write_leaf(cache_kv, new)
+
+
+def _span_write(leaf: torch.Tensor, new: torch.Tensor,
+                local_start: torch.Tensor, rows: torch.Tensor) -> None:
+    """Write `new` [B,T,...] at local positions local_start[b].. of
+    `leaf` [B,S_local,...], in place, keeping only the positions that
+    fall inside [0, S_local): a chunk that straddles two ranks' spans
+    lands half here, half on the other rank. Each piece of at most
+    S_local rows goes to its positions modulo S_local, distinct within
+    the piece, with the old row put back where a position lies outside
+    the span, so no two writes of a piece collide and no host sync is
+    needed."""
+    s_loc, t = leaf.shape[1], new.shape[1]
+    for p0 in range(0, t, s_loc):
+        piece = new[:, p0:p0 + s_loc].to(leaf.dtype)
+        local = local_start[:, None] + p0 + torch.arange(
+            piece.shape[1], device=leaf.device)[None]
+        mine = (local >= 0) & (local < s_loc)
+        idx = torch.remainder(local, s_loc)
+        mine = mine.view(mine.shape + (1,) * (piece.dim() - 2))
+        leaf[rows, idx] = torch.where(mine, piece, leaf[rows, idx])
 
 
 def _leaves(kv: KV) -> List[torch.Tensor]:
@@ -322,17 +392,25 @@ def _splice_pool_pages(pool: KV, pages: List[int], data: KV) -> None:
 
 def _gather_dense_row(cache_kv: KV, slot: int, length: int) -> KV:
     """Positions 0..length-1 of one slot's dense-cache row per leaf:
-    [L, B, S, ...] -> [L, length, ...]."""
-    return _map_kv(lambda leaf: leaf[:, slot, :length], cache_kv)
+    [L, B, S, ...] -> [L, length, ...]. Under a mesh that cuts the
+    sequence over `context`, each rank's span is all-gathered first (on
+    the leaf's device), so every rank holds the whole row."""
+    return _map_kv(lambda leaf: collectives.all_gather(
+        leaf[:, slot], _context_span(leaf.shape[2])[0], 1)[:, :length],
+        cache_kv)
 
 
 def _splice_dense_row(cache_kv: KV, slot: int, data: KV) -> None:
-    """Write restored [L, n, ...] leaves at positions 0..n-1 of slot
-    `slot` of a dense cache, in place; the rest of the row zeroes, as
-    the reference's zero-padded splice leaves it."""
+    """Write restored [L, n, ...] leaves into slot `slot` of a dense
+    cache, in place: the positions of this rank's span (all of them
+    unless the ambient mesh cuts the sequence over `context`); the rest
+    of the row zeroes, as the reference's zero-padded splice leaves
+    it."""
     for leaf, d in zip(_leaves(cache_kv), _leaves(data)):
-        n = d.shape[1]
-        leaf[:, slot, :n].copy_(d.to(leaf.device))
+        start = _context_span(leaf.shape[2])[1]
+        part = d[:, start:start + leaf.shape[2]]
+        n = part.shape[1]
+        leaf[:, slot, :n].copy_(part.to(leaf.device))
         leaf[:, slot, n:].zero_()
 
 
@@ -464,6 +542,10 @@ def _cached_attention(q: torch.Tensor, k_cache: KV, v_cache: KV,
     reference)."""
     quant = _is_quant(k_cache)
     k_arr = _leaf(k_cache)
+    group, lo, _ = _context_span(k_arr.shape[1])
+    if group is not None:
+        return _context_attention(q, k_cache, v_cache, q_positions, lengths,
+                                  window, softcap, q_offset, group, lo)
     if q_offset is not None and _flash_prefill_ok(
             q.shape[1], k_arr.shape[1], q.shape[3], q.device):
         if quant:
@@ -477,12 +559,26 @@ def _cached_attention(q: torch.Tensor, k_cache: KV, v_cache: KV,
             block_q=min(512, q.shape[1]),
             block_k=min(512, k_arr.shape[1]), window=window,
             softcap=softcap, q_offset=q_offset)
-    num_heads = q.shape[2]
+    scores, _ = _dense_scores(q, k_cache, q_positions, lengths, window,
+                              softcap)
+    out = _dense_values(torch.softmax(scores, dim=-1), q, v_cache)
+    return out if quant else out.to(v_cache.dtype)
+
+
+def _dense_scores(q: torch.Tensor, k_cache: KV, q_positions: torch.Tensor,
+                  lengths: torch.Tensor, window: Optional[int],
+                  softcap: Optional[float], start: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grouped-query dense path's f32 scores [B,KV,G,T,S] of q
+    [B,T,H,D] against the cache view [B,S,KV,D] (its keys at positions
+    start..), -1e30 where a key is not visible, and the visibility
+    [B,1,1,T,S]: positions < lengths[b], <= the query's position and
+    within `window`."""
+    k_arr = _leaf(k_cache)
     b, s, hkv, d = k_arr.shape
-    t = q.shape[1]
-    group = num_heads // hkv
-    qg = q.reshape(b, t, hkv, group, d)
+    qg = q.reshape(b, q.shape[1], hkv, q.shape[2] // hkv, d)
     scale = 1.0 / math.sqrt(d)
+    quant = _is_quant(k_cache)
     k_val = k_cache['q'].to(q.dtype) if quant else k_cache
     scores = torch.einsum('btkgd,bskd->bkgts', qg.float(),
                           k_val.float()) * scale
@@ -490,25 +586,89 @@ def _cached_attention(q: torch.Tensor, k_cache: KV, v_cache: KV,
         scores = scores * k_cache['s'].permute(0, 2, 1)[:, :, None, None, :]
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    k_pos = torch.arange(s, device=q.device)
+    k_pos = start + torch.arange(s, device=q.device)
     visible = ((k_pos[None, None, :] <= q_positions[:, :, None])
                & (k_pos[None, None, :] < lengths[:, None, None]))
     if window is not None:
         visible = visible & (q_positions[:, :, None] - k_pos[None, None, :]
                              < window)
-    scores = torch.where(visible[:, None, None], scores,
-                         torch.full_like(scores, _NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    if quant:
+    visible = visible[:, None, None]
+    return (torch.where(visible, scores, torch.full_like(scores, _NEG_INF)),
+            visible)
+
+
+def _dense_values(probs: torch.Tensor, q: torch.Tensor,
+                  v_cache: KV) -> torch.Tensor:
+    """Probabilities [B,KV,G,T,S] times the cache view's values -> f32
+    [B,T,H,D]: cast to the value dtype first (to q's and scaled on an
+    int8 cache), as the reference."""
+    if _is_quant(v_cache):
         probs = probs.to(q.dtype) * v_cache['s'].permute(0, 2, 1)[
             :, :, None, None, :].to(q.dtype)
-        out = torch.einsum('bkgts,bskd->btkgd', probs.float(),
-                           v_cache['q'].to(q.dtype).float())
+        values = v_cache['q'].to(q.dtype)
     else:
-        probs = probs.to(v_cache.dtype)
-        out = torch.einsum('bkgts,bskd->btkgd', probs.float(),
-                           v_cache.float()).to(v_cache.dtype)
-    return out.reshape(b, t, num_heads, d)
+        probs, values = probs.to(v_cache.dtype), v_cache
+    out = torch.einsum('bkgts,bskd->btkgd', probs.float(), values.float())
+    return out.reshape(q.shape[0], q.shape[1], q.shape[2], q.shape[3])
+
+
+def _context_attention(q: torch.Tensor, k_cache: KV, v_cache: KV,
+                       q_positions: torch.Tensor, lengths: torch.Tensor,
+                       window: Optional[int], softcap: Optional[float],
+                       q_offset: Optional[int], group: Any,
+                       lo: int) -> torch.Tensor:
+    """`_cached_attention` over a cache cut on its sequence dim over
+    `context`: this rank attends its span of keys (positions lo..), then
+    the ranks' (O, lse) merge over `group` (`_merge_over_context`).
+
+    A prefill chunk (`q_offset`) runs K1 (K2 on an int8 cache) at the
+    span's offset, q_offset - lo: negative for a span that lies past the
+    chunk's first row, whose rows before the span see no key and give
+    O = 0, lse = +inf. Otherwise (decode, a verify slab) the partial
+    softmax of the dense path runs in plain torch. The output's dtype is
+    the unsharded path's: q's for flash, the value dtype for a
+    bf16 cache, f32 for an int8 one."""
+    quant = _is_quant(k_cache)
+    b, s, _, d = _leaf(k_cache).shape
+    t, num_heads = q.shape[1], q.shape[2]
+    if q_offset is not None and _flash_prefill_ok(t, s, d, q.device):
+        kw = dict(causal=True, block_q=min(512, t), block_k=min(512, s),
+                  window=window, softcap=softcap, q_offset=q_offset - lo)
+        if quant:
+            o, lse = fa_lib.flash_fwd(q, k_cache['q'], v_cache['q'],
+                                      k_scale=k_cache['s'],
+                                      v_scale=v_cache['s'], **kw)
+        else:
+            o, lse = fa_lib.flash_fwd(q, k_cache, v_cache, **kw)
+        return _merge_over_context(o, lse, group).to(q.dtype)
+    scores, visible = _dense_scores(q, k_cache, q_positions, lengths, window,
+                                    softcap, start=lo)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(visible, torch.exp(scores - m), torch.zeros_like(scores))
+    denom = p.sum(dim=-1, keepdim=True)
+    # No visible key in this span: lse = +inf, as the kernels give it.
+    lse = torch.where(denom > 0, m + torch.log(denom),
+                      torch.full_like(denom, math.inf))
+    out = _dense_values(
+        p / torch.where(denom > 0, denom, torch.ones_like(denom)), q,
+        v_cache)
+    out = _merge_over_context(out, lse.reshape(b, num_heads, t, 1), group)
+    return out if quant else out.to(v_cache.dtype)
+
+
+def _merge_over_context(o: torch.Tensor, lse: torch.Tensor,
+                        group: Any) -> torch.Tensor:
+    """Each `context` rank's partial attention (O [B,T,H,D], lse
+    [B,H,T,1]) -> the whole attention, f32 [B,T,H,D]: the ranks' (O,
+    lse) all-gathered in one tensor and folded in f32 by
+    `flash_attention._merge` in rank order, so every rank holds the same
+    bits (a span with no visible key in a row weighs 0 there)."""
+    packed = torch.cat([o.float(), lse.permute(0, 2, 1, 3)], dim=-1)
+    out = lse_acc = None
+    for part in collectives.all_gather(packed[None], group, 0):
+        out, lse_acc = fa_lib._merge(out, lse_acc, part[..., :-1],
+                                     part[..., -1:].permute(0, 2, 1, 3))
+    return out
 
 
 def _attn_with_cache(x: torch.Tensor, layer_params: Params, k_cache: KV,
@@ -598,8 +758,31 @@ def _moe_layer_with_cache(x: torch.Tensor, layer_params: Params,
                          table=table)
     h = llama._rms_norm(x, layer_params['mlp_norm'], c.rms_norm_eps)
     out, _aux = moe_lib._moe_mlp(h, layer_params, c,
-                                 valid=positions < lengths[:, None])
+                                 valid=positions < lengths[:, None],
+                                 replicated=True)
     return x + out
+
+
+def _layer_cuts(config: Any) -> Optional[Params]:
+    """Each layer leaf's per-layer `Shard` when the ambient mesh cuts the
+    layers' weights over `fsdp` (their `embed` dim), else None."""
+    mesh = mesh_lib.current()
+    if mesh is None or mesh.shape['fsdp'] == 1:
+        return None
+    return {k: v.per_layer()
+            for k, v in llama.shard_tree(config, mesh)['layers'].items()}
+
+
+def _layer_at(params: Params, i: int, cuts: Optional[Params]) -> Params:
+    """Layer i's weights as the cached layer math reads them: under
+    `fsdp` each leaf gathered whole along its `embed` cut
+    (`llama.unshard`), one layer at a time, so a rank holds its shards
+    and one gathered layer; its tensor columns and experts stay cut."""
+    lp = llama.layer_params_at(params, i)
+    if cuts is None:
+        return lp
+    mesh = mesh_lib.current()
+    return {k: llama.unshard(v, cuts[k], mesh) for k, v in lp.items()}
 
 
 def _moe_hidden_with_cache(params: Params, tokens: torch.Tensor,
@@ -611,14 +794,16 @@ def _moe_hidden_with_cache(params: Params, tokens: torch.Tensor,
     softcaps, as `moe.forward`)."""
     c = config
     table = cache.get('table')
+    cuts = _layer_cuts(c)
     x = moe_lib.embed(params, tokens, c)
     for i in range(c.num_layers):
         x = _moe_layer_with_cache(
-            x, llama.layer_params_at(params, i),
+            x, _layer_at(params, i, cuts),
             _map_kv(lambda a: a[i], cache['k']),
             _map_kv(lambda a: a[i], cache['v']), positions, new_lengths,
             write_at, c, q_offset=q_offset, table=table)
-    return llama._rms_norm(x, params['final_norm'], c.rms_norm_eps)
+    return llama._rms_norm(x, llama._whole(params, 'final_norm', c),
+                           c.rms_norm_eps)
 
 
 def _hidden_with_cache(params: Params, tokens: torch.Tensor, cache: Cache,
@@ -635,15 +820,16 @@ def _hidden_with_cache(params: Params, tokens: torch.Tensor, cache: Cache,
                                       q_offset=q_offset)
     c = config
     table = cache.get('table')
+    cuts = _layer_cuts(c)
     x = llama.embed(params, tokens, c)
     for i, window in enumerate(llama.layer_windows(c)):
         x = _layer_with_cache(
-            x, llama.layer_params_at(params, i),
+            x, _layer_at(params, i, cuts),
             _map_kv(lambda a: a[i], cache['k']),
             _map_kv(lambda a: a[i], cache['v']), positions, new_lengths,
             write_at, c, window=window, q_offset=q_offset, table=table)
-    return llama._rms_norm(x, params['final_norm'], c.rms_norm_eps,
-                           c.norm_plus_one)
+    return llama._rms_norm(x, llama._whole(params, 'final_norm', c),
+                           c.rms_norm_eps, c.norm_plus_one)
 
 
 def _project_logits(x: torch.Tensor, params: Params,
@@ -692,7 +878,7 @@ def prefill_chunked(params: Params, tokens: torch.Tensor,
     n_chunks = padded_len // chunk
     sub = _slot_subset(cache, slot_ids)
     dev = tokens.device
-    last_hidden = torch.zeros((n, params['embed'].shape[-1]),
+    last_hidden = torch.zeros((n, config.hidden_size),
                               dtype=config.dtype, device=dev)
     last_idx = prompt_lengths.long() - 1
     rows = torch.arange(n, device=dev)
@@ -1053,16 +1239,18 @@ class InferenceEngine:
     env registry (envs.py); explicit arguments win. Runs on CUDA unless
     `device` says otherwise.
 
-    With a `mesh` (`parallel.mesh_from_env`; its `tensor` and `expert`
-    axes may exceed 1, see `check_mesh`) this process is one rank of a
-    sharded replica: `params` (and a draft's) are the full tree or this
-    rank's slices of it, the pool holds this rank's KV heads, and on a
-    mesh of several processes rank 0 takes the requests (submit, abort,
-    step, snapshot, restore, resume_handoff) while every other rank runs
-    `follow()`. Rank 0 calls `heartbeat()` while idle and
-    `stop_followers()` when done. The paged layout stays the default
-    unless SKYTPU_KV_PAGES_SHARDED says otherwise, and `use_flash` stays
-    on for CUDA: the kernels run per rank on its own heads.
+    With a `mesh` (`parallel.mesh_from_env`; any axis, see `check_mesh`)
+    this process is one rank of a sharded replica: `params` (and a
+    draft's) are the full tree or this rank's slices of it, the cache
+    holds this rank's KV heads (and, under `context`, its span of a
+    dense cache's positions), and on a mesh of several processes rank 0
+    takes the requests (submit, abort, step, snapshot, restore,
+    resume_handoff) while every other rank runs `follow()`. Rank 0 calls
+    `heartbeat()` while idle and `stop_followers()` when done. The paged
+    layout stays the default unless SKYTPU_KV_PAGES_SHARDED says
+    otherwise or the mesh has a `context` axis (dense there; an explicit
+    page size raises, as in the reference), and `use_flash` stays on for
+    CUDA: the kernels run per rank on its own heads and span.
     """
 
     def __init__(self, params: Params, config: llama.LlamaConfig,
@@ -1118,8 +1306,12 @@ class InferenceEngine:
         explicit_paged = kv_page_size is not None
         if kv_page_size is None:
             kv_page_size = envs.SKYTPU_KV_PAGE_SIZE.get()
-        if (mesh is not None and not explicit_paged
-                and not envs.SKYTPU_KV_PAGES_SHARDED.get()):
+        if mesh is not None and not explicit_paged and (
+                mesh.shape['context'] > 1
+                or not envs.SKYTPU_KV_PAGES_SHARDED.get()):
+            # A context axis cuts the dense cache's sequence dim, which
+            # pages would indirect (reference :1496-1500): the default
+            # layout is dense there, and an explicit page size raises.
             kv_page_size = 0
         self.kv_page_size = max(0, int(kv_page_size))
         if kv_pages is None:
@@ -1185,7 +1377,8 @@ class InferenceEngine:
                                  device=self.device,
                                  draft_config=self._draft_config,
                                  mesh=mesh)
-        self._capacity = cache_capacity(self.state.cache)
+        with self._mesh_ctx():
+            self._capacity = cache_capacity(self.state.cache)
         # Host-side page allocator: pages 1..P-1 are allocatable; page 0
         # is the scratch page every empty table entry points at.
         self._page_alloc: List[int] = []
@@ -1560,18 +1753,19 @@ class InferenceEngine:
 
     def _snapshot_kv(self, i: int, length: int) -> Optional[Dict[str, KV]]:
         """Slot i's KV at positions 0..length-1 (its pages, or its dense
-        row), every KV head: under a mesh every rank gathers its `tensor`
-        group's heads, and only rank 0 keeps the result (None
-        elsewhere)."""
+        row), every KV head: under a mesh every rank gathers its
+        `context` group's spans of the row and its `tensor` group's
+        heads, and only rank 0 keeps the result (None elsewhere)."""
         if self.kv_page_size:
             n_used = -(-length // self.kv_page_size)
             pages = self._slot_pages[i][:n_used]
             got = {name: _gather_pool_pages(self.state.cache[name], pages)
                    for name in ('k', 'v')}
         else:
-            got = {name: _gather_dense_row(self.state.cache[name], i,
-                                           length)
-                   for name in ('k', 'v')}
+            with self._mesh_ctx():
+                got = {name: _gather_dense_row(self.state.cache[name], i,
+                                               length)
+                       for name in ('k', 'v')}
         if not self._sharded:
             return got
         out = {}
@@ -1776,7 +1970,8 @@ class InferenceEngine:
                 _splice_pool_pages(self.state.cache[name], pages[:n_used],
                                    data[name])
             else:
-                _splice_dense_row(self.state.cache[name], i, data[name])
+                with self._mesh_ctx():
+                    _splice_dense_row(self.state.cache[name], i, data[name])
         self.state.cache['length'][i] = length
         self.state.last_tokens[i] = generated[-1]
         self._update_gauges()
@@ -2621,34 +2816,28 @@ class InferenceEngine:
         self._update_gauges()
 
 
-_NEXT_SLICE = ('{what} is not ported yet: the data, fsdp and context '
-               'serving axes are the next slice of the parallel layer (the '
-               'context axis cuts a dense cache on its sequence dim; '
-               'ROADMAP.md Queue 1)')
-# The axes a serving mesh may cut.
-SERVING_AXES = ('expert', 'tensor')
-
-
 def check_mesh(mesh: mesh_lib.Mesh, config: Any,
                draft_config: Any = None) -> None:
-    """What a mesh serves: its `tensor` and `expert` axes may exceed 1.
-    The config's (and a draft's) head, KV head, MLP and vocab counts
-    must split over the tensor degree (KV heads may instead replicate,
-    when the degree is a multiple of them), an MoE's experts over the
-    expert degree (a dense model replicates over `expert`). Raises
-    NotImplementedError (the next slice) or ValueError."""
-    others = {axis: n for axis, n in mesh.shape.items()
-              if axis not in SERVING_AXES and n > 1}
-    if others:
-        raise NotImplementedError(_NEXT_SLICE.format(
-            what=f'serving over mesh axes {others}') + "; only the "
-            "'tensor' and 'expert' axes shard serving")
+    """What a mesh serves: every axis, as the reference's engine (its
+    params placed by their logical axes, :1504-1513). `tensor` cuts
+    heads, MLP and vocab and the cache's KV heads, `expert` an MoE's
+    experts, `fsdp` every weight's `embed` dim (each layer gathered for
+    its math), `context` the dense cache's sequence dim; `data` and
+    `pipe` replicate (the cached path cuts no batch and runs every
+    layer). The config's (and a draft's) head, KV head, MLP and vocab
+    counts must split over the tensor degree (KV heads may instead
+    replicate, when the degree is a multiple of them), its hidden size
+    over the fsdp degree, an MoE's experts over the expert degree (a
+    dense model replicates over `expert`). Raises ValueError
+    (`sharding.cut`)."""
     for cfg in (config, draft_config):
         if cfg is None:
             continue
         sizes = llama.axis_sizes(cfg)
         for name in ('heads', 'kv_heads', 'mlp', 'vocab'):
             sharding_lib.cut(sizes[name], mesh.tensor_size, 0, name)
+        sharding_lib.cut(sizes['embed'], mesh.shape['fsdp'], 0, 'embed',
+                         'fsdp')
     if isinstance(config, moe_lib.MoeConfig):
         sharding_lib.cut(config.num_experts, mesh.shape['expert'], 0,
                          'expert', 'expert')

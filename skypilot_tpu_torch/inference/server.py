@@ -58,17 +58,23 @@ shedding (`shed_limit`, reference :423-440): past `--max-queue-depth`
 (or SKYTPU_MAX_QUEUE_DEPTH) queued requests, /generate and the /v1
 routes answer 503 with Retry-After and count in REQUESTS_SHED.
 
-Sharded serving (`--mesh tensor=N`, `expert=N` or both, reference
-:897-898) runs one process per rank, each started with the same flags
-and the gang variables SKYTPU_COORDINATOR_ADDR (host:port of rank 0's
-rendezvous), SKYTPU_NUM_PROCESSES and SKYTPU_PROCESS_ID. An MoE model
-cuts its experts over `expert`, and `--draft-model` shards its draft
-as the target. Rank 0 serves every route, `/internal/drain|snapshot|
+Sharded serving (`--mesh` over any of the reference's axes, e.g.
+`tensor=N`, `expert=N`, `fsdp=N`, `context=N` or `tensor=8,fsdp=2`,
+reference :897-898) runs one process per rank, each started with the
+same flags and the gang variables SKYTPU_COORDINATOR_ADDR (host:port of
+rank 0's rendezvous), SKYTPU_NUM_PROCESSES and SKYTPU_PROCESS_ID.
+`tensor` cuts heads, `expert` an MoE's experts, `fsdp` every weight
+(each layer gathered for its math), `context` the KV cache's sequence
+(a dense cache there: `--kv-page-size` > 0 with `context` raises, as
+in the reference, and the prefix cache is off); `data` and `pipe`
+replicate. `--draft-model` shards its draft as the target. Rank 0
+serves every route, `/internal/drain|snapshot|
 restore|resume` and the handoff frame included; the other ranks bind no
 port and follow its engine (`InferenceEngine.follow`), which publishes
 each snapshot, restore and resume as a control event: the followers
-join the gather of a request's KV heads to rank 0, or the scatter of a
-blob's, at the same point of their step sequence, so a blob from a
+join the gather of a request's KV heads (and spans) to rank 0, or the
+scatter of a blob's, at the same point of their step sequence, so a blob
+from a
 sharded replica restores on an unsharded one and back. Followers exit
 0 when rank 0 stops them (SIGTERM on rank 0) and non-zero when rank 0
 is gone. The engine loop keeps an idle rank 0's followers posted
@@ -79,7 +85,7 @@ followers may be mid-collective.
       --port 8080 [--device cuda] [--draft-model llama3-1b --spec-k 4]
       [--checkpoint HF_OR_TRAIN_DIR] [--draft-checkpoint DIR]
       [--max-queue-depth N] [--tokenizer DIR] [--served-model-name ID]
-      [--mesh tensor=N | expert=N | expert=N,tensor=M]
+      [--mesh AXIS=N[,AXIS=M...]]
 """
 from __future__ import annotations
 
@@ -923,9 +929,10 @@ def main() -> None:
                              '0 = bounded by the pool only).')
     parser.add_argument('--mesh', default=None,
                         help='Shard serving over a device mesh, e.g. '
-                             'tensor=2, expert=2 (an MoE) or '
-                             'expert=2,tensor=2: one process per rank, each '
-                             'started with the same flags and '
+                             'tensor=2, expert=2 (an MoE), fsdp=2, '
+                             'context=2 (a dense KV cache cut on its '
+                             'sequence) or tensor=8,fsdp=2: one process per '
+                             'rank, each started with the same flags and '
                              'SKYTPU_COORDINATOR_ADDR, SKYTPU_NUM_PROCESSES '
                              'and SKYTPU_PROCESS_ID; rank 0 serves.')
     parser.add_argument('--no-exit-with-parent', action='store_true',
@@ -938,7 +945,12 @@ def main() -> None:
         # A follower rank: no port, no telemetry threads; it steps with
         # rank 0 until rank 0 stops it.
         from skypilot_tpu_torch import inference
-        inference.build_engine(args.model, **engine_kwargs(args)).follow()
+        from skypilot_tpu_torch.parallel import mesh as mesh_lib
+        try:
+            inference.build_engine(args.model,
+                                   **engine_kwargs(args)).follow()
+        finally:
+            mesh_lib.shutdown()
         return
     # The live telemetry plane: the registry sampler and the SLO
     # watchdog (each a no-op when its interval knob is 0).

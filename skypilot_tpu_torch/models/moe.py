@@ -75,8 +75,9 @@ Under `context` the sequence is cut as llama's (global RoPE positions,
 attention over the gathered K/V or the ring).
 
 The cached engine (`inference/engine.py`) serves the same `_moe_mlp`
-under its mesh (`tensor` and `expert`; no batch or context rank, so
-`_assign`'s global routing is the local one), with `valid`: the static
+under its mesh, with `replicated` (every rank holds the same tokens:
+the cached path cuts no batch, and a `context` axis cuts only the KV
+cache, so the route is the local one) and `valid`: the static
 path runs this rank's experts with no host sync (decode), and the
 grouped path's host read of the row counts is this rank's own
 (prefill). No collective's shape depends on those counts: the expert
@@ -505,7 +506,8 @@ def _combine(outputs: torch.Tensor, route: Route, config: MoeConfig
 
 
 def _moe_mlp(h: torch.Tensor, layer_params: Params, config: MoeConfig,
-             mode: str = 'auto', valid: Optional[torch.Tensor] = None
+             mode: str = 'auto', valid: Optional[torch.Tensor] = None,
+             replicated: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h [B,S,E] -> (out [B,S,E], aux_loss), running each expert on its
     kept rows only. `mode`: 'static' (no host sync), 'grouped' (one) or
@@ -515,7 +517,9 @@ def _moe_mlp(h: torch.Tensor, layer_params: Params, config: MoeConfig,
     padded chunk's padding, whose attention reads whatever its pages
     hold, never changes the row counts the real tokens run at. Under
     the ambient mesh this rank's experts run (see the module
-    docstring)."""
+    docstring); `replicated` (the cached engine, whose every rank holds
+    the same tokens) routes them locally, not over the batch and
+    context ranks."""
     c = config
     b, s, e = h.shape
     flat = h.reshape(b * s, e)
@@ -530,7 +534,8 @@ def _moe_mlp(h: torch.Tensor, layer_params: Params, config: MoeConfig,
         flat = collectives.copy_to(flat, experts_group)
         logits = collectives.gather_from(
             flat.float() @ layer_params['router'].float(), experts_group, -1)
-        route = _assign(torch.softmax(logits, dim=-1), c, mesh, b)
+        route = _assign(torch.softmax(logits, dim=-1), c,
+                        None if replicated else mesh, b)
     if valid is not None:
         route = route._replace(keep=route.keep & valid.reshape(-1, 1))
     if mode == 'auto':

@@ -14,7 +14,13 @@ Ports `skypilot_tpu/ops/flash_attention.py`:
   reference's :170-284) as `_RingFn`: K1 per hop, the hops' (O, lse)
   merged in f32, and K3/K4 per hop against the merged lse, the dK/dV of
   each block travelling back around the ring to the rank that holds it
-  (`ring_flash_attention`).
+  (`ring_flash_attention`);
+- context serving's merge (the reference's GSPMD combine of a cache cut
+  on its sequence dim) through the same `_merge`: each rank's (O, lse)
+  over its span of keys, taken by K1/K2 at `q_offset` minus the span's
+  start (negative where the span lies past a chunk's first rows: those
+  rows see no key, give O = 0 and lse = +inf, and weigh 0 in the
+  merge).
 `_build.py` compiles the kernels for sm_90a at first use.
 
 Each public entry point dispatches on where its tensors lie:
@@ -37,8 +43,11 @@ needs a gradient at another head_dim before K1 runs (`check_backward`).
 kernel launches (plain integers, never the plain version's calls); each
 wrapper's `window_launches` splits the same launches by the window they
 were given (None or its size), which tells a model's local layers from
-its global ones, and its `causal_launches` by the causal flag (True or
-False), which tells a ring hop's diagonal block from a past one.
+its global ones, its `causal_launches` by the causal flag (True or
+False), which tells a ring hop's diagonal block from a past one, and
+K1's and K2's `offset_launches` by the `q_offset` of a launch given one,
+which tells a context rank's chunks apart (negative: the rank's span
+lies past the chunk's first row).
 
 K4 differs from the reference in one place: it sums the q heads of a GQA
 group inside the kernel in f32 and rounds dK/dV once, where the
@@ -327,18 +336,22 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f'flash forward kernel launch failed: CUDA '
                            f'error {err}')
     _count(flash_attention_quant if quant else flash_attention, window,
-           causal)
+           causal, q_offset)
     return out, lse
 
 
-def _count(wrapper, window, causal) -> None:
-    """One launch of `wrapper`'s kernel, also tallied under its window
-    and under its causal flag."""
+def _count(wrapper, window, causal, q_offset=None) -> None:
+    """One launch of `wrapper`'s kernel, also tallied under its window,
+    under its causal flag and, given one, under its q_offset."""
     wrapper.launches += 1
     key = None if window is None else int(window)
     wrapper.window_launches[key] = wrapper.window_launches.get(key, 0) + 1
     flag = bool(causal)
     wrapper.causal_launches[flag] = wrapper.causal_launches.get(flag, 0) + 1
+    if q_offset is not None:
+        off = int(q_offset)
+        wrapper.offset_launches[off] = wrapper.offset_launches.get(off,
+                                                                   0) + 1
 
 
 def _check_attn_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -575,15 +588,22 @@ def _hop_causal(me: int, src: int, causal: bool) -> Optional[bool]:
 
 
 def _merge(o_acc, lse_acc, o, lse):
-    """Fold one hop's (O [B,S,H,D], lse [B,H,S,1]) into the f32 running
-    (O, lse) of the hops before it."""
+    """Fold one partial's (O [B,S,H,D], lse [B,H,S,1]) into the f32
+    running (O, lse) of the partials before it over disjoint key sets (a
+    ring hop's block, a context rank's span). A row the partial sees no
+    key in has lse = +inf there (the kernels' and `_plain`'s convention)
+    and weighs 0, where logaddexp would let it win; a row no partial
+    sees keeps O = 0 and lse = +inf."""
     o = o.float()
     if o_acc is None:
         return o, lse
-    new = torch.logaddexp(lse_acc, lse)
-    scale_acc = torch.exp(lse_acc - new).permute(0, 2, 1, 3)
-    scale = torch.exp(lse - new).permute(0, 2, 1, 3)
-    return o_acc * scale_acc + o * scale, new
+    unseen_acc, unseen = torch.isposinf(lse_acc), torch.isposinf(lse)
+    new = torch.where(unseen_acc, lse, torch.where(
+        unseen, lse_acc, torch.logaddexp(lse_acc, lse)))
+    scale_acc = torch.where(unseen_acc, 0.0, torch.exp(lse_acc - new))
+    scale = torch.where(unseen, 0.0, torch.exp(lse - new))
+    return (o_acc * scale_acc.permute(0, 2, 1, 3)
+            + o * scale.permute(0, 2, 1, 3), new)
 
 
 class _RingFn(torch.autograd.Function):
@@ -687,4 +707,5 @@ for _wrapper in (flash_attention, flash_attention_quant, flash_attention_dq,
     _wrapper.launches = 0
     _wrapper.window_launches = {}
     _wrapper.causal_launches = {}
+    _wrapper.offset_launches = {}
 del _wrapper

@@ -426,6 +426,16 @@ def initialize_distributed(coordinator: Optional[str] = None,
     return True
 
 
+def shutdown() -> None:
+    """Destroy this process's process groups (a no-op without them). An
+    entry point of a gang calls it before it returns: groups left to the
+    interpreter's teardown can abort a rank whose work is done
+    ("terminate called without an active exception")."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def mesh_from_env(spec: Optional[MeshSpec] = None,
                   device: Union[str, torch.device, None] = None) -> Mesh:
     """One-call bootstrap: join the gang (if any), then build the mesh

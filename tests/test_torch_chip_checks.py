@@ -182,6 +182,27 @@ def test_fwd_bound_counts_the_training_shape():
     assert ms == pytest.approx(0.139, abs=5e-4)
 
 
+@pytest.mark.parametrize('path, q_rows, ms', [('cp_masked', 0, 0.0038),
+                                               ('cp_partial', 768, 0.0066)])
+def test_fwd_bound_reads_q_only_for_rows_that_see_a_key(path, q_rows, ms):
+    """K1 at a context rank's shapes (llama3-8b heads over a span of
+    2304, a chunk of 1536 at offset -2304 or -768): q is read only for
+    the rows that see a key of the span, O and lse are written for every
+    row, and the kv rows the seeing rows need are read once; both are
+    bound by memory."""
+    b, t, s, h, kv, d, off = dict(chip_smoke.CTX_TIMING_SHAPES)[path]
+    pairs, kv_rows, rows = chip_smoke.visible_span(t, s, off, None)
+    assert rows == q_rows and kv_rows == min(s, max(0, off + t))
+    got, bound_by, flops = chip_smoke.bound_ms(b, t, s, h, kv, d, off, None,
+                                               False)
+    nbytes = (b * rows * h * d * 2 + 2 * b * kv_rows * kv * d * 2
+              + b * t * h * d * 2 + b * h * t * 4)
+    assert flops == 4 * d * pairs * b * h
+    assert bound_by == 'bytes'
+    assert got == pytest.approx(nbytes / chip_smoke.H100_HBM_BYTES * 1e3)
+    assert got == pytest.approx(ms, abs=1e-4)
+
+
 def test_bwd_cases_keep_training_first_and_add_masked_and_ragged():
     """The training shape stays first (it is BWD_TIMING_CASE); rows with
     no visible key and ragged tiles of both backward kernels follow."""
@@ -623,7 +644,8 @@ def test_bwd_bounds_count_gemma2b_training_attention(name, pairs, dq_ms,
     b, sq, skv, h, kv, d, causal, off, window, softcap = cases[name]
     assert (b, sq, skv, h, kv, d, causal, off, softcap) == (
         1, 8192, 8192, 8, 4, 256, True, None, 50.0)
-    assert chip_smoke.visible_span(sq, skv, 0, window) == (pairs, 8192)
+    assert chip_smoke.visible_span(sq, skv, 0, window) == (pairs, 8192,
+                                                           8192)
     bounds = chip_smoke.bwd_bounds(b, sq, skv, h, kv, d, off, window)
     for kernel, per_pair, ms in (('dq', 6, dq_ms), ('dkv', 8, dkv_ms)):
         assert bounds[kernel][2] == per_pair * d * pairs * h

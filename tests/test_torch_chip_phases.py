@@ -35,7 +35,7 @@ def counted_kernels(monkeypatch):
     def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
                v_scale=None):
         fa._count(fa.flash_attention if k_scale is None
-                  else fa.flash_attention_quant, window, causal)
+                  else fa.flash_attention_quant, window, causal, q_offset)
         return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
                          k_scale=k_scale, v_scale=v_scale)
 
@@ -280,7 +280,7 @@ def stub_rank_kernels():
     def launch(q, k, v, causal, window, softcap, q_offset, k_scale=None,
                v_scale=None):
         fa._count(fa.flash_attention if k_scale is None
-                  else fa.flash_attention_quant, window, causal)
+                  else fa.flash_attention_quant, window, causal, q_offset)
         return fa._plain(q, k, v, causal, 512, window, softcap, q_offset,
                          k_scale=k_scale, v_scale=v_scale)
 
@@ -323,6 +323,18 @@ def _rehearse_tp_serve(monkeypatch):
     monkeypatch.setattr(chip_smoke, 'TP_RANK_SETUP', (
         'test_torch_chip_phases:stub_rank_kernels',
         os.path.dirname(os.path.abspath(__file__))))
+    # The context leg: 40 positions, spans [0, 20) and [20, 40), chunks of
+    # 8, so the chunk [16, 24) straddles the boundary; the fsdp and
+    # context legs run in the second gang here (one gang fewer to start).
+    monkeypatch.setattr(chip_smoke, 'FSDP_PROMPT_LENGTHS', (5, 60))
+    monkeypatch.setattr(chip_smoke, 'CTX_LAYERS', 2)
+    monkeypatch.setattr(chip_smoke, 'CTX_KW', dict(
+        batch_size=2, max_seq_len=40, prefill_chunk=8, kv_page_size=0))
+    monkeypatch.setattr(chip_smoke, 'CTX_PROMPT', 30)
+    monkeypatch.setattr(chip_smoke, 'CTX_NEW', 4)
+    monkeypatch.setattr(chip_smoke, 'TP_GANGS', (
+        ('spec', 'migration', 'moe'),
+        ('bf16', 'server', 'int8', 'fsdp', 'context')))
 
 
 def test_tp_serve_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
@@ -332,12 +344,38 @@ def test_tp_serve_phase_rehearses_on_cpu(monkeypatch, counted_kernels):
     restore / handoff with the restored pages byte-equal on each rank,
     tiny-moe over expert 2 against its unsharded engine, then the server
     as two processes token for token, drained into an unsharded engine,
-    and its follower's exit after SIGTERM to rank 0."""
+    and its follower's exit after SIGTERM to rank 0; tiny over fsdp 2
+    (half the weights a rank, the bf16 reference's first tokens) and
+    over context 2 (half the cache a rank, rank 1's first chunk at an
+    offset before its span), bf16 and int8."""
     _rehearse_tp_serve(monkeypatch)
     out, launches = chip_smoke.tp_serve_phase(
         torch, inference_module(), counted_kernels,
         np.random.default_rng(10))
     assert out['faults'] == []
+    fsdp = out['fsdp']
+    assert fsdp['launches_per_rank'] == [fsdp['expected_launches']] * 2
+    assert fsdp['tokens_equal_unsharded'] == chip_smoke.FSDP_PROMPTS
+    assert fsdp['ranks_tokens_equal']
+    assert fsdp['logits_rel_err'] < 1e-5
+    assert [2 * b for b in fsdp['weight_bytes_per_rank']] == \
+        [fsdp['unsharded_weight_bytes']] * 2
+    assert launches['fsdp'] == fsdp['launches_per_rank']
+    ctx = out['context']
+    assert ctx['span_rel_err'] < 1e-6
+    for key in ('bf16', 'int8'):
+        run = ctx[key]
+        # 2 layers x 4 chunks of 8 over the 32-token bucket, per rank.
+        assert run['launches_per_rank'] == [run['expected_launches']] * 2 \
+            == [8, 8]
+        assert run['offset_launches_per_rank'][1] == {
+            '-20': 2, '-12': 2, '-4': 2, '4': 2}
+        assert run['tokens_equal_unsharded'] and run['ranks_tokens_equal']
+        assert run['logits_rel_err'] < 1e-5
+        assert run['cache_positions_per_rank'] == [20, 20]
+        assert [2 * b for b in run['cache_bytes_per_rank']] == \
+            [run['unsharded_cache_bytes']] * 2
+        assert launches[f'context_{key}'] == run['launches_per_rank']
     spec = out['spec']
     assert spec['launches_per_rank'] == [spec['expected_launches']] * 2
     # Every drafted token is accepted but those past a request's budget.
@@ -403,13 +441,19 @@ def test_tp_serve_faults_break_a_gate_on_cpu(monkeypatch, counted_kernels,
                                              fault):
     """mesh_fault_check.py's serving faults, each on the legs it touches:
     every one breaks a tp_serve gate (the sound legs pass in the test
-    above)."""
+    above), its named gate where it has one, and a fault that leaves the
+    outputs as they were (`TP_FAULTS_ALONE`) that gate only."""
     _rehearse_tp_serve(monkeypatch)
     out, _ = chip_smoke.tp_serve_phase(
         torch, inference_module(), counted_kernels,
         np.random.default_rng(10), legs=chip_smoke.TP_FAULT_LEGS[fault],
         fault=fault)
     assert out['faults'], fault
+    gate = chip_smoke.TP_FAULT_GATES.get(fault)
+    if gate is not None:
+        assert any(f.startswith(gate) for f in out['faults']), out['faults']
+    if fault in chip_smoke.TP_FAULTS_ALONE:
+        assert all(f.startswith(gate) for f in out['faults']), out['faults']
 
 
 @pytest.mark.parametrize('tail, caught', [

@@ -401,7 +401,8 @@ def test_h100_policy_defaults(tiny, monkeypatch):
     # A mesh keeps the flash kernels (the reference refuses use_flash
     # under one: pallas_call has no partitioning rules) and the paged
     # pool, unless SKYTPU_KV_PAGES_SHARDED says dense; an explicit page
-    # size wins. Only the tensor and expert axes may exceed 1.
+    # size wins. A context axis keeps the dense layout, and an explicit
+    # page size there raises, as in the reference.
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
     mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(), 'cpu')
     engine = port_inference.InferenceEngine(tparams, config, mesh=mesh,
@@ -414,10 +415,13 @@ def test_h100_policy_defaults(tiny, monkeypatch):
     assert port_inference.InferenceEngine(
         tparams, config, mesh=mesh, kv_page_size=8).kv_page_size == 8
     monkeypatch.delenv('SKYTPU_KV_PAGES_SHARDED')
-    with pytest.raises(NotImplementedError, match="only the 'tensor'"):
-        port_inference.InferenceEngine(
-            tparams, config, mesh=dataclasses.replace(
-                mesh, spec=mesh_lib.MeshSpec(fsdp=1, data=2)))
+    context = dataclasses.replace(
+        mesh, spec=mesh_lib.MeshSpec(fsdp=1, context=2))
+    assert port_inference.InferenceEngine(
+        tparams, config, mesh=context).kv_page_size == 0
+    with pytest.raises(ValueError, match='context-sharded cache'):
+        port_inference.InferenceEngine(tparams, config, mesh=context,
+                                       kv_page_size=8)
     # Speculative decode is ported: a draft builds (and turns the prefix
     # cache off, as the reference does).
     engine = port_inference.InferenceEngine(tparams, config, device='cpu',

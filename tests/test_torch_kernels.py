@@ -48,6 +48,11 @@ CASES = {
     'd256_global_window': (1, 100, 5000, 16, 8, 256, True, 4900, 2 ** 30,
                            50.0),
     'd256_non_causal': (1, 100, 300, 4, 2, 256, False, None, None, None),
+    # A context rank's span past the chunk (context serving): a negative
+    # offset with rows before the span, and one past every row (no tile).
+    'negative_offset_span': (2, 200, 300, 8, 2, 128, True, -70, None, None),
+    'negative_offset_no_tile': (1, 64, 128, 4, 2, 128, True, -64, None,
+                                None),
 }
 
 

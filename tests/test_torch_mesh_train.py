@@ -303,10 +303,17 @@ def _gang(rank, world, port, jobs, out):
             elif kind == 'copy' and rank == 0:
                 shutil.copytree(*args)
         out.put((rank, results))
-    except BaseException as e:  # noqa: BLE001 — reported to the test
+        code = 0
+    except BaseException:  # noqa: BLE001 — reported to the test
         import traceback
         out.put((rank, {'error': traceback.format_exc()}))
-        raise SystemExit(1) from e
+        code = 1
+    # Flush the result, then leave without the interpreter's teardown: a
+    # rank whose process groups are torn down after rank 0 (the store's
+    # host) has gone can hang or abort (ROADMAP Queue 3).
+    out.close()
+    out.join_thread()
+    os._exit(code)
 
 
 def _run_gang(world, jobs):

@@ -279,21 +279,32 @@ def test_indivisible_shapes_raise(tiny):
 
 
 def test_what_a_mesh_does_not_serve_raises(tiny):
-    """The data, fsdp and context serving axes are the next slice (a
-    draft and an MoE config serve under tensor and expert:
-    tests/test_torch_sharded_serving.py)."""
+    """Every mesh axis serves (tests/test_torch_context_serving.py): the
+    only refusals left are the reference's own, an explicit page size
+    with a context axis (init_cache's ValueError, reference
+    engine.py:376-391), and `sharding.cut`'s, a hidden size the fsdp
+    degree does not divide among them."""
     config, tparams = tiny
     mesh = _fake_mesh(2, 0)
     for spec in (port_mesh.MeshSpec(fsdp=2, tensor=1),
                  port_mesh.MeshSpec(fsdp=1, data=2, tensor=2),
+                 port_mesh.MeshSpec(fsdp=1, pipe=2),
                  port_mesh.MeshSpec(fsdp=1, context=2),
                  port_mesh.MeshSpec(fsdp=1, context=2, expert=2)):
         wide = dataclasses.replace(mesh, spec=spec)
-        with pytest.raises(NotImplementedError,
-                           match='context serving axes are the next slice'):
-            port_eng.check_mesh(wide, config)
-        with pytest.raises(NotImplementedError, match="only the 'tensor'"):
-            port_eng.check_mesh(wide, moe.CONFIGS['tiny-moe'], config)
+        port_eng.check_mesh(wide, config)
+        port_eng.check_mesh(wide, moe.CONFIGS['tiny-moe'], config)
+    wide = dataclasses.replace(mesh, spec=port_mesh.MeshSpec(fsdp=3))
+    for cfg in (config, moe.CONFIGS['tiny-moe']):
+        with pytest.raises(ValueError, match='embed of size 64 does not '
+                           'split over fsdp degree 3'):
+            port_eng.check_mesh(wide, cfg)
+    context = dataclasses.replace(
+        mesh, spec=port_mesh.MeshSpec(fsdp=1, context=2))
+    with pytest.raises(ValueError, match='incompatible with a '
+                       'context-sharded cache'):
+        port_eng.init_cache(config, 2, 64, page_size=8, device='cpu',
+                            mesh=context)
 
 
 def test_hf_import_places_each_ranks_slice(tmp_path):
@@ -364,6 +375,12 @@ def _collective_rank(rank, port, tparams, config, out):
              {k: (float((got[k] - want[k]).abs().max()
                         / want[k].abs().max()), tuple(got[k].shape)
                   == tuple(want[k].shape)) for k in want}))
+    # Flush the result, then leave without the interpreter's teardown: a
+    # rank whose process groups are torn down after rank 0 (the store's
+    # host) has gone can hang or abort (ROADMAP Queue 3).
+    out.close()
+    out.join_thread()
+    os._exit(0)
 
 
 def test_two_gloo_ranks_run_the_forwards_collectives(tiny):
@@ -391,19 +408,21 @@ def test_two_gloo_ranks_run_the_forwards_collectives(tiny):
 
 
 def test_training_and_the_checkpoints_cli_keep_one_device(tmp_path):
-    """The checkpoints CLI still imports on one device only; the trainer
-    takes a mesh of several devices as one process per device, so one
-    process asking for two raises, naming the gang variables. A
-    one-device mesh is accepted by both."""
+    """The checkpoints CLI and the trainer take a mesh of several devices
+    as one process per device (the CLI's `import --mesh` as a gang:
+    tests/test_torch_context_serving.py), so one process asking for two
+    raises, naming the gang variables. A one-device mesh is accepted by
+    both."""
     from skypilot_tpu_torch.checkpoints import __main__ as cli
     from skypilot_tpu_torch.train import loop
-    with pytest.raises(NotImplementedError, match='imports on one device'):
-        cli.main(['import', str(tmp_path), '--device', 'cpu', '--mesh',
-                  'tensor=2'])
-    with pytest.raises(ValueError, match='one process per device.*'
-                       'SKYTPU_PROCESS_ID'):
-        loop.main(['--device', 'cpu', '--mesh', 'tensor=2'])
-    # A one-device mesh passes the check (the empty directory then fails
-    # as a checkpoint, rc 1).
+    for run in (lambda: cli.main(['import', str(tmp_path), '--device',
+                                  'cpu', '--mesh', 'tensor=2']),
+                lambda: loop.main(['--device', 'cpu', '--mesh',
+                                   'tensor=2'])):
+        with pytest.raises(ValueError, match='one process per device.*'
+                           'SKYTPU_PROCESS_ID'):
+            run()
+    # A one-device mesh passes (the empty directory then fails as a
+    # checkpoint, rc 1).
     assert cli.main(['import', str(tmp_path), '--device', 'cpu', '--mesh',
                      'tensor=1,fsdp=-1']) == 1

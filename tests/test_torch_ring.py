@@ -99,6 +99,12 @@ def _rank(rank, ring, port, out):
         got[(impl, causal)] = [o.detach().numpy()] + [
             g.numpy() for g in grads]
     out.put((rank, got))
+    # Flush the result, then leave without the interpreter's teardown: a
+    # rank whose process groups are torn down after rank 0 (the store's
+    # host) has gone can hang or abort (ROADMAP Queue 3).
+    out.close()
+    out.join_thread()
+    os._exit(0)
 
 
 @pytest.fixture(scope='module')

@@ -425,13 +425,14 @@ def test_draft_gating(models):
         with pytest.raises(ValueError, match=match):
             port_inference.InferenceEngine(tparams, config, device='cpu',
                                            **kw)
-    # A draft serves under tensor and expert
-    # (tests/test_torch_sharded_serving.py); the context axis still
-    # raises, with a draft too.
+    # A draft serves under every axis (tests/test_torch_sharded_serving.py,
+    # tests/test_torch_context_serving.py); an explicit page size with a
+    # context axis still raises, with a draft too.
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
-    with pytest.raises(NotImplementedError, match='context serving axes'):
+    with pytest.raises(ValueError, match='context-sharded cache'):
         port_inference.InferenceEngine(
             tparams, config, device='cpu', draft=(tparams, config),
+            kv_page_size=8,
             mesh=mesh_lib.Mesh(mesh_lib.MeshSpec(fsdp=1, context=2), 0, 2,
                                torch.device('cpu')))
     engine = port_inference.InferenceEngine(
