@@ -93,6 +93,21 @@ Phases, each printing one JSON line:
                   migrate frame continues through /internal/restore on a
                   second server with no token lost or repeated; a
                   corrupted blob gets 400.
+ 14b. lb_serve  - inside migration, before its engines' teardown: the port's
+                  load balancer (serve/load_balancer.py,
+                  LoadBalancer('prefix_affinity')) in front of three
+                  in-process servers on the migration phase's two engines
+                  and a third (llama3-8b, 32 layers, MIGRATION_KW, the
+                  prefix cache on) as the pools prefill, decode and
+                  general (lb_serve_phase): a planned handoff of a
+                  1000-token stream token for token against a cold run,
+                  K1 on the prefill replica alone; the lb.handoff-armed
+                  co-located fallback; a drain through the LB; prefix
+                  affinity over two families; a dead replica opening its
+                  breaker; the LB's stats, federated time series, the pool
+                  autoscalers' decisions and its added TTFT.
+                  `lb_fault_check.py` plants five faults the gates must
+                  catch (LB_FAULTS, lb_plant).
  15. spec       - speculative decode on llama3-8b (no interleave, SPEC_KW):
                   8 greedy prompts of 100-1500 tokens, 32 new each, with
                   the llama3-1b draft (spec_k 4, 8 rounds a dispatch),
@@ -330,7 +345,7 @@ Phases, each printing one JSON line:
                   `mesh_fault_check.py` plants the ten faults the
                   limits must catch.
 Then a `kernels` line (each kernel's `path_launches`: its launches on
-the openai, batch, roundtrip, MoE, tp_serve (its spec and migration
+the openai, lb_serve, batch, roundtrip, MoE, tp_serve (its spec and migration
 legs and moe_mesh among them) and mesh_train paths, the pipe and expert
 legs among them) and,
 last,
@@ -1619,13 +1634,21 @@ def sse_frames(lines):
             yield None if data == '[DONE]' else json.loads(data)
 
 
-def migration_phase(torch, inference, params, config, rng):
+# The server-to-server migration's engines, and the lb_serve phase's.
+MIGRATION_KW = dict(batch_size=4, max_seq_len=2048, prefill_chunk=512,
+                    kv_page_size=64)
+
+
+def migration_phase(torch, inference, params, config, rng, lb_serve=None):
     """Engine to engine: two requests (600 and 1500 tokens, 64 new,
     greedy) on engine A are snapshotted after 16 tokens, aborted and
     restored into engine B; their tokens must equal an uninterrupted
     run. Server to server: a stream on server 1 drained into a migrate
     frame continues through /internal/restore on server 2 with no token
-    duplicated or missing; a corrupted blob gets 400."""
+    duplicated or missing; a corrupted blob gets 400. With `lb_serve`,
+    a third engine is built beside the servers' two and
+    `lb_serve(one, two, three)` runs before their teardown; its result
+    is the reading's `lb_serve`."""
     import base64
 
     from skypilot_tpu_torch.inference import engine as eng
@@ -1707,8 +1730,7 @@ def migration_phase(torch, inference, params, config, rng):
     gc.collect()
     torch.cuda.empty_cache()
 
-    kw = dict(batch_size=4, max_seq_len=2048, prefill_chunk=512,
-              kv_page_size=64, device=DEV)
+    kw = dict(**MIGRATION_KW, device=DEV)
     prompt = prompt_tokens(rng, 200, vocab)
     max_new = 64
     one = inference.InferenceEngine(params, config, **kw)
@@ -1789,13 +1811,625 @@ def migration_phase(torch, inference, params, config, rng):
             srv.server_close()
         for holder in holders:
             holder['loop'].stop()
-    return {'engine_to_engine': engines,
-            'server_to_server': {
-                'prompt_tokens': len(prompt), 'max_new_tokens': max_new,
-                'tokens_before_drain': len(first), 'sent': sent,
-                'tokens_after_restore': len(rest), 'blob_bytes': len(blob),
-                'drain': drained['body'], 'corrupted_blob_status': bad_status,
-                'restore_to_done_s': resumed_s, 'equal': True}}
+    out = {'engine_to_engine': engines,
+           'server_to_server': {
+               'prompt_tokens': len(prompt), 'max_new_tokens': max_new,
+               'tokens_before_drain': len(first), 'sent': sent,
+               'tokens_after_restore': len(rest), 'blob_bytes': len(blob),
+               'drain': drained['body'], 'corrupted_blob_status': bad_status,
+               'restore_to_done_s': resumed_s, 'equal': True}}
+    if lb_serve is not None:
+        out['lb_serve'] = lb_serve(
+            one, two, inference.InferenceEngine(params, config, **kw))
+    return out
+
+
+# The fifteenth slice: the port's load balancer (serve/load_balancer.py,
+# prefix_affinity, pools prefill / decode / general) in front of three
+# llama3-8b replicas of the port's server in this process: the migration
+# phase's two engines and a third (batch 4, 2048 positions, chunk 512,
+# page 64, the prefix cache on), on the same weights. The phase draws
+# from a generator of its own.
+LB_POOLS = ('prefill', 'decode', 'general')
+LB_HANDOFF = (1000, 32)      # (prompt tokens, new tokens): legs (a), (b)
+LB_DRAIN = (200, 64)         # leg (c), drained after LB_DRAIN_AFTER tokens
+LB_DRAIN_AFTER = 2
+LB_FAMILY = (1024, 64, 8)    # leg (d): shared prefix, tail, new tokens
+LB_FAMILIES = 2
+LB_FAMILY_SIZE = 3
+LB_AFFINITY_HITS_MIN = 4
+LB_SHORT = (64, 4)           # legs (e) and (f): a short decode-shaped prompt
+LB_DEAD_MAX_REQUESTS = 24
+LB_TTFT_RUNS = 5
+# A 1000-token tokenized stream with 32 new tokens is prefill-shaped.
+# The LB starts its sampler and its watchdog; the watchdog's tick (its
+# scrape of the replicas) is run once, in leg (f): the replicas share
+# this process's time-series store with the LB, so a federation running
+# all through the phase would fold each scrape back into the next.
+# The prefill replica's lease is the reference's test's (30 s): only the
+# LB's abandon (or a fallback's resume) may free a paused slot within
+# the phase, so a broken release shows; leg (a) reads how long the
+# handoff took against the 5 s default.
+# The affinity policy's load is its in-flight requests alone (no window
+# of recent starts, as the reference's own affinity tests set it): the
+# legs send one request at a time, so a window would count requests
+# already answered, and spill a family off its replica or not by how
+# fast the host ran them.
+LB_ENV = {'SKYTPU_LB_POOL_PROMPT_THRESHOLD': '1000',
+          'SKYTPU_LB_AFFINITY_LOAD_WINDOW': '0',
+          'SKYTPU_TS_SAMPLE_SECONDS': '1.0',
+          'SKYTPU_WATCHDOG_TICK_SECONDS': '3600',
+          'SKYTPU_HANDOFF_LEASE_SECONDS': '30'}
+# The pooled spec whose autoscalers read the phase's signals.
+LB_SERVICE = {'readiness_probe': '/health',
+              'load_balancing_policy': 'prefix_affinity',
+              'pools': {
+                  'prefill': {'role': 'prefill', 'min_replicas': 1,
+                              'max_replicas': 2,
+                              'target_queue_per_replica': 4.0,
+                              'ttft_p95_upscale_threshold': 2.0,
+                              'upscale_delay_seconds': 0,
+                              'downscale_delay_seconds': 0},
+                  'decode': {'role': 'decode', 'min_replicas': 1,
+                             'max_replicas': 2,
+                             'kv_util_upscale_threshold': 0.85,
+                             'decode_step_p95_upscale_threshold': 0.3,
+                             'upscale_delay_seconds': 0,
+                             'downscale_delay_seconds': 0},
+                  'general': {'role': 'general', 'min_replicas': 1}}}
+# lb_fault_check.py's planted faults: each breaks the gate named here.
+LB_FAULTS = {'handoff_frame_forwarded': 'handoff_no_internal_frame',
+             'restore_to_prefill': 'handoff_decode_leg',
+             'sent_uncounted': 'handoff_stream_equal',
+             'affinity_ignored': 'affinity_hits',
+             'breaker_never_opens': 'breaker_opens'}
+LB_COUNTERS = ('HANDOFF_ATTEMPTS', 'HANDOFF_SUCCESSES', 'HANDOFF_FALLBACKS',
+               'MIGRATION_ATTEMPTS', 'MIGRATION_SUCCESSES',
+               'MIGRATION_FAILURES', 'LB_MIDSTREAM_FAILURES',
+               'LB_PROXY_ERRORS', 'LB_UPSTREAM_RETRIES', 'LB_NO_REPLICA',
+               'LB_AFFINITY_HITS', 'LB_AFFINITY_MISSES',
+               'LB_AFFINITY_FALLBACKS')
+
+
+@contextlib.contextmanager
+def env_set(values):
+    """The block with the environment variables `values` set, each
+    restored (or unset) on the way out."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def lb_plant(name, lb, urls):
+    """Plant one of lb_fault_check.py's faults in `lb` (None plants
+    nothing); each patches the instance, so nothing outlives the phase:
+    - 'handoff_frame_forwarded': the relay passes the handoff frame to
+      the client (and then walks the ladder as before);
+    - 'restore_to_prefill': every restore leg goes to the prefill
+      replica, the source pool;
+    - 'sent_uncounted': the relay counts one frame the client never got
+      into the `sent` of the handoff's restore;
+    - 'affinity_ignored': the policy's select drops the request's
+      fingerprints (least-load for all);
+    - 'breaker_never_opens': the breaker drops every failure."""
+    if name is None:
+        return
+    from skypilot_tpu_torch.serve import load_balancer as lb_lib
+    if name == 'handoff_frame_forwarded':
+        local = threading.local()
+        relay, handoff = lb._relay_managed, lb._handoff_stream
+
+        def capture(handler, *args, **kwargs):
+            local.handler = handler
+            return relay(handler, *args, **kwargs)
+
+        def forward(context, state, src, key, payload):
+            lb_lib._write_chunk(local.handler, b'data: ' + json.dumps(
+                {'handoff': payload}).encode() + b'\n\n')
+            return handoff(context, state, src, key, payload)
+
+        lb._relay_managed, lb._handoff_stream = capture, forward
+    elif name == 'restore_to_prefill':
+        restore = lb._restore_leg
+        lb._restore_leg = lambda cand, sent, blob: restore(urls[0], sent,
+                                                           blob)
+    elif name == 'sent_uncounted':
+        handoff = lb._handoff_stream
+
+        def miscount(context, state, src, key, payload):
+            state['sent'] += 1
+            return handoff(context, state, src, key, payload)
+
+        lb._handoff_stream = miscount
+    elif name == 'affinity_ignored':
+        select = lb.policy.select
+        lb.policy.select = lambda context=None, candidates=None: select(
+            None, candidates)
+    elif name == 'breaker_never_opens':
+        lb.breaker.record_failure = lambda target: None
+    else:
+        raise ValueError(f'unknown lb fault {name!r}')
+
+
+def lb_stream(url, prompt, new, on_token=None, stream=True):
+    """One greedy /generate at `url`: its tokens, the done frame's
+    tokens, the keys of every frame (streamed) and the seconds to the
+    first token frame (to the whole answer unstreamed)."""
+    body = {'prompt_tokens': prompt, 'max_new_tokens': new,
+            'temperature': 0.0, 'stream': stream}
+    req = urllib.request.Request(url + '/generate',
+                                 data=json.dumps(body).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    t0 = time.perf_counter()
+    out = {'tokens': [], 'done': None, 'kinds': set(), 'ttft_s': None}
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        out['status'] = resp.status
+        if not stream:
+            out['tokens'] = out['done'] = json.loads(resp.read())['tokens']
+            out['ttft_s'] = time.perf_counter() - t0
+            return out
+        for frame in sse_frames(resp):
+            out['kinds'].update(frame)
+            if 'token' in frame:
+                if out['ttft_s'] is None:
+                    out['ttft_s'] = time.perf_counter() - t0
+                out['tokens'].append(frame['token'])
+                if on_token is not None:
+                    on_token(len(out['tokens']))
+            elif 'done' in frame:
+                out['done'] = frame['tokens']
+    return out
+
+
+def lb_counters(obs):
+    out = {name: getattr(obs, name).value() for name in LB_COUNTERS}
+    out['CIRCUIT_OPEN'] = sum(v for _, labels, v in obs.CIRCUIT_OPEN.samples()
+                              if dict(labels).get('breaker') == 'lb')
+    return out
+
+
+def lb_delta(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def lb_idle(engines, lb=None, timeout=30.0):
+    """Wait until no engine holds a request (a handoff's abandon is a
+    background call) and, given `lb`, no leg is in flight there (a
+    connection thread ends its leg after the client has the answer)."""
+    def busy():
+        return any(e.has_work for e in engines) or (
+            lb is not None and any(
+                lb.policy.stats().get('in_flight', {}).values()))
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and busy():
+        time.sleep(0.02)
+    return not busy()
+
+
+def lb_serve_phase(torch, inference, fa, engines, rng, fault=None):
+    """The port's LoadBalancer('prefix_affinity', honor_env_policy=False)
+    in front of the port's server on each of `engines` (pools prefill,
+    decode, general, in that order), legs (a)-(f):
+    (a) planned handoff: a streamed greedy 1000-token request, 32 new,
+        equal token for token to the same engines' uninterrupted run (a
+        cold run on the third engine), no handoff/migrate/error frame at
+        the client, HANDOFF_ATTEMPTS and HANDOFF_SUCCESSES +1, the
+        decode leg restored on the decode replica, K1 launched
+        expected_prefill_launches times on the prefill replica and never
+        on the others (decode attention is plain torch);
+    (b) the fallback rung: `lb.handoff` armed once, the same request
+        resumes co-located with the same stream, HANDOFF_FALLBACKS +1;
+    (c) a drain through the LB: a decode-shaped stream whose replica is
+        drained (/internal/drain?deadline=0) after its 2nd token is
+        whole, nothing repeated or missing, MIGRATION_SUCCESSES +1;
+    (d) affinity, the fleet poolless: two families of three requests (a
+        shared 1024-token prefix and distinct 64-token tails, 8 new
+        each): each family on one replica, whose prefix-cache hits rise
+        by the family's warm requests, LB_AFFINITY_HITS +4 or more;
+        warm against cold TTFT through the LB;
+    (e) a dead replica (a closed port in the decode pool): every request
+        completes through failover before the first byte, the breaker
+        opens after 3 failures (CIRCUIT_OPEN +1), LB_NO_REPLICA +0;
+    (f) the LB's surface: /internal/stats with the QPS and no request in
+        flight, the federated /internal/timeseries holding every
+        replica's series under its `replica` label, the pool
+        autoscalers' decisions on MetricsSignalSource.read_pools, and
+        the LB's added TTFT (the median of LB_TTFT_RUNS short prompts
+        direct and through the LB).
+    `faults` maps each broken gate to what broke it; `fault` plants one
+    of LB_FAULTS (lb_plant)."""
+    import statistics
+
+    from skypilot_tpu_torch.inference import server as server_lib
+    from skypilot_tpu_torch.observability import instruments as obs
+    from skypilot_tpu_torch.observability import timeseries
+    from skypilot_tpu_torch.resilience import faults as faults_lib
+    from skypilot_tpu_torch.serve import autoscalers
+    from skypilot_tpu_torch.serve import load_balancer as lb_lib
+    from skypilot_tpu_torch.serve import service_spec
+    t_phase = time.perf_counter()
+    gates = {}
+
+    def gate(name, ok, detail):
+        if not ok:
+            gates.setdefault(name, []).append(detail)
+
+    vocab = engines[0].config.vocab_size
+    prompts = {'handoff': prompt_tokens(rng, LB_HANDOFF[0], vocab),
+               'drain': prompt_tokens(rng, LB_DRAIN[0], vocab)}
+    news = {'handoff': LB_HANDOFF[1], 'drain': LB_DRAIN[1]}
+    # Each stream's uninterrupted greedy run on a cold cache (leg (b)
+    # sends leg (a)'s request again); then every replica starts the legs
+    # with no request and an empty prefix cache.
+    want = {}
+    for leg, prompt in prompts.items():
+        engines[2].abort_all()
+        rid = engines[2].submit(prompt, inference.SamplingParams(
+            max_new_tokens=news[leg]))
+        want[leg] = engines[2].run_to_completion()[rid]
+    for engine in engines:
+        engine.abort_all()
+    out = {'model_layers': engines[0].config.num_layers,
+           'pools': list(LB_POOLS), 'fault': fault}
+    # The replicas share this process's time-series store with the LB,
+    # which federates their dumps back into it: each run starts it
+    # empty, and leaves it so.
+    timeseries.STORE.clear()
+    holders, servers = [], []
+    lb = None
+    threads_before = set(threading.enumerate())
+    with env_set(LB_ENV):
+        try:
+            for engine in engines:
+                holder = {'loop': server_lib.EngineLoop(engine)}
+                srv = server_lib.create_server(holder, host='127.0.0.1',
+                                               port=0)
+                threading.Thread(target=srv.serve_forever,
+                                 kwargs={'poll_interval': 0.05},
+                                 daemon=True).start()
+                holders.append(holder)
+                servers.append(srv)
+            urls = [f'http://127.0.0.1:{srv.server_address[1]}'
+                    for srv in servers]
+            pools = dict(zip(urls, LB_POOLS))
+            replica_of = {h['loop']._thread: name
+                          for h, name in zip(holders, LB_POOLS)}
+            k1 = {name: 0 for name in LB_POOLS}
+
+            def attributed(count):
+                def wrapper(fn, *args, **kwargs):
+                    name = replica_of.get(threading.current_thread())
+                    if fn is fa.flash_attention and name is not None:
+                        k1[name] += 1
+                    return count(fn, *args, **kwargs)
+                return wrapper
+
+            lb = lb_lib.LoadBalancer('prefix_affinity',
+                                     honor_env_policy=False)
+            lb.set_replicas(urls, pools)
+            lb_plant(fault, lb, urls)
+            base = f'http://127.0.0.1:{lb.start()}'
+
+            def admitted():
+                return {n: e._next_id for n, e in zip(LB_POOLS, engines)}
+
+            fa.flash_attention.launches = 0
+            with patched(fa, '_count', attributed):
+                lb_legs(torch, inference, engines, holders, lb, lb_lib,
+                        base, urls, pools, prompts, news, want, k1,
+                        admitted, obs, faults_lib, gate, out, rng)
+            out['kernel_launches'] = fa.flash_attention.launches
+
+            # (f) the LB's own surface.
+            t_surface = time.perf_counter()
+            stats = poll(lambda: json.loads(http_call(
+                base + '/internal/stats')[2]),
+                lambda doc: not any(doc['routing']['affinity'][
+                    'in_flight'].values()))
+            in_flight = stats['routing']['affinity']['in_flight']
+            gate('stats', stats['qps'] > 0 and not any(in_flight.values())
+                 and sorted(stats['replicas']) == sorted(urls),
+                 f'qps {stats["qps"]}, in flight {in_flight}')
+
+            def federated():
+                doc = json.loads(http_call(base + '/internal/timeseries')[2])
+                seen = {}
+                for series in doc.get('series', []):
+                    labels = series.get('labels') or {}
+                    if labels.get('replica') in urls:
+                        seen.setdefault(labels['replica'], set()).add(
+                            series['name'])
+                return seen
+
+            timeseries.STORE.sample_now()
+            lb._watchdog.tick()  # one scrape of every replica
+            seen = poll(federated, lambda s: all(
+                len(s.get(u, ())) > 1 for u in urls), timeout=20.0)
+            gate('federation', all(len(seen.get(u, ())) > 1 for u in urls),
+                 f'series by replica {[len(seen.get(u, ())) for u in urls]}')
+            spec = service_spec.ServiceSpec.from_yaml_config(LB_SERVICE)
+            scalers = autoscalers.make_pool_autoscalers(spec)
+            signals = autoscalers.MetricsSignalSource().read_pools(
+                list(scalers))
+            qps = lb.tracker.qps()
+            out['surface'] = {
+                'qps': stats['qps'], 'in_flight': list(in_flight.values()),
+                'breakers': list(stats['breakers'].values()),
+                'affinity': {k: stats['routing']['affinity'][k]
+                             for k in ('entries', 'hits', 'misses',
+                                       'fallbacks')},
+                'federated_series': [len(seen.get(u, ())) for u in urls],
+                'autoscalers': {
+                    name: {'signals': dataclasses.asdict(signals[name]),
+                           'decision': dataclasses.asdict(
+                               scaler.decide(1, 1, qps, signals[name]))}
+                    for name, scaler in scalers.items()}}
+            # The LB's added TTFT: one short decode-shaped prompt sent
+            # direct to the decode replica and through the LB, in turns
+            # (the median sets the first, cold, run aside).
+            short = prompt_tokens(rng, LB_SHORT[0], vocab)
+            ttft = {'direct': [], 'lb': []}
+            for run in range(LB_TTFT_RUNS):
+                for path, url in (('direct', urls[1]), ('lb', base)):
+                    ttft[path].append(lb_stream(url, short,
+                                                LB_SHORT[1])['ttft_s'])
+            out['added_ttft'] = {
+                'runs': LB_TTFT_RUNS, 'prompt_tokens': LB_SHORT[0],
+                'direct_median_s': statistics.median(ttft['direct']),
+                'lb_median_s': statistics.median(ttft['lb']),
+                'added_ms': 1e3 * (statistics.median(ttft['lb'])
+                                   - statistics.median(ttft['direct']))}
+            out['leg_s']['surface'] = time.perf_counter() - t_surface
+        finally:
+            faults_lib.reset()
+            if lb is not None:
+                lb.stop()
+            for srv in servers:
+                srv.shutdown()
+                srv.server_close()
+            for holder in holders:
+                holder['loop'].stop()
+    timeseries.STORE.clear()
+    left = [t.name for t in set(threading.enumerate()) - threads_before
+            if t.is_alive() and t.name.startswith(('skytpu-lb', 'skytpu-ts',
+                                                   'skytpu-watchdog'))]
+    gate('threads', not left, f'threads left after stop(): {left}')
+    out['phase_s'] = time.perf_counter() - t_phase
+    out['faults'] = gates
+    return out
+
+
+def lb_legs(torch, inference, engines, holders, lb, lb_lib, base, urls,
+            pools, prompts, news, want, k1, admitted, obs, faults_lib, gate,
+            out, rng):
+    """Legs (a)-(e) of lb_serve_phase, in its fleet; readings into
+    `out`, broken gates through `gate`."""
+    internal = {'handoff', 'migrate', 'error'}
+    expected = expected_prefill_launches(engines[0], [LB_HANDOFF[0]])
+    out['leg_s'] = {}
+    last = [time.perf_counter()]
+
+    def lap(leg):
+        now = time.perf_counter()
+        out['leg_s'][leg] = now - last[0]
+        last[0] = now
+
+    # (a) the planned handoff, with the seconds to the LB's reading of
+    # the handoff frame and of its restore on the decode pool.
+    c0, k0, a0 = lb_counters(obs), dict(k1), admitted()
+    marks = {}
+
+    def marked(handoff):
+        def ladder(*args, **kwargs):
+            marks['frame_s'] = time.perf_counter() - t0
+            try:
+                return handoff(*args, **kwargs)
+            finally:
+                marks['restored_s'] = time.perf_counter() - t0
+        return ladder
+
+    t0 = time.perf_counter()
+    with patched(lb, '_handoff_stream', marked):
+        got = lb_stream(base, prompts['handoff'], news['handoff'])
+    wall = time.perf_counter() - t0
+    gate('handoff_idle', lb_idle(engines, lb),
+         'a replica or the LB still holds a request')
+    d = lb_delta(c0, lb_counters(obs))
+    launches = {n: k1[n] - k0[n] for n in LB_POOLS}
+    legs = {n: admitted()[n] - a0[n] for n in LB_POOLS}
+    gate('handoff_stream_equal', got['tokens'] == want['handoff']
+         and got['done'] == want['handoff'],
+         f'{len(got["tokens"])} tokens, equal to the run '
+         f'{got["tokens"] == want["handoff"]}')
+    gate('handoff_no_internal_frame', not got['kinds'] & internal,
+         f'frames {sorted(got["kinds"])}')
+    # No fallback either: the decode leg restored inside the prefill
+    # replica's lease (past it the engine resumes co-located and counts
+    # one).
+    gate('handoff_counters', d.get('HANDOFF_ATTEMPTS') == 1
+         and d.get('HANDOFF_SUCCESSES') == 1
+         and 'HANDOFF_FALLBACKS' not in d, f'deltas {d}')
+    gate('handoff_launches', launches == {'prefill': expected, 'decode': 0,
+                                          'general': 0},
+         f'K1 by replica {launches}, want {expected} on prefill only')
+    gate('handoff_decode_leg', legs == {'prefill': 1, 'decode': 1,
+                                        'general': 0},
+         f'admissions by replica {legs}')
+    out['handoff'] = {'prompt_tokens': LB_HANDOFF[0],
+                      'tokens': len(got['tokens']),
+                      'equal': got['tokens'] == want['handoff'],
+                      'frames': sorted(got['kinds']), 'ttft_s': got['ttft_s'],
+                      'handoff_frame_read_s': marks.get('frame_s'),
+                      'decode_leg_restored_s': marks.get('restored_s'),
+                      'wall_s': wall, 'counters': d,
+                      'k1_by_replica': launches, 'k1_expected': expected,
+                      'admissions_by_replica': legs}
+
+    lap('handoff')
+
+    # (b) the fallback rung: the same request, the ladder forced
+    # co-located, on a prefill replica whose prefix cache is dropped
+    # first (a warm prefill would not be the reference's run).
+    holders[0]['loop'].run_on_engine(engines[0].abort_all).result()
+    c0, a0 = lb_counters(obs), admitted()
+    faults_lib.arm('lb.handoff', times=1, exc=OSError('armed by chip_smoke'))
+    try:
+        got = lb_stream(base, prompts['handoff'], news['handoff'])
+    finally:
+        faults_lib.reset()
+    gate('fallback_idle', lb_idle(engines, lb),
+         'a replica or the LB still holds a request')
+    d = lb_delta(c0, lb_counters(obs))
+    legs = {n: admitted()[n] - a0[n] for n in LB_POOLS}
+    gate('fallback_stream_equal', got['tokens'] == want['handoff']
+         and got['done'] == want['handoff']
+         and not got['kinds'] & internal,
+         f'{len(got["tokens"])} tokens, equal '
+         f'{got["tokens"] == want["handoff"]}, frames {sorted(got["kinds"])}')
+    gate('fallback_counter', d.get('HANDOFF_FALLBACKS') == 1
+         and 'HANDOFF_SUCCESSES' not in d
+         and legs == {'prefill': 1, 'decode': 0, 'general': 0},
+         f'deltas {d}, admissions {legs}')
+    out['fallback'] = {'tokens': len(got['tokens']),
+                       'equal': got['tokens'] == want['handoff'],
+                       'counters': d, 'admissions_by_replica': legs}
+
+    lap('fallback')
+
+    # (c) a drain through the LB after the stream's 2nd token.
+    c0 = lb_counters(obs)
+    drained = {}
+
+    def drain_serving(n):
+        if n != LB_DRAIN_AFTER:
+            return
+        in_flight = lb.policy.stats()['in_flight']
+        url = next(u for u, k in in_flight.items() if k)
+        drained['replica'] = pools[url]
+
+        def post():
+            drained['status'], body = http_json(
+                url + '/internal/drain?deadline=0', {})
+            drained['body'] = json.loads(body)
+        drained['thread'] = threading.Thread(target=post)
+        drained['thread'].start()
+
+    got = lb_stream(base, prompts['drain'], news['drain'], drain_serving)
+    if 'thread' in drained:
+        drained.pop('thread').join(300)
+    gate('drain_idle', lb_idle(engines, lb),
+         'a replica or the LB still holds a request')
+    d = lb_delta(c0, lb_counters(obs))
+    body = drained.get('body') or {}
+    gate('drain_stream_whole', got['tokens'] == want['drain']
+         and got['done'] == want['drain'] and not got['kinds'] & internal,
+         f'{len(got["tokens"])} of {len(want["drain"])} tokens, equal '
+         f'{got["tokens"] == want["drain"]}, frames {sorted(got["kinds"])}')
+    gate('drain_counter', d.get('MIGRATION_SUCCESSES') == 1
+         and 'LB_MIDSTREAM_FAILURES' not in d
+         and body.get('migrated_streams') == 1,
+         f'deltas {d}, drain {body.get("migrated_streams")} streams')
+    out['drain'] = {'replica': drained.get('replica'),
+                    'tokens': len(got['tokens']),
+                    'equal': got['tokens'] == want['drain'],
+                    'migrated_streams': body.get('migrated_streams'),
+                    'counters': d}
+    # The drained replica serves again (a replaced replica would).
+    for holder, url in zip(holders, urls):
+        holder['draining'] = False
+
+    lap('drain')
+
+    # (d) prefix affinity over the whole fleet (no pools).
+    lb.set_replicas(urls, pools={})
+    c0 = lb_counters(obs)
+    prefix_len, tail_len, new = LB_FAMILY
+    families = []
+    for _ in range(LB_FAMILIES):
+        prefix = prompt_tokens(rng, prefix_len, engines[0].config.vocab_size)
+        families.append([prefix + prompt_tokens(
+            rng, tail_len, engines[0].config.vocab_size)
+            for _ in range(LB_FAMILY_SIZE)])
+    served = [[] for _ in families]
+    for i in range(LB_FAMILY_SIZE):
+        for f, family in enumerate(families):
+            a0 = admitted()
+            h0 = [e.stats['prefix_hits'] for e in engines]
+            got = lb_stream(base, family[i], new)
+            lb_idle(engines, lb)
+            a1 = admitted()
+            replica = [n for n in LB_POOLS if a1[n] != a0[n]]
+            served[f].append({
+                'replica': replica[0] if len(replica) == 1 else replica,
+                'ttft_s': got['ttft_s'], 'tokens': len(got['tokens']),
+                'prefix_hits': {n: e.stats['prefix_hits'] - h
+                                for n, e, h in zip(LB_POOLS, engines, h0)
+                                if e.stats['prefix_hits'] != h}})
+    d = lb_delta(c0, lb_counters(obs))
+    for f, rows in enumerate(served):
+        replicas = {str(r['replica']) for r in rows}
+        warm_hits = [r['prefix_hits'].get(rows[0]['replica'], 0)
+                     for r in rows[1:]]
+        gate('affinity_sticky', len(replicas) == 1 and all(warm_hits),
+             f'family {f}: replicas {sorted(replicas)}, warm hits '
+             f'{warm_hits}')
+    gate('affinity_hits', d.get('LB_AFFINITY_HITS', 0) >= LB_AFFINITY_HITS_MIN,
+         f'LB_AFFINITY_HITS +{d.get("LB_AFFINITY_HITS", 0)}, want '
+         f'{LB_AFFINITY_HITS_MIN} or more; deltas {d}')
+    out['affinity'] = {
+        'prefix_tokens': prefix_len, 'tail_tokens': tail_len,
+        'families': [{'replicas': [r['replica'] for r in rows],
+                      'cold_ttft_s': rows[0]['ttft_s'],
+                      'warm_ttft_s': [r['ttft_s'] for r in rows[1:]],
+                      'prefix_hits': [r['prefix_hits'] for r in rows]}
+                     for rows in served],
+        'counters': d}
+    lb.set_replicas(urls, pools)
+
+    lap('affinity')
+
+    # (e) a dead replica in the decode pool.
+    dead = f'http://127.0.0.1:{free_port()}'
+    lb.set_replicas(urls + [dead], {**pools, dead: 'decode'})
+    c0 = lb_counters(obs)
+    answers, opened_at = [], None
+    for n in range(LB_DEAD_MAX_REQUESTS):
+        # A fresh prompt each time: a repeated one would stay affine to
+        # the live replica, and the dead one would never be tried.
+        short = prompt_tokens(rng, LB_SHORT[0],
+                              engines[0].config.vocab_size)
+        try:
+            got = lb_stream(base, short, LB_SHORT[1], stream=False)
+            answers.append(len(got['tokens']))
+        except urllib.error.HTTPError as e:
+            answers.append(e.code)
+        if opened_at is None and lb_counters(obs)['CIRCUIT_OPEN'] > \
+                c0['CIRCUIT_OPEN']:
+            opened_at = n + 1
+        if opened_at is not None and n + 1 > opened_at:
+            break  # one request past the opening, routed around
+    d = lb_delta(c0, lb_counters(obs))
+    state = lb.breaker.state(dead).name.lower()
+    gate('dead_completes', answers == [LB_SHORT[1]] * len(answers),
+         f'answers {answers}')
+    gate('breaker_opens', d.get('CIRCUIT_OPEN') == 1 and state == 'open'
+         and d.get('LB_PROXY_ERRORS') == 3
+         and d.get('LB_UPSTREAM_RETRIES') == 3,
+         f'deltas {d}, breaker {state}')
+    gate('no_replica_zero', 'LB_NO_REPLICA' not in d, f'deltas {d}')
+    out['dead_replica'] = {'requests': len(answers),
+                           'opened_after_requests': opened_at,
+                           'breaker': state, 'counters': d}
+    lb.set_replicas(urls, pools)
+    lap('dead_replica')
 
 
 def first_divergence(a, b):
@@ -1969,19 +2603,13 @@ def spec_engines(torch, inference, fa, llama, params, config, dparams,
     return out
 
 
-def spec_server(torch, inference, params, config, prompt):
-    """The port's server as a process with --draft-model SPEC_DRAFT
-    (weights from --seed 0, as the params in hand): one greedy
-    /generate against the draft-free server in this process on the same
-    params, under the divergence rule; /health must count spec
-    rounds."""
-    import socket
+def spec_server_start():
+    """Start the port's server as a process with --draft-model
+    SPEC_DRAFT (weights from --seed 0); spec_server waits for it and
+    stops it. Started first in the spec phase, it loads while the spec
+    engines run here."""
     import tempfile
-
-    from skypilot_tpu_torch.inference import server as server_lib
-    with socket.socket() as sock:
-        sock.bind(('127.0.0.1', 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
            '--model', SPEC_MODEL, '--draft-model', SPEC_DRAFT, '--spec-k',
@@ -1991,6 +2619,34 @@ def spec_server(torch, inference, params, config, prompt):
            '--max-seq-len', str(SPEC_KW['max_seq_len']),
            '--prefill-chunk', str(SPEC_KW['prefill_chunk']),
            '--kv-page-size', str(SPEC_KW['kv_page_size'])]
+    log = tempfile.TemporaryFile()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=log,
+                            stderr=subprocess.STDOUT)
+    return {'proc': proc, 'log': log, 'port': port, 'cmd': cmd,
+            't0': time.perf_counter()}
+
+
+def spec_server_stop(started):
+    """Stop spec_server_start's process (idempotent)."""
+    proc = started['proc']
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    started['log'].close()
+
+
+def spec_server(torch, inference, params, config, prompt, started):
+    """The server process of spec_server_start (weights from --seed 0,
+    as the params in hand): one greedy /generate against the draft-free
+    server in this process on the same params, under the divergence
+    rule; /health must count spec rounds. Stops the process."""
+    from skypilot_tpu_torch.inference import server as server_lib
+    proc, log, port, cmd = (started[k] for k in ('proc', 'log', 'port',
+                                                 'cmd'))
     body = {'prompt_tokens': prompt, 'max_new_tokens': SPEC_NEW}
     plain_engine = inference.InferenceEngine(params, config,
                                              prefix_cache=False, device=DEV,
@@ -1999,15 +2655,13 @@ def spec_server(torch, inference, params, config, prompt):
     srv = server_lib.create_server(holder, host='127.0.0.1', port=0)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
-    log = tempfile.TemporaryFile()
-    proc = subprocess.Popen(cmd, cwd=here, stdout=log,
-                            stderr=subprocess.STDOUT)
     try:
         plain = json.loads(http_json(
             f'http://127.0.0.1:{srv.server_address[1]}/generate',
             body)[1])['tokens']
         base = f'http://127.0.0.1:{port}'
-        t0 = time.perf_counter()
+        t0 = started['t0']
+        wait_t0 = time.perf_counter()
         while True:
             if proc.poll() is not None:
                 log.seek(0)
@@ -2018,22 +2672,17 @@ def spec_server(torch, inference, params, config, prompt):
                     break
             except (urllib.error.URLError, ConnectionError):
                 pass
-            if time.perf_counter() - t0 > 300:
+            if time.perf_counter() - wait_t0 > 300:
                 raise AssertionError('spec server never loaded')
             time.sleep(0.1)
         load_s = time.perf_counter() - t0
+        wait_s = time.perf_counter() - wait_t0
         t0 = time.perf_counter()
         spec = json.loads(http_json(base + '/generate', body)[1])['tokens']
         request_s = time.perf_counter() - t0
         health = json.loads(http_json(base + '/health')[1])['engine']
     finally:
-        proc.terminate()
-        try:
-            proc.wait(60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        log.close()
+        spec_server_stop(started)
         srv.shutdown()
         srv.server_close()
         holder['loop'].stop()
@@ -2044,6 +2693,7 @@ def spec_server(torch, inference, params, config, prompt):
     if health['spec']['rounds'] <= 0:
         faults.append(f'/health spec {health["spec"]}: no rounds')
     return {'command': ' '.join(cmd[1:]), 'load_s': load_s,
+            'load_wait_s': wait_s,
             'request_s': request_s, 'prompt_tokens': len(prompt),
             'tokens': len(spec), 'tokens_equal': reading['equal'],
             'divergence': None if reading['equal'] else reading,
@@ -2054,8 +2704,17 @@ def spec_phase(torch, inference, fa, params, config, rng):
     """Speculative decode on the target in hand: the draft's weights
     drawn as build_engine draws them (seed 1), 8 prompts of 100-1500
     tokens through spec_engines with bf16 KV (and the target as its own
-    draft), then int8 KV, then the server. `faults` gathers every
-    part's."""
+    draft), then int8 KV, then the server (started first, so it loads
+    while the engines run). `faults` gathers every part's."""
+    started = spec_server_start()
+    try:
+        return spec_legs(torch, inference, fa, params, config, rng, started)
+    finally:
+        spec_server_stop(started)
+
+
+def spec_legs(torch, inference, fa, params, config, rng, started):
+    """spec_phase's engines and its server leg on `started`."""
     from skypilot_tpu_torch.models import llama
     dparams, dconfig = inference.draw_params(SPEC_DRAFT, 1, DEV)
     vocab = config.vocab_size
@@ -2073,7 +2732,7 @@ def spec_phase(torch, inference, fa, params, config, rng):
     torch.cuda.empty_cache()
     out['server'] = spec_server(torch, inference, params, config,
                                 prompt_tokens(rng, SPEC_SERVER_PROMPT,
-                                              vocab))
+                                              vocab), started)
     out['faults'] = [f'{part}: {f}' for part in ('bf16', 'int8', 'server')
                      for f in out[part]['faults']]
     return out
@@ -2283,6 +2942,20 @@ def checkpoint_phase(torch, inference, rng, keep=None):
         out['write_s'] = time.perf_counter() - t0
         out['bytes'] = sum(os.path.getsize(os.path.join(tmp, f))
                            for f in out['files'])
+        # The server as a process on the written checkpoint: started now,
+        # it loads while the import and the in-process engine run here.
+        with socket.socket() as sock:
+            sock.bind(('127.0.0.1', 0))
+            port = sock.getsockname()[1]
+        cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
+               '--model', CKPT_MODEL, '--checkpoint', tmp, '--device', DEV,
+               '--port', str(port)]
+        for key, value in CKPT_KW.items():
+            cmd += ['--' + key.replace('_', '-'), str(value)]
+        log = tempfile.TemporaryFile()
+        t_start = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(
+            os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
         from skypilot_tpu_torch.observability import instruments as obs
         before = (obs.CKPT_IMPORT_BYTES.value(),
                   obs.CKPT_IMPORT_TENSORS.value(),
@@ -2323,19 +2996,8 @@ def checkpoint_phase(torch, inference, rng, keep=None):
                                                    CKPT_NEW)
         del engine
         torch.cuda.empty_cache()
-        with socket.socket() as sock:
-            sock.bind(('127.0.0.1', 0))
-            port = sock.getsockname()[1]
-        cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
-               '--model', CKPT_MODEL, '--checkpoint', tmp, '--device', DEV,
-               '--port', str(port)]
-        for key, value in CKPT_KW.items():
-            cmd += ['--' + key.replace('_', '-'), str(value)]
-        log = tempfile.TemporaryFile()
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=os.path.dirname(
-            os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
         base = f'http://127.0.0.1:{port}'
+        t0 = time.perf_counter()
         while True:
             if proc.poll() is not None:
                 log.seek(0)
@@ -2349,7 +3011,8 @@ def checkpoint_phase(torch, inference, rng, keep=None):
             if time.perf_counter() - t0 > 300:
                 raise AssertionError('checkpoint server never loaded')
             time.sleep(0.1)
-        out['server_load_s'] = time.perf_counter() - t0
+        out['server_load_s'] = time.perf_counter() - t_start
+        out['server_load_wait_s'] = time.perf_counter() - t0
         doc = json.loads(http_json(base + '/generate', {
             'prompt_tokens': prompt, 'max_new_tokens': CKPT_NEW,
             'logprobs': True})[1])
@@ -3080,6 +3743,23 @@ def roundtrip_legs(torch, inference, fa, rng, hf_dir, tmp, model):
     if logs[0] != f'[fit] resumed from step {RT_STEPS}' or launches != want:
         raise AssertionError(f'resume: {logs[:1]}, launches {launches}, '
                              f'want {want}')
+    # `batch --checkpoint` on the train checkpoint as a process (below):
+    # started now, it loads while the rest of the round trip runs here.
+    # The process registers the same depth-cut preset before batch's
+    # main: a train checkpoint is read with --model's geometry.
+    config = cfg(RT_RESUME_STEPS).model_config()
+    prompt = prompt_tokens(rng, CKPT_PROMPT, config.vocab_size)
+    inp = os.path.join(tmp, 'roundtrip.jsonl')
+    reqs = batch_request_file(rng, inp, RT_BATCH_REQUESTS,
+                              BATCH_PROMPT_LENGTHS, config.vocab_size)
+    batch_argv = ['--model', model, '--checkpoint', run_dir,
+                  '--max-new-tokens', str(RT_BATCH_NEW), *BATCH_FLAGS]
+    batch_command = (
+        '-c', 'import chip_smoke\n'
+        'from skypilot_tpu_torch.inference import batch\n'
+        f'with chip_smoke.depth_cut({CKPT_MODEL!r}, {CKPT_LAYERS}):\n'
+        '    batch.main()\n')
+    batch_started = batch_process(inp, batch_argv, batch_command)
     whole, _logs, _launches = fit(RT_RESUME_STEPS)
     losses = {'fine_tune': [h['loss'] for h in first['history']],
               'resumed': [h['loss'] for h in resumed['history']],
@@ -3119,7 +3799,6 @@ def roundtrip_legs(torch, inference, fa, rng, hf_dir, tmp, model):
     torch.cuda.empty_cache()
 
     # The resumed params exported to HF and loaded back, bit for bit.
-    config = cfg(RT_RESUME_STEPS).model_config()
     params = resumed['state']['params']
     del resumed
     export_dir = os.path.join(tmp, 'export')
@@ -3146,11 +3825,13 @@ def roundtrip_legs(torch, inference, fa, rng, hf_dir, tmp, model):
     del loaded
     if not out['export_loads_equal']:
         raise AssertionError('the exported params load back unequal')
+    # The CLI's processes start now (they never touch the card) and are
+    # read at the end.
+    cli_started = cli_start(export_dir, tmp)
 
     # Served: the export through build_engine(checkpoint=) against an
     # engine on the in-memory params; the train checkpoint through
     # batch --checkpoint against build_engine(checkpoint=) in process.
-    prompt = prompt_tokens(rng, CKPT_PROMPT, config.vocab_size)
     served = inference.build_engine(CKPT_MODEL, device=DEV,
                                     checkpoint=export_dir, **CKPT_KW)
     tokens, lps = greedy_tokens(inference, served, prompt, CKPT_NEW)
@@ -3170,18 +3851,8 @@ def roundtrip_legs(torch, inference, fa, rng, hf_dir, tmp, model):
     if tokens != want_tokens or \
             not out['serve']['logprob_max_abs_diff'] < TOL_CKPT_LOGPROB:
         raise AssertionError(f'serving the export: {out["serve"]}')
-    inp = os.path.join(tmp, 'roundtrip.jsonl')
-    reqs = batch_request_file(rng, inp, RT_BATCH_REQUESTS,
-                              BATCH_PROMPT_LENGTHS, config.vocab_size)
-    # The process registers the same depth-cut preset before batch's
-    # main: a train checkpoint is read with --model's geometry.
-    out['batch'] = batch_run(torch, inference, fa, reqs, inp, [
-        '--model', model, '--checkpoint', run_dir, '--max-new-tokens',
-        str(RT_BATCH_NEW), *BATCH_FLAGS], command=(
-            '-c', 'import chip_smoke\n'
-            'from skypilot_tpu_torch.inference import batch\n'
-            f'with chip_smoke.depth_cut({CKPT_MODEL!r}, {CKPT_LAYERS}):\n'
-            '    batch.main()\n'))
+    out['batch'] = batch_run(torch, inference, fa, reqs, inp, batch_argv,
+                             command=batch_command, started=batch_started)
 
     # A torn step (sentinel gone) is never the resume candidate.
     os.remove(os.path.join(run_dir, str(RT_RESUME_STEPS),
@@ -3212,14 +3883,15 @@ def roundtrip_legs(torch, inference, fa, rng, hf_dir, tmp, model):
 
     # The CLI as processes: rc 0 on the clean export, non-zero on a copy
     # with a NaN planted and on one with a shard cut short.
-    out['cli'] = cli_checks(export_dir, tmp)
+    out['cli'] = cli_checks(cli_started)
     return out
 
 
-def cli_checks(export_dir, tmp):
-    """`python -m skypilot_tpu_torch.checkpoints inspect` and `verify` on
-    the export, and `verify` on two damaged copies (the last shard
-    copied, the rest hard-linked)."""
+def cli_start(export_dir, tmp):
+    """Start `python -m skypilot_tpu_torch.checkpoints inspect` and
+    `verify` on the export, and `verify` on two damaged copies (the last
+    shard copied, the rest hard-linked), side by side; cli_checks reads
+    them."""
     from skypilot_tpu_torch.checkpoints import safetensors_io
     here = os.path.dirname(os.path.abspath(__file__))
 
@@ -3265,6 +3937,13 @@ def cli_checks(export_dir, tmp):
     for kind, d in (('clean', export_dir), ('nan', copies['nan']),
                     ('truncated', copies['truncated'])):
         procs[f'verify_{kind}'] = cli('verify', d)
+    return procs, t0
+
+
+def cli_checks(started):
+    """cli_start's processes, waited for and read: rc 0 on the clean
+    export, non-zero on the damaged copies; `wall_s` from their start."""
+    procs, t0 = started
     texts = {}
     for name, proc in procs.items():
         try:
@@ -7349,8 +8028,19 @@ def main():
                                             'bound_by', 'library_ms')}})
         gc.collect()
         torch.cuda.empty_cache()
-    emit('migration', **migration_phase(torch, inference, params, config,
-                                        rng))
+    # 14b. the serving data plane: the port's load balancer in front of
+    # three llama3-8b replicas (the migration phase's engines and a
+    # third), with a generator of its own.
+    out = migration_phase(
+        torch, inference, params, config, rng,
+        lb_serve=lambda *engines: lb_serve_phase(
+            torch, inference, fa, engines, np.random.default_rng(17)))
+    lb_serve = out.pop('lb_serve')
+    emit('migration', **out)
+    emit('lb_serve', **lb_serve)
+    if lb_serve['faults']:
+        raise AssertionError(f'lb_serve: {lb_serve["faults"]}')
+    path_launches['flash_attention']['lb_serve'] = lb_serve['kernel_launches']
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,5 +1,5 @@
-"""The port's copy of the SKYTPU_* knobs its serving, import and
-observability paths read.
+"""The port's copy of the SKYTPU_* knobs its serving, import,
+observability and load-balancing paths read.
 
 Same names, types and defaults as the declarations in
 `skypilot_tpu/envs.py` (the reference registry); a test pins them
@@ -114,6 +114,63 @@ SKYTPU_HANDOFF_LEASE_SECONDS = _declare(
     'Seconds a handoff-paused request holds its slot waiting for the '
     'decode-leg restore or /internal/resume; past it the engine resumes '
     'decoding locally.')
+SKYTPU_MIGRATION_DEADLINE_SECONDS = _declare(
+    'SKYTPU_MIGRATION_DEADLINE_SECONDS', float, 15.0,
+    'Total wall-clock budget for one stream migration on the LB '
+    '(snapshot fetch + restore attempts across replicas); past it '
+    'the stream falls back to honest termination.')
+SKYTPU_HANDOFF_DEADLINE_SECONDS = _declare(
+    'SKYTPU_HANDOFF_DEADLINE_SECONDS', float, 3.0,
+    'Total wall-clock budget for the LB\'s planned prefill->decode '
+    'handoff (restore attempts across the decode pool); past it the '
+    'LB resumes the request co-located on the prefill replica: a '
+    'counted fallback, never an error. Keep it under '
+    'SKYTPU_HANDOFF_LEASE_SECONDS or the lease resumes first.')
+SKYTPU_HANDOFF_MAX_BYTES = _declare(
+    'SKYTPU_HANDOFF_MAX_BYTES', int, 256 * 1024 * 1024,
+    'Cap on a planned-handoff KV blob the LB will ship to the decode '
+    'pool; larger blobs skip the transfer and resume co-located on the '
+    'prefill replica (counted as a fallback).')
+# The load balancer (serve/load_balancer.py) and its routing policies.
+SKYTPU_LB_STREAM_READ_TIMEOUT = _declare(
+    'SKYTPU_LB_STREAM_READ_TIMEOUT', float, 120.0,
+    'Seconds the LB waits for the NEXT chunk from an upstream that '
+    'already sent response bytes; a wedged upstream terminates the '
+    'client stream instead of hanging it. 0 disables.')
+SKYTPU_LB_POLICY = _declare(
+    'SKYTPU_LB_POLICY', str, None,
+    'Override the load-balancing policy the service spec picked '
+    '(round_robin / least_load / prefix_affinity) without editing the '
+    'spec: an operator escape hatch for live A/B routing runs.')
+SKYTPU_LB_AFFINITY_BOUND = _declare(
+    'SKYTPU_LB_AFFINITY_BOUND', float, 2.0,
+    'Bounded-load constant c for prefix-affinity routing: the affine '
+    'replica is skipped (least-load fallback) once its load would '
+    'exceed ceil(c * (total_load + 1) / replicas).')
+SKYTPU_LB_AFFINITY_PAGE_TOKENS = _declare(
+    'SKYTPU_LB_AFFINITY_PAGE_TOKENS', int, 64,
+    'Token-page granularity of the LB\'s prompt-prefix fingerprint '
+    'index. Match the engine\'s SKYTPU_KV_PAGE_SIZE so affinity '
+    'decisions align with what a replica\'s radix cache can reuse.')
+SKYTPU_LB_AFFINITY_MAX_ENTRIES = _declare(
+    'SKYTPU_LB_AFFINITY_MAX_ENTRIES', int, 65536,
+    'LRU cap on prompt-prefix fingerprints the LB affinity index holds '
+    '(each entry maps one page-aligned prefix to the replicas that '
+    'served it).')
+SKYTPU_LB_AFFINITY_LOAD_WINDOW = _declare(
+    'SKYTPU_LB_AFFINITY_LOAD_WINDOW', float, 1.0,
+    'Seconds of recent request starts counted (on top of in-flight '
+    'requests) as a replica\'s load in the bounded-load check. 0 uses '
+    'pure in-flight load.')
+SKYTPU_LB_POOL_PROMPT_THRESHOLD = _declare(
+    'SKYTPU_LB_POOL_PROMPT_THRESHOLD', int, 1024,
+    'Prompt-token count at or above which a request counts as '
+    'long-prompt for replica-pool routing (long-prompt + short-gen '
+    'requests prefer the prefill-role pool).')
+SKYTPU_LB_POOL_MAX_NEW_THRESHOLD = _declare(
+    'SKYTPU_LB_POOL_MAX_NEW_THRESHOLD', int, 32,
+    'max_new_tokens at or below which a request counts as short-gen for '
+    'replica-pool routing; paired with SKYTPU_LB_POOL_PROMPT_THRESHOLD.')
 SKYTPU_SPEC_K = _declare(
     'SKYTPU_SPEC_K', int, 4,
     'Speculative-decoding draft length: tokens the draft model proposes '

@@ -10,12 +10,15 @@ rules read either package. `_UNTRACED_PATHS` and `http_middleware`
 (reference :512-578) come too; the middleware wraps the port's
 stdlib `BaseHTTPRequestHandler` instead of an aiohttp app.
 
-Left out, because the port has no such plane: the load balancer's
-(`LB_*`), the serve controller's and autoscaler's (`SERVE_REPLICAS`,
-`AUTOSCALER_*`, `POOL_*`), fleetsim's (`FLEETSIM_*`), the skylet
-heartbeats (`HEARTBEAT*`), the circuit breakers (`CIRCUIT_*`) and the
-LB-side migration and handoff counters (`MIGRATION_*`,
-`HANDOFF_ATTEMPTS/SUCCESSES/TRANSFER_SECONDS`).
+The serving data plane's come too (`serve/load_balancer.py`, its
+policies and autoscalers, `resilience/circuit.py`): `LB_*`, `POOL_*`,
+`CIRCUIT_*`, and the LB-side `MIGRATION_*` and
+`HANDOFF_ATTEMPTS/SUCCESSES/TRANSFER_SECONDS`.
+
+Left out, because the port has no such plane yet: the serve
+controller's and autoscaler's gauges (`SERVE_REPLICAS`,
+`AUTOSCALER_*`), fleetsim's (`FLEETSIM_*`) and the skylet heartbeats
+(`HEARTBEAT*`).
 
 All land in metrics.REGISTRY, so the server's /metrics exposes
 whatever its process touched.
@@ -190,6 +193,171 @@ REQUESTS_SHED = metrics.Counter(
     'skytpu_requests_shed_total',
     'Requests rejected with 503 + Retry-After because engine queue '
     'depth crossed the load-shedding threshold.')
+
+# -- the load balancer and its routing policies (serve/) ------------
+
+LB_REPLICA_REQUESTS = metrics.Counter(
+    'skytpu_lb_replica_requests_total',
+    'Requests the load balancer proxied, per replica endpoint.',
+    labelnames=('replica',))
+
+LB_PROXY_ERRORS = metrics.Counter(
+    'skytpu_lb_proxy_errors_total',
+    'Proxied requests that failed upstream (502/truncated stream).')
+
+LB_NO_REPLICA = metrics.Counter(
+    'skytpu_lb_no_replica_total',
+    'Requests refused with 503 because no replica was ready.')
+
+LB_UPSTREAM_RETRIES = metrics.Counter(
+    'skytpu_lb_upstream_retries_total',
+    'Proxied requests re-sent to another READY replica after an '
+    'upstream failed before any response bytes were written.')
+
+LB_AFFINITY_HITS = metrics.Counter(
+    'skytpu_lb_affinity_hits_total',
+    'Requests the prefix-affinity policy routed to a replica its '
+    'fingerprint index predicted holds the prompt\'s warm prefix '
+    'pages. hits / (hits + misses) = the LB-side affinity rate — '
+    'compare against the fleet\'s skytpu_prefix_cache_* hit ratio to '
+    'see whether routing or replica cache capacity moved it.')
+
+LB_AFFINITY_MISSES = metrics.Counter(
+    'skytpu_lb_affinity_misses_total',
+    'Requests with a routable prompt whose page-prefix fingerprints '
+    'matched no replica in the affinity index (first sight of the '
+    'prefix, or its entries were LRU-evicted): routed least-load '
+    'and indexed for the next request.')
+
+LB_AFFINITY_FALLBACKS = metrics.Counter(
+    'skytpu_lb_affinity_fallbacks_total',
+    'Affinity-matched requests routed AWAY from their affine replica '
+    'because its load exceeded the bounded-load cap '
+    '(SKYTPU_LB_AFFINITY_BOUND x fleet mean): the hotspot guard '
+    'firing. A sustained rate here means one prefix family is hotter '
+    'than a single replica can absorb.')
+
+LB_AFFINITY_ENTRIES = metrics.Gauge(
+    'skytpu_lb_affinity_entries',
+    'Prompt-prefix fingerprints currently held by the LB affinity '
+    'index (LRU-capped at SKYTPU_LB_AFFINITY_MAX_ENTRIES).')
+
+LB_POOL_REQUESTS = metrics.Counter(
+    'skytpu_lb_pool_requests_total',
+    'Requests the LB restricted to one replica-pool role by request '
+    'shape (long-prompt/short-gen -> prefill, everything else -> '
+    'decode). Requests with no parseable prompt context route '
+    'unrestricted and are not counted here.',
+    labelnames=('pool',))
+
+LB_MIDSTREAM_FAILURES = metrics.Counter(
+    'skytpu_lb_midstream_failures_total',
+    'Proxied streams whose upstream died AFTER response bytes were '
+    'written and could NOT be migrated: the LB closes the client '
+    'connection (honest truncation) instead of retrying or hanging. '
+    'The last rung of the failure ladder — migrated streams are '
+    'counted in skytpu_migration_successes_total instead.')
+
+# -- replica pools (the autoscalers' per-pool signals) --------------
+
+POOL_TARGET_REPLICAS = metrics.Gauge(
+    'skytpu_pool_target_replicas',
+    'Replica count a pool\'s signal-driven autoscaler currently '
+    'wants, per service and named replica pool.',
+    labelnames=('service', 'pool'))
+
+POOL_READY_REPLICAS = metrics.Gauge(
+    'skytpu_pool_ready_replicas',
+    'READY replica count per service and named replica pool at the '
+    'controller\'s last reconcile tick.',
+    labelnames=('service', 'pool'))
+
+POOL_QUEUE_DEPTH = metrics.Gauge(
+    'skytpu_pool_queue_depth',
+    'Requests accepted but not yet decoding, aggregated per replica '
+    'pool — the prefill pool\'s upscale signal. Written by whatever '
+    'shares the process (fleetsim, a co-located engine); absent '
+    'series fall back to the fleet-wide skytpu_queue_depth.',
+    labelnames=('pool',))
+
+POOL_KV_UTILIZATION = metrics.Gauge(
+    'skytpu_pool_kv_cache_utilization',
+    'Mean KV-cache utilization (0-1) per replica pool — the decode '
+    'pool\'s saturation signal. Absent series fall back to the '
+    'fleet-wide skytpu_kv_cache_utilization.',
+    labelnames=('pool',))
+
+# -- circuit breakers (resilience/circuit.py) -----------------------
+
+CIRCUIT_STATE = metrics.Gauge(
+    'skytpu_circuit_state',
+    'Circuit breaker state per breaker group and target: 0 closed, '
+    '1 open, 2 half-open. An open circuit means the target is being '
+    'routed around.',
+    labelnames=('breaker', 'target'))
+
+CIRCUIT_OPEN = metrics.Counter(
+    'skytpu_circuit_open_total',
+    'Transitions into the open state per breaker group and target '
+    '(each one is a target that crossed its consecutive-failure '
+    'threshold).',
+    labelnames=('breaker', 'target'))
+
+# -- mid-stream request migration, the LB's side --------------------
+
+MIGRATION_ATTEMPTS = metrics.Counter(
+    'skytpu_migration_attempts_total',
+    'Interrupted in-flight requests the LB tried to migrate (one '
+    'increment per interrupted request, not per restore retry): '
+    'replica drain handed over a snapshot, or a mid-stream upstream '
+    'death left a fetchable one.')
+
+MIGRATION_SUCCESSES = metrics.Counter(
+    'skytpu_migration_successes_total',
+    'Migrations that resumed the client stream on another replica '
+    'with no duplicated or dropped tokens (greedy decode continues '
+    'token-for-token from the spliced KV snapshot).')
+
+MIGRATION_FAILURES = metrics.Counter(
+    'skytpu_migration_failures_total',
+    'Migrations that exhausted the SKYTPU_MIGRATION_DEADLINE_SECONDS '
+    'budget or every candidate replica; the stream falls through to '
+    'honest termination (skytpu_lb_midstream_failures_total).')
+
+MIGRATION_SECONDS = metrics.Histogram(
+    'skytpu_migration_seconds',
+    'End-to-end duration of one successful migration: interruption '
+    'detected -> snapshot in hand -> restored stream\'s first byte.',
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 3.5, 5.0, 7.5, 10.0,
+             15.0, 30.0))
+
+MIGRATION_INTERRUPTION_SECONDS = metrics.Histogram(
+    'skytpu_migration_interruption_seconds',
+    'Client-visible token gap a migration introduced: last token '
+    'before the interruption -> first token from the restored '
+    'replica. The user-facing cost of surviving a preemption.',
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 3.5, 5.0, 7.5, 10.0,
+             15.0, 30.0))
+
+# -- planned prefill->decode handoff, the LB's side -----------------
+
+HANDOFF_ATTEMPTS = metrics.Counter(
+    'skytpu_handoff_attempts_total',
+    'Planned prefill->decode handoffs started (one increment per '
+    'exported handoff frame the LB acts on, not per restore retry).')
+
+HANDOFF_SUCCESSES = metrics.Counter(
+    'skytpu_handoff_successes_total',
+    'Handoffs whose decode-pool restore resumed the client stream '
+    'with no duplicated or dropped tokens; the prefill replica\'s '
+    'lease releases and its slot frees.')
+
+HANDOFF_TRANSFER_SECONDS = metrics.Histogram(
+    'skytpu_handoff_transfer_seconds',
+    'Duration of one successful planned handoff: handoff frame '
+    'received -> restored decode-pool stream\'s first byte.',
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.0, 3.5, 5.0, 7.5, 10.0,
+             15.0, 30.0))
 
 # -- HTTP planes ------------------------------------------------------
 

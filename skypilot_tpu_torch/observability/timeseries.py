@@ -581,6 +581,15 @@ def start_sampler() -> bool:
         return _SAMPLER.start()
 
 
+def sampler_running() -> bool:
+    """Whether the process-wide sampler's thread is alive (a caller that
+    starts it only when it is not can stop it again without stopping
+    another owner's)."""
+    with _SAMPLER_LOCK:
+        return _SAMPLER is not None and _SAMPLER._thread is not None \
+            and _SAMPLER._thread.is_alive()  # noqa: SLF001
+
+
 def stop_sampler() -> None:
     with _SAMPLER_LOCK:
         if _SAMPLER is not None:

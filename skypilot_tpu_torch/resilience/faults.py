@@ -12,8 +12,10 @@ counts in `skytpu_faults_injected_total{point}`.
 The catalog holds the points the port reaches, with the reference's
 names, so one `SKYTPU_FAULTS` drill arms either package:
 `engine.snapshot` and `engine.handoff_lease` (the engine's migration
-seams) and `checkpoint.save` (`train/checkpoints.save_train_state`,
-before a byte is written).
+seams), `checkpoint.save` (`train/checkpoints.save_train_state`,
+before a byte is written), and the load balancer's `lb.upstream`,
+`lb.upstream_midstream`, `lb.migrate` and `lb.handoff`
+(`serve/load_balancer.py`).
 
     faults.arm('engine.snapshot', times=1)
     ...
@@ -80,6 +82,26 @@ ENGINE_HANDOFF_LEASE = declare(
     'fault refuses the lease, so the request decodes co-located and '
     'no handoff frame is exported.')
 
+LB_UPSTREAM = declare(
+    'lb.upstream',
+    'The load balancer contacting one upstream replica for a proxied '
+    'request (fires before any response bytes are written).')
+LB_UPSTREAM_MIDSTREAM = declare(
+    'lb.upstream_midstream',
+    'The load balancer reading the NEXT body chunk from an upstream '
+    'that already sent response bytes (fires mid-stream, after the '
+    'client saw headers — failover is no longer possible).')
+LB_MIGRATE = declare(
+    'lb.migrate',
+    'The load balancer migrating one interrupted stream: snapshot '
+    'fetch + restore re-route (fires once per interrupted request, '
+    'before the first restore attempt).')
+LB_HANDOFF = declare(
+    'lb.handoff',
+    'The load balancer walking the planned prefill->decode handoff '
+    'ladder for one request (fires once per handoff frame, before '
+    'the first decode-pool restore attempt); an armed fault forces '
+    'the co-located /internal/resume fallback.')
 
 def registered_points() -> Dict[str, str]:
     return dict(_POINTS)

@@ -454,6 +454,13 @@ def test_env_defaults_match_reference_registry():
         # the parallel layer: the sharded pool and the gang coordinates
         'SKYTPU_KV_PAGES_SHARDED', 'SKYTPU_COORDINATOR_ADDR',
         'SKYTPU_NUM_PROCESSES', 'SKYTPU_PROCESS_ID',
+        # the load balancer, its policies and its migration budgets
+        'SKYTPU_LB_POLICY', 'SKYTPU_LB_STREAM_READ_TIMEOUT',
+        'SKYTPU_LB_AFFINITY_BOUND', 'SKYTPU_LB_AFFINITY_PAGE_TOKENS',
+        'SKYTPU_LB_AFFINITY_MAX_ENTRIES', 'SKYTPU_LB_AFFINITY_LOAD_WINDOW',
+        'SKYTPU_LB_POOL_PROMPT_THRESHOLD', 'SKYTPU_LB_POOL_MAX_NEW_THRESHOLD',
+        'SKYTPU_HANDOFF_DEADLINE_SECONDS', 'SKYTPU_HANDOFF_MAX_BYTES',
+        'SKYTPU_MIGRATION_DEADLINE_SECONDS',
         # port-only: the collectives' backend
         'SKYTPU_TORCH_DIST_BACKEND'}
     port_only = {'SKYTPU_TORCH_DIST_BACKEND'}

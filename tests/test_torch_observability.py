@@ -169,7 +169,8 @@ def test_catalog_matches_reference():
 
 
 # Every instrument the reference's engine, server, train loop, hf_import,
-# fault registry and watchdog touch on the paths the port has.
+# fault registry, watchdog, load balancer, routing policies, autoscalers
+# and circuit breaker touch on the paths the port has.
 REFERENCE_CALLS = (
     'PREFILL_SECONDS', 'DECODE_STEP_SECONDS', 'DECODE_HOST_STEPS',
     'DECODE_TOKENS_PER_STEP', 'SPEC_ROUNDS', 'SPEC_PROPOSED_TOKENS',
@@ -184,7 +185,16 @@ REFERENCE_CALLS = (
     'TRAIN_STEP_SECONDS', 'TRAIN_TOKENS', 'TRAIN_STEP', 'TRAIN_MFU',
     'TRAIN_LOSS', 'CKPT_IMPORT_SECONDS', 'CKPT_IMPORT_BYTES',
     'CKPT_IMPORT_TENSORS', 'REQUESTS_SHED', 'CKPT_EXPORT_SECONDS',
-    'CKPT_EXPORT_BYTES')
+    'CKPT_EXPORT_BYTES',
+    # the serving data plane (serve/, resilience/circuit.py)
+    'CIRCUIT_OPEN', 'CIRCUIT_STATE', 'HANDOFF_ATTEMPTS', 'HANDOFF_SUCCESSES',
+    'HANDOFF_TRANSFER_SECONDS', 'LB_AFFINITY_ENTRIES',
+    'LB_AFFINITY_FALLBACKS', 'LB_AFFINITY_HITS', 'LB_AFFINITY_MISSES',
+    'LB_MIDSTREAM_FAILURES', 'LB_NO_REPLICA', 'LB_POOL_REQUESTS',
+    'LB_PROXY_ERRORS', 'LB_REPLICA_REQUESTS', 'LB_UPSTREAM_RETRIES',
+    'MIGRATION_ATTEMPTS', 'MIGRATION_FAILURES',
+    'MIGRATION_INTERRUPTION_SECONDS', 'MIGRATION_SECONDS',
+    'MIGRATION_SUCCESSES', 'POOL_KV_UTILIZATION', 'POOL_QUEUE_DEPTH')
 
 
 def test_reference_call_sites_are_declared_in_the_port():
@@ -198,12 +208,16 @@ def test_reference_call_sites_are_declared_in_the_port():
     for rel in ('inference/engine.py', 'inference/server.py',
                 'inference/openai_api.py', 'train/loop.py',
                 'checkpoints/hf_import.py', 'checkpoints/hf_export.py',
-                'resilience/faults.py', 'observability/watchdog.py'):
+                'resilience/faults.py', 'observability/watchdog.py',
+                'resilience/circuit.py', 'serve/load_balancer.py',
+                'serve/load_balancing_policies.py',
+                'serve/autoscalers.py'):
         used |= set(re.findall(r'\bobs\.([A-Z][A-Z_]+)\b',
                                open(f'{root}/{rel}').read()))
     assert used and used <= set(port)
     assert set(port_faults.registered_points()) == {
-        'engine.snapshot', 'engine.handoff_lease', 'checkpoint.save'}
+        'engine.snapshot', 'engine.handoff_lease', 'checkpoint.save',
+        'lb.upstream', 'lb.upstream_midstream', 'lb.migrate', 'lb.handoff'}
     for point, text in port_faults.registered_points().items():
         assert point in ref_faults.registered_points()
 

@@ -1,10 +1,11 @@
 """The port stands alone: no JAX, no ml_dtypes, no aiohttp, no transformers,
-no skypilot_tpu.
+no yaml, no skypilot_tpu.
 
 A subprocess blocks those packages in `sys.modules`, then imports every
-module of `skypilot_tpu_torch` and the root `chip_smoke.py`,
-`kernel_fault_check.py`, `spec_fault_check.py` and
-`obs_overhead_check.py`; any
+module of `skypilot_tpu_torch` (the serving data plane under `serve/` and
+`resilience/circuit.py` among them) and the root `chip_smoke.py`,
+`kernel_fault_check.py`, `spec_fault_check.py`, `lb_fault_check.py`,
+`obs_overhead_check.py` and `phase_time_check.py`; any
 forbidden import fails it. Entry points raise without CUDA unless the
 caller names a device.
 """
@@ -21,7 +22,7 @@ _PROBE = r'''
 import pkgutil
 import sys
 
-BLOCKED = ('jax', 'jaxlib', 'ml_dtypes', 'aiohttp', 'transformers',
+BLOCKED = ('jax', 'jaxlib', 'ml_dtypes', 'aiohttp', 'transformers', 'yaml',
            'skypilot_tpu')
 for name in BLOCKED:
     sys.modules[name] = None  # any import of it now raises ImportError
@@ -34,7 +35,9 @@ for info in pkgutil.walk_packages(skypilot_tpu_torch.__path__,
     names.append(info.name)
 import chip_smoke
 import kernel_fault_check
+import lb_fault_check
 import obs_overhead_check
+import phase_time_check
 import spec_fault_check
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in BLOCKED and sys.modules[m] is not None)
@@ -86,6 +89,14 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.observability.trace_dump',
                    'skypilot_tpu_torch.resilience.faults',
                    'skypilot_tpu_torch.resilience.retries',
+                   'skypilot_tpu_torch.resilience.circuit',
+                   'skypilot_tpu_torch.serve',
+                   'skypilot_tpu_torch.serve.load_balancer',
+                   'skypilot_tpu_torch.serve.load_balancing_policies',
+                   'skypilot_tpu_torch.serve.service_spec',
+                   'skypilot_tpu_torch.serve.autoscalers',
+                   'skypilot_tpu_torch.utils.schemas',
+                   'skypilot_tpu_torch.exceptions',
                    'skypilot_tpu_torch.inference.openai_api',
                    'skypilot_tpu_torch.inference.batch',
                    'skypilot_tpu_torch.checkpoints.hf_export',
