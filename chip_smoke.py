@@ -1848,8 +1848,10 @@ LB_TTFT_RUNS = 5
 # all through the phase would fold each scrape back into the next.
 # The prefill replica's lease is the reference's test's (30 s): only the
 # LB's abandon (or a fallback's resume) may free a paused slot within
-# the phase, so a broken release shows; leg (a) reads how long the
-# handoff took against the 5 s default.
+# the phase, so a broken release shows. Leg (a) reads the seconds from
+# its first token to the decode leg's restore against the 5 s default
+# lease (`fits_default_lease`), a reading and not a gate: the
+# ~190 MB frame's JSON and base64 on the host set it (PERF.md).
 # The affinity policy's load is its in-flight requests alone (no window
 # of recent starts, as the reference's own affinity tests set it): the
 # legs send one request at a time, so a window would count requests
@@ -2212,6 +2214,7 @@ def lb_legs(torch, inference, engines, holders, lb, lb_lib, base, urls,
             out, rng):
     """Legs (a)-(e) of lb_serve_phase, in its fleet; readings into
     `out`, broken gates through `gate`."""
+    from skypilot_tpu_torch import envs
     internal = {'handoff', 'migrate', 'error'}
     expected = expected_prefill_launches(engines[0], [LB_HANDOFF[0]])
     out['leg_s'] = {}
@@ -2263,12 +2266,21 @@ def lb_legs(torch, inference, engines, holders, lb, lb_lib, base, urls,
     gate('handoff_decode_leg', legs == {'prefill': 1, 'decode': 1,
                                         'general': 0},
          f'admissions by replica {legs}')
+    # The lease runs from the pause at the first token until the LB's
+    # abandon, which follows the restore.
+    default_lease = envs.SKYTPU_HANDOFF_LEASE_SECONDS.default
+    lease_used = (None if 'restored_s' not in marks or got['ttft_s'] is None
+                  else marks['restored_s'] - got['ttft_s'])
     out['handoff'] = {'prompt_tokens': LB_HANDOFF[0],
                       'tokens': len(got['tokens']),
                       'equal': got['tokens'] == want['handoff'],
                       'frames': sorted(got['kinds']), 'ttft_s': got['ttft_s'],
                       'handoff_frame_read_s': marks.get('frame_s'),
                       'decode_leg_restored_s': marks.get('restored_s'),
+                      'lease_used_s': lease_used,
+                      'default_lease_s': default_lease,
+                      'fits_default_lease': (lease_used is not None
+                                             and lease_used < default_lease),
                       'wall_s': wall, 'counters': d,
                       'k1_by_replica': launches, 'k1_expected': expected,
                       'admissions_by_replica': legs}

@@ -468,21 +468,6 @@ def _parse_sampling(body: Dict[str, Any]):
 
 
 def _sse(payload: Dict[str, Any]) -> bytes:
-    """One SSE frame of `payload`, as `json.dumps` writes it. A handoff
-    or migrate frame's snapshot (base64 of ~140 MB for a 1000-token
-    llama3-8b request) needs no JSON escaping, so those frames are
-    joined around it instead of scanned by the encoder: the same bytes,
-    seconds sooner inside the handoff's lease (PERF.md)."""
-    if len(payload) == 1:
-        (kind, inner), = payload.items()
-        if (kind in ('handoff', 'migrate') and isinstance(inner, dict)
-                and list(inner) == ['snapshot', 'sent']
-                and isinstance(inner['snapshot'], str)
-                and isinstance(inner['sent'], int)):
-            return b''.join((
-                b'data: {"', kind.encode(), b'": {"snapshot": "',
-                inner['snapshot'].encode('ascii'), b'", "sent": ',
-                str(inner['sent']).encode(), b'}}\n\n'))
     return f'data: {json.dumps(payload)}\n\n'.encode()
 
 

@@ -439,12 +439,18 @@ def _scenario(engines, case):
             results = [_generate(base, PROMPT, 6) for _ in range(6)]
         elif case == 'drain':
             drained = {}
+            drainer = []
 
             def on_token(n):
                 if n == 2:
-                    threading.Thread(target=lambda: drained.update(
-                        _drain(urls['general']))).start()
+                    drainer.append(threading.Thread(
+                        target=lambda: drained.update(
+                            _drain(urls['general']))))
+                    drainer[0].start()
             results = _stream(base, PROMPT, 64, on_token)
+            # The stream can end (migrated) before the drain's own
+            # answer reaches its caller.
+            drainer[0].join(30)
             assert drained.get('status') == 'drained', drained
         else:
             results = _stream(base, PROMPT, STEPS)
@@ -694,9 +700,9 @@ def test_stop_cuts_a_wedged_stream_without_migrating():
     {'migrate': {'snapshot': 'QQ==', 'sent': 2, 'extra': 1}},
     {'token': 5}, {'done': True, 'tokens': [1, 2]}, {'error': 'x'}])
 def test_server_frames_are_json_dumps_byte_for_byte(payload):
-    """The server joins a snapshot frame around its base64 instead of
-    encoding it: the bytes are json.dumps's all the same, so either
-    package's LB reads the frame it always read."""
+    """The server's frames, snapshot frames among them, are json.dumps's
+    byte for byte, so either package's LB reads the frame it always
+    read."""
     frame = port_server._sse(payload)
     assert frame == f'data: {json.dumps(payload)}\n\n'.encode()
     assert port_lb._sse_frame_doc(frame[:-2]) == \

@@ -4,10 +4,9 @@ no yaml, no skypilot_tpu.
 A subprocess blocks those packages in `sys.modules`, then imports every
 module of `skypilot_tpu_torch` (the serving data plane under `serve/` and
 `resilience/circuit.py` among them) and the root `chip_smoke.py`,
-`kernel_fault_check.py`, `spec_fault_check.py`, `lb_fault_check.py`,
-`obs_overhead_check.py` and `phase_time_check.py`; any
-forbidden import fails it. Entry points raise without CUDA unless the
-caller names a device.
+`kernel_fault_check.py`, `spec_fault_check.py`, `lb_fault_check.py`
+and `obs_overhead_check.py`; any forbidden import fails it. Entry points
+raise without CUDA unless the caller names a device.
 """
 import os
 import subprocess
@@ -37,7 +36,6 @@ import chip_smoke
 import kernel_fault_check
 import lb_fault_check
 import obs_overhead_check
-import phase_time_check
 import spec_fault_check
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in BLOCKED and sys.modules[m] is not None)
