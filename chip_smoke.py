@@ -344,10 +344,33 @@ Phases, each printing one JSON line:
                   peak memory a rank and for the card.
                   `mesh_fault_check.py` plants the ten faults the
                   limits must catch.
+ 29. serve_ctl  - (after 13, on a thread of its own beside 14 and 14b:
+                  its replicas boot while those phases run) a llama3-8b
+                  service through the port's serve control plane: serve/
+                  core.up spawns the controller (a process with no CUDA
+                  context, the LB on its thread), which launches one
+                  replica, the port's server as a process at full width
+                  and depth (SERVER_KW, seed 0), through the launch seam:
+                  (a) up, greedy requests through the endpoint token for
+                  token against an in-process engine of the same seed and
+                  arguments (its K1 launches the phase's
+                  `path_launches`), /internal/stats listing the replica;
+                  (b) the replica's process group SIGKILLed and replaced
+                  (a new id, READY, the same answers); (c) serve/
+                  core.update to a v2 task on another port with a client
+                  sending all through it (none lost, no 5xx, the service
+                  READY throughout; every replica at v2, the v1 group
+                  gone); (d) down: no replica process, no service row, the
+                  controller exited, the LB's port closed, the card's free
+                  memory back within 1 GB; (e) status and tail_logs.
+                  Launch to READY, first token through the LB, kill to
+                  READY and update seconds. `serve_fault_check.py` plants
+                  five controller faults the gates must catch
+                  (CTL_FAULTS, ctl_plant).
 Then a `kernels` line (each kernel's `path_launches`: its launches on
-the openai, lb_serve, batch, roundtrip, MoE, tp_serve (its spec and migration
-legs and moe_mesh among them) and mesh_train paths, the pipe and expert
-legs among them) and,
+the openai, lb_serve, serve_ctl, batch, roundtrip, MoE, tp_serve (its
+spec and migration legs and moe_mesh among them) and mesh_train paths,
+the pipe and expert legs among them) and,
 last,
 {"ok": true, "device": {...}}.
 Any failure raises (non-zero exit). Without CUDA it exits non-zero
@@ -2442,6 +2465,649 @@ def lb_legs(torch, inference, engines, holders, lb, lb_lib, base, urls,
                            'breaker': state, 'counters': d}
     lb.set_replicas(urls, pools)
     lap('dead_replica')
+
+
+# -- the serve control plane (the sixteenth slice) ---------------------------
+
+# serve_ctl: llama3-8b replicas as server processes (SERVER_KW's engine
+# arguments), launched, probed, healed, rolled and taken down by the
+# port's controller, spawned by serve/core.up. The replicas and the
+# in-process engine that holds their answers use the seed-0 weights.
+CTL_MODEL = 'llama3-8b'
+CTL_KW = SERVER_KW
+CTL_SERVICE = 'chip-smoke'
+CTL_PROMPTS = 3               # checked on each replica (a), (b), (c)
+CTL_PROMPT_LENGTHS = (100, 900)
+CTL_NEW = 16
+CTL_TTFT_PROMPT = 300         # (a)'s streamed request, its own prompt
+CTL_CLIENT_PROMPTS = 2        # the update client's, none of the above
+CTL_CLIENT_NEW = 8
+CTL_BOOT_S = 600              # the probe's initial_delay_seconds
+CTL_BOOT_WAIT_S = 300         # a replica's boot to READY, at most
+CTL_REACT_S = 30              # the controller's reaction, at most
+CTL_ENV = {'SKYTPU_SERVE_LOOP_INTERVAL': '0.5',
+           'SKYTPU_SERVE_LAUNCH_RETRY_GAP': '1'}
+# serve_fault_check.py's planted faults: each breaks the gate named here.
+CTL_FAULTS = {'probe_never_passes': 'up_ready',
+              'lost_replica_unreplaced': 'heal_replaced',
+              'v1_retired_before_v2_ready': 'update_ready_kept',
+              'down_leaks_replica': 'down_no_replica',
+              'lb_never_synced': 'up_stats_lists_replica'}
+CTL_FAULT_ENV = 'CHIP_SMOKE_CTL_FAULT'
+
+
+def ctl_plant(name):
+    """Plant one of CTL_FAULTS in this process's serve control plane
+    (the controller process of a fault run, `ctl_controller_main`):
+    - 'probe_never_passes': every readiness probe fails;
+    - 'lost_replica_unreplaced': the manager launches its first replica
+      and no other (a lost one is never replaced);
+    - 'v1_retired_before_v2_ready': the rolling update retires an old
+      replica as soon as the surge replica is launched;
+    - 'down_leaks_replica': shutting down terminates no replica;
+    - 'lb_never_synced': the LB's replica list is never set."""
+    from skypilot_tpu_torch.serve import controller as ctl_lib
+    from skypilot_tpu_torch.serve import load_balancer as lb_lib
+    from skypilot_tpu_torch.serve import replica_managers as rm
+    from skypilot_tpu_torch.serve import serve_state
+    if name == 'probe_never_passes':
+        rm.ReplicaManager._probe_replica = \
+            lambda self, replica: rm.ProbeResult(False, 'planted')
+    elif name == 'lost_replica_unreplaced':
+        scale_up = rm.ReplicaManager.scale_up
+
+        def once(self, n=1, use_spot=None, pool=None):
+            if getattr(self, '_planted_launched', False):
+                return []
+            self._planted_launched = True
+            return scale_up(self, n, use_spot=use_spot, pool=pool)
+
+        rm.ReplicaManager.scale_up = once
+    elif name == 'v1_retired_before_v2_ready':
+        roll = ctl_lib.ServeController._rolling_update_pool
+
+        def eager(self, service, replicas, min_replicas, pool):
+            live = [r for r in replicas if r['status'] not in (
+                serve_state.ReplicaStatus.SHUTTING_DOWN,
+                serve_state.ReplicaStatus.FAILED)]
+            new = [r for r in live if r['version'] >= service['version']]
+            old = [r for r in live if r['version'] < service['version']]
+            if new and old:
+                self.manager.scale_down([r['replica_id'] for r in old])
+                return True
+            return roll(self, service, replicas, min_replicas, pool)
+
+        ctl_lib.ServeController._rolling_update_pool = eager
+    elif name == 'down_leaks_replica':
+        rm.ReplicaManager.terminate_all = lambda self: None
+    elif name == 'lb_never_synced':
+        lb_lib.LoadBalancer.set_replicas = \
+            lambda self, urls, pools=None: None
+    else:
+        raise ValueError(f'unknown serve_ctl fault {name!r}')
+
+
+def ctl_controller_main(argv):
+    """`python -m skypilot_tpu_torch.serve.controller` with the fault
+    named in CTL_FAULT_ENV planted first (a fault run's controller)."""
+    import argparse
+    import logging
+
+    from skypilot_tpu_torch.serve import controller as ctl_lib
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--service-name', required=True)
+    args = parser.parse_args([a for a in argv if a not in (
+        '-m', 'skypilot_tpu_torch.serve.controller')])
+    logging.basicConfig(
+        level=logging.INFO,
+        format='%(levelname).1s %(asctime)s %(name)s] %(message)s')
+    ctl_plant(os.environ[CTL_FAULT_ENV])
+    ctl_lib.start(args.service_name)
+
+
+@contextlib.contextmanager
+def ctl_planted_spawn(fault, tmp):
+    """serve/core.up's controller spawned through `ctl_controller_main`
+    with `fault` planted (nothing changes for None): for the block,
+    sys.executable names a wrapper that runs it."""
+    if fault is None:
+        yield
+        return
+    here = os.path.dirname(os.path.abspath(__file__))
+    wrapper = os.path.join(tmp, 'python-planted')
+    with open(wrapper, 'w') as f:
+        f.write(f'#!/bin/sh\ncd {here} && exec {sys.executable} -c '
+                f'"import sys, chip_smoke; '
+                f'chip_smoke.ctl_controller_main(sys.argv[1:])" "$@"\n')
+    os.chmod(wrapper, 0o755)
+    real = sys.executable
+    os.environ[CTL_FAULT_ENV] = fault
+    sys.executable = wrapper
+    try:
+        yield
+    finally:
+        sys.executable = real
+        os.environ.pop(CTL_FAULT_ENV, None)
+
+
+def ctl_task(port, version):
+    """The service's task: the port's server as the replica's `run:`,
+    which outlives the controller that launched it, as a VM does
+    (`--no-exit-with-parent`): only `down` ends it."""
+    from skypilot_tpu_torch import task as task_lib
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
+           '--model', CTL_MODEL, '--seed', '0', '--device', DEV,
+           '--port', str(port), '--no-exit-with-parent']
+    for key, value in CTL_KW.items():
+        cmd += ['--' + key.replace('_', '-'), str(value)]
+    return task_lib.Task.from_yaml_config({
+        'name': f'llama-v{version}', 'run': 'exec ' + ' '.join(cmd),
+        'envs': {'PYTHONPATH': here},
+        'service': {'readiness_probe': {'path': '/health',
+                                        'initial_delay_seconds': CTL_BOOT_S},
+                    'replica_port': port, 'replicas': 1}})
+
+
+def ctl_reference(torch, inference, fa, engine, rng):
+    """The prompts of serve_ctl and the in-process engine's greedy answer
+    to each (alone, as the replicas get them), with K1's launches around
+    them against expected_prefill_launches."""
+    vocab = engine.config.vocab_size
+    prompts = [prompt_tokens(rng, int(n), vocab) for n in rng.integers(
+        CTL_PROMPT_LENGTHS[0], CTL_PROMPT_LENGTHS[1] + 1, size=CTL_PROMPTS)]
+    ttft = prompt_tokens(rng, CTL_TTFT_PROMPT, vocab)
+    client = [prompt_tokens(rng, int(n), vocab) for n in rng.integers(
+        CTL_PROMPT_LENGTHS[0], CTL_PROMPT_LENGTHS[1] + 1,
+        size=CTL_CLIENT_PROMPTS)]
+    engine.abort_all()
+    fa.flash_attention.launches = 0
+    want = [greedy_tokens(inference, engine, p, CTL_NEW)[0]
+            for p in prompts + [ttft]]
+    launches = fa.flash_attention.launches
+    expected = sum(expected_prefill_launches(engine, [len(p)])
+                   for p in prompts + [ttft])
+    return {'prompts': prompts, 'ttft_prompt': ttft, 'client': client,
+            'want': want[:-1], 'ttft_want': want[-1],
+            'layers': engine.config.num_layers,
+            'kernel_launches': launches, 'expected_launches': expected}
+
+
+def ctl_answer(url, prompt, new, stream=False, timeout=120):
+    """(status, tokens, seconds to the first token) of one greedy
+    /generate; an HTTP error's status with no tokens."""
+    try:
+        got = lb_stream(url, prompt, new, stream=stream)
+    except urllib.error.HTTPError as e:
+        return e.code, [], None
+    except (urllib.error.URLError, OSError) as e:
+        return f'error:{type(e).__name__}', [], None
+    return got['status'], got['tokens'], got['ttft_s']
+
+
+def ctl_cuda_apps():
+    """Pids with a CUDA context on the card, as nvidia-smi lists them
+    (None where it cannot be asked)."""
+    try:
+        text = sh(['nvidia-smi', '--query-compute-apps=pid',
+                   '--format=csv,noheader'])
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    return [int(x) for x in text.split() if x.strip().isdigit()]
+
+
+def ctl_maps_cuda(pid):
+    """Whether process `pid` has libcuda or torch mapped."""
+    try:
+        with open(f'/proc/{pid}/maps') as f:
+            maps = f.read()
+    except OSError:
+        return None
+    return 'libcuda' in maps or 'libtorch' in maps
+
+
+def ctl_free_bytes(torch):
+    return torch.cuda.mem_get_info()[0] if DEV == 'cuda' else None
+
+
+def ctl_groups(launcher):
+    """{cluster: process group} of every replica cluster the launch seam
+    holds (each runtime directory under the state directory)."""
+    from skypilot_tpu_torch.utils import paths
+    out = {}
+    for name in os.listdir(paths.local_clusters_dir()):
+        meta = launcher._meta(name)
+        if meta and meta.get('pgid'):
+            out[name] = meta['pgid']
+    return out
+
+
+def ctl_wait(fn, ok, timeout, step=0.1):
+    """fn() until ok(result) or `timeout` seconds: (result, seconds)."""
+    t0 = time.perf_counter()
+    while True:
+        got = fn()
+        if ok(got) or time.perf_counter() - t0 > timeout:
+            return got, time.perf_counter() - t0
+        time.sleep(step)
+
+
+def serve_ctl_phase(torch, ref, tmp, fault=None):
+    """A llama3-8b service through the port's serve control plane, legs
+    (a)-(e), with SKYTPU_STATE_DIR and CTL_ENV set by the caller:
+    (a) up: serve/core.up spawns the controller, which launches one
+        replica (the port's server as a process, ctl_task on port P1)
+        through the launch seam; the service READY; greedy requests
+        through its endpoint (the LB on the controller's thread) equal
+        `ref`'s in-process answers token for token (a streamed one
+        among them: the first-token time through the LB); `ref`'s K1
+        launches equal expected_prefill_launches; the controller
+        holds no CUDA context (absent from nvidia-smi's compute apps,
+        neither libcuda nor torch mapped); /internal/stats lists the
+        replica;
+    (b) heal: the replica's process group SIGKILLed, as a lost VM; the
+        controller sees the cluster lost and replaces it: a new replica
+        id, the old group gone, the service READY again with equal
+        answers;
+    (c) rolling update: serve/core.update to a v2 task on port P2 while a
+        client sends requests through the endpoint all through it
+        (every one answered, none 5xx, the service READY throughout);
+        every replica at version 2 at the end, the v1 group gone, equal
+        answers;
+    (d) down: serve/core.down(purge=True): no replica process, no
+        service row, the controller exited, the LB's port closed (the
+        card's free memory back to its level before the phase is the
+        caller's gate, `ctl_memory_gate`, read where nothing else holds
+        the card);
+    (e) status and tail_logs(follow=False) well formed.
+    A leg runs only while no gate has broken, so a fault run ends at the
+    leg its fault breaks and goes down. `faults` maps each broken gate to
+    what broke it; `fault` plants one of CTL_FAULTS in the controller
+    (ctl_plant)."""
+    import io
+    import socket
+
+    from skypilot_tpu_torch.serve import core
+    from skypilot_tpu_torch.serve import replica_managers as rm
+    from skypilot_tpu_torch.serve import serve_state
+    from skypilot_tpu_torch.utils import paths
+    t_phase = time.perf_counter()
+    gates = {}
+
+    def gate(name, ok, detail):
+        if not ok:
+            gates.setdefault(name, []).append(detail)
+
+    launcher = rm.LocalLauncher()
+    free = ctl_free_bytes(torch)
+    out = {'model': CTL_MODEL, 'layers': ref['layers'], **CTL_KW,
+           'fault': fault, 'kernel_launches': ref['kernel_launches'],
+           'expected_launches': ref['expected_launches'], 'leg_s': {},
+           'card_free_gb': free and free / 1e9}
+    gate('up_launches', ref['kernel_launches'] == ref['expected_launches']
+         > 0, f'K1 {ref["kernel_launches"]}, expected '
+              f'{ref["expected_launches"]}')
+
+    def answers(url, prompts):
+        return [ctl_answer(url, p, CTL_NEW) for p in prompts]
+
+    def equal(got):
+        return [a == (200, w, a[2]) for a, w in zip(got, ref['want'])]
+
+    def service():
+        return serve_state.get_service(CTL_SERVICE)
+
+    def replicas():
+        return serve_state.get_replicas(CTL_SERVICE)
+
+    def ready(rows):
+        return [r for r in rows
+                if r['status'] == serve_state.ReplicaStatus.READY]
+
+    def run_log(rows):
+        logs = []
+        for r in rows:
+            path = os.path.join(launcher.cluster_dir(r['cluster_name']),
+                                'run.log')
+            if os.path.exists(path):
+                with open(path, errors='replace') as f:
+                    logs.append(f.read()[-1500:])
+        return logs
+
+    p1, p2 = ctl_replica_port(), ctl_replica_port()
+    endpoint = controller = None
+    groups_seen = {}
+    try:
+        # (a) up.
+        t0 = time.perf_counter()
+        task = ctl_task(p1, 1)
+        with ctl_planted_spawn(fault, tmp):
+            up = core.up(task, CTL_SERVICE)
+        endpoint = up['endpoint']
+        controller = service()['controller_pid']
+        direct = f'http://127.0.0.1:{p1}'
+        # The replica answers /health itself, then the controller marks
+        # it READY within its reaction time.
+        _, boot_s = ctl_wait(lambda: ctl_health(direct), lambda ok: ok,
+                             CTL_BOOT_WAIT_S, step=0.2)
+        row, ready_wait = ctl_wait(service, lambda s: s and s['status'] ==
+                                   serve_state.ServiceStatus.READY,
+                                   CTL_REACT_S)
+        out['launch_to_ready_s'] = time.perf_counter() - t0
+        up_ok = bool(row) and row['status'] == \
+            serve_state.ServiceStatus.READY
+        gate('up_ready', up_ok, f'status {row and row["status"].value} '
+             f'{ready_wait:.1f} s after the replica answered /health '
+             f'({boot_s:.1f} s to boot); {run_log(replicas())}')
+        groups_seen.update(ctl_groups(launcher))
+        # The controller: no CUDA context.
+        apps, maps = ctl_cuda_apps(), ctl_maps_cuda(controller)
+        out['controller'] = {'pid': controller, 'cuda_apps': apps,
+                             'maps_cuda': maps,
+                             'replica_pid_listed': bool(apps and any(
+                                 g in apps for g in groups_seen.values()))}
+        gate('up_controller_no_cuda', (apps is None or controller not in apps)
+             and maps is False, f'{out["controller"]}')
+        if up_ok:
+            got = answers(endpoint, ref['prompts'])
+            status, tokens, ttft = ctl_answer(endpoint, ref['ttft_prompt'],
+                                              CTL_NEW, stream=True)
+            out['first_token_s'] = ttft
+            gate('up_tokens_equal', all(equal(got)) and
+                 (status, tokens) == (200, ref['ttft_want']),
+                 f'{[a[:2] for a in got]}, streamed {status} {tokens}')
+            stats = json.loads(http_call(endpoint + '/internal/stats')[2])
+            rows = replicas()
+            gate('up_stats_lists_replica', stats['replicas'] == [
+                r['endpoint'] for r in ready(rows)] and len(rows) == 1,
+                f'stats {stats["replicas"]}, rows {ctl_rows(rows)}')
+            out['status'] = core.status([CTL_SERVICE])
+            gate('status_well_formed', len(out['status']) == 1 and set(
+                out['status'][0]) == {'name', 'status', 'endpoint',
+                                      'version', 'replicas'} and
+                out['status'][0]['endpoint'] == endpoint and
+                out['status'][0]['status'] == 'READY', f'{out["status"]}')
+        out['leg_s']['up'] = time.perf_counter() - t0
+
+        # (b) heal; a leg runs only while no gate has broken (a fault
+        # run stops at the leg its fault breaks, then goes down).
+        t0 = time.perf_counter()
+        if not gates:
+            (old,) = replicas()
+            pgid = launcher._meta(old['cluster_name'])['pgid']
+            os.killpg(pgid, signal.SIGKILL)
+            t_kill = time.perf_counter()
+            rows, _ = ctl_wait(replicas, lambda rows: any(
+                r['replica_id'] != old['replica_id'] for r in rows),
+                CTL_REACT_S)
+            new = [r for r in rows if r['replica_id'] != old['replica_id']]
+            gate('heal_replaced', bool(new), f'rows {ctl_rows(rows)}')
+            if new:
+                row, _ = ctl_wait(service, lambda s: s and s['status'] ==
+                                  serve_state.ServiceStatus.READY and
+                                  ready(replicas()), CTL_BOOT_WAIT_S)
+                out['kill_to_ready_s'] = time.perf_counter() - t_kill
+                groups_seen.update(ctl_groups(launcher))
+                healed = ready(replicas())
+                gate('heal_ready', bool(healed) and row['status'] ==
+                     serve_state.ServiceStatus.READY,
+                     f'{row and row["status"].value}; {run_log(replicas())}')
+                gate('heal_old_group_gone', not rm.group_alive(pgid),
+                     f'group {pgid} alive')
+                got = answers(endpoint, ref['prompts'])
+                gate('heal_tokens_equal', all(equal(got)),
+                     f'{[a[:2] for a in got]}')
+                out['heal'] = {'old_id': old['replica_id'],
+                               'new_ids': [r['replica_id'] for r in new]}
+        out['leg_s']['heal'] = time.perf_counter() - t0
+
+        # (c) rolling update, a client sending through it.
+        t0 = time.perf_counter()
+        if not gates:
+            ctl_update_leg(torch, core, serve_state, launcher, ref, endpoint,
+                           p2, gate, out, groups_seen, equal, answers,
+                           ready, run_log)
+        out['leg_s']['update'] = time.perf_counter() - t0
+
+        # (e) the controller's log, whole, as tail_logs prints it.
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rc = core.tail_logs(CTL_SERVICE, follow=False)
+        text = log.getvalue()
+        with open(serve_state.controller_log_path(CTL_SERVICE)) as f:
+            logged = f.read()
+        out['tail_logs'] = {'rc': rc, 'lines': len(text.splitlines())}
+        gate('tail_logs_well_formed', rc == 0 and text == logged and
+             'skypilot_tpu_torch.serve.' in text, f'rc {rc}, {text[-500:]}')
+
+        # (d) down.
+        t0 = time.perf_counter()
+        groups_seen.update(ctl_groups(launcher))
+        core.down(CTL_SERVICE, purge=True)
+        lb_port = int(endpoint.rsplit(':', 1)[1])
+        ctl_wait(lambda: rm.group_alive(controller), lambda a: not a,
+                 CTL_REACT_S)
+        leaked = [g for g in groups_seen.values() if rm.group_alive(g)]
+        gate('down_no_replica', not leaked and
+             not os.listdir(paths.local_clusters_dir()),
+             f'live replica groups {leaked}, clusters '
+             f'{os.listdir(paths.local_clusters_dir())}')
+        gate('down_service_removed', service() is None and
+             core.status() == [], f'{core.status()}')
+        gate('down_controller_exited', not rm.group_alive(controller),
+             f'controller {controller} alive')
+        with socket.socket() as s:
+            gate('down_lb_closed', s.connect_ex(('127.0.0.1', lb_port)) != 0,
+                 f'LB port {lb_port} still open')
+        out['leg_s']['down'] = time.perf_counter() - t0
+    finally:
+        # Nothing outlives the phase, whatever broke.
+        if service() is not None:
+            try:
+                core.down(CTL_SERVICE, purge=True)
+            except Exception as e:  # noqa: BLE001 — the kill below
+                gate('cleanup', False, f'down: {e!r}')
+        if controller is not None and rm.group_alive(controller):
+            os.kill(controller, signal.SIGKILL)
+        groups_seen.update(ctl_groups(launcher))
+        for pgid in groups_seen.values():
+            with contextlib.suppress(OSError):
+                os.killpg(pgid, signal.SIGKILL)
+        ctl_wait(lambda: [g for g in groups_seen.values()
+                          if rm.group_alive(g)],
+                 lambda alive: not alive, CTL_REACT_S)
+    out['groups'] = sorted(groups_seen.values())
+    out['phase_s'] = time.perf_counter() - t_phase
+    out['faults'] = gates
+    return out
+
+
+def ctl_replica_port():
+    """A free port below the kernel's ephemeral range: a replica binds
+    its port seconds after it is chosen, while the LB's and the probes'
+    connections draw ephemeral ports, one of which could take it."""
+    import random
+    import socket
+    try:
+        with open('/proc/sys/net/ipv4/ip_local_port_range') as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError):
+        low = 32768
+    while True:
+        port = random.randrange(10000, low)
+        with socket.socket() as sock:
+            try:
+                sock.bind(('127.0.0.1', port))
+            except OSError:
+                continue
+        return port
+
+
+def ctl_health(url):
+    try:
+        return http_json(url + '/health', timeout=5)[0] == 200
+    except (urllib.error.URLError, OSError):
+        return False
+
+
+def ctl_update_leg(torch, core, serve_state, launcher, ref, endpoint, p2,
+                   gate, out, groups_seen, equal, answers, ready, run_log):
+    """Leg (c) of serve_ctl_phase: the update to v2 on port `p2` with a
+    client and a watcher of the service's status through it."""
+    from skypilot_tpu_torch.serve import replica_managers as rm
+    (v1,) = serve_state.get_replicas(CTL_SERVICE)
+    v1_group = launcher._meta(v1['cluster_name'])['pgid']
+    stop = threading.Event()
+    sent, statuses, free = [], [], []
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            prompt = ref['client'][i % len(ref['client'])]
+            status, tokens, _ = ctl_answer(endpoint, prompt, CTL_CLIENT_NEW)
+            sent.append((status, len(tokens)))
+            i += 1
+            if status != 200:
+                time.sleep(0.1)  # a refusal returns at once
+
+    def watcher():
+        while not stop.is_set():
+            row = serve_state.get_service(CTL_SERVICE)
+            statuses.append(row['status'].value if row else None)
+            free_now = ctl_free_bytes(torch)
+            if free_now is not None:
+                free.append(free_now)
+            time.sleep(0.1)
+
+    threads = [threading.Thread(target=client, daemon=True),
+               threading.Thread(target=watcher, daemon=True)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        core.update(ctl_task(p2, 2), CTL_SERVICE)
+
+        def rolled():
+            rows = serve_state.get_replicas(CTL_SERVICE)
+            return bool(rows) and all(
+                r['version'] == 2 and
+                r['status'] == serve_state.ReplicaStatus.READY
+                for r in rows) and not rm.group_alive(v1_group)
+
+        rows, _ = ctl_wait(lambda: serve_state.get_replicas(CTL_SERVICE),
+                           lambda rows: any(r['version'] == 2 for r in rows),
+                           CTL_REACT_S)
+        groups_seen.update(ctl_groups(launcher))
+        done, _ = ctl_wait(rolled, lambda ok: ok, CTL_BOOT_WAIT_S)
+        out['update_s'] = time.perf_counter() - t0
+        # One more round of the client past the update.
+        n = len(sent)
+        ctl_wait(lambda: len(sent), lambda m: m > n + 1, 60)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+    rows = serve_state.get_replicas(CTL_SERVICE)
+    groups_seen.update(ctl_groups(launcher))
+    bad = [s for s in sent if s != (200, CTL_CLIENT_NEW)]
+    gate('update_no_5xx', not any(isinstance(s, int) and s >= 500
+                                  for s, _ in sent),
+         f'{len(bad)} of {len(sent)} bad: {bad[:10]}')
+    gate('update_none_lost', sent and not bad,
+         f'{len(bad)} of {len(sent)} bad: {bad[:10]}')
+    lost = [s for s in statuses if s != 'READY']
+    gate('update_ready_kept', statuses and not lost,
+         f'{len(lost)} of {len(statuses)} polls not READY: '
+         f'{sorted(set(map(str, lost)))}')
+    gate('update_versions', done and [r['version'] for r in rows] == [2]
+         and rows[0]['endpoint'] == f'http://127.0.0.1:{p2}'
+         and not rm.group_alive(v1_group),
+         f'rows {ctl_rows(rows)}, v1 group alive '
+         f'{rm.group_alive(v1_group)}; '
+         f'{run_log(rows)}')
+    if done:
+        got = answers(endpoint, ref['prompts'])
+        gate('update_tokens_equal', all(equal(got)),
+             f'{[a[:2] for a in got]}')
+    out['update'] = {'requests': len(sent), 'bad': len(bad),
+                     'status_polls': len(statuses),
+                     'not_ready_polls': len(lost),
+                     'replicas': [(r['replica_id'], r['version'])
+                                  for r in rows]}
+    # The card's free memory at its low during the update, the two
+    # replicas up (nvidia-smi lists no pids of this container on the
+    # card's machine, so their own share is read against the phase's
+    # start: card_free_gb less this, where nothing else holds the card).
+    if free:
+        out['update']['card_free_min_gb'] = min(free) / 1e9
+
+
+def ctl_start(torch, ref):
+    """serve_ctl_phase on a thread of its own, beside the script's
+    migration and lb_serve phases (their engines share the llama3-8b
+    params, ~20 GB, so the update's two replicas fit beside them): its
+    replicas boot while those run. The caller calls ctl_join. CTL_ENV
+    and the state directory are set here, in this thread, and held until
+    ctl_join."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_serve_ctl_')
+    env = env_set({**CTL_ENV, 'SKYTPU_STATE_DIR': tmp})
+    env.__enter__()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = {'tmp': tmp, 'env': env, 'free_before': ctl_free_bytes(torch)}
+
+    def target():
+        try:
+            run['out'] = serve_ctl_phase(torch, ref, tmp)
+        except BaseException as e:  # noqa: BLE001 — raised by ctl_join
+            run['error'] = e
+
+    run['thread'] = threading.Thread(target=target, daemon=True,
+                                     name='chip-smoke-serve-ctl')
+    run['thread'].start()
+    return run
+
+
+def ctl_join(torch, run):
+    """The serve_ctl line of a ctl_start run, once its thread has ended:
+    leg (d)'s memory gate is read here, where nothing else of the script
+    holds the card."""
+    import shutil
+    run['thread'].join()
+    try:
+        if 'error' in run:
+            raise run['error']
+        out = run['out']
+        ctl_memory_gate(torch, run['free_before'], out)
+        out['overlapped'] = ['migration', 'lb_serve']
+        return out
+    finally:
+        run['env'].__exit__(None, None, None)
+        shutil.rmtree(run['tmp'], ignore_errors=True)
+
+
+def ctl_rows(rows):
+    return [(r['replica_id'], r['version'], r['status'].value)
+            for r in rows]
+
+
+def ctl_memory_gate(torch, free_before, out):
+    """Leg (d)'s memory gate, into `out['faults']`: the card's free
+    memory back to `free_before` within 1 GB once the replicas are gone
+    (a killed process's card memory is freed as it exits; read for up
+    to CTL_REACT_S)."""
+    if free_before is None:
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_after, _ = ctl_wait(lambda: ctl_free_bytes(torch),
+                             lambda f: f >= free_before - 1e9, CTL_REACT_S)
+    out['free_gb'] = {'before': free_before / 1e9, 'after': free_after / 1e9}
+    if free_after < free_before - 1e9:
+        out['faults'].setdefault('down_memory_back', []).append(
+            f'free {free_after / 1e9:.2f} GB after, '
+            f'{free_before / 1e9:.2f} before')
 
 
 def first_divergence(a, b):
@@ -8040,21 +8706,40 @@ def main():
                                             'bound_by', 'library_ms')}})
         gc.collect()
         torch.cuda.empty_cache()
-    # 14b. the serving data plane: the port's load balancer in front of
-    # three llama3-8b replicas (the migration phase's engines and a
-    # third), with a generator of its own.
-    out = migration_phase(
-        torch, inference, params, config, rng,
-        lb_serve=lambda *engines: lb_serve_phase(
-            torch, inference, fa, engines, np.random.default_rng(17)))
+    # 29. the serve control plane: a llama3-8b service brought up,
+    # healed, rolled and taken down by the port's controller, its
+    # replicas booting while phases 14 and 14b run. Its answers first:
+    # llama3-8b in this process with the replicas' engine arguments
+    # (SERVER_KW) on the phase's prompts (a generator of its own), K1's
+    # launches read around them.
+    engine = inference.InferenceEngine(params, config, device=DEV, **CTL_KW)
+    ctl_ref = ctl_reference(torch, inference, fa, engine,
+                            np.random.default_rng(18))
+    path_launches['flash_attention']['serve_ctl'] = ctl_ref[
+        'kernel_launches']
+    del engine
+    ctl = ctl_start(torch, ctl_ref)
+    try:
+        # 14b. the serving data plane: the port's load balancer in front
+        # of three llama3-8b replicas (the migration phase's engines and
+        # a third), with a generator of its own.
+        out = migration_phase(
+            torch, inference, params, config, rng,
+            lb_serve=lambda *engines: lb_serve_phase(
+                torch, inference, fa, engines, np.random.default_rng(17)))
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_ctl = ctl_join(torch, ctl)
     lb_serve = out.pop('lb_serve')
     emit('migration', **out)
     emit('lb_serve', **lb_serve)
     if lb_serve['faults']:
         raise AssertionError(f'lb_serve: {lb_serve["faults"]}')
     path_launches['flash_attention']['lb_serve'] = lb_serve['kernel_launches']
-    gc.collect()
-    torch.cuda.empty_cache()
+    emit('serve_ctl', **serve_ctl)
+    if serve_ctl['faults']:
+        raise AssertionError(f'serve_ctl: {serve_ctl["faults"]}')
 
     # 15. speculative decode: engines and the server with a draft
     t0 = time.perf_counter()

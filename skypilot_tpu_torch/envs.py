@@ -1,5 +1,6 @@
 """The port's copy of the SKYTPU_* knobs its serving, import,
-observability and load-balancing paths read.
+observability, load-balancing and serve control paths and its fleet
+simulator read.
 
 Same names, types and defaults as the declarations in
 `skypilot_tpu/envs.py` (the reference registry); a test pins them
@@ -24,6 +25,9 @@ class EnvVar:
     type: type
     default: Any
     doc: str
+
+    def is_set(self) -> bool:
+        return bool(os.environ.get(self.name))
 
     def get(self, default: Any = _UNSET, strict: bool = False) -> Any:
         """The parsed value; unset, empty or malformed reads give the
@@ -297,3 +301,42 @@ SKYTPU_TORCH_DIST_BACKEND = _declare(
     'Port-only: the backend of the mesh\'s tensor collectives (nccl | '
     'gloo). Unset: nccl on CUDA, gloo on the CPU. gloo serves several '
     'ranks on one GPU, which NCCL refuses.')
+
+# -- the serve control plane (serve/serve_state.py, controller.py,
+# replica_managers.py, core.py) and the fleet simulator (fleetsim/)
+
+SKYTPU_CONFIG = _declare(
+    'SKYTPU_CONFIG', str, None,
+    'Path of an extra config layer merged over user/project config.')
+SKYTPU_STATE_DIR = _declare(
+    'SKYTPU_STATE_DIR', str, None,
+    'Client-side state root; defaults to ~/.skytpu.')
+SKYTPU_SERVE_LOOP_INTERVAL = _declare(
+    'SKYTPU_SERVE_LOOP_INTERVAL', float, 10.0,
+    'Seconds between serve-controller probe/autoscale/sync iterations.')
+SKYTPU_SERVE_LAUNCH_RETRY_GAP = _declare(
+    'SKYTPU_SERVE_LAUNCH_RETRY_GAP', float, 10.0,
+    'Base backoff between replica launch retries.')
+SKYTPU_PROBE_BREAKER_RECOVERY = _declare(
+    'SKYTPU_PROBE_BREAKER_RECOVERY', float, 30.0,
+    'Seconds an open probe circuit waits before a half-open retry.')
+SKYTPU_FLEETSIM_SEED = _declare(
+    'SKYTPU_FLEETSIM_SEED', int, 0,
+    'Deterministic RNG seed for fleetsim traffic and replica latency '
+    'distributions; one seed reproduces one soak run exactly.')
+SKYTPU_FLEETSIM_TICK_SECONDS = _declare(
+    'SKYTPU_FLEETSIM_TICK_SECONDS', float, 0.0,
+    'Override the scenario-declared virtual-clock tick (simulated '
+    'seconds per controller step). 0/unset keeps the scenario value.')
+SKYTPU_FLEETSIM_SCALE = _declare(
+    'SKYTPU_FLEETSIM_SCALE', float, 1.0,
+    'Multiplier on scenario replica counts and traffic rates, so CI '
+    'tiers can shrink a 1000-replica soak without editing scenarios.')
+SKYTPU_FLEETSIM_OUT_DIR = _declare(
+    'SKYTPU_FLEETSIM_OUT_DIR', str, None,
+    'Directory SLO_<scenario>.json reports are written to; unset '
+    'means the current working directory.')
+SKYTPU_FLEETSIM_MAX_WALL_SECONDS = _declare(
+    'SKYTPU_FLEETSIM_MAX_WALL_SECONDS', float, 300.0,
+    'Wall-clock abort budget for one scenario run: a wedged sim '
+    'fails its SLO report (rc=1) instead of hanging CI.')

@@ -15,10 +15,13 @@ policies and autoscalers, `resilience/circuit.py`): `LB_*`, `POOL_*`,
 `CIRCUIT_*`, and the LB-side `MIGRATION_*` and
 `HANDOFF_ATTEMPTS/SUCCESSES/TRANSFER_SECONDS`.
 
-Left out, because the port has no such plane yet: the serve
-controller's and autoscaler's gauges (`SERVE_REPLICAS`,
-`AUTOSCALER_*`), fleetsim's (`FLEETSIM_*`) and the skylet heartbeats
-(`HEARTBEAT*`).
+The serve control plane's come too (`serve/controller.py`):
+`SERVE_REPLICAS` and `AUTOSCALER_TARGET_REPLICAS` /
+`AUTOSCALER_ACTUAL_REPLICAS` (reference :192-213), and the fleet
+simulator's client-side view (`fleetsim/`): `FLEETSIM_*` (:385-).
+
+Left out, because the port has no such plane yet: the skylet
+heartbeats (`HEARTBEAT*`).
 
 All land in metrics.REGISTRY, so the server's /metrics exposes
 whatever its process touched.
@@ -258,6 +261,24 @@ LB_MIDSTREAM_FAILURES = metrics.Counter(
     'The last rung of the failure ladder — migrated streams are '
     'counted in skytpu_migration_successes_total instead.')
 
+# -- the serve controller (replica lifecycle, autoscaler decisions) --
+
+SERVE_REPLICAS = metrics.Gauge(
+    'skytpu_serve_replicas',
+    'Replica count per service and lifecycle state.',
+    labelnames=('service', 'state'))
+
+AUTOSCALER_TARGET_REPLICAS = metrics.Gauge(
+    'skytpu_autoscaler_target_replicas',
+    'Replica count the autoscaler currently wants.',
+    labelnames=('service',))
+
+AUTOSCALER_ACTUAL_REPLICAS = metrics.Gauge(
+    'skytpu_autoscaler_actual_replicas',
+    'Live (non-failed, non-terminating) replica count the autoscaler '
+    'saw at its last decision.',
+    labelnames=('service',))
+
 # -- replica pools (the autoscalers' per-pool signals) --------------
 
 POOL_TARGET_REPLICAS = metrics.Gauge(
@@ -384,6 +405,52 @@ FAULTS_INJECTED = metrics.Counter(
     'Faults fired by the deterministic fault-injection registry, per '
     'fault point (nonzero outside tests means SKYTPU_FAULTS is set).',
     labelnames=('point',))
+
+# -- fleet simulation (the soak harness's client-side view) ---------------
+# Written by skypilot_tpu_torch/fleetsim against the same registry the
+# serve plane exports, so SLO assertions read one scrape — never logs.
+
+FLEETSIM_REQUESTS = metrics.Counter(
+    'skytpu_fleetsim_requests_total',
+    'Simulated client requests by outcome: ok, error (every upstream '
+    'failed, a real 502), no_replica / all_open (503 classes).',
+    labelnames=('outcome',))
+
+# Finer-than-default buckets around interactive TTFT: SLO p95s
+# resolve to a bucket upper bound, so resolution IS assertion
+# precision.
+_TTFT_BUCKETS = (0.05, 0.1, 0.2, 0.35, 0.5, 0.75, 1.0, 1.5, 2.0,
+                 3.0, 4.5, 7.0, 10.0, 20.0, 60.0)
+
+FLEETSIM_TTFT_SECONDS = metrics.Histogram(
+    'skytpu_fleetsim_ttft_seconds',
+    'Simulated time-to-first-token per successful request (replica '
+    'TTFT distribution inflated by modeled per-replica load).',
+    buckets=_TTFT_BUCKETS)
+
+FLEETSIM_DECODE_TTFT_SECONDS = metrics.Histogram(
+    'skytpu_fleetsim_decode_ttft_seconds',
+    'Simulated TTFT for requests served BY the decode pool — the '
+    'population disaggregation protects: when the prefill pool '
+    'absorbs long prompts (and hands their decode leg back), short '
+    'interactive requests stop queueing behind 2k-token prefills. '
+    'Compared against the co-located baseline pass in the '
+    'disaggregation scenario report.',
+    buckets=_TTFT_BUCKETS)
+
+FLEETSIM_REQUEST_SECONDS = metrics.Histogram(
+    'skytpu_fleetsim_request_seconds',
+    'Simulated end-to-end request latency (TTFT + decoded tokens x '
+    'per-token decode latency).',
+    buckets=(0.25, 0.5, 1.0, 2.0, 3.5, 5.0, 7.5, 10.0, 15.0, 25.0,
+             40.0, 60.0, 120.0))
+
+FLEETSIM_RECOVERY_SECONDS = metrics.Gauge(
+    'skytpu_fleetsim_recovery_seconds',
+    'Simulated seconds from a chaos event (zone loss, preemption '
+    'wave) until the ready-replica count recovered to its recovery '
+    'target; -1 while recovery is still pending.',
+    labelnames=('event',))
 
 # -- train loop -------------------------------------------------------
 

@@ -15,7 +15,10 @@ names, so one `SKYTPU_FAULTS` drill arms either package:
 seams), `checkpoint.save` (`train/checkpoints.save_train_state`,
 before a byte is written), and the load balancer's `lb.upstream`,
 `lb.upstream_midstream`, `lb.migrate` and `lb.handoff`
-(`serve/load_balancer.py`).
+(`serve/load_balancer.py`), the serve control plane's
+`provision.launch`, `probe.http` and `controller.step`, and the fleet
+simulator's `fleet.zone_loss`, `fleet.preemption_wave` and
+`replica.preempt`.
 
     faults.arm('engine.snapshot', times=1)
     ...
@@ -102,6 +105,37 @@ LB_HANDOFF = declare(
     'ladder for one request (fires once per handoff frame, before '
     'the first decode-pool restore attempt); an armed fault forces '
     'the co-located /internal/resume fallback.')
+
+# The serve control plane (serve/controller.py, replica_managers.py)
+# and the fleet simulator's chaos (fleetsim/replicas.py).
+PROVISION_LAUNCH = declare(
+    'provision.launch',
+    'Launching a cluster/replica through the provision plane (cloud '
+    'API create + execution.launch call sites).')
+PROBE_HTTP = declare(
+    'probe.http',
+    'One readiness-probe HTTP round against a replica endpoint.')
+CONTROLLER_STEP = declare(
+    'controller.step',
+    'One serve-controller reconcile tick (probe -> autoscale -> LB '
+    'sync); arming with latency simulates a stalled controller, with '
+    'an exception a crashed tick.')
+FLEET_ZONE_LOSS = declare(
+    'fleet.zone_loss',
+    'One replica killed by a simulated zone outage (fleetsim chaos '
+    'schedules arm this while a zone is marked lost; each firing is '
+    'one replica down).')
+FLEET_PREEMPTION_WAVE = declare(
+    'fleet.preemption_wave',
+    'One spot replica killed by a simulated preemption wave; the '
+    'armed `times` bound IS the wave size, so '
+    'SKYTPU_FAULTS=fleet.preemption_wave:300 preempts 300 replicas.')
+REPLICA_PREEMPT = declare(
+    'replica.preempt',
+    'One replica receiving a preemption notice mid-decode (fleetsim '
+    'chaos arms this to kill replicas that hold in-flight requests, '
+    'exercising the drain -> snapshot -> migrate ladder).')
+
 
 def registered_points() -> Dict[str, str]:
     return dict(_POINTS)

@@ -1,8 +1,11 @@
-"""The port's serving data plane: the load balancer on the standard
+"""The port's serving plane, each module beside its counterpart in
+`skypilot_tpu/serve/`. The data plane: the load balancer on the standard
 library (`load_balancer.py`), its routing policies
 (`load_balancing_policies.py`), the `service:` spec (`service_spec.py`)
-and the autoscalers (`autoscalers.py`), each beside its counterpart in
-`skypilot_tpu/serve/`. The LB is entered as the reference's serve
-controller enters it: `LoadBalancer(policy, port, now_fn)`, `start()`,
-`set_replicas(urls, pools)`, `tracker.qps()`, `stop()`.
+and the autoscalers (`autoscalers.py`). The control plane: the service
+state database (`serve_state.py`), the spot placer (`spot_placer.py`),
+the replica manager and its launch seam (`replica_managers.py`), the
+controller that runs them and the LB in one process (`controller.py`)
+and the public API, `up` / `update` / `down` / `status` / `tail_logs`
+(`core.py`).
 """

@@ -6,9 +6,11 @@ The port's copy of `skypilot_tpu/serve/service_spec.py`:
 `to_yaml_config` (:243). It takes the parsed dict of a `service:`
 section (the card has no PyYAML) and raises the port's copy of the
 reference's `InvalidTaskError`, with the reference's messages; the
-schema check is `utils/schemas.validate_service`. One fix: a poolless
+schema check is `utils/schemas.validate_service`. Two fixes: a poolless
 spec's `to_yaml_config` keeps its upscale / downscale delays, which the
-reference's drops.
+reference's drops; a fractional probe `timeout_seconds` stays a float
+(the reference's `int()` made 0.5 a 0 s timeout, a non-blocking socket
+whose every probe fails).
 """
 import dataclasses
 from typing import Any, Dict, Optional
@@ -16,11 +18,17 @@ from typing import Any, Dict, Optional
 from skypilot_tpu_torch import exceptions
 
 
+def _seconds(value) -> float:
+    """A whole number of seconds as an int (as the reference reads
+    it), a fraction as a float (the reference truncates it to 0)."""
+    return int(value) if float(value).is_integer() else float(value)
+
+
 @dataclasses.dataclass
 class ReadinessProbe:
     path: str = '/'
     initial_delay_seconds: int = 1200
-    timeout_seconds: int = 15
+    timeout_seconds: float = 15
     post_data: Optional[Dict[str, Any]] = None
 
     @classmethod
@@ -32,7 +40,7 @@ class ReadinessProbe:
                 path=cfg.get('path', '/'),
                 initial_delay_seconds=int(
                     cfg.get('initial_delay_seconds', 1200)),
-                timeout_seconds=int(cfg.get('timeout_seconds', 15)),
+                timeout_seconds=_seconds(cfg.get('timeout_seconds', 15)),
                 post_data=cfg.get('post_data'))
         raise exceptions.InvalidTaskError(
             f'Invalid readiness_probe: {cfg!r}')

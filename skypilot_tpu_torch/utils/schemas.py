@@ -1,7 +1,10 @@
-"""The `service:` section's schema and its validation, on the stdlib.
+"""The `service:` section's and the task YAML's schemas and their
+validation, on the stdlib.
 
-The port's copy of `SERVICE_SCHEMA` (:104) and `validate_service`
-(:457) of `skypilot_tpu/utils/schemas.py`. The reference validates with
+The port's copy of `SERVICE_SCHEMA` (:104), `STORAGE_SCHEMA` (:169),
+`TASK_SCHEMA` (:182, with `resources:` any mapping), `validate`
+(:428), `validate_task` (:448) and `validate_service` (:457) of
+`skypilot_tpu/utils/schemas.py`. The reference validates with
 `jsonschema`, which the card's installation lacks, so this module
 carries a validator of its own for the keywords the schema uses (type,
 enum, required, properties, additionalProperties, items, oneOf) that
@@ -81,6 +84,55 @@ SERVICE_SCHEMA: Dict[str, Any] = {
                 'kv_util_upscale_threshold': _NUM,
             },
         },
+    },
+}
+
+_NULL_OK_STR = {'type': ['string', 'null']}
+
+# The task YAML's schema (reference :169-212) for the subset of `Task`
+# the port keeps (`task.py`): `resources` is any mapping here, kept as
+# given; its schema comes with the port's `Resources`.
+STORAGE_SCHEMA: Dict[str, Any] = {
+    'type': 'object',
+    'additionalProperties': False,
+    'properties': {
+        'name': _STR,
+        'source': _NULL_OK_STR,
+        'store': {'enum': ['gcs', 's3', 'azure', 'r2', 'cos', 'oci',
+                           'local', None]},
+        'mode': {'enum': ['MOUNT', 'COPY', 'mount', 'copy']},
+        'persistent': _BOOL,
+    },
+}
+
+TASK_SCHEMA: Dict[str, Any] = {
+    'type': 'object',
+    'additionalProperties': False,
+    'properties': {
+        'name': _NULL_OK_STR,
+        'workdir': _NULL_OK_STR,
+        'setup': _NULL_OK_STR,
+        'run': _NULL_OK_STR,
+        'num_nodes': _INT,
+        'envs': {'type': ['object', 'null'],
+                 'additionalProperties': {
+                     'type': ['string', 'number', 'boolean', 'null']}},
+        'secrets': {'type': ['object', 'null'],
+                    'additionalProperties': {
+                        'type': ['string', 'number', 'boolean', 'null']}},
+        'outputs': {
+            'type': 'object',
+            'additionalProperties': False,
+            'properties': {'estimated_size_gigabytes': _NUM},
+        },
+        'file_mounts': {
+            'type': ['object', 'null'],
+            'additionalProperties': {
+                'oneOf': [{'type': 'string'}, STORAGE_SCHEMA],
+            },
+        },
+        'resources': {'type': ['object', 'null']},
+        'service': SERVICE_SCHEMA,
     },
 }
 
@@ -241,13 +293,21 @@ def _format_error(err: _Error) -> str:
     return f'{path}: {msg}'
 
 
-def validate_service(config: Dict[str, Any]) -> None:
-    """Raise InvalidTaskError listing EVERY violation of SERVICE_SCHEMA
-    (one pass fixes all typos), worded as the reference's."""
-    errors = sorted(_iter_errors(config, SERVICE_SCHEMA, ()),
+def _validate(config: Any, schema: Dict[str, Any], what: str) -> None:
+    """Raise InvalidTaskError listing EVERY violation of `schema` (one
+    pass fixes all typos), worded as the reference's `validate`."""
+    errors = sorted(_iter_errors(config, schema, ()),
                     key=lambda e: list(e.path))
     if not errors:
         return
     lines = [_format_error(_best_match(err)) for err in errors]
     detail = '\n  '.join(dict.fromkeys(lines))  # dedupe, keep order
-    raise exceptions.InvalidTaskError(f'Invalid service spec:\n  {detail}')
+    raise exceptions.InvalidTaskError(f'Invalid {what}:\n  {detail}')
+
+
+def validate_service(config: Dict[str, Any]) -> None:
+    _validate(config, SERVICE_SCHEMA, 'service spec')
+
+
+def validate_task(config: Dict[str, Any]) -> None:
+    _validate(config, TASK_SCHEMA, 'task YAML')

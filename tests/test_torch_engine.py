@@ -461,6 +461,12 @@ def test_env_defaults_match_reference_registry():
         'SKYTPU_LB_POOL_PROMPT_THRESHOLD', 'SKYTPU_LB_POOL_MAX_NEW_THRESHOLD',
         'SKYTPU_HANDOFF_DEADLINE_SECONDS', 'SKYTPU_HANDOFF_MAX_BYTES',
         'SKYTPU_MIGRATION_DEADLINE_SECONDS',
+        # the serve control plane and the fleet simulator
+        'SKYTPU_CONFIG', 'SKYTPU_STATE_DIR', 'SKYTPU_SERVE_LOOP_INTERVAL',
+        'SKYTPU_SERVE_LAUNCH_RETRY_GAP', 'SKYTPU_PROBE_BREAKER_RECOVERY',
+        'SKYTPU_FLEETSIM_SEED', 'SKYTPU_FLEETSIM_TICK_SECONDS',
+        'SKYTPU_FLEETSIM_SCALE', 'SKYTPU_FLEETSIM_OUT_DIR',
+        'SKYTPU_FLEETSIM_MAX_WALL_SECONDS',
         # port-only: the collectives' backend
         'SKYTPU_TORCH_DIST_BACKEND'}
     port_only = {'SKYTPU_TORCH_DIST_BACKEND'}

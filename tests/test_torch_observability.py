@@ -169,8 +169,9 @@ def test_catalog_matches_reference():
 
 
 # Every instrument the reference's engine, server, train loop, hf_import,
-# fault registry, watchdog, load balancer, routing policies, autoscalers
-# and circuit breaker touch on the paths the port has.
+# fault registry, watchdog, load balancer, routing policies, autoscalers,
+# circuit breaker, serve controller and fleet simulator touch on the
+# paths the port has.
 REFERENCE_CALLS = (
     'PREFILL_SECONDS', 'DECODE_STEP_SECONDS', 'DECODE_HOST_STEPS',
     'DECODE_TOKENS_PER_STEP', 'SPEC_ROUNDS', 'SPEC_PROPOSED_TOKENS',
@@ -194,7 +195,13 @@ REFERENCE_CALLS = (
     'LB_PROXY_ERRORS', 'LB_REPLICA_REQUESTS', 'LB_UPSTREAM_RETRIES',
     'MIGRATION_ATTEMPTS', 'MIGRATION_FAILURES',
     'MIGRATION_INTERRUPTION_SECONDS', 'MIGRATION_SECONDS',
-    'MIGRATION_SUCCESSES', 'POOL_KV_UTILIZATION', 'POOL_QUEUE_DEPTH')
+    'MIGRATION_SUCCESSES', 'POOL_KV_UTILIZATION', 'POOL_QUEUE_DEPTH',
+    # the serve control plane (serve/controller.py) and fleetsim/
+    'SERVE_REPLICAS', 'AUTOSCALER_TARGET_REPLICAS',
+    'AUTOSCALER_ACTUAL_REPLICAS', 'POOL_TARGET_REPLICAS',
+    'POOL_READY_REPLICAS', 'FLEETSIM_REQUESTS', 'FLEETSIM_TTFT_SECONDS',
+    'FLEETSIM_DECODE_TTFT_SECONDS', 'FLEETSIM_REQUEST_SECONDS',
+    'FLEETSIM_RECOVERY_SECONDS')
 
 
 def test_reference_call_sites_are_declared_in_the_port():
@@ -211,13 +218,17 @@ def test_reference_call_sites_are_declared_in_the_port():
                 'resilience/faults.py', 'observability/watchdog.py',
                 'resilience/circuit.py', 'serve/load_balancer.py',
                 'serve/load_balancing_policies.py',
-                'serve/autoscalers.py'):
+                'serve/autoscalers.py', 'serve/controller.py',
+                'serve/replica_managers.py', 'serve/core.py',
+                'fleetsim/replicas.py', 'fleetsim/runner.py'):
         used |= set(re.findall(r'\bobs\.([A-Z][A-Z_]+)\b',
                                open(f'{root}/{rel}').read()))
     assert used and used <= set(port)
     assert set(port_faults.registered_points()) == {
         'engine.snapshot', 'engine.handoff_lease', 'checkpoint.save',
-        'lb.upstream', 'lb.upstream_midstream', 'lb.migrate', 'lb.handoff'}
+        'lb.upstream', 'lb.upstream_midstream', 'lb.migrate', 'lb.handoff',
+        'provision.launch', 'probe.http', 'controller.step',
+        'fleet.zone_loss', 'fleet.preemption_wave', 'replica.preempt'}
     for point, text in port_faults.registered_points().items():
         assert point in ref_faults.registered_points()
 

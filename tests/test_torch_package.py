@@ -2,10 +2,11 @@
 no yaml, no skypilot_tpu.
 
 A subprocess blocks those packages in `sys.modules`, then imports every
-module of `skypilot_tpu_torch` (the serving data plane under `serve/` and
-`resilience/circuit.py` among them) and the root `chip_smoke.py`,
-`kernel_fault_check.py`, `spec_fault_check.py`, `lb_fault_check.py`
-and `obs_overhead_check.py`; any forbidden import fails it. Entry points
+module of `skypilot_tpu_torch` (the serving data plane and control plane
+under `serve/`, `resilience/circuit.py`, `task.py` and `fleetsim/` among
+them) and the root `chip_smoke.py`, `kernel_fault_check.py`,
+`spec_fault_check.py`, `lb_fault_check.py`, `serve_fault_check.py` and
+`obs_overhead_check.py`; any forbidden import fails it. Entry points
 raise without CUDA unless the caller names a device.
 """
 import os
@@ -36,6 +37,7 @@ import chip_smoke
 import kernel_fault_check
 import lb_fault_check
 import obs_overhead_check
+import serve_fault_check
 import spec_fault_check
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in BLOCKED and sys.modules[m] is not None)
@@ -93,6 +95,21 @@ def test_port_imports_without_jax_or_the_reference_package():
                    'skypilot_tpu_torch.serve.load_balancing_policies',
                    'skypilot_tpu_torch.serve.service_spec',
                    'skypilot_tpu_torch.serve.autoscalers',
+                   'skypilot_tpu_torch.serve.serve_state',
+                   'skypilot_tpu_torch.serve.spot_placer',
+                   'skypilot_tpu_torch.serve.replica_managers',
+                   'skypilot_tpu_torch.serve.controller',
+                   'skypilot_tpu_torch.serve.core',
+                   'skypilot_tpu_torch.task',
+                   'skypilot_tpu_torch.utils.paths',
+                   'skypilot_tpu_torch.fleetsim',
+                   'skypilot_tpu_torch.fleetsim.__main__',
+                   'skypilot_tpu_torch.fleetsim.clock',
+                   'skypilot_tpu_torch.fleetsim.traffic',
+                   'skypilot_tpu_torch.fleetsim.chaos',
+                   'skypilot_tpu_torch.fleetsim.slo',
+                   'skypilot_tpu_torch.fleetsim.replicas',
+                   'skypilot_tpu_torch.fleetsim.runner',
                    'skypilot_tpu_torch.utils.schemas',
                    'skypilot_tpu_torch.exceptions',
                    'skypilot_tpu_torch.inference.openai_api',
