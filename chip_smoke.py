@@ -353,8 +353,7 @@ Phases, each printing one JSON line:
                   and depth (SERVER_KW, seed 0), through the launch seam:
                   (a) up, greedy requests through the endpoint token for
                   token against an in-process engine of the same seed and
-                  arguments (its K1 launches the phase's
-                  `path_launches`), /internal/stats listing the replica;
+                  arguments, /internal/stats listing the replica;
                   (b) the replica's process group SIGKILLed and replaced
                   (a new id, READY, the same answers); (c) serve/
                   core.update to a v2 task on another port with a client
@@ -363,10 +362,13 @@ Phases, each printing one JSON line:
                   gone); (d) down: no replica process, no service row, the
                   controller exited, the LB's port closed, the card's free
                   memory back within 1 GB; (e) status and tail_logs.
-                  Launch to READY, first token through the LB, kill to
-                  READY and update seconds. `serve_fault_check.py` plants
-                  five controller faults the gates must catch
-                  (CTL_FAULTS, ctl_plant).
+                  In (a), (b) and (c) the serving replica's own K1
+                  launches (its /internal/kernels) around the answers
+                  equal expected_prefill_launches; their sum is the
+                  phase's `path_launches`. Launch to READY, first token
+                  through the LB, kill to READY and update seconds.
+                  `serve_fault_check.py` plants five controller faults
+                  the gates must catch (CTL_FAULTS, ctl_plant).
 Then a `kernels` line (each kernel's `path_launches`: its launches on
 the openai, lb_serve, serve_ctl, batch, roundtrip, MoE, tp_serve (its
 spec and migration legs and moe_mesh among them) and mesh_train paths,
@@ -2493,7 +2495,13 @@ CTL_FAULTS = {'probe_never_passes': 'up_ready',
               'v1_retired_before_v2_ready': 'update_ready_kept',
               'down_leaks_replica': 'down_no_replica',
               'lb_never_synced': 'up_stats_lists_replica'}
+# Of legs (b) and (c), those a fault's run drives where its fault needs
+# fewer than both (a fault run also stops at the leg it breaks).
+CTL_FAULT_LEGS = {'v1_retired_before_v2_ready': ('update',),
+                  'down_leaks_replica': ()}
 CTL_FAULT_ENV = 'CHIP_SMOKE_CTL_FAULT'
+# The replica's program after the interpreter: the port's server.
+CTL_SERVER = ('-m', 'skypilot_tpu_torch.inference.server')
 
 
 def ctl_plant(name):
@@ -2596,9 +2604,8 @@ def ctl_task(port, version):
     (`--no-exit-with-parent`): only `down` ends it."""
     from skypilot_tpu_torch import task as task_lib
     here = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
-           '--model', CTL_MODEL, '--seed', '0', '--device', DEV,
-           '--port', str(port), '--no-exit-with-parent']
+    cmd = [sys.executable, *CTL_SERVER, '--model', CTL_MODEL, '--seed', '0',
+           '--device', DEV, '--port', str(port), '--no-exit-with-parent']
     for key, value in CTL_KW.items():
         cmd += ['--' + key.replace('_', '-'), str(value)]
     return task_lib.Task.from_yaml_config({
@@ -2612,7 +2619,9 @@ def ctl_task(port, version):
 def ctl_reference(torch, inference, fa, engine, rng):
     """The prompts of serve_ctl and the in-process engine's greedy answer
     to each (alone, as the replicas get them), with K1's launches around
-    them against expected_prefill_launches."""
+    them against expected_prefill_launches: all of them (`expected_launches`,
+    leg (a)'s) and the prompts without the streamed one
+    (`expected_prompt_launches`, legs (b) and (c)'s)."""
     vocab = engine.config.vocab_size
     prompts = [prompt_tokens(rng, int(n), vocab) for n in rng.integers(
         CTL_PROMPT_LENGTHS[0], CTL_PROMPT_LENGTHS[1] + 1, size=CTL_PROMPTS)]
@@ -2625,12 +2634,13 @@ def ctl_reference(torch, inference, fa, engine, rng):
     want = [greedy_tokens(inference, engine, p, CTL_NEW)[0]
             for p in prompts + [ttft]]
     launches = fa.flash_attention.launches
-    expected = sum(expected_prefill_launches(engine, [len(p)])
-                   for p in prompts + [ttft])
+    each = [expected_prefill_launches(engine, [len(p)])
+            for p in prompts + [ttft]]
     return {'prompts': prompts, 'ttft_prompt': ttft, 'client': client,
             'want': want[:-1], 'ttft_want': want[-1],
             'layers': engine.config.num_layers,
-            'kernel_launches': launches, 'expected_launches': expected}
+            'kernel_launches': launches, 'expected_launches': sum(each),
+            'expected_prompt_launches': sum(each[:-1])}
 
 
 def ctl_answer(url, prompt, new, stream=False, timeout=120):
@@ -2643,6 +2653,16 @@ def ctl_answer(url, prompt, new, stream=False, timeout=120):
     except (urllib.error.URLError, OSError) as e:
         return f'error:{type(e).__name__}', [], None
     return got['status'], got['tokens'], got['ttft_s']
+
+
+def ctl_replica_launches(url):
+    """K1's launches so far in the replica serving at `url`, as its
+    /internal/kernels reports them (None where it cannot be read)."""
+    try:
+        status, text = http_json(url + '/internal/kernels', timeout=5)
+    except (urllib.error.URLError, OSError):
+        return None
+    return json.loads(text)['flash_attention'] if status == 200 else None
 
 
 def ctl_cuda_apps():
@@ -2700,20 +2720,22 @@ def serve_ctl_phase(torch, ref, tmp, fault=None):
         through the launch seam; the service READY; greedy requests
         through its endpoint (the LB on the controller's thread) equal
         `ref`'s in-process answers token for token (a streamed one
-        among them: the first-token time through the LB); `ref`'s K1
-        launches equal expected_prefill_launches; the controller
+        among them: the first-token time through the LB); the
+        replica's own K1 launches around those answers (its
+        /internal/kernels) equal expected_prefill_launches, as `ref`'s
+        in-process ones do; the controller
         holds no CUDA context (absent from nvidia-smi's compute apps,
         neither libcuda nor torch mapped); /internal/stats lists the
         replica;
     (b) heal: the replica's process group SIGKILLed, as a lost VM; the
         controller sees the cluster lost and replaces it: a new replica
         id, the old group gone, the service READY again with equal
-        answers;
+        answers, the new replica's K1 launches around them as expected;
     (c) rolling update: serve/core.update to a v2 task on port P2 while a
         client sends requests through the endpoint all through it
         (every one answered, none 5xx, the service READY throughout);
         every replica at version 2 at the end, the v1 group gone, equal
-        answers;
+        answers, the v2 replica's K1 launches around them as expected;
     (d) down: serve/core.down(purge=True): no replica process, no
         service row, the controller exited, the LB's port closed (the
         card's free memory back to its level before the phase is the
@@ -2741,12 +2763,25 @@ def serve_ctl_phase(torch, ref, tmp, fault=None):
     launcher = rm.LocalLauncher()
     free = ctl_free_bytes(torch)
     out = {'model': CTL_MODEL, 'layers': ref['layers'], **CTL_KW,
-           'fault': fault, 'kernel_launches': ref['kernel_launches'],
-           'expected_launches': ref['expected_launches'], 'leg_s': {},
+           'fault': fault, 'reference_launches': ref['kernel_launches'],
+           'replica_launches': {}, 'leg_s': {},
            'card_free_gb': free and free / 1e9}
-    gate('up_launches', ref['kernel_launches'] == ref['expected_launches']
-         > 0, f'K1 {ref["kernel_launches"]}, expected '
-              f'{ref["expected_launches"]}')
+    gate('reference_launches',
+         ref['kernel_launches'] == ref['expected_launches'] > 0,
+         f'K1 {ref["kernel_launches"]} in this process, expected '
+         f'{ref["expected_launches"]}')
+    expected = {'up': ref['expected_launches'],
+                'heal': ref['expected_prompt_launches'],
+                'update': ref['expected_prompt_launches']}
+
+    def launched(leg, url, before):
+        """The gate on leg `leg`'s K1 launches in the replica at `url`
+        since `before` (its count before the leg's answers)."""
+        after = ctl_replica_launches(url)
+        n = None if before is None or after is None else after - before
+        out['replica_launches'][leg] = n
+        gate(f'{leg}_replica_launches', n == expected[leg] > 0,
+             f'K1 {n} in the replica at {url}, expected {expected[leg]}')
 
     def answers(url, prompts):
         return [ctl_answer(url, p, CTL_NEW) for p in prompts]
@@ -2809,9 +2844,11 @@ def serve_ctl_phase(torch, ref, tmp, fault=None):
         gate('up_controller_no_cuda', (apps is None or controller not in apps)
              and maps is False, f'{out["controller"]}')
         if up_ok:
+            before = ctl_replica_launches(direct)
             got = answers(endpoint, ref['prompts'])
             status, tokens, ttft = ctl_answer(endpoint, ref['ttft_prompt'],
                                               CTL_NEW, stream=True)
+            launched('up', direct, before)
             out['first_token_s'] = ttft
             gate('up_tokens_equal', all(equal(got)) and
                  (status, tokens) == (200, ref['ttft_want']),
@@ -2830,9 +2867,14 @@ def serve_ctl_phase(torch, ref, tmp, fault=None):
         out['leg_s']['up'] = time.perf_counter() - t0
 
         # (b) heal; a leg runs only while no gate has broken (a fault
-        # run stops at the leg its fault breaks, then goes down).
+        # run stops at the leg its fault breaks, then goes down), and in
+        # a fault's run only where CTL_FAULT_LEGS lets it.
+        def runs(leg):
+            return not gates and leg in CTL_FAULT_LEGS.get(
+                fault, ('heal', 'update'))
+
         t0 = time.perf_counter()
-        if not gates:
+        if runs('heal'):
             (old,) = replicas()
             pgid = launcher._meta(old['cluster_name'])['pgid']
             os.killpg(pgid, signal.SIGKILL)
@@ -2854,7 +2896,10 @@ def serve_ctl_phase(torch, ref, tmp, fault=None):
                      f'{row and row["status"].value}; {run_log(replicas())}')
                 gate('heal_old_group_gone', not rm.group_alive(pgid),
                      f'group {pgid} alive')
+                url = healed[0]['endpoint'] if healed else direct
+                before = ctl_replica_launches(url)
                 got = answers(endpoint, ref['prompts'])
+                launched('heal', url, before)
                 gate('heal_tokens_equal', all(equal(got)),
                      f'{[a[:2] for a in got]}')
                 out['heal'] = {'old_id': old['replica_id'],
@@ -2863,10 +2908,10 @@ def serve_ctl_phase(torch, ref, tmp, fault=None):
 
         # (c) rolling update, a client sending through it.
         t0 = time.perf_counter()
-        if not gates:
+        if runs('update'):
             ctl_update_leg(torch, core, serve_state, launcher, ref, endpoint,
                            p2, gate, out, groups_seen, equal, answers,
-                           ready, run_log)
+                           ready, run_log, launched)
         out['leg_s']['update'] = time.perf_counter() - t0
 
         # (e) the controller's log, whole, as tail_logs prints it.
@@ -2917,6 +2962,10 @@ def serve_ctl_phase(torch, ref, tmp, fault=None):
                           if rm.group_alive(g)],
                  lambda alive: not alive, CTL_REACT_S)
     out['groups'] = sorted(groups_seen.values())
+    # The path's K1 launches: the replicas' own, over the legs that ran.
+    counted = out['replica_launches']
+    out['kernel_launches'] = sum(n or 0 for n in counted.values())
+    out['expected_launches'] = sum(expected[leg] for leg in counted)
     out['phase_s'] = time.perf_counter() - t_phase
     out['faults'] = gates
     return out
@@ -2951,7 +3000,8 @@ def ctl_health(url):
 
 
 def ctl_update_leg(torch, core, serve_state, launcher, ref, endpoint, p2,
-                   gate, out, groups_seen, equal, answers, ready, run_log):
+                   gate, out, groups_seen, equal, answers, ready, run_log,
+                   launched):
     """Leg (c) of serve_ctl_phase: the update to v2 on port `p2` with a
     client and a watcher of the service's status through it."""
     from skypilot_tpu_torch.serve import replica_managers as rm
@@ -3026,7 +3076,10 @@ def ctl_update_leg(torch, core, serve_state, launcher, ref, endpoint, p2,
          f'{rm.group_alive(v1_group)}; '
          f'{run_log(rows)}')
     if done:
+        url = f'http://127.0.0.1:{p2}'
+        before = ctl_replica_launches(url)
         got = answers(endpoint, ref['prompts'])
+        launched('update', url, before)
         gate('update_tokens_equal', all(equal(got)),
              f'{[a[:2] for a in got]}')
     out['update'] = {'requests': len(sent), 'bad': len(bad),
@@ -8715,8 +8768,6 @@ def main():
     engine = inference.InferenceEngine(params, config, device=DEV, **CTL_KW)
     ctl_ref = ctl_reference(torch, inference, fa, engine,
                             np.random.default_rng(18))
-    path_launches['flash_attention']['serve_ctl'] = ctl_ref[
-        'kernel_launches']
     del engine
     ctl = ctl_start(torch, ctl_ref)
     try:
@@ -8740,6 +8791,8 @@ def main():
     emit('serve_ctl', **serve_ctl)
     if serve_ctl['faults']:
         raise AssertionError(f'serve_ctl: {serve_ctl["faults"]}')
+    path_launches['flash_attention']['serve_ctl'] = serve_ctl[
+        'kernel_launches']
 
     # 15. speculative decode: engines and the server with a draft
     t0 = time.perf_counter()

@@ -18,8 +18,10 @@ patches into the phase's controller process:
 
 Each run prints one JSON line with the gates it broke; a fault's line
 says whether it broke its own gate and lists the others it broke beside
-it (`other_broken`; a fault run stops at the leg that breaks). The script exits non-zero if the sound run breaks a
-gate or a fault leaves its own gate standing. Every run starts its
+it (`other_broken`). A fault run stops at the leg that breaks, and
+skips the legs its fault does not need (chip_smoke.CTL_FAULT_LEGS). The
+script exits non-zero if the sound run breaks a gate or a fault leaves
+its own gate standing. Every run starts its
 controller and replicas afresh in a state directory of its own and
 leaves no process behind.
 """

@@ -34,6 +34,10 @@ The telemetry plane, as the reference's (:833-841), through the port's
   GET /internal/timeseries  the time-series ring (raw dump, or one
                             windowed answer with ?query=)
   GET /internal/alerts      the watchdog's rules and events
+  GET /internal/kernels     this process's kernel launches so far, one
+                            count for each wrapper of
+                            `ops/flash_attention.py` (the port's own
+                            route: the reference has no such count)
 Every route runs inside `instruments.http_middleware('inference')`
 (request counter and latency histogram, X-Request-ID, an
 `inference.request` span grafted onto an inbound `traceparent`,
@@ -501,6 +505,15 @@ def _health_engine() -> Dict[str, Any]:
     }
 
 
+def _kernel_launches() -> Dict[str, int]:
+    """/internal/kernels: each kernel wrapper's launches in this
+    process (its `launches`; the plain version's calls never count)."""
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    return {name: getattr(fa, name).launches for name in (
+        'flash_attention', 'flash_attention_quant', 'flash_attention_dq',
+        'flash_attention_dkv')}
+
+
 def _trace_doc(query: Dict[str, str]) -> Tuple[Dict[str, Any], int]:
     """/internal/trace: the flight recorder's index, or one trace's
     spans, tree and Chrome-trace events (reference :622-643)."""
@@ -571,6 +584,8 @@ def make_handler(holder: Dict[str, Any]):
                 self._json(timeseries_lib.handler(query))
             elif path == '/internal/alerts':
                 self._json(watchdog_lib.handler())
+            elif path == '/internal/kernels':
+                self._json(_kernel_launches())
             elif path == '/internal/snapshot':
                 self._snapshot(loop, query)
             elif path == '/internal/resume':

@@ -171,11 +171,9 @@ def down(service_name: str, purge: bool = False) -> None:
     from skypilot_tpu_torch.serve import replica_managers
     pid = service['controller_pid']
     if pid and replica_managers.group_alive(pid):
-        deadline = time.time() + 120
-        while time.time() < deadline and replica_managers.group_alive(pid):
-            if serve_state.get_service(service_name) is None:
-                return
-            time.sleep(0.5)
+        replica_managers.wait_group(
+            pid, 120, 0.5,
+            until=lambda: serve_state.get_service(service_name) is None)
         if serve_state.get_service(service_name) is None:
             return
         try:

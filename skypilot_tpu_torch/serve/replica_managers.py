@@ -47,7 +47,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 from skypilot_tpu_torch import envs
 from skypilot_tpu_torch import exceptions
@@ -82,31 +82,53 @@ def replica_cluster_name(service_name: str, replica_id: int) -> str:
 
 # -- the launch seam ----------------------------------------------------------
 
-def group_alive(pgid: int) -> bool:
-    """Whether any process of group `pgid` still runs. Read from /proc
-    (a zombie, dead but not yet reaped by its parent, does not count);
-    without /proc, a signal 0 to the group."""
-    if os.path.isdir('/proc/self'):
-        for name in os.listdir('/proc'):
-            if not name.isdigit():
-                continue
-            try:
-                with open(f'/proc/{name}/stat', 'rb') as f:
-                    stat = f.read()
-            except OSError:
-                continue
-            # pid (comm) state ppid pgrp ...; comm may hold spaces.
-            fields = stat[stat.rfind(b')') + 2:].split()
-            if len(fields) > 2 and int(fields[2]) == pgid and \
-                    fields[0] not in (b'Z', b'X'):
-                return True
+def _runs_in(pid: int, pgid: int) -> bool:
+    """Whether process `pid` runs in group `pgid`: a zombie, dead but
+    not yet reaped by its parent, does not count."""
+    try:
+        with open(f'/proc/{pid}/stat', 'rb') as f:
+            stat = f.read()
+    except OSError:
         return False
+    # pid (comm) state ppid pgrp ...; comm may hold spaces.
+    fields = stat[stat.rfind(b')') + 2:].split()
+    return len(fields) > 2 and int(fields[2]) == pgid and \
+        fields[0] not in (b'Z', b'X')
+
+
+def _group_members(pgid: int) -> List[int]:
+    """The processes of group `pgid` that still run, from one read of
+    /proc. A group with no process at all fails signal 0 and needs no
+    read."""
     try:
         os.killpg(pgid, 0)
     except ProcessLookupError:
-        return False
+        return []
     except PermissionError:
         pass
+    return [int(name) for name in os.listdir('/proc')
+            if name.isdigit() and _runs_in(int(name), pgid)]
+
+
+def group_alive(pgid: int) -> bool:
+    """Whether any process of group `pgid` still runs."""
+    return bool(_group_members(pgid))
+
+
+def wait_group(pgid: int, timeout: float, poll: float,
+               until: Optional[Callable[[], bool]] = None) -> bool:
+    """Wait up to `timeout` s, polling every `poll` s, for group `pgid`
+    to end, or for `until()` to hold; whether the group ended. /proc is
+    read whole once; then only the members found are polled, and it is
+    read whole again only once they are gone (one may have forked)."""
+    deadline = time.monotonic() + timeout
+    members = _group_members(pgid)
+    while members:
+        if time.monotonic() >= deadline or (until is not None and until()):
+            return False
+        time.sleep(poll)
+        members = [pid for pid in members if _runs_in(pid, pgid)] or \
+            _group_members(pgid)
     return True
 
 
@@ -199,10 +221,7 @@ class LocalLauncher:
                     os.killpg(pgid, sig)
                 except ProcessLookupError:
                     break
-                deadline = time.monotonic() + wait_s
-                while group_alive(pgid) and time.monotonic() < deadline:
-                    time.sleep(0.05)
-                if not group_alive(pgid):
+                if wait_group(pgid, wait_s, 0.05):
                     break
         shutil.rmtree(d, ignore_errors=True)
 

@@ -986,6 +986,23 @@ def test_health_engine_block_is_the_reference_shape(served):
     assert port_spans.COLLECTOR.span_count() == before
 
 
+def test_kernels_route_reports_each_wrappers_launches(served, monkeypatch):
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    base, _ = served
+    names = ('flash_attention', 'flash_attention_quant',
+             'flash_attention_dq', 'flash_attention_dkv')
+    for i, name in enumerate(names):
+        monkeypatch.setattr(getattr(fa, name), 'launches', 10 + i)
+    status, _, body = _call(base + '/internal/kernels')
+    assert status == 200
+    assert json.loads(body) == {name: 10 + i for i, name in enumerate(names)}
+    # A request on the CPU runs the plain version: no launch counts.
+    _call(base + '/generate', {'prompt_tokens': [1, 2, 3],
+                               'max_new_tokens': 2})
+    assert json.loads(_call(base + '/internal/kernels')[2]) == {
+        name: 10 + i for i, name in enumerate(names)}
+
+
 def test_engine_loop_carries_the_handler_context_to_the_engine(monkeypatch):
     monkeypatch.setenv('SKYTPU_TRACE_SAMPLE', '1.0')
     # An engine of its own: a second loop over the served engine would

@@ -3,14 +3,15 @@
 The phase's replicas are tiny port servers on the CPU (`--model tiny
 --device cpu`), launched as processes by the port's controller, which
 serve/core.up spawns; the in-process answers come from a tiny engine of
-the same seed and arguments whose K1 launches a stand-in counts (it
-computes the plain version, as `tests/test_torch_lb_phase.py` counts
-them), the sizes cut to the tiny model and the controller's loop to
-0.1 s. Legs (a)-(e) run their gates, the sound run breaks none, and
-every fault `serve_fault_check.py` plants breaks the gate it names
-(`serve_fault_check.check`, the card's own loop). The card's memory and
-nvidia-smi readings are the card's alone: on the CPU the phase reads
-neither.
+the same seed and arguments. In both, a stand-in counts K1's launches
+(`count_plain_launches`: it computes the plain version, as
+`tests/test_torch_lb_phase.py` counts them), so each replica's
+/internal/kernels reports its own; the sizes are cut to the tiny model
+and the controller's loop to 0.1 s. Legs (a)-(e) run their gates, the
+sound run breaks none, and every fault `serve_fault_check.py` plants
+breaks the gate it names (`serve_fault_check.check`, the card's own
+loop). The card's memory and nvidia-smi readings are the card's alone:
+on the CPU the phase reads neither.
 """
 import os
 import sys
@@ -27,13 +28,21 @@ import serve_fault_check  # noqa: E402
 
 TINY_KW = dict(batch_size=2, max_seq_len=160, prefill_chunk=16,
                kv_page_size=8)
+# A replica: the port's server with K1's launches counted.
+REPLICA = '''\
+import sys
+sys.path.insert(0, {tests!r})
+import test_torch_serve_phase
+test_torch_serve_phase.count_plain_launches(setattr)
+from skypilot_tpu_torch.inference import server
+server.main()
+'''
 
 
-@pytest.fixture
-def tiny_service(monkeypatch, tmp_path):
-    """The phase's sizes cut to `tiny` on the CPU, and its in-process
-    answers from a tiny engine whose K1 launches are counted."""
-    from skypilot_tpu_torch import inference
+def count_plain_launches(patch):
+    """Every engine's prefill through the flash path, each K1 call
+    tallied as the card's wrapper tallies a launch and computed by the
+    plain version; `patch(obj, name, value)` sets each stand-in."""
     from skypilot_tpu_torch.inference import engine as eng
     from skypilot_tpu_torch.ops import flash_attention as fa
 
@@ -49,11 +58,25 @@ def tiny_service(monkeypatch, tmp_path):
         return fa._launch(q, k, v, causal, window, softcap, q_offset,
                           k_scale=k_scale, v_scale=v_scale)
 
+    patch(fa, '_launch', launch)
+    patch(fa, 'flash_fwd', flash_fwd)
+    patch(eng, 'default_use_flash', lambda device: True)
+
+
+@pytest.fixture
+def tiny_service(monkeypatch, tmp_path):
+    """The phase's sizes cut to `tiny` on the CPU, its replicas and its
+    in-process answers counting K1's launches."""
+    from skypilot_tpu_torch import inference
+    from skypilot_tpu_torch.ops import flash_attention as fa
+    replica = tmp_path / 'replica.py'
+    replica.write_text(REPLICA.format(tests=os.path.dirname(
+        os.path.abspath(__file__))))
     for name, value in (('DEV', 'cpu'), ('CTL_MODEL', 'tiny'),
                         ('CTL_KW', TINY_KW), ('CTL_PROMPT_LENGTHS', (20, 60)),
                         ('CTL_TTFT_PROMPT', 30), ('CTL_NEW', 6),
                         ('CTL_CLIENT_NEW', 4), ('CTL_BOOT_WAIT_S', 120),
-                        ('CTL_REACT_S', 10),
+                        ('CTL_REACT_S', 5), ('CTL_SERVER', (str(replica),)),
                         ('CTL_ENV', {**chip_smoke.CTL_ENV,
                                      'SKYTPU_SERVE_LOOP_INTERVAL': '0.1'})):
         monkeypatch.setattr(chip_smoke, name, value)
@@ -61,15 +84,13 @@ def tiny_service(monkeypatch, tmp_path):
     torch.set_num_threads(1)
     engine = inference.build_engine('tiny', device='cpu', seed=0, **TINY_KW)
     with monkeypatch.context() as m:
-        m.setattr(fa, '_launch', launch)
-        m.setattr(fa, 'flash_fwd', flash_fwd)
-        m.setattr(eng, 'default_use_flash', lambda device: True)
+        count_plain_launches(m.setattr)
         flash = inference.InferenceEngine(engine.params, engine.config,
                                           device='cpu', use_flash=True,
                                           **TINY_KW)
         ref = chip_smoke.ctl_reference(torch, inference, fa, flash,
                                        np.random.default_rng(18))
-    # The replicas' own path (no kernel on the CPU) answers alike.
+    # The dense path, without the stand-in, answers alike.
     plain = [chip_smoke.greedy_tokens(inference, engine, p,
                                       chip_smoke.CTL_NEW)[0]
              for p in ref['prompts'] + [ref['ttft_prompt']]]
@@ -90,6 +111,8 @@ def test_serve_ctl_phase_and_its_faults_rehearse_on_cpu(tiny_service):
                         if not ln['ok']]
     out = sound['readings']
     assert out['kernel_launches'] == out['expected_launches'] > 0
+    assert out['reference_launches'] == out['replica_launches']['up']
+    assert set(out['replica_launches']) == {'up', 'heal', 'update'}
     assert out['heal']['new_ids'] and out['update']['bad'] == 0
     assert out['update']['replicas'] == [(3, 2)]
     assert out['update']['requests'] > 1
